@@ -1,0 +1,11 @@
+"""sofa_tpu_torch: the sofa_tpu profiler and its flagship workload, ported to
+PyTorch and CUDA on an NVIDIA H100.
+
+The JAX package (``sofa_tpu``) stays as the reference; this package imports
+nothing from it.  ``workloads/`` holds the Llama-style decoder and its
+serving loop, with the fused attention forward as a hand-written CUDA kernel
+(``csrc/flash_fwd.cu``, built and bound by ``kernels``).  ``record`` /
+``preprocess`` / ``analyze`` profile a command through torch.profiler
+(Kineto) into the unified trace schema.  Importing the package imports no
+torch; the workloads and kernels do.
+"""

@@ -1,0 +1,39 @@
+"""The performance feature vector: a (name, value) table accumulated across
+passes, printed as "Final Performance Features" and saved as features.csv."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import pandas as pd
+
+
+class Features:
+    def __init__(self) -> None:
+        self._rows: List[Tuple[str, float]] = []
+
+    def add(self, name: str, value: float) -> None:
+        self._rows.append((name, float(value)))
+
+    def get(self, name: str) -> Optional[float]:
+        for n, v in reversed(self._rows):
+            if n == name:
+                return v
+        return None
+
+    def to_frame(self) -> pd.DataFrame:
+        return pd.DataFrame(self._rows, columns=["name", "value"])
+
+    def save(self, path: str) -> None:
+        self.to_frame().to_csv(path, index=False)
+
+    def render(self) -> str:
+        lines = ["=" * 50, "Final Performance Features", "=" * 50,
+                 f"{'name':<36} {'value':>12}", "-" * 50]
+        for name, value in self._rows:
+            if value == int(value) and abs(value) < 1e15:
+                lines.append(f"{name:<36} {int(value):>12}")
+            else:
+                lines.append(f"{name:<36} {value:>12.6g}")
+        lines.append("=" * 50)
+        return "\n".join(lines)

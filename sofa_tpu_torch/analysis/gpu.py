@@ -1,0 +1,126 @@
+"""GPU-side analysis passes over the Kineto-derived frames.
+
+``gpu_profile`` is the counterpart of ``analysis/tpu.py:tpu_profile``
+(kernel and copy time per device, busy share, top kernels);
+``serving_profile`` of its ``serving_profile`` (the prefill/decode split,
+read from the ``module`` column: the ``run_prefill`` / ``run_decode``
+profiler ranges the serving loop wraps its phases in).
+"""
+
+from __future__ import annotations
+
+from sofa_tpu_torch.analysis.features import Features
+from sofa_tpu_torch.printing import print_title, print_warning
+from sofa_tpu_torch.trace import CopyKind, merged_intervals
+
+_COPY_KINDS = [int(k) for k in (CopyKind.H2D, CopyKind.D2H, CopyKind.D2D,
+                                CopyKind.P2P)]
+
+
+def _traced_window(frames) -> float:
+    """Seconds from the first traced event (host or device) to the last
+    one's end."""
+    spans = [(df["timestamp"], df["timestamp"] + df["duration"])
+             for df in (frames.get("gputrace"), frames.get("hosttrace"))
+             if df is not None and not df.empty]
+    if not spans:
+        return 0.0
+    first = min(float(s.min()) for s, _ in spans)
+    last = max(float(e.max()) for _, e in spans)
+    return last - first
+
+
+def _overlap_s(a, b) -> float:
+    """Total length of the intersection of two sorted, disjoint interval
+    sets (merged_intervals output)."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i, 1], b[j, 1]) - max(a[i, 0], b[j, 0]))
+        if a[i, 1] < b[j, 1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def gpu_profile(frames, cfg, features: Features) -> None:
+    df = frames.get("gputrace")
+    if df is None or df.empty:
+        print_warning("gpu_profile: gputrace is empty: the trace holds no "
+                      "CUDA kernels or copies (no card, or the program "
+                      "never used it)")
+        features.add("gpu_devices", 0)
+        features.add("gpu_kernels", 0)
+        return
+    kern = df[df["copyKind"] == int(CopyKind.KERNEL)]
+    features.add("gpu_devices", df["deviceId"].nunique())
+    features.add("gpu_kernels", len(kern))
+    window = _traced_window(frames)
+    busy = []
+    for device_id, rows in df.groupby("deviceId"):
+        k = rows[rows["copyKind"] == int(CopyKind.KERNEL)]
+        c = rows[rows["copyKind"].isin(_COPY_KINDS)]
+        features.add(f"gpu{device_id}_kernel_time", float(k["duration"].sum()))
+        features.add(f"gpu{device_id}_memcpy_time", float(c["duration"].sum()))
+        spans = merged_intervals(rows["timestamp"],
+                                 rows["timestamp"] + rows["duration"])
+        pct = 100.0 * float((spans[:, 1] - spans[:, 0]).sum()) / window \
+            if window > 0 else 0.0
+        features.add(f"gpu{device_id}_busy_pct", pct)
+        busy.append(pct)
+    features.add("gpu_busy_pct", sum(busy) / len(busy))
+    # The same share inside the annotated steps only (the whole window also
+    # holds start-up, weight init and teardown).
+    steps = frames.get("gpusteps")
+    if steps is not None and not steps.empty:
+        step_spans = merged_intervals(steps["timestamp"],
+                                      steps["timestamp"] + steps["duration"])
+        dev_spans = merged_intervals(df["timestamp"],
+                                     df["timestamp"] + df["duration"])
+        in_steps = float((step_spans[:, 1] - step_spans[:, 0]).sum())
+        if in_steps > 0:
+            features.add("gpu_step_busy_pct",
+                         100.0 * _overlap_s(dev_spans, step_spans) / in_steps)
+    top = (kern.groupby("name")
+           .agg(total_time=("duration", "sum"), count=("duration", "count"),
+                mean_time=("duration", "mean"))
+           .sort_values("total_time", ascending=False))
+    top.to_csv(cfg.path("gpu_top_kernels.csv"))
+    if cfg.verbose and not top.empty:
+        print_title("Top-10 CUDA kernels by total time")
+        print(top.head(10).to_string())
+
+
+def serving_profile(frames, cfg, features: Features) -> None:
+    """Device time of the prefill and decode phases, decode dispatches,
+    and time to first token: from the first prefill dispatch on the host
+    to the end of the last prefill kernel before the first decode kernel."""
+    df = frames.get("gputrace")
+    if df is None or df.empty:
+        return
+    mods = df["module"].astype(str)
+    pre = df[mods.str.contains("prefill", case=False)]
+    dec = df[mods.str.contains("decode|generate", case=False)]
+    if pre.empty or dec.empty:
+        return
+    features.add("serving_prefill_time", float(pre["duration"].sum()))
+    features.add("serving_decode_time", float(dec["duration"].sum()))
+    host = frames.get("hosttrace")
+    start = float(pre["timestamp"].min())
+    if host is not None and not host.empty:
+        ann = host[host["hlo_category"] == "user_annotation"]
+        names = ann["name"].astype(str)
+        features.add("serving_decode_calls", int(names.str.contains(
+            "decode|generate", case=False).sum()))
+        pre_ann = ann[names.str.contains("prefill", case=False)]
+        if not pre_ann.empty:
+            start = float(pre_ann["timestamp"].min())
+    head = pre[pre["timestamp"] < float(dec["timestamp"].min())]
+    if not head.empty:
+        end = float((head["timestamp"] + head["duration"]).max())
+        features.add("serving_ttft", end - start)
+
+
+#: The passes analyze runs, in order.
+PASSES = [gpu_profile, serving_profile]

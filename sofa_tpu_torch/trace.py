@@ -1,0 +1,138 @@
+"""The unified trace schema (the port's own copy of sofa_tpu/trace.py's core).
+
+Every collector's output is coerced into one flat schema before analysis:
+the reference's 13 base columns plus the extension columns.  On the GPU path
+``deviceId`` is the CUDA device ordinal (host rows: -1), ``copyKind`` the
+data-movement kind below, ``module`` the innermost profiler range
+(``record_function``) enclosing a device event, and ``timestamp`` seconds
+since the run's time base (``sofa_time.txt``).
+"""
+
+from __future__ import annotations
+
+from enum import IntEnum
+
+import numpy as np
+import pandas as pd
+
+BASE_COLUMNS = [
+    "timestamp",
+    "event",
+    "duration",
+    "deviceId",
+    "copyKind",
+    "payload",
+    "bandwidth",
+    "pkt_src",
+    "pkt_dst",
+    "pid",
+    "tid",
+    "name",
+    "category",
+]
+
+EXTRA_COLUMNS = ["device_kind", "hlo_category", "module", "flops",
+                 "bytes_accessed", "groups", "phase", "source", "op_path"]
+
+COLUMNS = BASE_COLUMNS + EXTRA_COLUMNS
+
+_DEFAULTS = {
+    "timestamp": 0.0,
+    "event": 0.0,
+    "duration": 0.0,
+    "deviceId": -1,
+    "copyKind": -1,
+    "payload": 0,
+    "bandwidth": 0.0,
+    "pkt_src": -1,
+    "pkt_dst": -1,
+    "pid": -1,
+    "tid": -1,
+    "name": "",
+    "category": 0,
+    "device_kind": "",
+    "hlo_category": "",
+    "module": "",
+    "flops": 0.0,
+    "bytes_accessed": 0.0,
+    "groups": "",
+    "phase": "",
+    "source": "",
+    "op_path": "",
+}
+
+
+class CopyKind(IntEnum):
+    """Data-movement taxonomy; 0/1/2/8/10 keep the reference's CUPTI
+    numbering, >= 20 are collectives."""
+
+    NA = -1
+    KERNEL = 0
+    H2D = 1
+    D2H = 2
+    D2D = 8
+    P2P = 10
+    ALL_REDUCE = 20
+    ALL_GATHER = 21
+    REDUCE_SCATTER = 22
+    ALL_TO_ALL = 23
+    COLLECTIVE_PERMUTE = 24
+    COLLECTIVE_BROADCAST = 25
+
+
+def empty_frame() -> pd.DataFrame:
+    return pd.DataFrame(
+        {c: pd.Series(dtype=object if isinstance(d, str) else type(d))
+         for c, d in _DEFAULTS.items()})
+
+
+def make_frame(rows) -> pd.DataFrame:
+    """Schema frame from a list of dicts (or a dict of columns); missing
+    columns get the schema defaults, unknown keys are rejected."""
+    df = pd.DataFrame(rows if isinstance(rows, dict) else list(rows))
+    if df.empty:
+        return empty_frame()
+    unknown = set(df.columns) - set(COLUMNS)
+    if unknown:
+        raise ValueError(f"columns outside the unified schema: "
+                         f"{sorted(unknown)}")
+    for col in COLUMNS:
+        if col not in df.columns:
+            df[col] = _DEFAULTS[col]
+        elif df[col].isna().any():
+            df[col] = df[col].fillna(_DEFAULTS[col])
+    return df[COLUMNS]
+
+
+def write_csv(df: pd.DataFrame, path: str) -> None:
+    df.to_csv(path, index=False)
+
+
+def read_csv(path: str) -> pd.DataFrame:
+    """Read a schema CSV back with the schema's dtypes (text columns stay
+    text, so a numeric-looking name is never mangled)."""
+    text = [c for c, d in _DEFAULTS.items() if isinstance(d, str)]
+    df = pd.read_csv(path, dtype={c: str for c in text},
+                     keep_default_na=False,
+                     na_values={c: [] for c in text})
+    for col in COLUMNS:
+        if col not in df.columns:
+            df[col] = _DEFAULTS[col]
+    return df[COLUMNS]
+
+
+def merged_intervals(starts, ends) -> np.ndarray:
+    """Union of possibly-overlapping [start, end) intervals, as an (n, 2)
+    array sorted by start."""
+    starts = np.asarray(starts, dtype=float)
+    ends = np.asarray(ends, dtype=float)
+    if starts.size == 0:
+        return np.empty((0, 2))
+    order = np.argsort(starts, kind="stable")
+    s, e = starts[order], ends[order]
+    emax = np.maximum.accumulate(e)
+    new = np.concatenate([[True], s[1:] > emax[:-1]])
+    idx = np.flatnonzero(new)
+    ms = s[idx]
+    me = np.concatenate([emax[idx[1:] - 1], emax[-1:]])
+    return np.stack([ms, me], axis=1)

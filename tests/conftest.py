@@ -94,6 +94,8 @@ def logdir(tmp_path):
 def pytest_configure(config):
     config.addinivalue_line("markers", "real_tpu: needs the real TPU chip")
     config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
+    config.addinivalue_line(
         "markers", "slow: long-running regression test (tier-1 runs "
         "-m 'not slow')")
     config.addinivalue_line(

@@ -1,0 +1,71 @@
+"""The port stands alone: no module of sofa_tpu_torch, and not
+chip_smoke.py, imports jax or anything of the JAX package (sofa_tpu), and
+importing the port leaves jax out of sys.modules."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for base, _dirs, names in os.walk(os.path.join(REPO, "sofa_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "sofa_tpu")
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_module_imports_nothing_of_jax(path):
+    with open(path) as f:
+        src = f.read()
+    bad = [(line, mod) for line, mod in _imports(ast.parse(src))
+           if _forbidden(mod)]
+    # the Kineto collector's injected sitecustomize is source in a string
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and "import " in node.value and "\n" in node.value:
+            try:
+                inner = ast.parse(node.value)
+            except SyntaxError:
+                continue
+            bad += [(node.lineno, mod) for _, mod in _imports(inner)
+                    if _forbidden(mod)]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"chip_smoke.py", "sofa_tpu_torch/workloads/flash_cuda.py",
+            "sofa_tpu_torch/collectors/kineto.py"} <= rel
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, sofa_tpu_torch, sofa_tpu_torch.cli, "
+            "sofa_tpu_torch.entry, sofa_tpu_torch.workloads.inference, "
+            "sofa_tpu_torch.analyze, sofa_tpu_torch.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'sofa_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stdout + r.stderr
