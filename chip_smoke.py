@@ -1,21 +1,21 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``sofa_tpu_torch``).
 
-    python3 chip_smoke.py                       # every phase, one H100
-    python3 chip_smoke.py --phases device,kernel
+    python3 chip_smoke.py          # one H100, no arguments
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, all of them, in order; any failure raises and exits non-zero:
 
-  device   the card's name and power limit; builds every CUDA kernel from
-           the sources in the checkout (one nvcc per source, in parallel)
+  device   the card's name and power limit; builds the CUDA kernel from
+           the source in the checkout
   kernel   holds each kernel against its plain PyTorch version at the
            shapes the main path gives it and at the mask edge cases, and
            times kernel, plain version, bound and one library call
   model    the main path: the Llama-3-8B-width decoder forward with the
            fused kernel, then 4 requests through the KV-cache serving
            loop; launch counts are zeroed just before and read just after.
-           Then checks the logits against the plain-attention forward and
-           the first served token against the forward's argmax
+           Then checks the logits against the plain-attention forward,
+           the prefill's last-position logits against the forward's, and
+           the first served token against the forward's argmax (exactly)
   profile  ``python -m sofa_tpu_torch stat`` over the flagship forward and
            a short serving run; checks the device trace, steps and features
 
@@ -26,7 +26,6 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import os
@@ -38,19 +37,19 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12        # H100 SXM HBM3
-# bf16 storage: one ulp is ~0.4% relative, and p rounds to bf16 against the
-# running max in the kernel but the final max in the plain version.
-OUT_ATOL = OUT_RTOL = 2e-2
+# bf16 storage: one ulp is 2**-8..2**-7 relative, and p rounds to bf16
+# against the running max in the kernel but the final max in the plain
+# version.  The worst reading on an H100 was 7.8e-3 (one ulp at |out| in
+# [1, 2)) at the Llama-3-8B and the segmented shapes.
+OUT_ATOL = OUT_RTOL = 1e-2
 # lse is float32 throughout in both (only summation order and the fast exp
 # differ).
 LSE_ATOL = 1e-3
-# Decoder logits after 32 bf16 layers, fused vs plain attention: relative
-# Frobenius error of the logits.
+# Decoder logits after 32 bf16 layers, fused vs plain attention (and the
+# serving prefill, whose cache attention is plain, vs the fused forward):
+# relative Frobenius error of the logits.  The fused-vs-plain reading on an
+# H100 was 1.9e-2.
 LOGITS_REL = 3e-2
-# A served token may differ from the forward's argmax only in a near-tie:
-# the forward's logit margin between the two must be below this share of
-# the row's largest |logit|.
-TIE_REL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -112,14 +111,13 @@ class Smoke:
         log(f"device: {self.torch.cuda.get_device_name(0)} | nvidia-smi: "
             f"{self.smi} | torch {self.torch.__version__} cuda "
             f"{self.torch.version.cuda}")
+        kern = kernels.FLASH_FWD
         t0 = time.perf_counter()
-        reports = kernels.build_all()
-        log(f"device: built {len(reports)} kernel(s) in "
-            f"{time.perf_counter() - t0:.2f} s")
-        for name, report in reports.items():
-            for line in report.splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    log(f"  {name}: {line.strip()}")
+        report = kernels.build(kern)
+        log(f"device: built {kern.name} in {time.perf_counter() - t0:.2f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {kern.name}: {line.strip()}")
 
     def kernel(self):
         torch = self.torch
@@ -190,15 +188,12 @@ class Smoke:
             f"{100 * bound_ms / ms:.1f}% of bound) | {self.smi}")
         kern = kernels.FLASH_FWD
         self.kernel_rows[kern.name] = {
-            "name": kern.name, "route": kern.route,
+            "name": kern.name, "route": "cuda",
             "source": kern.source_rel, "replaces": kern.replaces,
             "launches": None, "max_abs_err": llama_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
-        log("kernel: " + json.dumps({"kernels": [
-            {"name": n, "launches": c}
-            for n, c in kernels.counts().items()]}))
 
     def model(self):
         torch = self.torch
@@ -257,18 +252,23 @@ class Smoke:
             raise AssertionError("fused and plain logits disagree")
         del plain
 
-        # first served token vs the forward's argmax at the last prompt token
+        # the serving prefill's last-position logits and first served token
+        # vs the fused forward's at the last prompt token
         last = forward(params, prompts, cfg)[:, -1]
+        cache = inference.init_cache(scfg, batch, self.dev)
+        pre_last = inference.prefill(params, prompts, cache, scfg)[0][:, -1]
+        del cache
+        pre_rel = ((pre_last - last).norm() / last.norm()).item()
         want = last.argmax(-1)
         got = served[:, 0]
-        margin = (last.gather(1, want[:, None]) - last.gather(1, got[:, None]))
-        lim = TIE_REL * last.abs().amax(-1, keepdim=True)
         exact = int((got == want).sum())
-        log(f"model: served {tuple(served.shape)} tokens; first token equals "
-            f"the forward's argmax for {exact}/{batch} requests, largest "
-            f"margin {margin.max().item():.4f} (limit "
-            f"{lim.min().item():.4f})")
-        if not bool((margin <= lim).all()):
+        log(f"model: prefill last-position logits rel err {pre_rel:.3e} "
+            f"(limit {LOGITS_REL}); served {tuple(served.shape)} tokens, "
+            f"first token equals the forward's argmax for {exact}/{batch} "
+            f"requests")
+        if not pre_rel <= LOGITS_REL:
+            raise AssertionError("prefill and forward logits disagree")
+        if exact != batch:
             raise AssertionError("served first token is not the forward's "
                                  "argmax")
         log(f"model: serving 4 requests (prompt {prompt_len}, {new} new): "
@@ -349,16 +349,7 @@ class Smoke:
 PHASES = ("device", "kernel", "model", "profile")
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__,
-                                formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--phases", default=",".join(PHASES))
-    args = p.parse_args(argv)
-    phases = args.phases.split(",")
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        p.error(f"unknown phases {sorted(unknown)}")
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -366,14 +357,14 @@ def main(argv=None) -> int:
         return 2
     smoke = Smoke()
     t_all = time.perf_counter()
-    for phase in [ph for ph in PHASES if ph in phases]:
+    for phase in PHASES:
         t0 = time.perf_counter()
         log(f"=== {phase}")
         getattr(smoke, phase)()
         log(f"=== {phase} ok in {time.perf_counter() - t0:.1f} s")
     log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": list(smoke.kernel_rows.values())}))
-    log(smoke.smi or nvidia_smi())
+    log(smoke.smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,6 +43,7 @@ import time
 
 _OPTS = json.loads(os.environ.get("SOFA_TORCH_KINETO_OPTS", "{}"))
 _STATE = {"armed": False, "prof": None, "done": False}
+_STOP_TIMEOUT_S = 300.0     # bound on the at-exit stop and trace export
 
 
 def _warn(msg):
@@ -135,7 +136,7 @@ def _stop(torch):
     if prof is None:
         return
     _STATE["prof"] = None
-    _arm_watchdog(float(_OPTS.get("stop_timeout_s", 300)))
+    _arm_watchdog(_STOP_TIMEOUT_S)
     try:
         if _STATE.get("cuda") and torch.cuda.is_initialized():
             torch.cuda.synchronize()

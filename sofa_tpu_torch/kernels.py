@@ -23,8 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(_PKG)
@@ -38,10 +37,10 @@ class Kernel:
     """One hand-written kernel: where its source lives, which TPU kernel it
     replaces, and how many times its wrapper has launched it."""
 
-    name: str            # the symbol the profiler shows (contains this name)
+    name: str            # the C entry point; the profiler's symbol contains it
     lib: str             # csrc/<lib>.cu -> build/torch_kernels/lib<lib>-<hash>.so
     replaces: str        # file:line of the Pallas call it ports
-    route: str = "cuda"
+    argtypes: List       # ctypes signature of the C entry point
     launches: int = 0
 
     @property
@@ -53,8 +52,11 @@ class Kernel:
         return os.path.relpath(self.source, REPO)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 FLASH_FWD = Kernel(name="sofa_flash_fwd", lib="flash_fwd",
-                   replaces="sofa_tpu/workloads/flash_pallas.py:282")
+                   replaces="sofa_tpu/workloads/flash_pallas.py:282",
+                   argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, ctypes.c_longlong, ctypes.c_float, _P])
 
 KERNELS = [FLASH_FWD]
 
@@ -123,14 +125,6 @@ def build(kernel: Kernel) -> str:
     return res.stdout + res.stderr
 
 
-def build_all() -> Dict[str, str]:
-    """Build every kernel in parallel (one nvcc per source, all started
-    together); returns each kernel's compiler report."""
-    with ThreadPoolExecutor(max_workers=max(1, len(KERNELS))) as pool:
-        futures = {k.name: pool.submit(build, k) for k in KERNELS}
-        return {name: fut.result() for name, fut in futures.items()}
-
-
 def library(kernel: Kernel) -> ctypes.CDLL:
     """The loaded library of ``kernel``, building it on first use."""
     with _lock:
@@ -144,12 +138,9 @@ def library(kernel: Kernel) -> ctypes.CDLL:
 
 
 def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    if kernel is FLASH_FWD:
-        lib.sofa_flash_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                       ctypes.c_longlong, ctypes.c_float, p]
-        lib.sofa_flash_fwd.restype = i
-    lib.sofa_cuda_error_string.argtypes = [i]
+    entry = getattr(lib, kernel.name)
+    entry.argtypes, entry.restype = kernel.argtypes, _I
+    lib.sofa_cuda_error_string.argtypes = [_I]
     lib.sofa_cuda_error_string.restype = ctypes.c_char_p
 
 
