@@ -5,19 +5,25 @@
 
 Phases, all of them, in order; any failure raises and exits non-zero:
 
-  device   the card's name and power limit; builds the CUDA kernel from
-           the source in the checkout
+  device   the card's name and power limit; builds the three CUDA kernels
+           from the sources in the checkout (one nvcc each, all at once)
   kernel   holds each kernel against its plain PyTorch version at the
-           shapes the main path gives it and at the mask edge cases, and
+           shapes the main paths give it and at the mask edge cases, and
            times kernel, plain version, bound and one library call
-  model    the main path: the Llama-3-8B-width decoder forward with the
+  model    the serving path: the Llama-3-8B-width decoder forward with the
            fused kernel, then 4 requests through the KV-cache serving
            loop; launch counts are zeroed just before and read just after.
            Then checks the logits against the plain-attention forward,
            the prefill's last-position logits against the forward's, and
            the first served token against the forward's argmax (exactly)
-  profile  ``python -m sofa_tpu_torch stat`` over the flagship forward and
-           a short serving run; checks the device trace, steps and features
+  train    the training path: Llama-3-8B width cut to 4 layers, 5 AdamW
+           steps on B 4 x T 2048 after one warm-up; launch counts are
+           zeroed just before the 5 steps and read just after, and the loss
+           must descend.  Then fused-vs-plain-attention gradients (dense
+           and packed) and remat-vs-no-remat loss and gradients
+  profile  ``python -m sofa_tpu_torch stat`` over the flagship forward with
+           a short serving run, and over the training workload's ``main``;
+           checks the device traces, steps and features
 
 The last lines are the kernels JSON, the nvidia-smi line, and the result
 JSON.  It exits non-zero without a result when no CUDA device is visible.
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -50,6 +57,21 @@ LSE_ATOL = 1e-3
 # relative Frobenius error of the logits.  The fused-vs-plain reading on an
 # H100 was 1.9e-2.
 LOGITS_REL = 3e-2
+# Backward kernels vs their plain versions: max |err| over the largest
+# |reference| of each gradient.  Both round p and ds to bf16, but at
+# different ulps where __expf and torch.exp differ, and sum in other orders.
+# The worst reading on an H100 was 3.05e-3 (dk, full attention, shift = T).
+GRAD_REL = 6e-3
+# Per-leaf gradients of the 4-layer Llama-width loss at B1 T2048, fused vs
+# plain attention: relative Frobenius error (worst reading on an H100
+# 5.37e-3, the embedding, dense), and the loss's relative difference
+# (worst reading 2.9e-5).
+TRAIN_GRAD_REL = 1e-2
+TRAIN_LOSS_REL = 6e-5
+# Remat vs no remat replays the same deterministic kernels and cuBLAS calls
+# on the same inputs: the loss and every gradient must be bit-identical (the
+# reading on an H100 was 0 for all of them).
+REMAT_REL = 0.0
 
 
 def log(msg: str) -> None:
@@ -77,6 +99,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def smem_bytes(name: str, d: int) -> int:
+    """Dynamic shared memory one block of ``name`` asks for, as its launch
+    code in csrc/ computes it (ptxas -v reports only static shared memory):
+    bf16 tiles of 64 rows padded to D + 8, plus 4-byte rows of 64."""
+    tiles, rows = {"sofa_flash_fwd": (3, 1), "sofa_flash_bwd_kv": (4, 3),
+                   "sofa_flash_bwd_dq": (4, 1)}[name]
+    return tiles * 64 * (d + 8) * 2 + rows * 64 * 4
+
+
+def _leaf_names(tree, prefix=()):
+    """Key paths of a nested param dict, in param_leaves order."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaf_names(val, prefix + (key,))
+        else:
+            yield prefix + (key,)
 
 
 class Smoke:
@@ -111,13 +151,16 @@ class Smoke:
         log(f"device: {self.torch.cuda.get_device_name(0)} | nvidia-smi: "
             f"{self.smi} | torch {self.torch.__version__} cuda "
             f"{self.torch.version.cuda}")
-        kern = kernels.FLASH_FWD
         t0 = time.perf_counter()
-        report = kernels.build(kern)
-        log(f"device: built {kern.name} in {time.perf_counter() - t0:.2f} s")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {kern.name}: {line.strip()}")
+        reports = kernels.build_all(kernels.KERNELS)
+        log(f"device: built {', '.join(reports)} in "
+            f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+        for name, report in reports.items():
+            for line in report.splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"  {name}: {line.strip()}")
+            log(f"  {name}: dynamic shared memory a block, D 64 / D 128: "
+                f"{smem_bytes(name, 64)} / {smem_bytes(name, 128)} bytes")
 
     def kernel(self):
         torch = self.torch
@@ -194,6 +237,111 @@ class Smoke:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
+        self.kernel_backward()
+
+    def kernel_backward(self):
+        torch = self.torch
+        from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.workloads.flash_cuda import (
+            _flash_bwd_dq_cuda, _flash_bwd_dq_plain, _flash_bwd_kv_cuda,
+            _flash_bwd_kv_plain, _flash_forward)
+
+        def inputs(b, t, h, kvh, d, seed, shift=0, tk=None, seg=None):
+            q, k, v = self.flash_inputs(b, t, h, kvh, d, seed, tk)
+            g = self.flash_inputs(b, t, h, kvh, d, seed + 100)[0]
+            out, lse = _flash_forward(q, k, v, shift, shift <= 0, seg)
+            seg32 = None if seg is None else seg.to(torch.int32).contiguous()
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            return (q, k, v, g, lse, delta, shift, seg32, seg32)
+
+        def compare(label, args, f32=False):
+            gd = torch.float32 if f32 else None
+            got = (*_flash_bwd_kv_cuda(*args, gd), _flash_bwd_dq_cuda(*args, gd))
+            ref = (*_flash_bwd_kv_plain(*args, gd), _flash_bwd_dq_plain(*args, gd))
+            torch.cuda.synchronize()
+            errs, rels, ok = {}, {}, True
+            for name, a, r in zip(("dk", "dv", "dq"), got, ref):
+                a, r = a.float(), r.float()
+                err = (a - r).abs().max().item()
+                scale = r.abs().max().item()
+                rels[name] = err / scale if scale else (0.0 if err == 0
+                                                        else float("inf"))
+                errs[name] = err
+                ok = ok and bool(torch.isfinite(a).all()) \
+                    and rels[name] <= GRAD_REL and got[0].dtype == (
+                        torch.float32 if f32 else torch.bfloat16)
+            log(f"kernel: bwd {label:<34} max|err|/max|ref| " + " ".join(
+                f"{n} {rels[n]:.3e}" for n in rels) + " (max|err| " +
+                " ".join(f"{n} {errs[n]:.3e}" for n in errs) +
+                f") -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"backward kernels disagree with their "
+                                     f"plain versions at {label}")
+            return errs, got
+
+        llama = inputs(4, 2048, 32, 8, 128, seed=11)
+        llama_errs, _ = compare("llama3_8b B4 T2048 H32/8 D128", llama)
+        compare("entry B8 T512 H8/4 D64", inputs(8, 512, 8, 4, 64, seed=12))
+        compare("full shift=T B2 T256 H8/2 D128",
+                inputs(2, 256, 8, 2, 128, seed=13, shift=256))
+        _, masked = compare("masked shift=-T B2 T256 H8/2 D64",
+                            inputs(2, 256, 8, 2, 64, seed=14, shift=-256))
+        if any(x.float().abs().max().item() != 0 for x in masked):
+            raise AssertionError("fully masked rows must give exactly zero "
+                                 "gradients")
+        b, t = 2, 512
+        seg = (torch.rand(b, t, generator=self.gen(15), device=self.dev)
+               < 0.02).to(torch.int64).cumsum(dim=1)
+        compare("segmented B2 T512 H8/4 D64",
+                inputs(b, t, 8, 4, 64, seed=16, seg=seg))
+        compare("ragged T=200 B2 H8/2 D128",
+                inputs(2, 200, 8, 2, 128, seed=17))
+        compare("ring hop T256 Tk512 shift=256 D128",
+                inputs(2, 256, 8, 2, 128, seed=18, shift=256, tk=512))
+        compare("grad_dtype=f32 B2 T256 H8/2 D128",
+                inputs(2, 256, 8, 2, 128, seed=19), f32=True)
+
+        # times at the Llama training shape; SDPA's backward is a yardstick
+        q, k, v, g = llama[:4]
+        bq, tq, hq, dq = q.shape
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        gt = g.transpose(1, 2).contiguous()
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), gt, retain_graph=True), iters=20)
+        pairs = bq * hq * tq * (tq + 1) / 2          # visible pairs only
+        rows = 2.0 * bq * hq * tq * 4                 # lse and delta
+        operands = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        for kern, fn, plain, flops, written, errs in (
+                (kernels.FLASH_BWD_KV, _flash_bwd_kv_cuda,
+                 _flash_bwd_kv_plain, 8.0 * dq * pairs,
+                 2.0 * (k.numel() + v.numel()),
+                 max(llama_errs["dk"], llama_errs["dv"])),
+                (kernels.FLASH_BWD_DQ, _flash_bwd_dq_cuda,
+                 _flash_bwd_dq_plain, 6.0 * dq * pairs, 2.0 * q.numel(),
+                 llama_errs["dq"])):
+            ms = cuda_ms(lambda: fn(*llama), iters=20)
+            plain_ms = cuda_ms(lambda: plain(*llama), iters=3, warmup=1)
+            t_ops = flops / PEAK_BF16_FLOPS
+            t_bytes = (operands + rows + written) / PEAK_HBM_BYTES
+            bound_ms = 1e3 * max(t_ops, t_bytes)
+            log(f"kernel: {kern.name} llama3_8b shape kernel_ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} library_ms (SDPA backward, dq+dk+dv) "
+                f"{library_ms:.4f} bound_ms {bound_ms:.4f} "
+                f"({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * bound_ms / ms:.1f}% of bound) | {self.smi}")
+            self.kernel_rows[kern.name] = {
+                "name": kern.name, "route": "cuda",
+                "source": kern.source_rel, "replaces": kern.replaces,
+                "launches": None, "max_abs_err": errs, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": library_ms}
+        del llama, qt, kt, vt, o
+        torch.cuda.empty_cache()
 
     def model(self):
         torch = self.torch
@@ -229,9 +377,9 @@ class Smoke:
         fence(served)
         counts = kernels.counts()
         # -------------------------------------------------------------------
-        for name, n in counts.items():
-            self.kernel_rows[name]["launches"] = n
-        log(f"model: main path launches {json.dumps(counts)}")
+        self.kernel_rows["sofa_flash_fwd"]["launches"] = \
+            counts["sofa_flash_fwd"]
+        log(f"model: serving path launches {json.dumps(counts)}")
         if counts["sofa_flash_fwd"] < cfg.n_layers:
             raise AssertionError("the forward did not go through "
                                  "sofa_flash_fwd once per layer")
@@ -277,15 +425,127 @@ class Smoke:
         del params, logits
         torch.cuda.empty_cache()
 
-    def profile(self):
+    def train(self):
+        torch = self.torch
+        from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.workloads.common import fence
+        from sofa_tpu_torch.workloads.transformer import (
+            TransformerConfig, build, loss_fn, param_leaves)
+
+        full = TransformerConfig.llama3_8b()
+        batch, seq, steps = 4, 2048, 5
+        cfg = dataclasses.replace(full, n_layers=4, max_seq=seq)
+        t0 = time.perf_counter()
+        params, opt, step, tokens = build(cfg, batch, seq, seed=0,
+                                          device=self.dev)
+        leaves = list(param_leaves(params))
+        n_params = sum(p.numel() for p in leaves)
+        fence(params["lm_head"])
+        log(f"train: llama3_8b width, depth cut {full.n_layers} -> "
+            f"{cfg.n_layers} layers ({n_params / 1e9:.3f}e9 params: bf16 "
+            f"params, grads and AdamW moments at 8 bytes each do not fit "
+            f"80 GB at full depth), random weights seed 0, B{batch} "
+            f"T{seq}, init {time.perf_counter() - t0:.1f} s")
+        losses = []
+        params, opt, loss = step(params, opt, tokens)      # warm-up
+        losses.append(loss)
+        fence(loss)
+        torch.cuda.reset_peak_memory_stats()
+
+        # --- the main path: counts zeroed just before, read just after ---
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            params, opt, loss = step(params, opt, tokens)
+            losses.append(loss)
+        fence(loss)
+        dt = time.perf_counter() - t0
+        counts = kernels.counts()
+        # -------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        losses = [x.item() for x in losses]
+        for name in ("sofa_flash_bwd_kv", "sofa_flash_bwd_dq"):
+            self.kernel_rows[name]["launches"] = counts[name]
+        log(f"train: main path launches over {steps} steps "
+            f"{json.dumps(counts)}")
+        log(f"train: step {1e3 * dt / steps:.1f} ms, "
+            f"{batch * seq * steps / dt:,.0f} tokens/s, peak "
+            f"{peak / 2**30:.2f} GiB allocated, losses (warm-up first) "
+            + " ".join(f"{x:.4f}" for x in losses) + f" | {self.smi}")
+        want = cfg.n_layers * steps
+        if any(n != want for n in counts.values()):
+            raise AssertionError(f"each kernel must launch {want} times in "
+                                 f"{steps} steps; got {counts}")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not descend: {losses}")
+
+        def value_and_grad(c, toks, seg=None):
+            loss = loss_fn(params, toks, c, seg)
+            return loss.item(), torch.autograd.grad(loss, leaves)
+
+        def rel_errs(got, ref):
+            return [((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for a, b in zip(got, ref)]
+
+        # fused vs plain attention at B1 (the plain scores stay small)
+        names = [".".join(k) for k in _leaf_names(params)]
+        one = tokens[:1]
+        seg = (torch.rand(1, seq, generator=self.gen(21), device=self.dev)
+               < 1 / 300).to(torch.int64).cumsum(dim=1)
+        for label, s in (("dense", None), ("packed", seg)):
+            lf, gf = value_and_grad(cfg, one, s)
+            lp, gp = value_and_grad(dataclasses.replace(cfg, flash=False),
+                                    one, s)
+            rels = rel_errs(gf, gp)
+            worst = max(range(len(rels)), key=rels.__getitem__)
+            loss_rel = abs(lf - lp) / abs(lp)
+            log(f"train: fused vs plain grads B1 T{seq} {label}: loss "
+                f"{lf:.5f} vs {lp:.5f} (rel {loss_rel:.3e}, limit "
+                f"{TRAIN_LOSS_REL}); grad rel err max {rels[worst]:.3e} at "
+                f"{names[worst]} (limit {TRAIN_GRAD_REL}); "
+                + " ".join(f"{n} {r:.2e}" for n, r in zip(names, rels)))
+            if loss_rel > TRAIN_LOSS_REL or rels[worst] > TRAIN_GRAD_REL:
+                raise AssertionError(f"fused and plain gradients disagree "
+                                     f"({label})")
+            del gf, gp
+
+        # one remat step against the same step without remat
+        torch.cuda.reset_peak_memory_stats()
+        base_loss, base = value_and_grad(cfg, tokens)
+        base_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        r_loss, r_grads = value_and_grad(
+            dataclasses.replace(cfg, remat=True), tokens)
+        torch.cuda.synchronize()
+        r_counts = kernels.counts()
+        r_peak = torch.cuda.max_memory_allocated()
+        rels = rel_errs(r_grads, base)
+        loss_rel = abs(r_loss - base_loss) / abs(base_loss)
+        log(f"train: remat B{batch} T{seq}: loss {r_loss:.6f} vs "
+            f"{base_loss:.6f} (rel {loss_rel:.3e}), grad rel err max "
+            f"{max(rels):.3e} (limit {REMAT_REL}); launches "
+            f"{json.dumps(r_counts)}; peak {r_peak / 2**30:.2f} GiB vs "
+            f"{base_peak / 2**30:.2f} GiB without remat")
+        if r_counts["sofa_flash_fwd"] != 2 * cfg.n_layers or any(
+                r_counts[n] != cfg.n_layers
+                for n in ("sofa_flash_bwd_kv", "sofa_flash_bwd_dq")):
+            raise AssertionError("remat must replay each layer's forward "
+                                 "kernel once in the backward")
+        if loss_rel > REMAT_REL or max(rels) > REMAT_REL:
+            raise AssertionError("remat changed the loss or the gradients")
+        del params, opt, step, leaves, base, r_grads
+        torch.cuda.empty_cache()
+
+    def stat(self, label: str, cmd: str, steps: int, names):
+        """``python -m sofa_tpu_torch stat`` over ``cmd``: checks that it
+        completes, that gputrace has rows of each kernel in ``names`` and
+        gpusteps ``steps`` rows; logs where the ranged device time goes.
+        Returns the features."""
         import pandas as pd
 
-        logdir = os.path.join(REPO, "build", "chip_smoke_profile")
+        logdir = os.path.join(REPO, "build", f"chip_smoke_profile_{label}")
         shutil.rmtree(logdir, ignore_errors=True)
-        steps = 3
-        cmd = (f"{sys.executable} -m sofa_tpu_torch.entry --steps {steps} "
-               "--serve_requests 4 --serve_layers 2 "
-               "--prompt 128 --new_tokens 8")
         t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "sofa_tpu_torch", "stat", "--logdir",
@@ -304,22 +564,23 @@ class Smoke:
         for line in out.splitlines():
             if not line.startswith(("USDT", "STAGE:")):
                 log(f"  | {line}")
-        log(f"profile: stat rc {proc.returncode} in "
+        log(f"profile[{label}]: stat rc {proc.returncode} in "
             f"{time.perf_counter() - t0:.1f} s")
         if proc.returncode != 0 or "Complete!!" not in out:
-            raise AssertionError("sofa_tpu_torch stat failed")
+            raise AssertionError(f"sofa_tpu_torch stat failed ({label})")
         gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
         kern = gpu[gpu["copyKind"] == 0]
-        flash = kern[kern["name"].astype(str).str.contains("sofa_flash_fwd")]
+        kname = kern["name"].astype(str)
+        found = {n: int(kname.str.contains(n).sum()) for n in names}
         steps_df = pd.read_csv(os.path.join(logdir, "gpusteps.csv"))
         feats = pd.read_csv(os.path.join(logdir, "features.csv"))
         feats = dict(zip(feats["name"], feats["value"]))
-        log(f"profile: gputrace {len(gpu)} rows, {len(kern)} kernels, "
-            f"{len(flash)} sofa_flash_fwd; gpusteps {len(steps_df)} rows; "
+        log(f"profile[{label}]: gputrace {len(gpu)} rows, {len(kern)} "
+            f"kernels, {json.dumps(found)}; gpusteps {len(steps_df)} rows; "
             + ", ".join(f"{k} {feats.get(k)}" for k in (
                 "gpu_busy_pct", "gpu_step_busy_pct", "serving_prefill_time",
                 "serving_decode_time", "serving_decode_calls",
-                "serving_ttft")))
+                "serving_ttft") if k in feats))
         # where the device time goes inside the annotated ranges (steps,
         # prefill, decode), outside start-up and weight init
         module = kern["module"].fillna("").astype(str)
@@ -327,26 +588,42 @@ class Smoke:
         per_range = ranged.groupby(module[module != ""].str.replace(
             r"_\d+$", "_N", regex=True))["duration"].agg(["sum", "count"])
         for name, row in per_range.iterrows():
-            log(f"profile: range {name:<12} {row['sum'] * 1e3:9.3f} ms "
-                f"device time in {int(row['count'])} kernels")
+            log(f"profile[{label}]: range {name:<12} "
+                f"{row['sum'] * 1e3:9.3f} ms device time in "
+                f"{int(row['count'])} kernels")
         top = ranged.groupby("name")["duration"].agg(["sum", "count"]) \
             .sort_values("sum", ascending=False)
         for name, row in top.head(8).iterrows():
-            log(f"profile: top kernel {row['sum'] * 1e3:9.3f} ms "
+            log(f"profile[{label}]: top kernel {row['sum'] * 1e3:9.3f} ms "
                 f"x{int(row['count']):5d}  {str(name)[:90]}")
-        if kern.empty or flash.empty:
-            raise AssertionError("no sofa_flash_fwd kernel rows in gputrace")
+        if kern.empty or not all(found.values()):
+            raise AssertionError(f"gputrace lacks rows of {found} ({label})")
         if len(steps_df) != steps:
             raise AssertionError(f"gpusteps has {len(steps_df)} rows, "
-                                 f"expected {steps}")
+                                 f"expected {steps} ({label})")
         if not feats.get("gpu_busy_pct", 0) > 0:
-            raise AssertionError("gpu_busy_pct is not positive")
+            raise AssertionError(f"gpu_busy_pct is not positive ({label})")
+        return feats
+
+    def profile(self):
+        from sofa_tpu_torch import kernels
+
+        steps = 3
+        feats = self.stat(
+            "serve", f"{sys.executable} -m sofa_tpu_torch.entry --steps "
+            f"{steps} --serve_requests 4 --serve_layers 2 --prompt 128 "
+            "--new_tokens 8", steps, ["sofa_flash_fwd"])
         for key in ("serving_prefill_time", "serving_decode_time"):
             if key not in feats:
                 raise AssertionError(f"features.csv lacks {key}")
+        # the training workload at the JAX package's main defaults (batch 8,
+        # seq 512, d 512, 4 layers, 8/4 heads: D 64)
+        self.stat("train", f"{sys.executable} -m "
+                  f"sofa_tpu_torch.workloads.transformer --steps {steps}",
+                  steps, [k.name for k in kernels.KERNELS])
 
 
-PHASES = ("device", "kernel", "model", "profile")
+PHASES = ("device", "kernel", "model", "train", "profile")
 
 
 def main() -> int:

@@ -38,76 +38,12 @@
 // Loads are synchronous 16-byte copies; wgmma, TMA and a multi-stage
 // pipeline are the known next steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;             // query rows per block (4 warps x 16)
-constexpr int BLOCK_N = 64;             // keys per K/V tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;                  // shared-memory row padding (elements)
-constexpr float NEG_INF = -1e30f;
-constexpr float M_FLOOR = -1e29f;
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copies rows [row0, row0 + 64) of a [rows, D] view with the given row stride
-// (in elements) into a padded shared tile; rows at or past n_valid read as 0,
-// so the ragged edge never feeds garbage (or NaN) into the products.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n_valid, long long row_stride) {
-  constexpr int CHUNKS = D / 8;         // 16-byte chunks per row
-  constexpr int PER_THREAD = 64 * CHUNKS / THREADS;
-#pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid) {
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * row_stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(tile + r * (D + PAD) + c * 8) = val;
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+constexpr int BLOCK_M = BLOCK;          // query rows per block (4 warps x 16)
+constexpr int BLOCK_N = BLOCK;          // keys per K/V tile
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) sofa_flash_fwd_kernel(
@@ -243,45 +179,21 @@ __global__ void __launch_bounds__(THREADS) sofa_flash_fwd_kernel(
     }
 
     // O += P V, with P (rounded to bf16) taken from the S accumulators.
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_f32(s[2 * kk][0], s[2 * kk][1]),
-          pack_f32(s[2 * kk][2], s[2 * kk][3]),
-          pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vk = v_tile + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        const __nv_bfloat16* vc = vk + j * 8;
-        const uint32_t b0 = pack_bf16(vc[0], vc[LD]);
-        const uint32_t b1 = pack_bf16(vc[8 * LD], vc[9 * LD]);
-        mma_bf16_16816(o[j], pa, b0, b1);
-      }
-    }
+    mma_py<LD>(o, s, v_tile, g, t);
   }
 
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
   const float inv0 = 1.f / lc0, inv1 = 1.f / lc1;
+  __nv_bfloat16* out_bh = out + static_cast<long long>(b) * T * q_stride +
+                         static_cast<long long>(h) * D;
+  float* lse_bh = lse + (static_cast<long long>(b) * H + h) * T;
   if (row0 < T) {
-    __nv_bfloat16* dst = out + (static_cast<long long>(b) * T + row0) * q_stride +
-                         static_cast<long long>(h) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      *reinterpret_cast<uint32_t*>(dst + j * 8) =
-          pack_f32(o[j][0] * inv0, o[j][1] * inv0);
-    }
-    if (t == 0) lse[(static_cast<long long>(b) * H + h) * T + row0] = m0 + logf(lc0);
+    store_row(out_bh + row0 * q_stride, false, o, 0, inv0, t);
+    if (t == 0) lse_bh[row0] = m0 + logf(lc0);
   }
   if (row1 < T) {
-    __nv_bfloat16* dst = out + (static_cast<long long>(b) * T + row1) * q_stride +
-                         static_cast<long long>(h) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      *reinterpret_cast<uint32_t*>(dst + j * 8) =
-          pack_f32(o[j][2] * inv1, o[j][3] * inv1);
-    }
-    if (t == 0) lse[(static_cast<long long>(b) * H + h) * T + row1] = m1 + logf(lc1);
+    store_row(out_bh + row1 * q_stride, false, o, 1, inv1, t);
+    if (t == 0) lse_bh[row1] = m1 + logf(lc1);
   }
 }
 
@@ -293,9 +205,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int smem = (BLOCK_M + 2 * BLOCK_N) * (D + PAD) *
                        static_cast<int>(sizeof(__nv_bfloat16)) +
                    BLOCK_N * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      sofa_flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err = allow_smem(sofa_flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (T + BLOCK_M - 1) / BLOCK_M);
   sofa_flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
@@ -331,8 +241,4 @@ extern "C" int sofa_flash_fwd(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-extern "C" const char* sofa_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

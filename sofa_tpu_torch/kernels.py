@@ -1,12 +1,15 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is a ``csrc/*.cu`` file with a plain C entry point.  On first use
-it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``<repo>/build/torch_kernels/`` and loaded with ``ctypes`` (no PyTorch
+Each kernel is a ``csrc/*.cu`` file with a plain C entry point (the shared
+``csrc/*.cuh`` headers hold what the kernels have in common).  On first use
+it is compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own
+under ``<repo>/build/torch_kernels/`` and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes).  The library's file name
-carries a hash of its source, so an edited source is never served a stale
-build.  Nothing here runs at import time: this module must import on a host
-with no CUDA toolkit (the CPU tests import every module).
+carries a hash of its source and the headers, so an edited source is never
+served a stale build.  Loading a library binds the ``argtypes`` of every
+registered entry point it holds.  Nothing here runs at import time: this
+module must import on a host with no CUDA toolkit (the CPU tests import
+every module).
 
 Every kernel has a launch count.  Its wrapper adds one where it launches the
 kernel and nowhere else, so a run can show that its main path went through
@@ -17,12 +20,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -53,12 +58,22 @@ class Kernel:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_LL, _F = ctypes.c_longlong, ctypes.c_float
+# (pointers..., B, T, Tk, H, KVH, D, shift, scale, stream)
+_SHAPE = [_I, _I, _I, _I, _I, _I, _LL, _F, _P]
 FLASH_FWD = Kernel(name="sofa_flash_fwd", lib="flash_fwd",
                    replaces="sofa_tpu/workloads/flash_pallas.py:282",
-                   argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, ctypes.c_longlong, ctypes.c_float, _P])
+                   argtypes=[_P] * 7 + _SHAPE)
+# q, k, v, dout, lse, delta, seg_q, seg_k, dk, dv, out_f32, ...
+FLASH_BWD_KV = Kernel(name="sofa_flash_bwd_kv", lib="flash_bwd_kv",
+                      replaces="sofa_tpu/workloads/flash_pallas.py:619",
+                      argtypes=[_P] * 10 + [_I] + _SHAPE)
+# q, k, v, dout, lse, delta, seg_q, seg_k, dq, out_f32, ...
+FLASH_BWD_DQ = Kernel(name="sofa_flash_bwd_dq", lib="flash_bwd_dq",
+                      replaces="sofa_tpu/workloads/flash_pallas.py:673",
+                      argtypes=[_P] * 9 + [_I] + _SHAPE)
 
-KERNELS = [FLASH_FWD]
+KERNELS = [FLASH_FWD, FLASH_BWD_KV, FLASH_BWD_DQ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -83,9 +98,12 @@ def find_nvcc() -> Optional[str]:
 
 
 def library_path(kernel: Kernel) -> str:
-    with open(kernel.source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{kernel.lib}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
+    for path in [kernel.source] + headers:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{kernel.lib}-{h.hexdigest()[:12]}.so")
 
 
 def nvcc_command(nvcc: str, kernel: Kernel, out: str) -> list:
@@ -125,6 +143,14 @@ def build(kernel: Kernel) -> str:
     return res.stdout + res.stderr
 
 
+def build_all(kernels: List[Kernel]) -> Dict[str, str]:
+    """Build every kernel at once (one ``nvcc`` per source, all started
+    together); returns each kernel's compiler report by name."""
+    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
+        reports = list(pool.map(build, kernels))
+    return {k.name: r for k, r in zip(kernels, reports)}
+
+
 def library(kernel: Kernel) -> ctypes.CDLL:
     """The loaded library of ``kernel``, building it on first use."""
     with _lock:
@@ -132,14 +158,18 @@ def library(kernel: Kernel) -> ctypes.CDLL:
         if lib is None:
             build(kernel)
             lib = ctypes.CDLL(library_path(kernel))
-            _bind(kernel, lib)
+            _bind(kernel.lib, lib)
             _loaded[kernel.lib] = lib
         return lib
 
 
-def _bind(kernel: Kernel, lib: ctypes.CDLL) -> None:
-    entry = getattr(lib, kernel.name)
-    entry.argtypes, entry.restype = kernel.argtypes, _I
+def _bind(lib_name: str, lib: ctypes.CDLL) -> None:
+    """Sets the signature of every registered entry point in ``lib``, so no
+    entry point is ever called with ctypes' default int arguments."""
+    for k in KERNELS:
+        if k.lib == lib_name:
+            entry = getattr(lib, k.name)
+            entry.argtypes, entry.restype = k.argtypes, _I
     lib.sofa_cuda_error_string.argtypes = [_I]
     lib.sofa_cuda_error_string.restype = ctypes.c_char_p
 

@@ -8,19 +8,28 @@ stacked as ``[n_layers, ...]``), so one init crosses between the packages
 card, float32 accumulation in cuBLAS); norms, rope and the silu gate run in
 float32 and cast back, as in the JAX package.
 
-Attention runs the fused ``sofa_flash_fwd`` CUDA kernel when the tensors are
-on the card and the kernel supports the shape (``cfg.flash=None``), or the
-plain materialized-score attention (``cfg.flash=False``).  Mesh sharding,
-ring/zig-zag sequence parallelism, remat and the train step come later.
+Attention runs the fused CUDA kernels when the tensors are on the card and
+the kernels support the shape (``cfg.flash=None``): ``sofa_flash_fwd``
+forward, ``sofa_flash_bwd_kv`` and ``sofa_flash_bwd_dq`` under autograd.
+``cfg.flash=False`` runs the plain materialized-score attention.  Training
+is ``loss_fn`` under ``make_train_step`` (AdamW with optax's ``adamw``
+defaults), with per-layer remat through ``torch.utils.checkpoint``.  Mesh
+sharding and ring/zig-zag sequence parallelism come with the multi-GPU work.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from sofa_tpu_torch.workloads.flash_cuda import (
     flash_causal_attention,
@@ -48,6 +57,13 @@ class TransformerConfig:
     # it supports the shape; False forces the plain path; True demands the
     # fused path (the kernel on CUDA, its plain version on the CPU).
     flash: Optional[bool] = None
+    # Rematerialize each layer in the backward pass (a non-reentrant
+    # torch.utils.checkpoint per layer): live activation memory drops to
+    # one layer's worth plus the residual stream, at about one forward
+    # replay of FLOPs.  `remat_policy` names a policy of REMAT_POLICIES
+    # (the JAX checkpoint policy of the same name) and implies remat.
+    remat: bool = False
+    remat_policy: Optional[str] = None
 
     @property
     def d_head(self) -> int:
@@ -175,7 +191,31 @@ def use_flash(cfg: TransformerConfig, t: int, device: torch.device) -> bool:
     return cfg.flash
 
 
-@torch.no_grad()
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """JAX's dots_with_no_batch_dims_saveable: keep the outputs of matrix
+    products without batch dims (the weight matmuls, aten.mm), recompute
+    everything else (norms, rope, silu, the batched attention einsums)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: Named remat policies (``TransformerConfig.remat_policy``).
+REMAT_POLICIES = {"dots_with_no_batch_dims_saveable": _save_matmuls}
+
+
+def _remat_context_fn(policy: Optional[str]):
+    """checkpoint's ``context_fn`` for a named policy (None: save nothing
+    but the layer's inputs)."""
+    if policy is None:
+        return None
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; supported: "
+                         f"{sorted(REMAT_POLICIES)}")
+    return functools.partial(create_selective_checkpoint_contexts,
+                             REMAT_POLICIES[policy])
+
+
 def forward(params, tokens, cfg: TransformerConfig,
             segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logits [B, T, vocab] in float32.
@@ -183,8 +223,8 @@ def forward(params, tokens, cfg: TransformerConfig,
     ``segment_ids`` [B, T] packs several documents per row: attention is
     masked within segments and rope positions restart at each segment, so a
     packed batch matches processing the documents separately.  Ids must be
-    contiguous runs along T.  Inference only (no autograd graph is kept):
-    the backward kernels come with the training slice."""
+    contiguous runs along T.  Differentiable: with params that require
+    grad, the fused path's backward runs the two backward kernels."""
     b, t = tokens.shape
     if t > cfg.max_seq:
         raise ValueError(f"sequence length {t} exceeds max_seq {cfg.max_seq}")
@@ -206,8 +246,122 @@ def forward(params, tokens, cfg: TransformerConfig,
             return plain_segmented_causal_attention(q, kk, v, segment_ids)
         return plain_causal_attention(q, kk, v)
 
+    def layer(x, i):
+        return layer_body(x, layer_params(params, i), cfg, positions, attn)
+
+    if cfg.remat or cfg.remat_policy:
+        # a named policy implies remat, as in the JAX package
+        context_fn = _remat_context_fn(cfg.remat_policy)
+        kw = {} if context_fn is None else {"context_fn": context_fn}
+        layer = functools.partial(checkpoint, layer, use_reentrant=False,
+                                  **kw)
+
     x = params["embed"].to(cfg.dtype)[tokens]
     for i in range(cfg.n_layers):
-        x = layer_body(x, layer_params(params, i), cfg, positions, attn)
+        x = layer(x, i)
     x = _rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float()
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig,
+            segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy; targets are tokens shifted left.
+
+    The forward sees the full sequence and the last position's logits are
+    dropped.  With ``segment_ids`` (packed documents), positions whose
+    target falls in a DIFFERENT segment are excluded and the mean runs over
+    the kept positions, so a packed batch's loss equals the token-weighted
+    mean of the documents' separate losses."""
+    logits = forward(params, tokens, cfg, segment_ids)[:, :-1]
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - gold
+    if segment_ids is None:
+        return nll.mean()
+    keep = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(nll.dtype)
+    return (nll * keep).sum() / keep.sum().clamp_min(1.0)
+
+
+def param_leaves(params):
+    """Every tensor of a (nested) param dict, in key order."""
+    for v in params.values():
+        if isinstance(v, dict):
+            yield from param_leaves(v)
+        else:
+            yield v
+
+
+def make_optimizer(params, learning_rate: float = 1e-3
+                   ) -> torch.optim.AdamW:
+    """AdamW over every leaf with ``optax.adamw``'s defaults: betas
+    (0.9, 0.999), eps 1e-8 and weight decay 1e-4 (torch's default is 1e-2)
+    on every leaf, norms included.  The moments take each leaf's own dtype.
+    Marks the leaves as requiring grad; the step updates them in place."""
+    leaves = [p.requires_grad_(True) for p in param_leaves(params)]
+    return torch.optim.AdamW(leaves, lr=learning_rate, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)
+
+
+def make_train_step(cfg: TransformerConfig, params,
+                    learning_rate: float = 1e-3):
+    """(optimizer, step) with step(params, opt, tokens, segment_ids=None)
+    -> (params, opt, loss): one loss_fn forward and backward and one AdamW
+    update of ``params`` in place (the JAX step returns new arrays)."""
+    opt = make_optimizer(params, learning_rate)
+
+    def step(params, opt, tokens, segment_ids=None):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, cfg, segment_ids)
+        loss.backward()
+        opt.step()
+        return params, opt, loss.detach()
+
+    return opt, step
+
+
+def build(cfg: TransformerConfig, batch: int, seq: int, seed: int = 0,
+          device=None):
+    """(params, optimizer, step, tokens): init params, the train step and a
+    batch of random tokens, all from ``seed`` on ``device`` (the card
+    unless the caller names another)."""
+    from sofa_tpu_torch.workloads.common import resolve_device
+
+    device = resolve_device(device)
+    params = init_params(cfg, seed, device)
+    opt, step = make_train_step(cfg, params)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=device)
+    return params, opt, step, tokens
+
+
+def main(argv=None):
+    from sofa_tpu_torch.workloads.common import (parse_workload_args,
+                                                 steps_per_sec)
+
+    args = parse_workload_args(argv, {
+        "batch": 8, "seq": 512, "steps": 10, "d_model": 512, "n_layers": 4,
+        "n_heads": 8, "n_kv_heads": 4, "d_ff": 1408, "vocab": 32000,
+        "device": None,
+    })
+    cfg = TransformerConfig(vocab=args.vocab, d_model=args.d_model,
+                            n_layers=args.n_layers, n_heads=args.n_heads,
+                            n_kv_heads=args.n_kv_heads, d_ff=args.d_ff,
+                            max_seq=args.seq)
+    params, opt, step, tokens = build(cfg, args.batch, args.seq,
+                                      device=args.device)
+
+    def one(state):
+        p, o, _ = state
+        return step(p, o, tokens)
+
+    sps, state = steps_per_sec(one, (params, opt, None), args.steps)
+    toks = sps * args.batch * args.seq
+    print(f"transformer: {sps:.3f} steps/s  {toks:,.0f} tokens/s  "
+          f"loss={float(state[2]):.3f}  device={tokens.device}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,22 @@
-"""sofa_tpu_torch on the card: the ``sofa_flash_fwd`` kernel and the fused
-forward, held against their plain PyTorch versions.
+"""sofa_tpu_torch on the card: the three flash kernels, the fused forward
+and the fused train step, held against their plain PyTorch versions.
 
-Every test here needs a CUDA device and skips without one (the kernel has
+Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode).  The file imports neither JAX nor the JAX package, so it runs
 on a machine with PyTorch alone:
 
     SOFA_TPU_TEST_REAL=1 python -m pytest tests/test_torch_cuda.py -m cuda
 
 (``SOFA_TPU_TEST_REAL`` keeps tests/conftest.py from importing JAX.)
-Tolerances are chip_smoke.py's: out atol/rtol 1e-2 (bf16 storage, p rounded
-against the running max), lse atol 1e-3 (float32 throughout).
+Tolerances are chip_smoke.py's: forward out atol/rtol 1e-2 (bf16 storage, p
+rounded against the running max), lse atol 1e-3 (float32 throughout),
+gradients against the largest reference magnitude (GRAD_REL there; the
+worst reading at this file's shapes on an H100 was 1.8e-3).
 """
 
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -21,6 +25,18 @@ import torch
 from sofa_tpu_torch import kernels
 from sofa_tpu_torch.workloads import flash_cuda as tfc
 from sofa_tpu_torch.workloads import transformer as ttr
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+# Per-leaf gradients of the tiny bf16 config (d 256, 2 layers), fused vs
+# plain attention, relative Frobenius error: the worst reading on an H100
+# was 1.48e-2 (a tiny bf16 model rounds relatively more than the Llama-width
+# one of chip_smoke.py).
+TINY_GRAD_REL = 3e-2
 
 
 @pytest.fixture
@@ -74,9 +90,19 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tfc._flash_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v)
+    out, lse = tfc._flash_forward(q, k, v)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfc._flash_backward(q, k, v, out.float(), out, lse)
+    with pytest.raises(TypeError, match="grad_dtype"):
+        tfc._flash_backward(q, k, v, out, out, lse, grad_dtype=torch.float16)
+    # a CUDA call that needs a gradient launches both backward kernels
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfc.flash_causal_attention(q, k, v)
+    before = kernels.counts()
+    tfc.flash_causal_attention(q, k, v).float().sum().backward()
+    after = kernels.counts()
+    assert q.grad is not None and q.grad.dtype == torch.bfloat16
+    for kern in (kernels.FLASH_BWD_KV, kernels.FLASH_BWD_DQ):
+        assert after[kern.name] == before[kern.name] + 1
 
 
 @pytest.mark.cuda
@@ -92,3 +118,79 @@ def test_fused_forward_matches_plain_forward(cuda_device):
     plain = ttr.forward(params, tokens, dataclasses.replace(cfg, flash=False))
     rel = ((fused - plain).norm() / plain.norm()).item()
     assert rel < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kvh,d,tk,shift,segmented,f32", [
+    (2, 200, 8, 2, 128, None, 0, False, False),     # ragged T, GQA 4:1
+    (1, 256, 4, 4, 64, None, 256, False, True),     # full, f32 grads
+    (1, 128, 4, 2, 64, None, -128, False, False),   # nothing visible
+    (2, 192, 4, 2, 64, None, 0, True, False),       # packed segments
+    (1, 96, 4, 1, 128, 320, 224, False, True),      # a ring hop, Tk != T
+])
+def test_backward_kernels_match_plain(cuda_device, b, t, h, kvh, d, tk,
+                                      shift, segmented, f32):
+    q, k, v = _inputs(cuda_device, t + d + 1, b, t, h, kvh, d, tk)
+    g = _inputs(cuda_device, t + d + 2, b, t, h, kvh, d)[0]
+    seg = None
+    if segmented:
+        seg = (torch.arange(t, device=cuda_device) // 50).expand(b, t)
+    static = shift <= 0
+    out, lse = tfc._flash_forward(q, k, v, shift, static, seg)
+    before = kernels.counts()
+    grads = tfc._flash_backward(q, k, v, g, out, lse, shift, static,
+                                grad_dtype=torch.float32 if f32 else None,
+                                segment_ids=seg)
+    after = kernels.counts()
+    seg32 = None if seg is None else seg.to(torch.int32).contiguous()
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = tfc._flash_backward_plain(q, k, v, g, lse, delta, shift, seg32,
+                                    seg32, torch.float32 if f32 else None)
+    for kern in (kernels.FLASH_BWD_KV, kernels.FLASH_BWD_DQ):
+        assert after[kern.name] == before[kern.name] + 1
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        scale = r.float().abs().max().item()
+        if scale == 0:
+            assert a.float().abs().max().item() == 0, name
+            continue
+        err = (a.float() - r.float()).abs().max().item() / scale
+        assert err <= chip_smoke.GRAD_REL, (name, err)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_launches_every_kernel(cuda_device):
+    cfg = dataclasses.replace(ttr.TransformerConfig.tiny(seq=128),
+                              d_model=256, n_heads=4, n_kv_heads=2)
+    params, opt, step, tokens = ttr.build(cfg, 2, 128, device=cuda_device)
+    before = kernels.counts()
+    losses = []
+    for _ in range(3):
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(loss.item())
+    after = kernels.counts()
+    for kern in kernels.KERNELS:
+        assert after[kern.name] == before[kern.name] + 3 * cfg.n_layers
+    assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_fused_grads_match_plain_grads(cuda_device, packed):
+    cfg = dataclasses.replace(ttr.TransformerConfig.tiny(seq=128),
+                              d_model=256, n_heads=4, n_kv_heads=2)
+    params = ttr.init_params(cfg, seed=0, device=cuda_device)
+    leaves = [p.requires_grad_(True) for p in ttr.param_leaves(params)]
+    torch.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), device=cuda_device)
+    seg = None
+    if packed:
+        seg = (torch.arange(128, device=cuda_device) // 40).expand(2, 128)
+    fused = torch.autograd.grad(ttr.loss_fn(params, tokens, cfg, seg), leaves)
+    plain = torch.autograd.grad(
+        ttr.loss_fn(params, tokens, dataclasses.replace(cfg, flash=False),
+                    seg), leaves)
+    for a, b in zip(fused, plain):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel < TINY_GRAD_REL
