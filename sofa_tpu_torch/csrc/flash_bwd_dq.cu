@@ -151,14 +151,18 @@ __global__ void __launch_bounds__(THREADS) sofa_flash_bwd_dq_kernel(
 }
 
 template <int D>
+constexpr int smem_bytes() {
+  return 4 * BLOCK * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16)) +
+         BLOCK * static_cast<int>(sizeof(int));
+}
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const int* seg_q, const int* seg_k, void* dq, bool out_f32,
                    int B, int T, int Tk, int H, int KVH, long long shift,
                    float scale, cudaStream_t stream) {
-  const int smem =
-      4 * BLOCK * (D + PAD) * static_cast<int>(sizeof(__nv_bfloat16)) +
-      BLOCK * static_cast<int>(sizeof(int));
+  const int smem = smem_bytes<D>();
   cudaError_t err = allow_smem(sofa_flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (T + BLOCK - 1) / BLOCK);
@@ -200,4 +204,9 @@ extern "C" int sofa_flash_bwd_dq(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Dynamic shared memory one block asks for at head dim d (0 if unsupported).
+extern "C" int sofa_flash_bwd_dq_smem_bytes(int d) {
+  return d == 64 ? smem_bytes<64>() : d == 128 ? smem_bytes<128>() : 0;
 }

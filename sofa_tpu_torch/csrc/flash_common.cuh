@@ -2,6 +2,9 @@
 // sofa_flash_bwd_kv, sofa_flash_bwd_dq): tile sizes, the mask constants of
 // the TPU kernels, the mma.sync m16n8k16 bf16 product, fragment packing, a
 // padded 64-row tile copy, and quad reductions over an accumulator row.
+// The forward takes only the mask constants, pack_f32, store_row, the quad
+// reductions and allow_smem from here; its Hopper pieces (TMA, mbarriers,
+// wgmma) are in hopper.cuh.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A 16x16: a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),

@@ -7,9 +7,10 @@ under ``<repo>/build/torch_kernels/`` and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes).  The library's file name
 carries a hash of its source and the headers, so an edited source is never
 served a stale build.  Loading a library binds the ``argtypes`` of every
-registered entry point it holds.  Nothing here runs at import time: this
-module must import on a host with no CUDA toolkit (the CPU tests import
-every module).
+registered entry point it holds (and its ``<name>_smem_bytes``, the
+dynamic shared memory its launch asks for).  Nothing here runs at import
+time: this module must import on a host with no CUDA toolkit (the CPU tests
+import every module).
 
 Every kernel has a launch count.  Its wrapper adds one where it launches the
 kernel and nowhere else, so a run can show that its main path went through
@@ -170,8 +171,17 @@ def _bind(lib_name: str, lib: ctypes.CDLL) -> None:
         if k.lib == lib_name:
             entry = getattr(lib, k.name)
             entry.argtypes, entry.restype = k.argtypes, _I
+            smem = getattr(lib, f"{k.name}_smem_bytes")
+            smem.argtypes, smem.restype = [_I], _I
     lib.sofa_cuda_error_string.argtypes = [_I]
     lib.sofa_cuda_error_string.restype = ctypes.c_char_p
+
+
+def smem_bytes(kernel: Kernel, d: int) -> int:
+    """Dynamic shared memory one block of ``kernel`` asks for at head dim
+    ``d``, as its library's launch code computes it (``<name>_smem_bytes``;
+    ``ptxas -v`` reports only static shared memory).  Builds on first use."""
+    return getattr(library(kernel), f"{kernel.name}_smem_bytes")(d)
 
 
 def check(kernel: Kernel, lib: ctypes.CDLL, err: int) -> None:

@@ -56,19 +56,27 @@ def _inputs(device, seed, b, t, h, kvh, d, tk=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,kvh,d,tk,shift,segmented", [
-    (2, 200, 8, 2, 128, None, 0, False),      # ragged T, GQA 4:1
-    (1, 256, 4, 4, 64, None, 256, False),     # full attention
-    (1, 128, 4, 2, 64, None, -128, False),    # nothing visible
-    (2, 192, 4, 2, 64, None, 0, True),        # packed segments
-    (1, 77, 4, 1, 128, 333, 256, False),      # a query block at a cache end
+@pytest.mark.parametrize("b,t,h,kvh,d,tk,shift,seg_len", [
+    (2, 200, 8, 2, 128, None, 0, 0),      # ragged T, GQA 4:1
+    (1, 256, 4, 4, 64, None, 256, 0),     # full attention
+    (1, 128, 4, 2, 64, None, -128, 0),    # nothing visible
+    (2, 192, 4, 2, 64, None, 0, 50),      # packed segments
+    (1, 77, 4, 1, 128, 333, 256, 0),      # a query block at a cache end
+    # the edges of the kernel's 128-row q-tiles and 128-key K/V tiles
+    (2, 1, 8, 2, 128, None, 0, 0),        # one query row
+    (2, 129, 8, 2, 128, None, 0, 0),      # one row past a q-tile
+    (2, 64, 4, 2, 128, 1, 0, 0),          # one key
+    (1, 300, 4, 2, 128, None, -1, 0),     # shift cuts every tile; row 0 blind
+    (1, 300, 4, 2, 128, None, 37, 0),     # shift cuts a tile mid-way
+    (2, 300, 4, 2, 128, None, 0, 100),    # segments inside and across tiles
+    (2, 200, 8, 4, 64, None, 0, 0),       # D 64, ragged T
 ])
 def test_kernel_matches_plain(cuda_device, b, t, h, kvh, d, tk, shift,
-                              segmented):
+                              seg_len):
     q, k, v = _inputs(cuda_device, t + d, b, t, h, kvh, d, tk)
     seg = None
-    if segmented:
-        seg = (torch.arange(t, device=cuda_device) // 50).expand(b, t)
+    if seg_len:
+        seg = (torch.arange(t, device=cuda_device) // seg_len).expand(b, t)
     before = kernels.FLASH_FWD.launches
     out, lse = tfc._flash_forward(q, k, v, shift, segment_ids=seg)
     seg32 = None if seg is None else seg.to(torch.int32).contiguous()
@@ -77,6 +85,20 @@ def test_kernel_matches_plain(cuda_device, b, t, h, kvh, d, tk, shift,
     torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-2,
                                rtol=1e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic(cuda_device):
+    """Two launches on the same inputs give bit-identical out and lse (no
+    atomics, no split over keys): remat replays the forward and must
+    reproduce it exactly."""
+    q, k, v = _inputs(cuda_device, 7, 2, 384, 8, 2, 128)
+    seg = (torch.arange(384, device=cuda_device) // 150).expand(2, 384)
+    for segment_ids in (None, seg):
+        first = tfc._flash_forward(q, k, v, 0, segment_ids=segment_ids)
+        second = tfc._flash_forward(q, k, v, 0, segment_ids=segment_ids)
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda

@@ -318,6 +318,7 @@ def test_library_binds_every_entry_point_it_holds(monkeypatch):
         def __init__(self):
             self.sofa_cuda_error_string = Entry()
             self.first, self.second = Entry(), Entry()
+            self.first_smem_bytes, self.second_smem_bytes = Entry(), Entry()
 
     a = kernels.Kernel("first", "shared", "x:1", [kernels._P])
     b = kernels.Kernel("second", "shared", "x:2", [kernels._I])
@@ -327,3 +328,5 @@ def test_library_binds_every_entry_point_it_holds(monkeypatch):
     assert lib.first.argtypes == [kernels._P]
     assert lib.second.argtypes == [kernels._I]
     assert lib.first.restype is lib.second.restype is kernels._I
+    for smem in (lib.first_smem_bytes, lib.second_smem_bytes):
+        assert smem.argtypes == [kernels._I] and smem.restype is kernels._I
