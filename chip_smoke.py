@@ -9,9 +9,10 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            from the sources in the checkout (one nvcc each, all at once)
   kernel   holds each kernel against its plain PyTorch version at the
            shapes the main paths give it and at the mask and tiling edge
-           cases, checks that the forward is deterministic, and times
-           kernel and one library call in turns (kernel, library, library,
-           kernel), the plain version and the bound
+           cases, checks that every kernel is deterministic (two launches
+           bit-identical), and times kernel and one library call in turns
+           (kernel, library, library, kernel), the plain version and the
+           bound; logs the backward pair's sum against SDPA's backward
   model    the serving path: the Llama-3-8B-width decoder forward with the
            fused kernel, then 4 requests through the KV-cache serving
            loop; launch counts are zeroed just before and read just after.
@@ -22,8 +23,10 @@ Phases, all of them, in order; any failure raises and exits non-zero:
   train    the training path: Llama-3-8B width cut to 4 layers, 5 AdamW
            steps on B 4 x T 2048 after one warm-up; launch counts are
            zeroed just before the 5 steps and read just after, and the loss
-           must descend.  Then fused-vs-plain-attention gradients (dense
-           and packed) and remat-vs-no-remat loss and gradients
+           must descend; each step is timed by the host clock and between
+           CUDA events (median and spread).  Then fused-vs-plain-attention
+           gradients (dense and packed) and remat-vs-no-remat loss and
+           gradients
   profile  ``python -m sofa_tpu_torch stat`` over the flagship forward with
            a short serving run, and over the training workload's ``main``;
            checks the device traces, steps and features
@@ -63,7 +66,7 @@ LOGITS_REL = 3e-2
 # Backward kernels vs their plain versions: max |err| over the largest
 # |reference| of each gradient.  Both round p and ds to bf16, but at
 # different ulps where __expf and torch.exp differ, and sum in other orders.
-# The worst reading on an H100 was 3.05e-3 (dk, full attention, shift = T).
+# The worst reading on an H100 was 3.43e-3 (dk, ragged T = 200).
 GRAD_REL = 6e-3
 # Per-leaf gradients of the 4-layer Llama-width loss at B1 T2048, fused vs
 # plain attention: relative Frobenius error (worst reading on an H100
@@ -291,10 +294,18 @@ class Smoke:
             _flash_bwd_dq_cuda, _flash_bwd_dq_plain, _flash_bwd_kv_cuda,
             _flash_bwd_kv_plain, _flash_forward)
 
-        def inputs(b, t, h, kvh, d, seed, shift=0, tk=None, seg=None):
+        def inputs(b, t, h, kvh, d, seed, shift=0, tk=None, seg=None,
+                   hop=False):
+            """hop: delta from another output, as in a ring hop, where it
+            comes from the whole sequence's output.  A row that sees one
+            key has p = 1 and dp = delta up to rounding when delta is its
+            own (out = v), so its dq and dk are rounding noise; with a hop's
+            delta they are not."""
             q, k, v = self.flash_inputs(b, t, h, kvh, d, seed, tk)
             g = self.flash_inputs(b, t, h, kvh, d, seed + 100)[0]
             out, lse = _flash_forward(q, k, v, shift, shift <= 0, seg)
+            if hop:
+                out = self.flash_inputs(b, t, h, kvh, d, seed + 200)[0]
             seg32 = None if seg is None else seg.to(torch.int32).contiguous()
             delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
                 .contiguous()
@@ -325,8 +336,23 @@ class Smoke:
                                      f"plain versions at {label}")
             return errs, got
 
+        def deterministic(label, args):
+            """Two launches of each backward kernel on the same inputs must
+            agree bit for bit (remat replays the backward)."""
+            first = (*_flash_bwd_kv_cuda(*args), _flash_bwd_dq_cuda(*args))
+            second = (*_flash_bwd_kv_cuda(*args), _flash_bwd_dq_cuda(*args))
+            same = {n: torch.equal(a, b) for n, a, b in
+                    zip(("dk", "dv", "dq"), first, second)}
+            log(f"kernel: bwd determinism {label}: a second launch of each "
+                f"kernel gives bit-identical " + " ".join(
+                    f"{n} {s}" for n, s in same.items()))
+            if not all(same.values()):
+                raise AssertionError(f"the backward kernels are not "
+                                     f"deterministic at {label}")
+
         llama = inputs(4, 2048, 32, 8, 128, seed=11)
         llama_errs, _ = compare("llama3_8b B4 T2048 H32/8 D128", llama)
+        deterministic("llama3_8b B4 T2048 H32/8 D128", llama)
         compare("entry B8 T512 H8/4 D64", inputs(8, 512, 8, 4, 64, seed=12))
         compare("full shift=T B2 T256 H8/2 D128",
                 inputs(2, 256, 8, 2, 128, seed=13, shift=256))
@@ -338,14 +364,41 @@ class Smoke:
         b, t = 2, 512
         seg = (torch.rand(b, t, generator=self.gen(15), device=self.dev)
                < 0.02).to(torch.int64).cumsum(dim=1)
-        compare("segmented B2 T512 H8/4 D64",
-                inputs(b, t, 8, 4, 64, seed=16, seg=seg))
+        segmented = inputs(b, t, 8, 4, 64, seed=16, seg=seg)
+        compare("segmented B2 T512 H8/4 D64", segmented)
+        deterministic("segmented B2 T512 H8/4 D64", segmented)
+        del segmented
         compare("ragged T=200 B2 H8/2 D128",
                 inputs(2, 200, 8, 2, 128, seed=17))
         compare("ring hop T256 Tk512 shift=256 D128",
                 inputs(2, 256, 8, 2, 128, seed=18, shift=256, tk=512))
         compare("grad_dtype=f32 B2 T256 H8/2 D128",
                 inputs(2, 256, 8, 2, 128, seed=19), f32=True)
+        # the edges of the backward tiling (dK/dV: 128-key blocks of two
+        # 64-key warpgroups over 64-query tiles; dQ: 128-row blocks of two
+        # 64-row warpgroups over 64-key tiles): one row, one row past a
+        # tile, a ragged T at both head dims, one key, shifts that cut a
+        # tile, GQA groups of 1 and 8, segment boundaries off the tile edges
+        compare("T=1 ring-hop delta B2 H8/2 D128",
+                inputs(2, 1, 8, 2, 128, seed=41, hop=True))
+        compare("T=129 B2 H8/2 D128", inputs(2, 129, 8, 2, 128, seed=42))
+        compare("T=129 B2 H8/4 D64", inputs(2, 129, 8, 4, 64, seed=43))
+        compare("T=200 B2 H8/4 D64", inputs(2, 200, 8, 4, 64, seed=44))
+        compare("Tk=1 T=64 ring-hop delta B2 H8/2 D128",
+                inputs(2, 64, 8, 2, 128, seed=45, tk=1, hop=True))
+        compare("shift=-1 B2 T300 H8/2 D128",
+                inputs(2, 300, 8, 2, 128, seed=46, shift=-1))
+        compare("shift=37 B2 T300 H8/2 D128",
+                inputs(2, 300, 8, 2, 128, seed=47, shift=37))
+        compare("GQA group 1 B2 T300 H8/8 D128",
+                inputs(2, 300, 8, 8, 128, seed=48))
+        compare("GQA group 8 B2 T300 H16/2 D64",
+                inputs(2, 300, 16, 2, 64, seed=49))
+        t = 400
+        seg = torch.tensor([0] * 100 + [1] * 150 + [2] * 20 + [3] * 130,
+                           device=self.dev).expand(2, t)
+        compare("segments at 100/250/270 B2 T400 D128",
+                inputs(2, t, 8, 2, 128, seed=50, seg=seg))
 
         # times at the Llama training shape; SDPA's backward is a yardstick
         q, k, v, g = llama[:4]
@@ -362,6 +415,7 @@ class Smoke:
         pairs = bq * hq * tq * (tq + 1) / 2          # visible pairs only
         rows = 2.0 * bq * hq * tq * 4                 # lse and delta
         operands = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        pair_ms, pair_bound, sdpa_ms = 0.0, 0.0, []
         for kern, fn, plain, flops, written, errs in (
                 (kernels.FLASH_BWD_KV, _flash_bwd_kv_cuda,
                  _flash_bwd_kv_plain, 8.0 * dq * pairs,
@@ -388,6 +442,15 @@ class Smoke:
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": library_ms}
+            pair_ms += ms
+            pair_bound += bound_ms
+            sdpa_ms += [l1, l2]
+        sdpa_mean = sum(sdpa_ms) / len(sdpa_ms)
+        log(f"kernel: backward pair (sofa_flash_bwd_kv + sofa_flash_bwd_dq) "
+            f"llama3_8b shape {pair_ms:.4f} ms against SDPA's backward "
+            f"{sdpa_mean:.4f} ms (mean of {len(sdpa_ms)} readings): ratio "
+            f"{pair_ms / sdpa_mean:.3f}; {100 * pair_bound / pair_ms:.1f}% of "
+            f"the pair's bound {pair_bound:.4f} ms | {self.smi}")
         del llama, qt, kt, vt, o
         torch.cuda.empty_cache()
 
@@ -513,23 +576,37 @@ class Smoke:
         fence(loss)
         torch.cuda.reset_peak_memory_stats()
 
+        # each step is also timed on the device, between CUDA events
+        # recorded on the stream before and after it
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(steps)]
         # --- the main path: counts zeroed just before, read just after ---
         kernels.reset_counts()
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for start, end in events:
+            start.record()
             params, opt, loss = step(params, opt, tokens)
+            end.record()
             losses.append(loss)
         fence(loss)
         dt = time.perf_counter() - t0
         counts = kernels.counts()
         # -------------------------------------------------------------------
+        torch.cuda.synchronize()
+        dev_ms = [start.elapsed_time(end) for start, end in events]
+        by_ms = sorted(dev_ms)
+        log(f"train: step by CUDA events: median {by_ms[steps // 2]:.3f} ms, "
+            f"min {by_ms[0]:.3f}, max {by_ms[-1]:.3f} (spread "
+            f"{by_ms[-1] - by_ms[0]:.3f} ms); steps " + " ".join(
+                f"{x:.3f}" for x in dev_ms) + f" | {self.smi}")
         peak = torch.cuda.max_memory_allocated()
         losses = [x.item() for x in losses]
         for name in ("sofa_flash_bwd_kv", "sofa_flash_bwd_dq"):
             self.kernel_rows[name]["launches"] = counts[name]
         log(f"train: main path launches over {steps} steps "
             f"{json.dumps(counts)}")
-        log(f"train: step {1e3 * dt / steps:.1f} ms, "
+        log(f"train: step by host clock {1e3 * dt / steps:.1f} ms, "
             f"{batch * seq * steps / dt:,.0f} tokens/s, peak "
             f"{peak / 2**30:.2f} GiB allocated, losses (warm-up first) "
             + " ".join(f"{x:.4f}" for x in losses) + f" | {self.smi}")

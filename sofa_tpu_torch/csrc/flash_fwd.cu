@@ -73,7 +73,6 @@ constexpr int CONSUMERS = BLOCK_M / WG_ROWS;
 constexpr int FWD_THREADS = CONSUMERS * 128;
 constexpr int STAGES = 3;               // K/V ring depth
 constexpr int PANEL_COLS = 64;          // bf16 columns of a 128-byte panel
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float M2_FLOOR = M_FLOOR * LOG2E;   // the clamp in log2 units
 
@@ -93,12 +92,6 @@ struct Smem {
   // + 1024 so the base can be rounded up to the swizzle's alignment
   static constexpr int BYTES = BARS + N_BARS * 8 + 1024;
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int D>
 __global__ void __launch_bounds__(FWD_THREADS, 1) sofa_flash_fwd_kernel(
@@ -379,20 +372,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seg_q, const int* seg_k, void* out, float* lse,
                    int B, int T, int Tk, int H, int KVH, long long shift,
                    float scale, cudaStream_t stream) {
-  // q [B,T,H,D] as the 4-D tensor (D, H, T, B), k and v (D, KVH, Tk, B); a
-  // box is 64 columns of one head over BLOCK_M (or BLOCK_N) rows.
-  const uint64_t e = sizeof(__nv_bfloat16);
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = encode_bf16_4d(&q_map, q, D, H, T, B, e * D, e * H * D,
-                                   e * T * H * D, PANEL_COLS, BLOCK_M);
-  if (err == cudaSuccess) {
-    err = encode_bf16_4d(&k_map, k, D, KVH, Tk, B, e * D, e * KVH * D,
-                         e * Tk * KVH * D, PANEL_COLS, BLOCK_N);
-  }
-  if (err == cudaSuccess) {
-    err = encode_bf16_4d(&v_map, v, D, KVH, Tk, B, e * D, e * KVH * D,
-                         e * Tk * KVH * D, PANEL_COLS, BLOCK_N);
-  }
+  cudaError_t err = encode_heads(&q_map, q, D, H, T, B, BLOCK_M);
+  if (err == cudaSuccess) err = encode_heads(&k_map, k, D, KVH, Tk, B, BLOCK_N);
+  if (err == cudaSuccess) err = encode_heads(&v_map, v, D, KVH, Tk, B, BLOCK_N);
   if (err != cudaSuccess) return err;
   const int smem = Smem<D>::BYTES;
   err = allow_smem(sofa_flash_fwd_kernel<D>, smem);

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks for the flash-attention kernels, as
+// Hopper (sm_90a) building blocks for the three flash-attention kernels, as
 // inline PTX: shared-memory barriers (mbarrier), TMA tile loads
 // (cp.async.bulk.tensor) described by tensor maps that the host encodes,
-// and warpgroup matrix products (wgmma.mma_async) with their shared-memory
-// matrix descriptors and fences.  No CUTLASS or CuTe: a library that
-// includes this header builds in seconds with a plain C interface.
+// warpgroup matrix products (wgmma.mma_async) with their shared-memory
+// matrix descriptors and fences, and register rebalancing between
+// warpgroups (setmaxnreg).  No CUTLASS or CuTe: a library that includes
+// this header builds in seconds with a plain C interface.
 //
 // Shared-memory layout the pieces agree on: a "panel" is R rows of 64 bf16
 // (128 bytes) stored with the 128-byte swizzle, i.e. the 16-byte chunk c of
@@ -56,13 +57,6 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// Orders this thread's generic-proxy shared-memory accesses before later
-// async-proxy ones (TMA, wgmma), e.g. a tile written by threads that wgmma
-// then reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
@@ -91,6 +85,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// --- register rebalancing ------------------------------------------------------
+
+// Lowers (dec) or raises (inc) the register budget of every thread of the
+// calling warpgroup to N (a multiple of 8 in [24, 256]); all four warps
+// execute it together.  A producer warpgroup that only issues TMA hands its
+// registers to the consumer warpgroups this way: the launch gives every
+// thread 65536 / blockDim registers, and the pool of one block per SM is
+// shared out again, e.g. 128 x 24 + 256 x 240 <= 65536 for one producer and
+// two consumers.  ptxas honours it only where each path after the role
+// split runs to the end of the kernel without rejoining the other (else it
+// warns "setmaxnreg ignored").  sm_90a only.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // --- TMA ---------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -115,17 +130,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
-// The 2-D form, for a [rows, cols] tensor map: (c0, c1) = (col, row).
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // --- wgmma -------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128B-swizzled operand at `addr`
@@ -139,6 +143,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 }
 
 constexpr uint32_t SW128_SBO = 1024;   // 8 rows of 128 bytes
+
+// The descriptor of the operand `bytes` further on: the address field is
+// the low 14 bits of addr / 16, and shared addresses stay below 2^18, so
+// adding to it never carries into the other fields.
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -349,20 +360,21 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D bf16 tensor map over [d3][d2][d1][d0] (d0 contiguous) whose box is
-// (box0, 1, box2, 1) with the 128-byte swizzle: box0 * 2 must be 128, so
-// one box lands as one panel of box2 rows.  Strides in bytes.  Returns
-// cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses the map (or
-// cannot be found).
-cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, uint64_t d0,
-                           uint64_t d1, uint64_t d2, uint64_t d3,
-                           uint64_t stride1, uint64_t stride2,
-                           uint64_t stride3, uint32_t box0, uint32_t box2) {
+// A tensor map over a contiguous bf16 [B, rows, heads, D] tensor (q, k, v,
+// dO), seen as the 4-D tensor (D, heads, rows, B), whose box is 64 columns
+// of one head over box_rows rows with the 128-byte swizzle: one box lands
+// as one panel of box_rows rows, and rows past `rows` arrive as zeros.
+// Returns cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses the map
+// (or cannot be found).
+cudaError_t encode_heads(CUtensorMap* map, const void* base, uint64_t D,
+                         uint64_t heads, uint64_t rows, uint64_t B,
+                         uint32_t box_rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorInvalidValue;
-  const cuuint64_t dims[4] = {d0, d1, d2, d3};
-  const cuuint64_t strides[3] = {stride1, stride2, stride3};
-  const cuuint32_t box[4] = {box0, 1, box2, 1};
+  const uint64_t e = 2;                 // bytes of a bf16
+  const cuuint64_t dims[4] = {D, heads, rows, B};
+  const cuuint64_t strides[3] = {e * D, e * heads * D, e * rows * heads * D};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, elem,

@@ -143,29 +143,46 @@ def test_fused_forward_matches_plain_forward(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,kvh,d,tk,shift,segmented,f32", [
-    (2, 200, 8, 2, 128, None, 0, False, False),     # ragged T, GQA 4:1
-    (1, 256, 4, 4, 64, None, 256, False, True),     # full, f32 grads
-    (1, 128, 4, 2, 64, None, -128, False, False),   # nothing visible
-    (2, 192, 4, 2, 64, None, 0, True, False),       # packed segments
-    (1, 96, 4, 1, 128, 320, 224, False, True),      # a ring hop, Tk != T
+@pytest.mark.parametrize("b,t,h,kvh,d,tk,shift,seg_len,f32,hop", [
+    (2, 200, 8, 2, 128, None, 0, 0, False, False),     # ragged T, GQA 4:1
+    (1, 256, 4, 4, 64, None, 256, 0, True, False),     # full, f32 grads
+    (1, 128, 4, 2, 64, None, -128, 0, False, False),   # nothing visible
+    (2, 192, 4, 2, 64, None, 0, 50, False, False),     # packed segments
+    (1, 96, 4, 1, 128, 320, 224, 0, True, False),      # a ring hop, Tk != T
+    # the edges of the backward tiling: 128-key dK/dV blocks of two 64-key
+    # warpgroups over 64-query tiles, 128-row dQ blocks over 64-key tiles
+    (2, 1, 8, 2, 128, None, 0, 0, False, True),        # one query row
+    (2, 129, 8, 2, 128, None, 0, 0, False, False),     # a row past a tile
+    (2, 129, 8, 4, 64, None, 0, 0, False, False),      # the same at D 64
+    (2, 200, 8, 4, 64, None, 0, 0, False, False),      # D 64, ragged T
+    (2, 64, 4, 2, 128, 1, 0, 0, False, True),          # one key
+    (1, 300, 4, 2, 128, None, -1, 0, False, False),    # shift cuts tiles
+    (1, 300, 4, 2, 128, None, 37, 0, False, False),    # ... mid-way
+    (1, 300, 8, 8, 128, None, 0, 0, False, False),     # GQA group 1
+    (1, 300, 16, 2, 64, None, 0, 0, False, False),     # GQA group 8
+    (2, 300, 4, 2, 128, None, 0, 100, False, False),   # segments off edges
 ])
 def test_backward_kernels_match_plain(cuda_device, b, t, h, kvh, d, tk,
-                                      shift, segmented, f32):
+                                      shift, seg_len, f32, hop):
+    """hop: delta from another output, as in a ring hop (chip_smoke.py's
+    ``inputs``).  With its own delta a row that sees one key has p = 1 and
+    dp = delta up to rounding, so its dq and dk are rounding noise."""
     q, k, v = _inputs(cuda_device, t + d + 1, b, t, h, kvh, d, tk)
     g = _inputs(cuda_device, t + d + 2, b, t, h, kvh, d)[0]
     seg = None
-    if segmented:
-        seg = (torch.arange(t, device=cuda_device) // 50).expand(b, t)
+    if seg_len:
+        seg = (torch.arange(t, device=cuda_device) // seg_len).expand(b, t)
     static = shift <= 0
     out, lse = tfc._flash_forward(q, k, v, shift, static, seg)
+    other = _inputs(cuda_device, t + d + 3, b, t, h, kvh, d)[0] if hop else out
+    delta = (g.float() * other.float()).sum(-1).transpose(1, 2).contiguous()
     before = kernels.counts()
     grads = tfc._flash_backward(q, k, v, g, out, lse, shift, static,
+                                delta=delta if hop else None,
                                 grad_dtype=torch.float32 if f32 else None,
                                 segment_ids=seg)
     after = kernels.counts()
     seg32 = None if seg is None else seg.to(torch.int32).contiguous()
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     ref = tfc._flash_backward_plain(q, k, v, g, lse, delta, shift, seg32,
                                     seg32, torch.float32 if f32 else None)
     for kern in (kernels.FLASH_BWD_KV, kernels.FLASH_BWD_DQ):
@@ -179,6 +196,24 @@ def test_backward_kernels_match_plain(cuda_device, b, t, h, kvh, d, tk,
             continue
         err = (a.float() - r.float()).abs().max().item() / scale
         assert err <= chip_smoke.GRAD_REL, (name, err)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_deterministic(cuda_device):
+    """Two launches of each backward kernel on the same inputs give
+    bit-identical dq, dk and dv (no atomics, no split of a sum across
+    blocks): remat replays the backward and must reproduce it exactly."""
+    q, k, v = _inputs(cuda_device, 8, 2, 384, 8, 2, 128)
+    g = _inputs(cuda_device, 9, 2, 384, 8, 2, 128)[0]
+    seg = (torch.arange(384, device=cuda_device) // 150).expand(2, 384)
+    for segment_ids in (None, seg):
+        out, lse = tfc._flash_forward(q, k, v, 0, True, segment_ids)
+        first = tfc._flash_backward(q, k, v, g, out, lse,
+                                    segment_ids=segment_ids)
+        second = tfc._flash_backward(q, k, v, g, out, lse,
+                                     segment_ids=segment_ids)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
