@@ -25,11 +25,24 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            zeroed just before the 5 steps and read just after, and the loss
            must descend; each step is timed by the host clock and between
            CUDA events (median and spread).  Then fused-vs-plain-attention
-           gradients (dense and packed) and remat-vs-no-remat loss and
-           gradients
+           gradients (dense and packed), remat-vs-no-remat loss and
+           gradients, and the fused-vs-plain loss along the training
+           trajectory (seed weights and after each of the 6 steps) on a
+           fresh build, then the allocator trace's entries a step
   profile  ``python -m sofa_tpu_torch stat`` over the flagship forward with
-           a short serving run, and over the training workload's ``main``;
-           checks the device traces, steps and features
+           a short serving run (with and without allocation-stack
+           recording, in turns, twice each), over the training workload's
+           ``main`` at its defaults, and over it at Llama-3-8B width cut to
+           4 layers with the Python stack sampler on (and with
+           --disable_memprof, in turns, twice each); checks the device
+           traces and steps (the backward kernels, launched from autograd's
+           device thread, inside the steps, the same in both modes), the
+           memory sampler's readings and peak against the train phase's,
+           the allocation-site snapshot, the host frames; then a run long
+           enough to wrap the allocation trace's ring, and what its
+           replayed snapshot and the gate's hold; logs each collector's
+           probe; checks that a profiled torch program that never uses the
+           card stays CUDA-uninitialized
 
 The last lines are the kernels JSON, the nvidia-smi line, and the result
 JSON.  It exits non-zero without a result when no CUDA device is visible.
@@ -70,8 +83,11 @@ LOGITS_REL = 3e-2
 GRAD_REL = 6e-3
 # Per-leaf gradients of the 4-layer Llama-width loss at B1 T2048, fused vs
 # plain attention: relative Frobenius error (worst reading on an H100
-# 5.37e-3, the embedding, dense), and the loss's relative difference
-# (worst reading 2.9e-5).
+# 5.37e-3, the embedding, dense), and the loss's relative difference.  The
+# loss check runs after the 6 training steps (reading 2.14e-5 dense); the
+# sweep along the trajectory (seed weights and after each step, dense and
+# packed) read 1.8e-6 to 5.62e-5 (dense, after step 5) on an H100, so the
+# limit holds every reading but sits within 7 % of the largest.
 TRAIN_GRAD_REL = 1e-2
 TRAIN_LOSS_REL = 6e-5
 # Remat vs no remat replays the same deterministic kernels and cuBLAS calls
@@ -574,6 +590,9 @@ class Smoke:
         params, opt, loss = step(params, opt, tokens)      # warm-up
         losses.append(loss)
         fence(loss)
+        # the warm-up step allocates the AdamW moments only in its update,
+        # after its backward: its peak holds no moments
+        warm_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
 
         # each step is also timed on the device, between CUDA events
@@ -601,6 +620,7 @@ class Smoke:
             f"{by_ms[-1] - by_ms[0]:.3f} ms); steps " + " ".join(
                 f"{x:.3f}" for x in dev_ms) + f" | {self.smi}")
         peak = torch.cuda.max_memory_allocated()
+        self.train_peak, self.train_params = peak, n_params
         losses = [x.item() for x in losses]
         for name in ("sofa_flash_bwd_kv", "sofa_flash_bwd_dq"):
             self.kernel_rows[name]["launches"] = counts[name]
@@ -608,7 +628,8 @@ class Smoke:
             f"{json.dumps(counts)}")
         log(f"train: step by host clock {1e3 * dt / steps:.1f} ms, "
             f"{batch * seq * steps / dt:,.0f} tokens/s, peak "
-            f"{peak / 2**30:.2f} GiB allocated, losses (warm-up first) "
+            f"{peak / 2**30:.2f} GiB allocated ({peak} bytes; the warm-up "
+            f"step's {warm_peak / 2**30:.2f} GiB), losses (warm-up first) "
             + " ".join(f"{x:.4f}" for x in losses) + f" | {self.smi}")
         want = cfg.n_layers * steps
         if any(n != want for n in counts.values()):
@@ -630,6 +651,7 @@ class Smoke:
         one = tokens[:1]
         seg = (torch.rand(1, seq, generator=self.gen(21), device=self.dev)
                < 1 / 300).to(torch.int64).cumsum(dim=1)
+        checked = {}
         for label, s in (("dense", None), ("packed", seg)):
             lf, gf = value_and_grad(cfg, one, s)
             lp, gp = value_and_grad(dataclasses.replace(cfg, flash=False),
@@ -637,6 +659,7 @@ class Smoke:
             rels = rel_errs(gf, gp)
             worst = max(range(len(rels)), key=rels.__getitem__)
             loss_rel = abs(lf - lp) / abs(lp)
+            checked[label] = loss_rel
             log(f"train: fused vs plain grads B1 T{seq} {label}: loss "
                 f"{lf:.5f} vs {lp:.5f} (rel {loss_rel:.3e}, limit "
                 f"{TRAIN_LOSS_REL}); grad rel err max {rels[worst]:.3e} at "
@@ -674,12 +697,68 @@ class Smoke:
             raise AssertionError("remat changed the loss or the gradients")
         del params, opt, step, leaves, base, r_grads
         torch.cuda.empty_cache()
+        self.loss_sweep(cfg, batch, seq, 1 + steps, seg, checked)
 
-    def stat(self, label: str, cmd: str, steps: int, names):
-        """``python -m sofa_tpu_torch stat`` over ``cmd``: checks that it
-        completes, that gputrace has rows of each kernel in ``names`` and
-        gpusteps ``steps`` rows; logs where the ranged device time goes.
-        Returns the features."""
+    def loss_sweep(self, cfg, batch, seq, n_steps, seg, checked):
+        """The fused-vs-plain loss reading (relative difference, B1, dense
+        and packed) at the seed weights and after each of ``n_steps``
+        steps of the same training run, rebuilt from the same seed: the
+        basis of TRAIN_LOSS_REL, which the check above applies after the
+        last step.  Logged, not limited."""
+        torch = self.torch
+        from sofa_tpu_torch.workloads.transformer import build, loss_fn
+
+        params, opt, step, tokens = build(cfg, batch, seq, seed=0,
+                                          device=self.dev)
+        plain = dataclasses.replace(cfg, flash=False)
+        readings = {"dense": [], "packed": []}
+        for k in range(n_steps + 1):
+            if k:
+                params, opt, _ = step(params, opt, tokens)
+            with torch.no_grad():
+                for label, s in (("dense", None), ("packed", seg)):
+                    lf = loss_fn(params, tokens[:1], cfg, s).item()
+                    lp = loss_fn(params, tokens[:1], plain, s).item()
+                    readings[label].append(abs(lf - lp) / abs(lp))
+        for label, rels in readings.items():
+            log(f"train: loss sweep {label}: fused vs plain relative loss "
+                f"difference at the seed weights and after each of "
+                f"{n_steps} steps: " + " ".join(f"{r:.3e}" for r in rels)
+                + f"; largest {max(rels):.3e} (limit {TRAIN_LOSS_REL}); "
+                f"after step {n_steps} it equals the check's reading: "
+                f"{rels[-1] == checked[label]}")
+        self.trace_rate(step, params, opt, tokens)
+        del params, opt, step
+        torch.cuda.empty_cache()
+
+    def trace_rate(self, step, params, opt, tokens):
+        """Entries a training step adds to the allocator's alloc/free trace,
+        recorded as the profiler's memprof records it: how many steps the
+        ring of MAX_ENTRIES holds before it wraps."""
+        torch = self.torch
+        from sofa_tpu_torch.collectors.gpumon import MAX_ENTRIES
+
+        torch.cuda.memory._record_memory_history(
+            enabled="all", context="alloc", stacks="python",
+            max_entries=MAX_ENTRIES)
+        counts = []
+        try:
+            for _ in range(2):
+                params, opt, loss = step(params, opt, tokens)
+                torch.cuda.synchronize()
+                trace = torch.cuda.memory._snapshot()["device_traces"][0]
+                # each _snapshot() call adds one "snapshot" entry
+                counts.append(sum(e["action"] != "snapshot" for e in trace))
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        self.trace_per_step = max(counts[0], counts[1] - counts[0])
+        log(f"train: allocator trace {counts[0]} and {counts[1] - counts[0]}"
+            f" entries in two steps: the {MAX_ENTRIES}-entry ring wraps "
+            f"after {MAX_ENTRIES / self.trace_per_step:.1f} steps")
+
+    def run_stat(self, label: str, cmd: str, flags=()):
+        """``python -m sofa_tpu_torch stat [flags]`` over ``cmd``; checks that
+        it completes.  Returns (features, logdir, output)."""
         import pandas as pd
 
         logdir = os.path.join(REPO, "build", f"chip_smoke_profile_{label}")
@@ -687,7 +766,7 @@ class Smoke:
         t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "sofa_tpu_torch", "stat", "--logdir",
-             logdir, cmd], cwd=REPO, stdout=subprocess.PIPE,
+             logdir, *flags, cmd], cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         try:
             out, _ = proc.communicate(timeout=600)
@@ -706,13 +785,21 @@ class Smoke:
             f"{time.perf_counter() - t0:.1f} s")
         if proc.returncode != 0 or "Complete!!" not in out:
             raise AssertionError(f"sofa_tpu_torch stat failed ({label})")
+        feats = pd.read_csv(os.path.join(logdir, "features.csv"))
+        return dict(zip(feats["name"], feats["value"])), logdir, out
+
+    def stat(self, label: str, cmd: str, steps: int, names, flags=()):
+        """``run_stat``, then checks that gputrace has rows of each kernel
+        in ``names`` and gpusteps ``steps`` rows; logs where the ranged
+        device time goes.  Returns (features, logdir, output, kernels)."""
+        import pandas as pd
+
+        feats, logdir, out = self.run_stat(label, cmd, flags)
         gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
         kern = gpu[gpu["copyKind"] == 0]
         kname = kern["name"].astype(str)
         found = {n: int(kname.str.contains(n).sum()) for n in names}
         steps_df = pd.read_csv(os.path.join(logdir, "gpusteps.csv"))
-        feats = pd.read_csv(os.path.join(logdir, "features.csv"))
-        feats = dict(zip(feats["name"], feats["value"]))
         log(f"profile[{label}]: gputrace {len(gpu)} rows, {len(kern)} "
             f"kernels, {json.dumps(found)}; gpusteps {len(steps_df)} rows; "
             + ", ".join(f"{k} {feats.get(k)}" for k in (
@@ -741,24 +828,234 @@ class Smoke:
                                  f"expected {steps} ({label})")
         if not feats.get("gpu_busy_pct", 0) > 0:
             raise AssertionError(f"gpu_busy_pct is not positive ({label})")
-        return feats
+        return feats, logdir, out, kern
 
     def profile(self):
         from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.config import SofaConfig
+        from sofa_tpu_torch.record import build_collectors
+
+        # which collectors this machine can run (perf, strace, vmstat,
+        # tcpdump, blktrace may be missing; only /proc must be there)
+        cfg = SofaConfig(enable_py_stacks=True, enable_strace=True,
+                         enable_tcpdump=True, blkdev="/dev/null")
+        probes = {c.name: c.probe() or "ok" for c in build_collectors(cfg)}
+        log(f"profile: collector probes {json.dumps(probes)}")
+        if probes["procmon"] != "ok":
+            raise AssertionError("no /proc: procmon cannot sample")
 
         steps = 3
-        feats = self.stat(
-            "serve", f"{sys.executable} -m sofa_tpu_torch.entry --steps "
-            f"{steps} --serve_requests 4 --serve_layers 2 --prompt 128 "
-            "--new_tokens 8", steps, ["sofa_flash_fwd"])
-        for key in ("serving_prefill_time", "serving_decode_time"):
-            if key not in feats:
-                raise AssertionError(f"features.csv lacks {key}")
+        names = [k.name for k in kernels.KERNELS]
+        serve = (f"{sys.executable} -m sofa_tpu_torch.entry --steps {steps} "
+                 "--serve_requests 4 --serve_layers 2 --prompt 128 "
+                 "--new_tokens 8")
+        lines = []
+        for state in ("on", "off", "off", "on"):       # in turns
+            flags = ("--disable_memprof",) if state == "off" else ()
+            feats, _, out, _ = self.stat(f"serve_{state}", serve, steps,
+                                         ["sofa_flash_fwd"], flags)
+            for key in ("serving_prefill_time", "serving_decode_time"):
+                if key not in feats:
+                    raise AssertionError(f"features.csv lacks {key}")
+            lines.append((state, [ln for ln in out.splitlines()
+                                  if ln.startswith(("entry:", "serve:"))]))
+        for state, got in lines:
+            log(f"profile: allocation stacks {state} (small kernels): "
+                + " | ".join(got) + f" | {self.smi}")
         # the training workload at the JAX package's main defaults (batch 8,
         # seq 512, d 512, 4 layers, 8/4 heads: D 64)
         self.stat("train", f"{sys.executable} -m "
                   f"sofa_tpu_torch.workloads.transformer --steps {steps}",
-                  steps, [k.name for k in kernels.KERNELS])
+                  steps, names)
+        self.profile_llama(steps, names)
+        self.profile_wrapped_ring()
+        self.profile_untouched_card()
+
+    def profile_llama(self, steps, names):
+        """The training ``main`` at Llama-3-8B width cut to 4 layers (the
+        train phase's shape) under the whole swarm: the memory sampler, the
+        allocation-site snapshot and the host collectors."""
+        import pandas as pd
+
+        cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
+               f"--steps {steps} --batch 4 --seq 2048 --vocab 128256 "
+               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
+               "--d_ff 14336")
+        feats, logdir, out, kern = self.stat("llama", cmd, steps, names,
+                                             ("--enable_py_stacks",))
+        rate = [("on", [ln for ln in out.splitlines()
+                        if ln.startswith("transformer:")])]
+        in_steps = {"on": self.kernels_in_steps(kern, steps)}
+        total = self.torch.cuda.get_device_properties(0).total_memory
+        # the sampler: heartbeats and device-0 rows at the card's size
+        with open(os.path.join(logdir, "gpumon.txt")) as f:
+            rows = [[int(x) for x in ln.split()] for ln in f if ln.strip()]
+        beats = sum(r[1] == -1 for r in rows)
+        dev0 = [r for r in rows if r[1] == 0]
+        log(f"profile[llama]: gpumon.txt {beats} heartbeats, {len(dev0)} "
+            f"device-0 rows, bytes_limit {sorted({r[3] for r in dev0})} "
+            f"(total_memory {total}), in use up to "
+            f"{max((r[2] for r in dev0), default=0)} bytes")
+        if not beats or not dev0 or any(r[3] != total for r in dev0):
+            raise AssertionError("gpumon.txt lacks heartbeats or device-0 "
+                                 "rows at total_memory")
+        # the peak against the train phase's in-process reading
+        state_gb = 8 * self.train_params / 1e9
+        peak_gb = feats.get("gpu0_hbm_peak_gb", 0.0)
+        ratio = peak_gb * 1e9 / self.train_peak
+        log(f"profile[llama]: gpu0_hbm_peak_gb {peak_gb:.4f} "
+            f"({peak_gb * 1e9 / 2**30:.2f} GiB) against the train phase's "
+            f"max_memory_allocated {self.train_peak / 1e9:.4f} GB: ratio "
+            f"{ratio:.4f} (limit 1 +- 0.05); params, grads and AdamW "
+            f"moments {state_gb:.2f} GB; total {total / 1e9:.2f} GB | "
+            f"{self.smi}")
+        if not state_gb <= peak_gb < total / 1e9:
+            raise AssertionError("gpu0_hbm_peak_gb is outside [8 bytes a "
+                                 "param, total_memory)")
+        if abs(ratio - 1) > 0.05:
+            raise AssertionError("the sampled peak and the train phase's "
+                                 "peak differ by more than 5 %")
+        # the allocation-site snapshot
+        with open(os.path.join(logdir, "memprof.pb.gz.meta.json")) as f:
+            meta = json.load(f)
+        sites = pd.read_csv(os.path.join(logdir, "gpu_memprof.csv"))
+        held = feats.get("memprof_held_gb", 0.0)
+        top = str(sites["site"].iloc[0])
+        when = ("replayed from the trace at exit" if meta.get("replayed")
+                else "at a sampler tick")
+        log(f"profile[llama]: memprof {meta['trigger']} snapshot ({when})"
+            f" at {meta['total_bytes']} bytes in use took "
+            f"{meta['snapshot_s']:.4f} s; memprof_held_gb {held:.4f} (limits "
+            f"{state_gb:.2f} and 1.02 x {peak_gb:.4f}), "
+            f"{feats.get('memprof_sites')} sites; trace entries "
+            f"{meta.get('trace_entries')}, allocator peak "
+            f"{meta.get('allocator_peak_bytes')} bytes, last gate snapshot "
+            f"{meta.get('gate_bytes')} bytes")
+        for _, row in sites.head(8).iterrows():
+            log(f"profile[llama]: site {row['bytes'] / 1e9:8.4f} GB "
+                f"x{int(row['count']):5d} {row['share']:6.1%}  {row['site']}")
+        if not state_gb <= held <= 1.02 * peak_gb:
+            raise AssertionError("memprof_held_gb is outside its limits")
+        if "sofa_tpu_torch/" not in top or "(stackless buffer)" in top:
+            raise AssertionError(f"the top allocation site is not a line "
+                                 f"of sofa_tpu_torch/: {top}")
+        # the host frames
+        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
+        py = pd.read_csv(os.path.join(logdir, "pystacks.csv"),
+                         keep_default_na=False)
+        mine = py["module"].str.contains(
+            "sofa_tpu_torch.workloads.transformer.", regex=False)
+        log(f"profile[llama]: mpstat {len(mp)} rows "
+            f"({int((mp['deviceId'] == -1).sum())} aggregate), cpu_util "
+            f"{feats.get('cpu_util')}, num_cores {feats.get('num_cores')}; "
+            f"pystacks {len(py)} samples, {int(mine.sum())} in the "
+            f"transformer workload")
+        if not (mp["deviceId"] == -1).any() or "cpu_util" not in feats \
+                or "num_cores" not in feats:
+            raise AssertionError("the host frames lack mpstat's aggregate "
+                                 "rows or cpu_util / num_cores")
+        if not mine.any():
+            raise AssertionError("pystacks has no frame of the workload")
+        # the cost of allocation-stack recording: the same run without it,
+        # in turns (on, off, off, on), and the step ranges in both modes
+        for i, state in enumerate(("off", "off", "on")):
+            flags = ("--enable_py_stacks",) + (
+                ("--disable_memprof",) if state == "off" else ())
+            _, _, out, kern = self.stat(f"llama_{state}{i}", cmd, steps,
+                                        names, flags)
+            rate.append((state, [ln for ln in out.splitlines()
+                                 if ln.startswith("transformer:")]))
+            in_steps.setdefault(state, self.kernels_in_steps(kern, steps))
+        for state, got in rate:
+            log(f"profile[llama]: allocation stacks {state}: "
+                + " | ".join(got) + f" | {self.smi}")
+        if in_steps["on"] != in_steps["off"]:
+            raise AssertionError(f"the steps hold other kernels with memprof"
+                                 f" on and off: {in_steps}")
+
+    def kernels_in_steps(self, kern, steps):
+        """Kernels the sofa_step_N ranges hold, and the backward kernels
+        among them, which autograd launches from its own device thread:
+        every one of them must be counted in its step."""
+        module = kern["module"].fillna("").astype(str)
+        ranged = kern[module.str.match(r"sofa_step_\d+$")]
+        name = ranged["name"].astype(str)
+        bwd = int(name.str.contains("sofa_flash_bwd_").sum())
+        log(f"profile: the {steps} steps hold {len(ranged)} kernels, "
+            f"{ranged['duration'].sum() * 1e3:.3f} ms of device time; "
+            f"backward kernels {bwd}")
+        want = 2 * 4 * steps            # two backward kernels, 4 layers
+        if bwd != want:
+            raise AssertionError(f"the steps hold {bwd} backward kernels, "
+                                 f"expected {want}")
+        return len(ranged), bwd
+
+    def profile_wrapped_ring(self):
+        """The Llama-width training run, long enough that the allocator
+        trace's ring wraps (1.25 x its length), without the Kineto trace:
+        the at-exit replay then walks the ring's last entries only.  Logs
+        what the replay and the last gate snapshot hold."""
+        import pandas as pd
+        from sofa_tpu_torch.collectors.gpumon import MAX_ENTRIES
+
+        steps = math.ceil(1.25 * MAX_ENTRIES / self.trace_per_step)
+        cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
+               f"--steps {steps} --batch 4 --seq 2048 --vocab 128256 "
+               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
+               "--d_ff 14336")
+        feats, logdir, out = self.run_stat("ring", cmd, ("--disable_kineto",))
+        with open(os.path.join(logdir, "memprof.pb.gz.meta.json")) as f:
+            meta = json.load(f)
+        sites = pd.read_csv(os.path.join(logdir, "gpu_memprof.csv"))
+        peak_gb = feats.get("gpu0_hbm_peak_gb", 0.0)
+        held = feats.get("memprof_held_gb", 0.0)
+        top = str(sites["site"].iloc[0])
+        log(f"profile[ring]: {steps} steps (+2 warm-up), "
+            + " | ".join(ln for ln in out.splitlines()
+                         if ln.startswith("transformer:"))
+            + f"; memprof {meta['trigger']} snapshot, replayed "
+            f"{meta.get('replayed', False)}, trace entries "
+            f"{meta.get('trace_entries')} (wrapped {meta.get('wrapped')}), "
+            f"held {meta['total_bytes']} bytes against the allocator's peak "
+            f"{meta.get('allocator_peak_bytes')} and the last gate snapshot's"
+            f" {meta.get('gate_bytes')}; took {meta['snapshot_s']:.3f} s; "
+            f"memprof_held_gb {held:.4f}, gpu0_hbm_peak_gb {peak_gb:.4f}; "
+            f"top site {top} | {self.smi}")
+        for _, row in sites.head(4).iterrows():
+            log(f"profile[ring]: site {row['bytes'] / 1e9:8.4f} GB "
+                f"x{int(row['count']):5d} {row['share']:6.1%}  {row['site']}")
+        state_gb = 8 * self.train_params / 1e9
+        if not meta.get("wrapped"):
+            raise AssertionError("the allocation trace's ring did not wrap")
+        if not state_gb <= held <= 1.02 * peak_gb:
+            raise AssertionError("memprof_held_gb is outside its limits "
+                                 "after the ring wrapped")
+        if "sofa_tpu_torch/" not in top:
+            raise AssertionError(f"the top allocation site is not a line "
+                                 f"of sofa_tpu_torch/: {top}")
+
+    def profile_untouched_card(self):
+        """A profiled torch program that never uses the card stays
+        CUDA-uninitialized: the injection initializes nothing."""
+        logdir = os.path.join(REPO, "build", "chip_smoke_profile_nocuda")
+        shutil.rmtree(logdir, ignore_errors=True)
+        cmd = (f"{sys.executable} -c \"import torch; "
+               "print('cuda initialized:', torch.cuda.is_initialized())\"")
+        r = subprocess.run([sys.executable, "-m", "sofa_tpu_torch", "record",
+                            "--logdir", logdir, "--enable_py_stacks", cmd],
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=300)
+        with open(os.path.join(logdir, "gpu_topo.json")) as f:
+            topo = json.load(f)
+        wrote = os.path.exists(os.path.join(logdir, "gpumon.txt"))
+        log(f"profile[nocuda]: rc {r.returncode}, "
+            f"{[ln for ln in r.stdout.splitlines() if 'cuda' in ln]}, "
+            f"gpumon.txt written: {wrote}, initialized devices at exit: "
+            f"{topo['devices']}")
+        if r.returncode != 0 or "cuda initialized: False" not in r.stdout \
+                or wrote or topo["devices"]:
+            raise AssertionError("the injection initialized CUDA in a "
+                                 "program that never used the card")
 
 
 PHASES = ("device", "kernel", "model", "train", "profile")

@@ -1,5 +1,7 @@
 """The performance feature vector: a (name, value) table accumulated across
-passes, printed as "Final Performance Features" and saved as features.csv."""
+passes, printed as "Final Performance Features" and saved as features.csv.
+Values are floats; string metadata goes in ``info`` rows, printed with the
+table but not saved."""
 
 from __future__ import annotations
 
@@ -11,9 +13,13 @@ import pandas as pd
 class Features:
     def __init__(self) -> None:
         self._rows: List[Tuple[str, float]] = []
+        self._info: List[Tuple[str, str]] = []
 
     def add(self, name: str, value: float) -> None:
         self._rows.append((name, float(value)))
+
+    def add_info(self, name: str, value: str) -> None:
+        self._info.append((name, str(value)))
 
     def get(self, name: str) -> Optional[float]:
         for n, v in reversed(self._rows):
@@ -35,5 +41,7 @@ class Features:
                 lines.append(f"{name:<36} {int(value):>12}")
             else:
                 lines.append(f"{name:<36} {value:>12.6g}")
+        for name, value in self._info:
+            lines.append(f"{name:<36} {value:>12}")
         lines.append("=" * 50)
         return "\n".join(lines)

@@ -1,10 +1,15 @@
-"""GPU-side analysis passes over the Kineto-derived frames.
+"""GPU-side analysis passes.
 
-``gpu_profile`` is the counterpart of ``analysis/tpu.py:tpu_profile``
-(kernel and copy time per device, busy share, top kernels);
-``serving_profile`` of its ``serving_profile`` (the prefill/decode split,
-read from the ``module`` column: the ``run_prefill`` / ``run_decode``
-profiler ranges the serving loop wraps its phases in).
+Over the Kineto-derived frames: ``gpu_profile`` is the counterpart of
+``analysis/tpu.py:tpu_profile`` (kernel and copy time per device, busy
+share, top kernels); ``serving_profile`` of its ``serving_profile`` (the
+prefill/decode split, read from the ``module`` column: the ``run_prefill``
+/ ``run_decode`` profiler ranges the serving loop wraps its phases in).
+
+Over the memory sampler: ``gpumon_profile`` (occupancy and peak per
+device, from the gpumon frame) and ``memprof_profile`` (which allocation
+sites held the peak, from the memprof snapshot), the counterparts of
+``tpumon_profile`` and ``memprof_profile``.
 """
 
 from __future__ import annotations
@@ -122,5 +127,68 @@ def serving_profile(frames, cfg, features: Features) -> None:
         features.add("serving_ttft", end - start)
 
 
-#: The passes analyze runs, in order.
-PASSES = [gpu_profile, serving_profile]
+def gpumon_profile(frames, cfg, features: Features) -> None:
+    """Live memory occupancy and liveness features from the in-process
+    sampler: present even when the Kineto trace was off."""
+    df = frames.get("gpumon")
+    if df is None or df.empty:
+        print_warning("gpumon_profile: gpumon is empty: no memory samples "
+                      "(the program never initialized CUDA, or "
+                      "--disable_gpu_mon)")
+        return
+    alive = df[df["name"] == "alive"]
+    if not alive.empty:
+        features.add("gpumon_samples", len(alive))
+        span = float(alive["timestamp"].max() - alive["timestamp"].min())
+        features.add("gpumon_span", span)
+    used = df[df["name"] == "hbm_used_gb"]
+    for device_id, rows in used.groupby("deviceId"):
+        features.add(f"gpu{device_id}_hbm_used_mean_gb",
+                     float(rows["event"].mean()))
+        features.add(f"gpu{device_id}_hbm_used_max_gb",
+                     float(rows["event"].max()))
+    # the allocator's peak bytes ride the occupancy rows' payload
+    occ = df[df["name"] == "hbm_occupancy"]
+    for device_id, rows in occ.groupby("deviceId"):
+        features.add(f"gpu{device_id}_hbm_occupancy_mean",
+                     float(rows["event"].mean()))
+        features.add(f"gpu{device_id}_hbm_occupancy_max",
+                     float(rows["event"].max()))
+        peak = float(rows["payload"].max())
+        if peak > 0:
+            features.add(f"gpu{device_id}_hbm_peak_gb", peak / 1e9)
+
+
+def memprof_profile(frames, cfg, features: Features) -> None:
+    """Which allocation sites held the occupancy peak: the snapshot
+    collectors/gpumon.py took (ingest/memprof.py), as the top-site table
+    gpu_memprof.csv and the totals as features."""
+    from sofa_tpu_torch.ingest.memprof import aggregate_sites, load_memprof
+
+    df, meta = load_memprof(cfg.logdir)
+    if df is None or df.empty:
+        return
+    buffers = df[df["kind"] == "buffer"]
+    features.add("memprof_held_gb", float(buffers["bytes"].sum()) / 1e9)
+    features.add("memprof_buffers", float(buffers["count"].sum()))
+    features.add("memprof_sites", float(buffers["site"].nunique()))
+    n_dev = buffers.loc[buffers["device"] != "", "device"].nunique()
+    if n_dev:
+        features.add("memprof_devices", float(n_dev))
+    sites = aggregate_sites(df)
+    sites.to_csv(cfg.path("gpu_memprof.csv"), index=False)
+    if meta.get("trigger"):
+        features.add_info("memprof_trigger", meta["trigger"])
+    if not sites.empty:
+        top = sites.iloc[0]
+        features.add_info(
+            "memprof_top_site",
+            f"{top['site']} ({top['bytes'] / 1e9:.2f} GB, "
+            f"{top['share']:.0%})")
+    if cfg.verbose:
+        print_title("Top GPU memory allocation sites")
+        print(sites.head(10).to_string(index=False))
+
+
+#: The GPU passes analyze runs, in order.
+PASSES = [gpu_profile, serving_profile, gpumon_profile, memprof_profile]

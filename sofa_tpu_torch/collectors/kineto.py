@@ -14,13 +14,21 @@ and swaps the tracer:
      so CUPTI is live before the program's first CUDA launch;
   3. it stamps a ``record_function("sofa_timebase_marker:<unix_ns>")`` range
      that pins the trace clock to unix time at ingest;
-  4. at exit it synchronizes the card, stops the profiler and exports the
-     Chrome trace to ``logdir/kineto/trace_<pid>.json``, under a watchdog
-     that force-exits with code 120 if the epilogue wedges; then writes
-     ``gpu_topo.json`` (device properties and the ``nvidia-smi`` name and
-     power limit, when that binary exists).
+  4. at exit it synchronizes the card (only if the program initialized
+     CUDA), stops the profiler and exports the Chrome trace to
+     ``logdir/kineto/trace_<pid>.json``, under a watchdog that force-exits
+     with code 120 if the epilogue wedges; then writes ``gpu_topo.json``
+     (device properties and the ``nvidia-smi`` name and power limit, when
+     that binary exists).
 
-Programs that never import torch leave the injection inert.
+The same injection carries the in-process samplers, as the xprof one does:
+the Python stack sampler (collectors/pystacks.py) starts at interpreter
+start-up; on ``import torch`` the GPU memory sampler (collectors/gpumon.py)
+starts and allocation-stack recording is armed for its snapshots.  Their
+at-exit stop is registered after the profiler's, so it runs first (atexit
+is last-in, first-out) and neither waits on the other.
+
+Programs that never import torch leave the torch half inert.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import json
 import os
 from typing import Dict, List, Optional
 
+from sofa_tpu_torch.collectors import gpumon, pystacks
 from sofa_tpu_torch.collectors.base import Collector
 
 # Dependency-free: it runs inside whatever Python the user's command uses.
@@ -140,6 +149,10 @@ def _stop(torch):
     try:
         if _STATE.get("cuda") and torch.cuda.is_initialized():
             torch.cuda.synchronize()
+        elif getattr(prof, "profiler", None) is not None:
+            # The program never used the card: stop without the profiler's
+            # own device synchronize, which would initialize CUDA at exit.
+            prof.profiler.use_device = None
         prof.stop()
         out = os.path.join(_OPTS["logdir"], "kineto",
                            "trace_%d.json" % os.getpid())
@@ -171,10 +184,24 @@ def _start(torch):
     atexit.register(_stop, torch)
 
 
+def _start_gpumon(torch):
+    try:
+        from sofa_torch_gpumon import arm_history, start_sampler  # beside us
+
+        if os.environ.get("SOFA_TORCH_MEMPROF_OUT"):
+            arm_history(torch)
+        start_sampler(float(os.environ["SOFA_TORCH_GPUMON_HZ"]),
+                      os.environ["SOFA_TORCH_GPUMON_OUT"],
+                      memprof_path=os.environ.get("SOFA_TORCH_MEMPROF_OUT"))
+    except Exception as e:  # noqa: BLE001
+        _warn("gpu memory sampler start failed: %r" % (e,))
+
+
 class _StartAfterExec:
     # Delegating loader: runs torch's own loader, then starts the profiler
     # on the thread that imported torch (the profiler's CPU-side ranges are
-    # per thread, so it must be the program's, not a watcher's).
+    # per thread, so it must be the program's, not a watcher's), then the
+    # memory sampler.
     def __init__(self, inner):
         self._inner = inner
 
@@ -183,7 +210,10 @@ class _StartAfterExec:
 
     def exec_module(self, module):
         self._inner.exec_module(module)
-        _start(module)
+        if _OPTS.get("enable"):
+            _start(module)
+        if os.environ.get("SOFA_TORCH_GPUMON_HZ"):
+            _start_gpumon(module)
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
@@ -205,8 +235,15 @@ class _ArmOnTorchImport:
         return spec
 
 
-if _OPTS.get("enable") and "torch" not in sys.modules:
+if ((_OPTS.get("enable") or os.environ.get("SOFA_TORCH_GPUMON_HZ"))
+        and "torch" not in sys.modules):
     sys.meta_path.insert(0, _ArmOnTorchImport())
+
+if os.environ.get("SOFA_TORCH_PYSTACKS_HZ"):
+    from sofa_torch_pystacks import start_sampler as _pystacks_start
+
+    _pystacks_start(float(os.environ["SOFA_TORCH_PYSTACKS_HZ"]),
+                    os.environ["SOFA_TORCH_PYSTACKS_OUT"])
 '''
 
 
@@ -214,25 +251,50 @@ class KinetoCollector(Collector):
     name = "kineto"
 
     def probe(self) -> Optional[str]:
-        if not self.cfg.enable_kineto:
-            return "disabled (--disable_kineto)"
+        # The injection carries the trace AND the gpumon/pystacks samplers;
+        # it is only pointless when all three are off.
+        cfg = self.cfg
+        if not (cfg.enable_kineto or cfg.enable_gpu_mon
+                or cfg.enable_py_stacks):
+            return "disabled (--disable_kineto and --disable_gpu_mon)"
         return None
 
     def start(self) -> None:
-        os.makedirs(self.cfg.inject_dir, exist_ok=True)
-        os.makedirs(self.cfg.kineto_dir, exist_ok=True)
-        with open(os.path.join(self.cfg.inject_dir, "sitecustomize.py"),
-                  "w") as f:
+        cfg = self.cfg
+        os.makedirs(cfg.inject_dir, exist_ok=True)
+        if cfg.enable_kineto:
+            os.makedirs(cfg.kineto_dir, exist_ok=True)
+        with open(os.path.join(cfg.inject_dir, "sitecustomize.py"), "w") as f:
             f.write(_SITECUSTOMIZE)
+        gpumon.write_sampler_module(cfg.inject_dir)
+        pystacks.write_sampler_module(cfg.inject_dir)
 
     def child_env(self) -> Dict[str, str]:
-        opts = {"enable": True, "logdir": os.path.abspath(self.cfg.logdir)}
+        cfg = self.cfg
+        opts = {"enable": bool(cfg.enable_kineto),
+                "logdir": os.path.abspath(cfg.logdir)}
         existing = os.environ.get("PYTHONPATH", "")
-        return {
+        env = {
             "SOFA_TORCH_KINETO_OPTS": json.dumps(opts),
-            "PYTHONPATH": os.path.abspath(self.cfg.inject_dir)
+            "PYTHONPATH": os.path.abspath(cfg.inject_dir)
             + (os.pathsep + existing if existing else ""),
         }
+        if cfg.enable_py_stacks:
+            env["SOFA_TORCH_PYSTACKS_HZ"] = str(cfg.py_stack_rate)
+            env["SOFA_TORCH_PYSTACKS_OUT"] = os.path.abspath(
+                cfg.path("pystacks.txt"))
+        if cfg.enable_gpu_mon:
+            env["SOFA_TORCH_GPUMON_HZ"] = str(cfg.gpu_mon_rate)
+            env["SOFA_TORCH_GPUMON_OUT"] = os.path.abspath(
+                cfg.path("gpumon.txt"))
+            if cfg.enable_mem_prof:
+                env["SOFA_TORCH_MEMPROF_OUT"] = os.path.abspath(
+                    cfg.path("memprof.pb.gz"))
+        return env
 
     def outputs(self) -> List[str]:
-        return [self.cfg.kineto_dir, self.cfg.path("gpu_topo.json")]
+        cfg = self.cfg
+        return [cfg.kineto_dir, cfg.path("gpu_topo.json"),
+                cfg.path("gpumon.txt"), cfg.path("pystacks.txt"),
+                cfg.path("memprof.pb.gz"),
+                cfg.path("memprof.pb.gz.meta.json")]

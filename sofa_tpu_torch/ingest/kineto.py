@@ -7,12 +7,19 @@ frames:
   gputrace   ``kernel`` / ``gpu_memcpy`` / ``gpu_memset`` events: deviceId
              from ``args.device``, copyKind KERNEL or the memcpy direction,
              payload the bytes copied, name the kernel symbol, and module
-             the innermost ``gpu_user_annotation`` (a ``record_function``
-             range as the device saw it) containing the event;
+             the innermost ``user_annotation`` (a ``record_function`` range)
+             that was open on the host when the event was launched;
   hosttrace  ``cpu_op`` / ``user_annotation`` / ``cuda_runtime`` events;
   gpusteps   one row per ``sofa_step_N`` / ``ProfilerStep#N`` range, its
-             device span when the range launched device work, else its
-             host span.
+             device span (first start to last end of the device work it
+             launched) when it launched any, else its host span.
+
+An event's launch is the ``cuda_runtime`` / ``cuda_driver`` call with the
+same ``args.correlation``, on whichever thread of the process made it: the
+autograd engine launches a backward's kernels from its own device thread
+while the calling thread waits inside the step's range, so those kernels
+count in that step.  (Kineto's own ``gpu_user_annotation`` spans follow
+only the thread that opened the range, and are not used.)
 
 Clock: an event's time is ``baseTimeNanoseconds`` + ``ts`` (microseconds).
 The collector's ``sofa_timebase_marker:<unix_ns>`` range pins that clock to
@@ -38,6 +45,7 @@ MARKER_RE = re.compile(r"sofa_timebase_marker:(\d+)")
 STEP_RE = re.compile(r"^(?:sofa_step_(\d+)|ProfilerStep#(\d+))$")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 _MEMCPY_KINDS = (("HtoD", CopyKind.H2D), ("DtoH", CopyKind.D2H),
                  ("DtoD", CopyKind.D2D), ("PtoP", CopyKind.P2P))
 
@@ -79,16 +87,14 @@ def clock_shift_s(doc: dict, time_base: float) -> float:
     return (base_ns + offset_ns - round(time_base * 1e9)) / 1e9
 
 
-def _innermost_modules(dev, start, end, annots) -> np.ndarray:
-    """Name of the innermost annotation (device, start, end, name) that
-    contains each device event, "" where none does."""
-    module = np.full(len(dev), "", dtype=object)
+def _innermost_ranges(t: np.ndarray, ranges) -> np.ndarray:
+    """Name of the narrowest host range (start, end, name) containing each
+    time in ``t``, "" where none does (and where ``t`` is NaN)."""
+    module = np.full(len(t), "", dtype=object)
     # widest first, so narrower (inner) ranges overwrite
-    for a_dev, a_start, a_end, a_name in sorted(
-            annots, key=lambda a: a[2] - a[1], reverse=True):
-        inside = (dev == a_dev) & (start >= a_start - 1e-3) \
-            & (end <= a_end + 1e-3)
-        module[inside] = a_name
+    for a_start, a_end, a_name in sorted(ranges, key=lambda a: a[1] - a[0],
+                                         reverse=True):
+        module[(t >= a_start) & (t <= a_end)] = a_name
     return module
 
 
@@ -99,15 +105,24 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
     host_pid = next((e.get("pid") for e in events
                      if e.get("cat") in HOST_CATS), -1)
 
-    dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS]
-    annots = [(_device_of(e), float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+    def correlation(e):
+        return (e.get("args") or {}).get("correlation")
+
+    launched_at = {correlation(e): float(e["ts"]) for e in events
+                   if e.get("cat") in LAUNCH_CATS
+                   and correlation(e) is not None}
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
                str(e["name"])) for e in events
-              if e.get("cat") == "gpu_user_annotation"
+              if e.get("cat") == "user_annotation"
               and not MARKER_RE.search(str(e.get("name", "")))]
+
+    dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS]
     dev = np.array([_device_of(e) for e in dev_ev], dtype=int)
     start = np.array([float(e["ts"]) for e in dev_ev])
     dur = np.array([float(e.get("dur", 0)) for e in dev_ev])
-    modules = _innermost_modules(dev, start, start + dur, annots)
+    launch = np.array([launched_at.get(correlation(e), np.nan)
+                       for e in dev_ev])
+    modules = _innermost_ranges(launch, ranges)
     gpu_rows = []
     for i, e in enumerate(dev_ev):
         args = e.get("args") or {}
@@ -130,24 +145,26 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
         "name": str(e["name"]), "device_kind": "cpu",
         "hlo_category": e["cat"]} for e in events if e.get("cat") in HOST_CATS]
 
-    steps: Dict[str, dict] = {}
-    for e in events:
-        m = STEP_RE.match(str(e.get("name", "")))
-        on_device = e.get("cat") == "gpu_user_annotation"
-        if not m or not (on_device or e.get("cat") == "user_annotation"):
+    step_rows = []
+    for a_start, a_end, name in ranges:
+        m = STEP_RE.match(name)
+        if not m:
             continue
-        if e["name"] in steps and not on_device:
-            continue                    # a device span wins over the host's
-        steps[e["name"]] = {
-            "timestamp": float(e["ts"]) * 1e-6 + shift,
-            "duration": float(e.get("dur", 0)) * 1e-6,
-            "event": float(m.group(1) or m.group(2)),
-            "deviceId": _device_of(e) if on_device else -1,
-            "pid": int(host_pid), "name": str(e["name"]),
-            "device_kind": "gpu" if on_device else "cpu"}
+        mine = np.flatnonzero((launch >= a_start) & (launch <= a_end))
+        row = {"event": float(m.group(1) or m.group(2)), "pid": int(host_pid),
+               "name": name, "timestamp": a_start * 1e-6 + shift,
+               "duration": (a_end - a_start) * 1e-6, "deviceId": -1,
+               "device_kind": "cpu"}
+        if len(mine):
+            first = mine[np.argmin(start[mine])]
+            end = float((start[mine] + dur[mine]).max())
+            row.update(timestamp=start[first] * 1e-6 + shift,
+                       duration=(end - start[first]) * 1e-6,
+                       deviceId=int(dev[first]), device_kind="gpu")
+        step_rows.append(row)
     return {"gputrace": make_frame(gpu_rows),
             "hosttrace": make_frame(host_rows),
-            "gpusteps": make_frame(list(steps.values()))}
+            "gpusteps": make_frame(step_rows)}
 
 
 def ingest_kineto_dir(kineto_dir: str, time_base: float

@@ -4,12 +4,13 @@ Every collector's output is coerced into one flat schema before analysis:
 the reference's 13 base columns plus the extension columns.  On the GPU path
 ``deviceId`` is the CUDA device ordinal (host rows: -1), ``copyKind`` the
 data-movement kind below, ``module`` the innermost profiler range
-(``record_function``) enclosing a device event, and ``timestamp`` seconds
+(``record_function``) open on the host when a device event was launched, and ``timestamp`` seconds
 since the run's time base (``sofa_time.txt``).
 """
 
 from __future__ import annotations
 
+import os
 from enum import IntEnum
 
 import numpy as np
@@ -136,3 +137,41 @@ def merged_intervals(starts, ends) -> np.ndarray:
     ms = s[idx]
     me = np.concatenate([emax[idx[1:] - 1], emax[-1:]])
     return np.stack([ms, me], axis=1)
+
+
+def packed_ip(ip: str) -> int:
+    """Pack dotted IPv4 into the integer encoding of pkt_src/pkt_dst:
+    sum(octet * 1000^(3-i)), as the JAX package packs it."""
+    try:
+        octets = [int(o) for o in ip.split(".")]
+    except ValueError:
+        return -1
+    if len(octets) != 4:
+        return -1
+    value = 0
+    for i, o in enumerate(octets):
+        value += o * 1000 ** (3 - i)
+    return value
+
+
+# IPv6 addresses can't ride the 1000-base IPv4 packing (128 bits vs the
+# float64-exact 2^53 ceiling); they are interned instead: ids counted up
+# from V6_ID_BASE, literal addresses in the capture's net_addrs.csv side
+# table.  The base sits above any packed IPv4 (max 255255255255 ≈ 2.6e11)
+# and well below 2^53, so ids stay exact through the float frame columns.
+V6_ID_BASE = 10 ** 12
+
+
+def write_net_addrs(ids, logdir: str):
+    """Write the interned {literal: id} table as net_addrs.csv beside the
+    trace CSVs (atomically: a half-written table must never look
+    complete); no IPv6 packets, no file.  Returns the path or None."""
+    if not ids:
+        return None
+    out = os.path.join(logdir, "net_addrs.csv")
+    with open(out + ".tmp", "w") as f:
+        f.write("id,address\n")
+        for literal, aid in sorted(ids.items(), key=lambda kv: kv[1]):
+            f.write(f"{aid},{literal}\n")
+    os.replace(out + ".tmp", out)
+    return out

@@ -2,9 +2,9 @@
 
 Device choice, timing loops and the ``sofa_step_N`` step annotation.  The
 annotation is a ``torch.profiler.record_function`` range, which the Kineto
-trace carries on the host (``user_annotation``) and, around the kernels it
-launched, on the device (``gpu_user_annotation``); the port's ingest turns
-it into one ``gpusteps`` row per step.
+trace carries on the host (``user_annotation``); the port's ingest turns it
+into one ``gpusteps`` row per step, spanning the device work launched while
+it was open (from any thread, the autograd engine's included).
 """
 
 from __future__ import annotations

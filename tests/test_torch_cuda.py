@@ -251,3 +251,117 @@ def test_fused_grads_match_plain_grads(cuda_device, packed):
     for a, b in zip(fused, plain):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel < TINY_GRAD_REL
+
+
+@pytest.mark.cuda
+def test_gpumon_sampler_reads_a_tensor_of_known_size(cuda_device, tmp_path):
+    import threading
+    import time
+
+    from sofa_tpu_torch.collectors import gpumon
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    held = torch.empty(64 * 2**20, dtype=torch.uint8, device=cuda_device)
+    out = tmp_path / "gpumon.txt"
+    stop = threading.Event()
+    t = gpumon.start_sampler(20.0, str(out), stop)
+    deadline = time.time() + 10
+    while time.time() < deadline and (
+            not out.exists() or " 0 " not in out.read_text()):
+        time.sleep(0.05)
+    stop.set()
+    t.join(2.0)
+    rows = [[int(x) for x in ln.split()] for ln in out.read_text().splitlines()
+            if ln.split()[1] == str(cuda_device.index or 0)]
+    assert rows
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
+    for _, _, used, limit, peak in rows:
+        assert used == base + held.numel()
+        assert limit == total and used <= peak < total
+    del held
+
+
+@pytest.mark.cuda
+def test_memprof_snapshot_names_the_allocating_line(cuda_device, tmp_path):
+    import inspect
+
+    from sofa_tpu_torch.collectors import gpumon
+    from sofa_tpu_torch.ingest.memprof import parse_memprof
+
+    entry_points = torch.autograd.backward, torch.autograd.grad
+    gpumon._ns["arm_history"](torch)      # CUDA is up: records from now on
+    try:
+        line = inspect.currentframe().f_lineno + 1
+        held = torch.empty(48 * 2**20, dtype=torch.uint8, device=cuda_device)
+        path = str(tmp_path / "memprof.pb.gz")
+        assert gpumon.snapshot_memprof(torch, path, "peak", held.numel())
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+        torch.autograd.backward, torch.autograd.grad = entry_points
+    df = parse_memprof(path)
+    mine = df[df["site"].str.contains(f"test_torch_cuda.py:{line})",
+                                      regex=False)]
+    assert len(mine) == 1
+    assert mine["bytes"].iloc[0] == held.numel()
+    assert mine["site"].iloc[0].startswith(
+        "test_memprof_snapshot_names_the_allocating_line (")
+    assert mine["device"].iloc[0] == f"cuda:{cuda_device.index or 0}"
+    del held
+
+
+@pytest.mark.cuda
+def test_memprof_names_the_backward_line_for_engine_blocks(cuda_device,
+                                                           tmp_path):
+    """The gradient the autograd engine allocates on its device thread (no
+    Python frames there) resolves to the line that called backward."""
+    import inspect
+
+    from sofa_tpu_torch.collectors import gpumon
+    from sofa_tpu_torch.ingest.memprof import parse_memprof
+
+    entry_points = torch.autograd.backward, torch.autograd.grad
+    gpumon._ns["arm_history"](torch)
+    try:
+        w = torch.ones(16 * 2**20, device=cuda_device, requires_grad=True)
+        loss = (w * 3).sum()
+        line = inspect.currentframe().f_lineno + 1
+        loss.backward()
+        path = str(tmp_path / "memprof.pb.gz")
+        assert gpumon.snapshot_memprof(torch, path, "peak", 0)
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+        torch.autograd.backward, torch.autograd.grad = entry_points
+    df = parse_memprof(path)
+    grad = df[df["stack"].str.startswith("(autograd engine);")
+              & (df["bytes"] == w.grad.numel() * 4)]
+    assert len(grad) == 1
+    assert grad["site"].iloc[0].endswith(f"test_torch_cuda.py:{line})")
+    del w, loss
+
+
+@pytest.mark.cuda
+def test_injection_never_initializes_cuda(cuda_device, tmp_path):
+    """A torch program that never touches the card stays uninitialized
+    under the injection (Kineto, gpumon, memprof, pystacks all on): it
+    prints False, the samplers write nothing, and the topology written
+    after the profiler's stop lists no initialized device."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    logdir = tmp_path / "log"
+    cmd = (f"{sys.executable} -c 'import torch; "
+           "print(\"initialized\", torch.cuda.is_initialized())'")
+    r = subprocess.run([sys.executable, "-m", "sofa_tpu_torch", "record",
+                        "--logdir", str(logdir), "--enable_py_stacks", cmd],
+                       capture_output=True, text=True, timeout=300, cwd=repo,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "initialized False" in r.stdout
+    assert not (logdir / "gpumon.txt").exists()
+    assert not (logdir / "memprof.pb.gz").exists()
+    with open(logdir / "gpu_topo.json") as f:
+        topo = json.load(f)
+    assert topo["cuda_available"] and topo["devices"] == []

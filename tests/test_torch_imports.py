@@ -1,6 +1,7 @@
 """The port stands alone: no module of sofa_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package (sofa_tpu), and
-importing the port leaves jax out of sys.modules."""
+chip_smoke.py, imports jax or anything of the JAX package (sofa_tpu), nor
+protobuf (only an optional extra of the JAX package), and importing the
+port leaves them out of sys.modules."""
 
 import ast
 import os
@@ -21,7 +22,8 @@ def _port_files():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "sofa_tpu")
+    return top in ("jax", "jaxlib", "sofa_tpu") or module.startswith(
+        "google.protobuf")
 
 
 def _imports(tree):
@@ -40,7 +42,7 @@ def test_port_module_imports_nothing_of_jax(path):
         src = f.read()
     bad = [(line, mod) for line, mod in _imports(ast.parse(src))
            if _forbidden(mod)]
-    # the Kineto collector's injected sitecustomize is source in a string
+    # the injected sitecustomize and samplers are source in strings
     for node in ast.walk(ast.parse(src)):
         if isinstance(node, ast.Constant) and isinstance(node.value, str) \
                 and "import " in node.value and "\n" in node.value:
@@ -56,15 +58,21 @@ def test_port_module_imports_nothing_of_jax(path):
 def test_scan_sees_the_whole_port():
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     assert {"chip_smoke.py", "sofa_tpu_torch/workloads/flash_cuda.py",
-            "sofa_tpu_torch/collectors/kineto.py"} <= rel
+            "sofa_tpu_torch/collectors/kineto.py",
+            "sofa_tpu_torch/collectors/gpumon.py",
+            "sofa_tpu_torch/ingest/memprof.py",
+            "sofa_tpu_torch/analysis/host.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, sofa_tpu_torch, sofa_tpu_torch.cli, "
             "sofa_tpu_torch.entry, sofa_tpu_torch.workloads.inference, "
-            "sofa_tpu_torch.analyze, sofa_tpu_torch.convert; "
+            "sofa_tpu_torch.analyze, sofa_tpu_torch.convert, "
+            "sofa_tpu_torch.record, sofa_tpu_torch.preprocess, "
+            "sofa_tpu_torch.ingest.memprof, sofa_tpu_torch.collectors.gpumon; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'sofa_tpu')]; print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'sofa_tpu') or m.startswith('google.protobuf')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120,
                        env=dict(os.environ, PYTHONPATH=REPO))
