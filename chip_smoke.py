@@ -40,9 +40,25 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            memory sampler's readings and peak against the train phase's,
            the allocation-site snapshot, the host frames; then a run long
            enough to wrap the allocation trace's ring, and what its
-           replayed snapshot and the gate's hold; logs each collector's
+           replayed snapshot and the gate's hold; the same Llama-width run
+           without the Kineto trace, its allocation sites against the
+           traced run's; an eager Llama-width run without the trace killed
+           mid-run, which must leave a gate snapshot; logs each collector's
            probe; checks that a profiled torch program that never uses the
-           card stays CUDA-uninitialized
+           card stays CUDA-uninitialized; prints the flash kernels'
+           roofline rows of the traced Llama-width run
+  resnet   ResNet-50 at its published widths (batch 32, 224 x 224, 1000
+           classes, bf16, channels_last): 20 train steps bare, then 20
+           under ``sofa_tpu_torch.api.profile()`` with a sofa_step_N range
+           each, then 20 bare again, three such pairs each in a fresh
+           process, beside two processes that run three bare passes;
+           images/s, the overhead, the paired t-test, and the bare pass
+           after the profiled one against the first (what the profiler
+           leaves behind, beside the bare processes' drift);
+           then preprocess and analyze of the last capture (coverage guard:
+           CUDA kernels, convolution kernels carrying flops, a roofline no
+           row of which runs faster than its bound); then ``stat`` over
+           ``python -m sofa_tpu_torch.workloads.resnet --train``
 
 The last lines are the kernels JSON, the nvidia-smi line, and the result
 JSON.  It exits non-zero without a result when no CUDA device is visible.
@@ -63,6 +79,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12        # H100 SXM HBM3
+L2_BYTES = 50 * 2 ** 20         # H100 SXM L2 cache (data sheet: 50 MB)
 # bf16 storage: one ulp is 2**-8..2**-7 relative, and p rounds to bf16
 # against the running max in the kernel but the final max in the plain
 # version.  The worst reading on an H100 was 7.8e-3 (one ulp at |out| in
@@ -132,6 +149,28 @@ def in_turns(kernel_fn, library_fn, iters: int = 20):
     l2 = cuda_ms(library_fn, iters)
     k2 = cuda_ms(kernel_fn, iters)
     return (k1, k2), (l1, l2)
+
+
+def descendants(root: int):
+    """The pids of ``root``'s live descendants, from each process's parent
+    in /proc/<pid>/stat."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                # the parent follows the state, after the name's ")"
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(name))
+    out, todo = [], [root]
+    while todo:
+        for pid in children.get(todo.pop(), ()):
+            out.append(pid)
+            todo.append(pid)
+    return out
 
 
 def _leaf_names(tree, prefix=()):
@@ -310,6 +349,14 @@ class Smoke:
             _flash_bwd_dq_cuda, _flash_bwd_dq_plain, _flash_bwd_kv_cuda,
             _flash_bwd_kv_plain, _flash_forward)
 
+        # the wrappers as the autograd path calls them: static_causal only
+        # labels the profiler's cost range (shift <= 0 is causal)
+        def bwd_kv(*args):
+            return _flash_bwd_kv_cuda(*args, static_causal=args[6] <= 0)
+
+        def bwd_dq(*args):
+            return _flash_bwd_dq_cuda(*args, static_causal=args[6] <= 0)
+
         def inputs(b, t, h, kvh, d, seed, shift=0, tk=None, seg=None,
                    hop=False):
             """hop: delta from another output, as in a ring hop, where it
@@ -329,7 +376,7 @@ class Smoke:
 
         def compare(label, args, f32=False):
             gd = torch.float32 if f32 else None
-            got = (*_flash_bwd_kv_cuda(*args, gd), _flash_bwd_dq_cuda(*args, gd))
+            got = (*bwd_kv(*args, gd), bwd_dq(*args, gd))
             ref = (*_flash_bwd_kv_plain(*args, gd), _flash_bwd_dq_plain(*args, gd))
             torch.cuda.synchronize()
             errs, rels, ok = {}, {}, True
@@ -355,8 +402,8 @@ class Smoke:
         def deterministic(label, args):
             """Two launches of each backward kernel on the same inputs must
             agree bit for bit (remat replays the backward)."""
-            first = (*_flash_bwd_kv_cuda(*args), _flash_bwd_dq_cuda(*args))
-            second = (*_flash_bwd_kv_cuda(*args), _flash_bwd_dq_cuda(*args))
+            first = (*bwd_kv(*args), bwd_dq(*args))
+            second = (*bwd_kv(*args), bwd_dq(*args))
             same = {n: torch.equal(a, b) for n, a, b in
                     zip(("dk", "dv", "dq"), first, second)}
             log(f"kernel: bwd determinism {label}: a second launch of each "
@@ -433,11 +480,11 @@ class Smoke:
         operands = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         pair_ms, pair_bound, sdpa_ms = 0.0, 0.0, []
         for kern, fn, plain, flops, written, errs in (
-                (kernels.FLASH_BWD_KV, _flash_bwd_kv_cuda,
+                (kernels.FLASH_BWD_KV, bwd_kv,
                  _flash_bwd_kv_plain, 8.0 * dq * pairs,
                  2.0 * (k.numel() + v.numel()),
                  max(llama_errs["dk"], llama_errs["dv"])),
-                (kernels.FLASH_BWD_DQ, _flash_bwd_dq_cuda,
+                (kernels.FLASH_BWD_DQ, bwd_dq,
                  _flash_bwd_dq_plain, 6.0 * dq * pairs, 2.0 * q.numel(),
                  llama_errs["dq"])):
             (k1, k2), (l1, l2) = in_turns(lambda: fn(*llama), library)
@@ -736,11 +783,10 @@ class Smoke:
         recorded as the profiler's memprof records it: how many steps the
         ring of MAX_ENTRIES holds before it wraps."""
         torch = self.torch
-        from sofa_tpu_torch.collectors.gpumon import MAX_ENTRIES
+        from sofa_tpu_torch.collectors.gpumon import HISTORY, MAX_ENTRIES
 
-        torch.cuda.memory._record_memory_history(
-            enabled="all", context="alloc", stacks="python",
-            max_entries=MAX_ENTRIES)
+        torch.cuda.memory._record_memory_history(**HISTORY,
+                                                 max_entries=MAX_ENTRIES)
         counts = []
         try:
             for _ in range(2):
@@ -869,6 +915,7 @@ class Smoke:
                   steps, names)
         self.profile_llama(steps, names)
         self.profile_wrapped_ring()
+        self.profile_killed()
         self.profile_untouched_card()
 
     def profile_llama(self, steps, names):
@@ -945,17 +992,23 @@ class Smoke:
                          keep_default_na=False)
         mine = py["module"].str.contains(
             "sofa_tpu_torch.workloads.transformer.", regex=False)
+        agg = mp[mp["deviceId"] == -1]
+        frozen = not agg["payload"].any()
         log(f"profile[llama]: mpstat {len(mp)} rows "
-            f"({int((mp['deviceId'] == -1).sum())} aggregate), cpu_util "
-            f"{feats.get('cpu_util')}, num_cores {feats.get('num_cores')}; "
-            f"pystacks {len(py)} samples, {int(mine.sum())} in the "
-            f"transformer workload")
-        if not (mp["deviceId"] == -1).any() or "cpu_util" not in feats \
-                or "num_cores" not in feats:
+            f"({len(agg)} aggregate, /proc/stat "
+            f"{'frozen: host CPU not measured' if frozen else 'advancing'})"
+            f", cpu_util {feats.get('cpu_util')}, num_cores "
+            f"{feats.get('num_cores')}; pystacks {len(py)} samples, "
+            f"{int(mine.sum())} in the transformer workload")
+        if agg.empty or "num_cores" not in feats \
+                or ("cpu_util" in feats) == frozen:
             raise AssertionError("the host frames lack mpstat's aggregate "
-                                 "rows or cpu_util / num_cores")
+                                 "rows or num_cores, or cpu_util disagrees "
+                                 "with whether /proc/stat advanced")
         if not mine.any():
             raise AssertionError("pystacks has no frame of the workload")
+        self.flash_roofline(logdir, steps)
+        self.sites_without_trace(cmd, sites)
         # the cost of allocation-stack recording: the same run without it,
         # in turns (on, off, off, on), and the step ranges in both modes
         for i, state in enumerate(("off", "off", "on")):
@@ -972,6 +1025,130 @@ class Smoke:
         if in_steps["on"] != in_steps["off"]:
             raise AssertionError(f"the steps hold other kernels with memprof"
                                  f" on and off: {in_steps}")
+
+    def flash_roofline(self, logdir, steps):
+        """The three flash kernels' rows of the traced Llama-width run's
+        roofline.csv: each launch must carry its Pallas CostEstimate."""
+        import pandas as pd
+        from sofa_tpu_torch.costs import flash_cost
+
+        roof = pd.read_csv(os.path.join(logdir, "roofline.csv"))
+        cfg = (4, 2048, 2048, 32, 8, 128, True)     # B T Tk H KVH D causal
+        for kern in ("sofa_flash_fwd", "sofa_flash_bwd_kv",
+                     "sofa_flash_bwd_dq"):
+            rows = roof[roof["name"].astype(str).str.contains(kern)]
+            flops, nbytes = flash_cost(kern, *cfg)
+            for _, r in rows.iterrows():
+                log(f"profile[llama]: roofline {kern}: {int(r['count'])} "
+                    f"launches, {r['time'] * 1e3:.3f} ms, flops "
+                    f"{r['flops']:.4e} ({r['flops'] / r['count']:.4e} a "
+                    f"launch; CostEstimate {flops:.4e}), bytes "
+                    f"{r['bytes_accessed'] / r['count']:.4e} a launch "
+                    f"(CostEstimate {nbytes:.4e}), sol {r['sol_time'] * 1e3:.3f}"
+                    f" ms, efficiency {r['efficiency']:.3f}, {r['bound']}"
+                    f"-bound | {self.smi}")
+            per = rows["flops"].sum() / max(rows["count"].sum(), 1)
+            if rows.empty or abs(per - flops) > 1e-6 * flops:
+                raise AssertionError(f"{kern}'s roofline rows do not carry "
+                                     f"its CostEstimate flops")
+
+    def sites_without_trace(self, cmd, traced_sites):
+        """The same Llama-width run with allocation stacks and without the
+        Kineto trace: its peak and sites against the traced run's (the
+        trace's run reads 0.3-1.2 % above the train phase's peak)."""
+        import pandas as pd
+
+        feats, logdir, _ = self.run_stat("llama_notrace", cmd,
+                                         ("--disable_kineto",))
+        sites = pd.read_csv(os.path.join(logdir, "gpu_memprof.csv"))
+        log(f"profile[notrace]: gpu0_hbm_peak_gb "
+            f"{feats.get('gpu0_hbm_peak_gb', 0.0):.4f}, memprof_held_gb "
+            f"{feats.get('memprof_held_gb', 0.0):.4f} (train phase "
+            f"{self.train_peak / 1e9:.4f})")
+        both = traced_sites.merge(sites, on="site", how="outer",
+                                  suffixes=("_trace", "_notrace")).fillna(0)
+        both["diff"] = both["bytes_trace"] - both["bytes_notrace"]
+        both = both.reindex(both["diff"].abs().sort_values(
+            ascending=False).index)
+        for _, row in both.head(6).iterrows():
+            log(f"profile[notrace]: site {row['diff'] / 1e6:+10.3f} MB with "
+                f"the trace ({row['bytes_trace'] / 1e9:.4f} vs "
+                f"{row['bytes_notrace'] / 1e9:.4f} GB)  {row['site']}")
+
+    def profile_killed(self):
+        """An eager Llama-width training run without the Kineto trace,
+        under ``-X importtime``, killed mid-run once its gate snapshot holds
+        the training state: the snapshot must be there, taken at a sampler
+        tick, and the program must still have been running (no deadlock
+        against its own imports)."""
+        import signal
+
+        logdir = os.path.join(REPO, "build", "chip_smoke_profile_killed")
+        shutil.rmtree(logdir, ignore_errors=True)
+        meta_path = os.path.join(logdir, "memprof.pb.gz.meta.json")
+        state = 8 * self.train_params
+        cmd = (f"{sys.executable} -X importtime -m "
+               "sofa_tpu_torch.workloads.transformer --steps 400 --batch 4 "
+               "--seq 2048 --vocab 128256 --d_model 4096 --n_layers 4 "
+               "--n_heads 32 --n_kv_heads 8 --d_ff 14336")
+        os.makedirs(logdir)
+        # to a file: the import trace fills a pipe and would block the run
+        err_path = os.path.join(logdir, "..", "chip_smoke_killed.err")
+        err_file = open(err_path, "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sofa_tpu_torch", "record", "--logdir",
+             logdir, "--disable_kineto", cmd], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=err_file)
+        t0, meta, seen = time.perf_counter(), {}, None
+        try:
+            while time.perf_counter() - t0 < 240 and proc.poll() is None:
+                time.sleep(0.5)
+                try:
+                    with open(meta_path) as f:
+                        meta = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                if meta.get("total_bytes", 0) >= state and seen is None:
+                    seen = time.perf_counter()
+                if seen is not None and time.perf_counter() - seen > 8:
+                    break
+            victims = []
+            for pid in descendants(proc.pid):
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        argv = f.read().split(b"\0")
+                except OSError:
+                    continue
+                if b"sofa_tpu_torch.workloads.transformer" in argv:
+                    victims.append(pid)
+            alive = proc.poll() is None and bool(victims)
+            for pid in victims:
+                os.kill(pid, signal.SIGKILL)
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err_file.close()
+        with open(err_path) as f:
+            err = f.read()
+        inductor = sorted({ln.split("|")[-1].strip() for ln in err.splitlines()
+                           if "torch._inductor" in ln and "|" in ln})
+        log(f"profile[killed]: workload alive at the kill: {alive} "
+            f"({len(victims)} process), record rc {proc.returncode}; gate "
+            f"snapshot {meta.get('trigger')} at {meta.get('total_bytes')} "
+            f"bytes (training state {state}), replayed "
+            f"{meta.get('replayed', False)}, took "
+            f"{meta.get('snapshot_s', 0):.4f} s; the program imported "
+            f"{len(inductor)} torch._inductor modules "
+            f"{inductor[:4]}")
+        if not alive:
+            raise AssertionError("the eager training run was not running "
+                                 "when it was to be killed")
+        if meta.get("trigger") != "peak" or meta.get("replayed") \
+                or meta.get("total_bytes", 0) < state:
+            raise AssertionError("the killed eager run left no gate snapshot "
+                                 "holding its training state")
 
     def kernels_in_steps(self, kern, steps):
         """Kernels the sofa_step_N ranges hold, and the backward kernels
@@ -1034,6 +1211,139 @@ class Smoke:
             raise AssertionError(f"the top allocation site is not a line "
                                  f"of sofa_tpu_torch/: {top}")
 
+    def resnet(self):
+        """ResNet-50 train steps bare and under the in-process profile(),
+        as the JAX package's benchmark times them, each pair in a fresh
+        process (so that no bare pass follows a profiler in its process),
+        with a bare pass after the profiled one and processes that run
+        three bare passes beside them; then the device passes over the
+        last capture, and ``stat`` over the workload's ``main``."""
+        import pandas as pd
+        from scipy import stats
+
+        from sofa_tpu_torch.analyze import sofa_analyze
+        from sofa_tpu_torch.config import SofaConfig
+        from sofa_tpu_torch.preprocess import sofa_preprocess
+
+        batch, steps = RESNET_BATCH, RESNET_STEPS
+        runs = []
+        for i, kind in enumerate(("pair", "control", "pair", "control",
+                                  "pair")):
+            logdir = "-"
+            if kind == "pair":
+                logdir = os.path.join(REPO, "build",
+                                      f"chip_smoke_resnet_r{i}")
+                shutil.rmtree(logdir, ignore_errors=True)
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--resnet-pass",
+                 logdir], cwd=REPO, capture_output=True, text=True,
+                timeout=600)
+            got = [ln for ln in r.stdout.splitlines()
+                   if ln.startswith("RESNET_PASS ")]
+            if r.returncode or not got:
+                raise AssertionError(f"the ResNet-50 process failed, rc "
+                                     f"{r.returncode}: {r.stderr[-3000:]}")
+            d = json.loads(got[-1].split(" ", 1)[1])
+            runs.append((kind, logdir, d))
+            mid = d.get("profiled", d.get("second"))
+            log(f"resnet: process {i} ({kind}): {d['params']:,} params, "
+                f"batch {batch}, 224x224, 1000 classes, bf16, channels_last,"
+                f" warm-up {d['warmup_s']:.1f} s; bare {d['bare']:.4f} s "
+                f"({steps * batch / d['bare']:.1f} images/s), "
+                f"{'profiled' if kind == 'pair' else 'bare again'} "
+                f"{mid:.4f} s ({steps * batch / mid:.1f} images/s), bare "
+                f"after it {d['after']:.4f} s ({steps * batch / d['after']:.1f}"
+                f" images/s), loss {d['loss']:.4f}")
+        pairs = [d for kind, _, d in runs if kind == "pair"]
+        controls = [d for kind, _, d in runs if kind == "control"]
+        bare = [d["bare"] for d in pairs]
+        prof = [d["profiled"] for d in pairs]
+        repeats = len(pairs)
+        p_value = float(stats.ttest_rel(prof, bare).pvalue)
+        t_bare, t_prof = sorted(bare)[repeats // 2], sorted(prof)[repeats // 2]
+        overhead = max(0.0, (t_prof - t_bare) / t_bare * 100.0)
+
+        def pct(ds, key):
+            return ", ".join(f"{(d[key] / d['bare'] - 1) * 100:+.1f}"
+                             for d in ds)
+        # What a profiler leaves behind once stopped: the bare pass after
+        # the profiled one against the process's first, beside the same
+        # two passes of processes that never profile (their drift).
+        log(f"resnet: bare after the profiled pass vs before it, each pair "
+            f"process: {pct(pairs, 'after')} %; the same passes of the "
+            f"processes without a profiler: {pct(controls, 'after')} % "
+            f"(their middle pass: {pct(controls, 'second')} %)")
+        cfg = SofaConfig(logdir=runs[-1][1])
+        t0 = time.perf_counter()
+        frames = sofa_preprocess(cfg)
+        feats = sofa_analyze(cfg, frames)
+        kern = frames["gputrace"][frames["gputrace"]["copyKind"] == 0]
+        conv = kern[kern["hlo_category"].isin(
+            ("aten::cudnn_convolution", "aten::convolution_backward"))]
+        log(f"resnet: images/s bare {steps * batch / t_bare:.1f}, profiled "
+            f"{steps * batch / t_prof:.1f} (medians of {repeats}); overhead "
+            f"{overhead:.2f} % (target 5 %), paired t-test p {p_value:.4g}; "
+            f"gputrace {len(kern)} kernel rows, {len(conv)} convolution "
+            f"kernels ({(conv['flops'] > 0).sum()} with flops); preprocess "
+            f"and analyze {time.perf_counter() - t0:.1f} s | {self.smi}")
+        # coverage guard: an overhead over an empty capture means nothing
+        if kern.empty:
+            raise AssertionError("coverage guard: the capture holds no CUDA "
+                                 "kernel rows")
+        if conv.empty or not (conv["flops"] > 0).all():
+            raise AssertionError("the convolution kernels lack flops")
+        want = ("roi_begin", "roi_end", "gpu_total_flops",
+                "gpu_total_bytes_accessed", "gpu_fw_time", "gpu_bw_time",
+                "gpu_bw_fw_ratio", "op_tree_paths", "gpu0_async_time",
+                "gpu0_async_hidden_pct", "gpu0_step_gap_pct",
+                "gpu0_step_h2d_pct", "gpu0_roofline_efficiency",
+                "gpu0_compute_bound_time", "gpu0_memory_bound_time",
+                "gpu0_arithmetic_intensity", "kernel_util_mean",
+                "kernel_util_median", "tensor_util_mean", "hbm_gbps_mean",
+                "gpu0_sol_distance", "gpu_step_busy_pct")
+        log("resnet: features " + ", ".join(
+            f"{k} {feats.get(k):.6g}" for k in want
+            if feats.get(k) is not None))
+        roof = pd.read_csv(cfg.path("roofline.csv"))
+        for _, r in roof.head(5).iterrows():
+            log(f"resnet: roofline {r['time'] * 1e3:8.3f} ms x"
+                f"{int(r['count']):4d} {r['flops'] / r['time'] / 1e12:7.1f} "
+                f"TFLOP/s {r['bytes_accessed'] / r['time'] / 1e9:7.1f} GB/s "
+                f"efficiency {r['efficiency']:.3f} {r['bound']:7s} "
+                f"{str(r['name'])[:80]}")
+        cats = pd.read_csv(cfg.path("gpu_categories.csv"))
+        for _, r in cats.head(8).iterrows():
+            log(f"resnet: category {r['duration'] * 1e3:9.3f} ms {r['cat']}")
+        # roofline.csv's efficiency is clipped at 1 (as the JAX pass's), so
+        # the limits hold the ratios themselves.  No kernel beats the
+        # tensor cores' peak.  A launch that moves B bytes can find at most
+        # the L2's L of them there (left by the kernel before), so it reads
+        # at least B - L from HBM: its bytes over the HBM rate are at most
+        # B / (B - L) (B a launch, averaged over the row); a launch that
+        # fits in the L2 is not held to the HBM rate at all.
+        flop_ratio = roof["flops"] / (PEAK_BF16_FLOPS * roof["time"])
+        byte_ratio = roof["bytes_accessed"] / (PEAK_HBM_BYTES * roof["time"])
+        per_launch = roof["bytes_accessed"] / roof["count"]
+        big = per_launch > L2_BYTES
+        byte_limit = 1.05 * per_launch / (per_launch - L2_BYTES)
+        log(f"resnet: roofline.csv {len(roof)} rows, clipped efficiency at "
+            f"most {roof['efficiency'].max():.3f}; flops over the bf16 peak "
+            f"at most {flop_ratio.max():.3f} (limit 1.05); bytes over the "
+            f"HBM rate at most {byte_ratio.max():.3f}, over their row's "
+            f"limit at most {(byte_ratio / byte_limit)[big].max():.3f} in "
+            f"the {int(big.sum())} rows whose launches move more than the "
+            f"L2 holds (limit 1)")
+        for i in byte_ratio[byte_ratio > 1].index:
+            log(f"resnet: roofline row over the HBM rate: "
+                f"{byte_ratio[i]:.3f}x, {per_launch[i] / 1e6:.2f} MB a launch, "
+                f"{int(roof['count'][i])} launches, {roof['name'][i][:90]}")
+        if flop_ratio.max() > 1.05 or (big & (byte_ratio > byte_limit)).any():
+            raise AssertionError("a roofline row runs faster than its bound")
+        if feats.get("gpu0_step_gap_pct") is None:
+            raise AssertionError("no step gap was measured")
+        self.stat("resnet", f"{sys.executable} -m "
+                  "sofa_tpu_torch.workloads.resnet --train --steps 5", 5, [])
+
     def profile_untouched_card(self):
         """A profiled torch program that never uses the card stays
         CUDA-uninitialized: the injection initializes nothing."""
@@ -1058,7 +1368,53 @@ class Smoke:
                                  "program that never used the card")
 
 
-PHASES = ("device", "kernel", "model", "train", "profile")
+PHASES = ("device", "kernel", "model", "train", "profile", "resnet")
+RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
+
+
+def resnet_pass(logdir: str) -> None:
+    """One process of the ``resnet`` phase: ResNet-50 at batch 32, 224 x
+    224, warmed up (the first step and cuDNN's search), then 20 train
+    steps bare, 20 under ``api.profile(logdir)`` with a sofa_step_N range
+    each (20 bare again when ``logdir`` is "-"), and 20 bare after them;
+    prints the seconds of each as one JSON line."""
+    import contextlib
+
+    import torch
+
+    from sofa_tpu_torch import api
+    from sofa_tpu_torch.workloads import resnet
+    from sofa_tpu_torch.workloads.common import fence, step_annotation
+
+    torch.backends.cudnn.benchmark = True
+    batch, steps = RESNET_BATCH, RESNET_STEPS
+    model, x = resnet.create(batch, 224, device="cuda")
+    labels = torch.zeros(batch, dtype=torch.long, device=x.device)
+    _, step = resnet.make_train_step(model)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fence(step(x, labels))
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "warmup_s": time.perf_counter() - t0}
+
+    def timed(annotate):
+        fence(step(x, labels))      # outside the timed window
+        t0 = time.perf_counter()
+        for i in range(steps):
+            with (step_annotation(i) if annotate
+                  else contextlib.nullcontext()):
+                loss = step(x, labels)
+        fence(loss)
+        return time.perf_counter() - t0, loss.item()
+
+    out["bare"], _ = timed(False)
+    if logdir == "-":
+        out["second"], out["loss"] = timed(False)
+    else:
+        with api.profile(logdir):
+            out["profiled"], out["loss"] = timed(True)
+    out["after"], _ = timed(False)
+    print("RESNET_PASS " + json.dumps(out), flush=True)
 
 
 def main() -> int:
@@ -1067,6 +1423,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--resnet-pass"]:
+        resnet_pass(sys.argv[2])
+        return 0
     smoke = Smoke()
     t_all = time.perf_counter()
     for phase in PHASES:

@@ -2,9 +2,13 @@
 
 Over the Kineto-derived frames: ``gpu_profile`` is the counterpart of
 ``analysis/tpu.py:tpu_profile`` (kernel and copy time per device, busy
-share, top kernels); ``serving_profile`` of its ``serving_profile`` (the
+share, flops and bytes, forward and backward time, op categories, ranges,
+top kernels); ``serving_profile`` of its ``serving_profile`` (the
 prefill/decode split, read from the ``module`` column: the ``run_prefill``
 / ``run_decode`` profiler ranges the serving loop wraps its phases in).
+The other single-device passes are in ``analysis/device.py``, the
+speed-of-light pass in ``analysis/sol.py``; ``PASSES`` runs them all in
+the JAX package's order.
 
 Over the memory sampler: ``gpumon_profile`` (occupancy and peak per
 device, from the gpumon frame) and ``memprof_profile`` (which allocation
@@ -14,12 +18,10 @@ sites held the peak, from the memprof snapshot), the counterparts of
 
 from __future__ import annotations
 
+from sofa_tpu_torch.analysis import device, sol
 from sofa_tpu_torch.analysis.features import Features
 from sofa_tpu_torch.printing import print_title, print_warning
-from sofa_tpu_torch.trace import CopyKind, merged_intervals
-
-_COPY_KINDS = [int(k) for k in (CopyKind.H2D, CopyKind.D2H, CopyKind.D2D,
-                                CopyKind.P2P)]
+from sofa_tpu_torch.trace import CopyKind, merged_intervals, roi_clip
 
 
 def _traced_window(frames) -> float:
@@ -49,7 +51,17 @@ def _overlap_s(a, b) -> float:
     return total
 
 
+def _slug(name: str) -> str:
+    return name.strip().lower().replace(" ", "_").replace("-", "_")
+
+
 def gpu_profile(frames, cfg, features: Features) -> None:
+    """Kernel and copy time per device, the busy share of the traced window
+    and of the annotated steps, and what ``tpu_profile`` gives: the flops
+    and bytes of the kernels, the forward and backward time, the time per
+    op category (``gpu_op_time_<op>``, ``gpu_categories.csv``), per
+    annotated range (``gpu_modules_summary.csv``) and the top kernels with
+    their flops and bytes (``gpu_top_kernels.csv``)."""
     df = frames.get("gputrace")
     if df is None or df.empty:
         print_warning("gpu_profile: gputrace is empty: the trace holds no "
@@ -58,6 +70,7 @@ def gpu_profile(frames, cfg, features: Features) -> None:
         features.add("gpu_devices", 0)
         features.add("gpu_kernels", 0)
         return
+    df = roi_clip(df, cfg)
     kern = df[df["copyKind"] == int(CopyKind.KERNEL)]
     features.add("gpu_devices", df["deviceId"].nunique())
     features.add("gpu_kernels", len(kern))
@@ -65,7 +78,7 @@ def gpu_profile(frames, cfg, features: Features) -> None:
     busy = []
     for device_id, rows in df.groupby("deviceId"):
         k = rows[rows["copyKind"] == int(CopyKind.KERNEL)]
-        c = rows[rows["copyKind"].isin(_COPY_KINDS)]
+        c = rows[rows["copyKind"].isin(device.COPY_KINDS)]
         features.add(f"gpu{device_id}_kernel_time", float(k["duration"].sum()))
         features.add(f"gpu{device_id}_memcpy_time", float(c["duration"].sum()))
         spans = merged_intervals(rows["timestamp"],
@@ -87,14 +100,35 @@ def gpu_profile(frames, cfg, features: Features) -> None:
         if in_steps > 0:
             features.add("gpu_step_busy_pct",
                          100.0 * _overlap_s(dev_spans, step_spans) / in_steps)
+    features.add("gpu_total_flops", float(kern["flops"].sum()))
+    features.add("gpu_total_bytes_accessed",
+                 float(kern["bytes_accessed"].sum()))
+    fw = float(kern.loc[kern["phase"] == "fw", "duration"].sum())
+    bw = float(kern.loc[kern["phase"] == "bw", "duration"].sum())
+    if fw > 0 or bw > 0:
+        features.add("gpu_fw_time", fw)
+        features.add("gpu_bw_time", bw)
+        if fw > 0:
+            features.add("gpu_bw_fw_ratio", bw / fw)
     top = (kern.groupby("name")
            .agg(total_time=("duration", "sum"), count=("duration", "count"),
-                mean_time=("duration", "mean"))
+                mean_time=("duration", "mean"), flops=("flops", "sum"),
+                bytes_accessed=("bytes_accessed", "sum"))
            .sort_values("total_time", ascending=False))
     top.to_csv(cfg.path("gpu_top_kernels.csv"))
     if cfg.verbose and not top.empty:
         print_title("Top-10 CUDA kernels by total time")
         print(top.head(10).to_string())
+    cat_key = df["hlo_category"].where(df["hlo_category"] != "",
+                                       "uncategorized").rename("cat")
+    cat = df.groupby(cat_key)["duration"].sum().sort_values(ascending=False)
+    for name, value in cat.items():
+        features.add(f"gpu_op_time_{_slug(name)}", float(value))
+    cat.to_csv(cfg.path("gpu_categories.csv"))
+    ranged = kern[kern["module"] != ""]
+    if not ranged.empty:
+        ranged.groupby("module")["duration"].agg(["sum", "count"]).to_csv(
+            cfg.path("gpu_modules_summary.csv"))
 
 
 def serving_profile(frames, cfg, features: Features) -> None:
@@ -190,5 +224,8 @@ def memprof_profile(frames, cfg, features: Features) -> None:
         print(sites.head(10).to_string(index=False))
 
 
-#: The GPU passes analyze runs, in order.
-PASSES = [gpu_profile, serving_profile, gpumon_profile, memprof_profile]
+#: The GPU passes analyze runs, in the JAX package's order.
+PASSES = [device.spotlight_roi, gpu_profile, device.op_tree_profile,
+          device.overlap_profile, device.input_pipeline_profile,
+          device.roofline_profile, serving_profile, device.gpuutil_profile,
+          gpumon_profile, memprof_profile, sol.sol_roofline]

@@ -1,13 +1,14 @@
 """Host-side analysis passes: CPU samples, mpstat, vmstat, disk, block IO,
 strace and Python stacks (the JAX package's analysis/host.py, without its
-region-of-interest clip)."""
+region-of-interest clip; ``mpstat_profile`` reports a frozen /proc/stat
+as not measured)."""
 
 from __future__ import annotations
 
 import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
-from sofa_tpu_torch.printing import print_title
+from sofa_tpu_torch.printing import print_title, print_warning
 
 
 def cpu_profile(frames, cfg, features: Features) -> None:
@@ -31,6 +32,14 @@ def cpu_profile(frames, cfg, features: Features) -> None:
 
 
 def mpstat_profile(frames, cfg, features: Features) -> None:
+    """Cores, and the mean share of each jiffy counter over the run with
+    ``cpu_util`` (user + system).
+
+    A deliberate difference from the JAX package: where the aggregate
+    counters never advance over the whole run (a sandboxed /proc/stat
+    that reads frozen; the parser then reports every interval 100 % idle),
+    the host CPU was not measured, so the per-counter features and
+    ``cpu_util`` are left out with a warning instead of reporting 0.0."""
     df = frames.get("mpstat")
     if df is None or df.empty:
         return
@@ -39,6 +48,10 @@ def mpstat_profile(frames, cfg, features: Features) -> None:
     features.add("num_cores", num_cores)
     agg = df[df["deviceId"] == -1]
     if agg.empty:
+        return
+    if not agg["payload"].any():
+        print_warning("mpstat: /proc/stat did not advance during the run: "
+                      "the host CPU was not measured (no cpu_util)")
         return
     # Mean percentage and absolute busy time per metric over the run.
     for metric in ("usr", "sys", "iow", "irq", "idl"):

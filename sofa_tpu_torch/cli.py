@@ -21,7 +21,7 @@ _FIELDS = (
     "logdir", "verbose", "perf_events", "no_perf_events", "cpu_sample_rate",
     "perf_call_graph", "sys_mon_rate", "enable_strace", "strace_min_time",
     "enable_py_stacks", "enable_tcpdump", "netstat_interface", "blkdev",
-    "gpu_mon_rate",
+    "gpu_mon_rate", "profile_region", "spotlight",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
@@ -62,6 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--disable_gpu_mon", action="store_true")
     g.add_argument("--disable_memprof", action="store_true",
                    help="skip the peak-memory allocation-site snapshot")
+
+    g = p.add_argument_group("analyze")
+    g.add_argument("--profile_region", help='manual ROI "begin:end" seconds')
+    g.add_argument("--spotlight", action="store_true",
+                   help="auto-ROI from the kernel utilization")
     return p
 
 

@@ -51,11 +51,19 @@ ring's length, whether it wrapped, and the allocator's own peak beside the
 replayed one).  The ring covers the whole run until it wraps, and then its
 last ``MAX_ENTRIES`` entries only.  The gate snapshot stays: it is what a
 program that dies before its exit handlers leaves behind, and what the
-replay must beat.  It runs on the sampler thread only once the program
-has imported ``torch._inductor.codecache`` itself, which a snapshot uses
-to name frames (an eager program never does: its only snapshot is the
-one at exit).  Without a readable trace the JAX package's rule holds:
+replay must beat.  Without a readable trace the JAX package's rule holds:
 a final snapshot at exit only when none was taken.
+
+A snapshot never imports.  torch's symbolizer names Python frames and
+probes ``hasattr(torch, "_inductor")`` to map compiled code back to its
+source; ``torch``'s lazy ``__getattr__`` turns that probe into an import
+of ``torch._inductor``, which, on the sampler thread while the program
+makes its own first import of ``torch._dynamo``, deadlocks against it and
+fails the program (torch 2.11).  So the snapshot runs with that module
+``__getattr__`` answering "no such attribute" to the lazy modules on the
+snapshotting thread only (``_snapshot``): frames are named all the same,
+and code that inductor generated is mapped only when the program has
+imported it.  An eager program gets its gate snapshots too.
 """
 
 from __future__ import annotations
@@ -323,6 +331,38 @@ _NOTE = ("active_allocated blocks of the caching allocator; blocks "
          "(stackless buffer)")
 
 
+# torch's lazily imported submodules (its module __getattr__)
+_LAZY_MODULES = ("_dynamo", "_inductor", "_export", "onnx")
+_NO_IMPORT = threading.local()
+
+
+def _guard_lazy_imports(torch):
+    """Wrap torch's module ``__getattr__`` so that, on a thread inside
+    ``_snapshot``, a lazy submodule not yet imported reads as absent
+    instead of being imported; other threads see no change."""
+    orig = getattr(torch, "__dict__", {}).get("__getattr__")
+    if orig is None or getattr(orig, "_sofa_torch_guard", False):
+        return
+
+    def __getattr__(name):
+        if name in _LAZY_MODULES and getattr(_NO_IMPORT, "on", False):
+            raise AttributeError(name)
+        return orig(name)
+
+    __getattr__._sofa_torch_guard = True
+    torch.__getattr__ = __getattr__
+
+
+def _snapshot(torch):
+    """``torch.cuda.memory._snapshot()``, importing nothing."""
+    _guard_lazy_imports(torch)
+    _NO_IMPORT.on = True
+    try:
+        return torch.cuda.memory._snapshot()
+    finally:
+        _NO_IMPORT.on = False
+
+
 def snapshot_memprof(torch, path, trigger, total_bytes):
     """Write an allocation-site snapshot of the present state.
 
@@ -331,7 +371,7 @@ def snapshot_memprof(torch, path, trigger, total_bytes):
     """
     try:
         t0 = time.perf_counter()
-        samples = _snapshot_samples(torch.cuda.memory._snapshot())
+        samples = _snapshot_samples(_snapshot(torch))
         _publish(path, samples, {
             "unix_ns": time.time_ns(), "trigger": trigger,
             "total_bytes": int(total_bytes), "encoder": "memory_snapshot",
@@ -351,7 +391,7 @@ def final_memprof(torch, path):
     state at exit (trigger "final").  Best-effort, as snapshot_memprof."""
     try:
         t0 = time.perf_counter()
-        snap = torch.cuda.memory._snapshot()
+        snap = _snapshot(torch)
         replay = _replay_peak(snap)
         if replay is not None and replay[1] > _MEMPROF["snap"] * 1.02:
             samples, peak, lengths = replay
@@ -379,23 +419,8 @@ def final_memprof(torch, path):
         return False
 
 
-def _symbolizer_ready():
-    """Whether a snapshot can name its Python frames without importing.
-    ``_snapshot()`` names them through ``torch._inductor.codecache``; taken
-    on the sampler thread while the program makes its own first import of
-    ``torch._dynamo``, that import deadlocks against the program's and
-    fails it (torch 2.11).  At exit the program imports nothing, so the
-    final snapshot may import it."""
-    for name in ("torch._inductor", "torch._inductor.codecache"):
-        spec = getattr(sys.modules.get(name), "__spec__", None)
-        if spec is None or getattr(spec, "_initializing", False):
-            return False
-    return True
-
-
 def _maybe_memprof(torch, path, total_bytes):
-    """Growth-gated, rate-limited peak snapshot, once the program itself
-    has imported what a snapshot needs (_symbolizer_ready).
+    """Growth-gated, rate-limited peak snapshot.
 
     The gate baseline is the bytes at the last *successful snapshot*, never
     the per-tick observation, so gradual growth still re-triggers once it
@@ -404,7 +429,7 @@ def _maybe_memprof(torch, path, total_bytes):
     """
     if not path or total_bytes <= 0:
         return
-    if total_bytes <= _MEMPROF["snap"] * 1.02 or not _symbolizer_ready():
+    if total_bytes <= _MEMPROF["snap"] * 1.02:
         return
     now = time.time()
     if now - _MEMPROF["last"] < 2.0:
@@ -451,9 +476,21 @@ def _noting_backward(fn, torch):
     return backward
 
 
-def arm_history(torch):
+# What allocation-stack recording keeps (torch.cuda.memory
+# _record_memory_history's arguments besides max_entries), chosen from the
+# sweep of sofa_tpu_torch/tools/overhead_budget.py: the cost is the Python
+# stack taken at each allocation (context=None costs nothing measurable,
+# "state" as much as "alloc", "all" and C++ stacks more); "alloc" is the
+# cheapest setting whose trace entries carry the stacks the at-exit replay
+# names the peak's freed blocks by, and the trace ("all") is that replay.
+HISTORY = {"enabled": "all", "context": "alloc", "stacks": "python"}
+_ARMED = {"on": False}
+
+
+def arm_history(torch, history=None):
     """Record allocation stacks, and the alloc/free trace the at-exit peak
-    replay walks, from the program's first CUDA allocation on.
+    replay walks, from the program's first CUDA allocation on, as
+    ``history`` (default HISTORY) says.
     ``_lazy_call`` queues the call into the program's own CUDA
     initialization (or runs it now if that already happened), so this never
     initializes CUDA; a failure inside it only warns, since a queued call
@@ -464,11 +501,14 @@ def arm_history(torch):
     for the blocks the autograd engine allocates on its device threads,
     which have no Python frames.  ``--disable_memprof`` leaves all of it
     alone."""
+    kwargs = dict(history or HISTORY, max_entries=MAX_ENTRIES)
+    _ARMED["on"] = True
+
     def _arm():
+        if not _ARMED["on"]:
+            return                  # disarmed before CUDA came up
         try:
-            torch.cuda.memory._record_memory_history(
-                enabled="all", context="alloc", stacks="python",
-                max_entries=MAX_ENTRIES)
+            torch.cuda.memory._record_memory_history(**kwargs)
         except Exception as e:
             sys.stderr.write("sofa_tpu_torch: allocation stacks not "
                              "recorded: %r\\n" % (e,))
@@ -481,6 +521,18 @@ def arm_history(torch):
     except Exception as e:
         sys.stderr.write("sofa_tpu_torch: allocation stacks not armed: "
                          "%r\\n" % (e,))
+
+
+def disarm_history(torch):
+    """Undo arm_history in a program that goes on running: stop recording
+    (or cancel the queued start) and unwrap the backward entry points."""
+    _ARMED["on"] = False
+    for name in ("backward", "grad"):
+        fn = getattr(torch.autograd, name)
+        if getattr(fn, "_sofa_torch_noted", False):
+            setattr(torch.autograd, name, fn.__wrapped__)
+    if torch.cuda.is_initialized():
+        torch.cuda.memory._record_memory_history(enabled=None)
 
 
 def _loop(rate_hz, out_path, stop, memprof_path=None):
@@ -601,7 +653,11 @@ _ns: dict = {}
 exec(compile(_SAMPLER, "<sofa_torch_gpumon>", "exec"), _ns)
 start_sampler = _ns["start_sampler"]
 snapshot_memprof = _ns["snapshot_memprof"]
+final_memprof = _ns["final_memprof"]
+arm_history = _ns["arm_history"]
+disarm_history = _ns["disarm_history"]
 MAX_ENTRIES = _ns["MAX_ENTRIES"]
+HISTORY = _ns["HISTORY"]
 
 
 def write_sampler_module(inject_dir: str) -> None:

@@ -9,17 +9,24 @@ and swaps the tracer:
      environment's own hook must still run), bounded by SIGALRM;
   2. it arms lazily: a meta-path finder wraps the loader of ``torch`` and,
      the moment ``import torch`` finishes in the profiled program, starts
-     ``torch.profiler.profile`` on the importing thread, with the CUDA
+     ``torch.profiler.profile`` on the importing thread, recording each
+     op's operand shapes and dtypes (``record_shapes``, ``with_flops``:
+     what ingest computes a kernel's flops and bytes from), with the CUDA
      activity added only when ``torch.cuda.is_available()`` in the child —
      so CUPTI is live before the program's first CUDA launch;
   3. it stamps a ``record_function("sofa_timebase_marker:<unix_ns>")`` range
-     that pins the trace clock to unix time at ingest;
+     that pins the trace clock to unix time at ingest, at the start and
+     again at the stop;
   4. at exit it synchronizes the card (only if the program initialized
      CUDA), stops the profiler and exports the Chrome trace to
      ``logdir/kineto/trace_<pid>.json``, under a watchdog that force-exits
      with code 120 if the epilogue wedges; then writes ``gpu_topo.json``
      (device properties and the ``nvidia-smi`` name and power limit, when
      that binary exists).
+
+Steps 2 to 4 live in the tracer module written beside the sitecustomize
+(``sofa_torch_kineto.py``, the ``_TRACER`` text); the in-process
+``sofa_tpu_torch.api.profile()`` runs the same text.
 
 The same injection carries the in-process samplers, as the xprof one does:
 the Python stack sampler (collectors/pystacks.py) starts at interpreter
@@ -51,8 +58,7 @@ import threading
 import time
 
 _OPTS = json.loads(os.environ.get("SOFA_TORCH_KINETO_OPTS", "{}"))
-_STATE = {"armed": False, "prof": None, "done": False}
-_STOP_TIMEOUT_S = 300.0     # bound on the at-exit stop and trace export
+_STATE = {"armed": False}
 
 
 def _warn(msg):
@@ -102,86 +108,12 @@ def _chain_next_sitecustomize():
 _chain_next_sitecustomize()
 
 
-def _arm_watchdog(timeout):
-    def _force_exit():
-        time.sleep(timeout)
-        if not _STATE["done"]:
-            _warn("trace export exceeded %g s; force-exiting (120)" % timeout)
-            os._exit(120)
-
-    threading.Thread(target=_force_exit, daemon=True,
-                     name="sofa_torch_watchdog").start()
-
-
-def _write_topology(torch):
-    info = {"cuda_available": False, "devices": []}
-    try:
-        info["cuda_available"] = bool(torch.cuda.is_available())
-        if info["cuda_available"] and torch.cuda.is_initialized():
-            for i in range(torch.cuda.device_count()):
-                p = torch.cuda.get_device_properties(i)
-                info["devices"].append({
-                    "index": i, "name": p.name,
-                    "total_memory": int(p.total_memory),
-                    "multi_processor_count": int(p.multi_processor_count),
-                    "capability": "%d.%d" % (p.major, p.minor)})
-        import shutil
-        import subprocess
-
-        if shutil.which("nvidia-smi"):
-            r = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"],
-                capture_output=True, text=True, timeout=30)
-            info["nvidia_smi"] = r.stdout.strip()
-        with open(os.path.join(_OPTS["logdir"], "gpu_topo.json"), "w") as f:
-            json.dump(info, f, indent=1)
-    except Exception as e:  # noqa: BLE001
-        _warn("topology snapshot failed: %r" % (e,))
-
-
-def _stop(torch):
-    prof = _STATE["prof"]
-    if prof is None:
-        return
-    _STATE["prof"] = None
-    _arm_watchdog(_STOP_TIMEOUT_S)
-    try:
-        if _STATE.get("cuda") and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        elif getattr(prof, "profiler", None) is not None:
-            # The program never used the card: stop without the profiler's
-            # own device synchronize, which would initialize CUDA at exit.
-            prof.profiler.use_device = None
-        prof.stop()
-        out = os.path.join(_OPTS["logdir"], "kineto",
-                           "trace_%d.json" % os.getpid())
-        prof.export_chrome_trace(out + ".tmp")
-        os.replace(out + ".tmp", out)
-    except Exception as e:  # noqa: BLE001
-        _warn("trace stop/export failed: %r" % (e,))
-    _write_topology(torch)
-    _STATE["done"] = True
-
-
 def _start(torch):
-    try:
-        import torch.profiler as tp
+    from sofa_torch_kineto import start_trace, stop_trace   # beside us
 
-        cuda = bool(torch.cuda.is_available())
-        acts = [tp.ProfilerActivity.CPU]
-        if cuda:
-            acts.append(tp.ProfilerActivity.CUDA)
-        prof = tp.profile(activities=acts)
-        prof.start()
-    except Exception as e:  # noqa: BLE001
-        _warn("profiler start failed: %r" % (e,))
-        return
-    _STATE["prof"], _STATE["cuda"] = prof, cuda
-    t0 = time.time_ns()
-    with tp.record_function("sofa_timebase_marker:%d" % t0):
-        pass
-    atexit.register(_stop, torch)
+    state = start_trace(torch, _OPTS["logdir"])
+    if state is not None:
+        atexit.register(stop_trace, torch, state, True)
 
 
 def _start_gpumon(torch):
@@ -246,6 +178,129 @@ if os.environ.get("SOFA_TORCH_PYSTACKS_HZ"):
                     os.environ["SOFA_TORCH_PYSTACKS_OUT"])
 '''
 
+# The trace's start and stop, imported by the sitecustomize above from
+# beside it, and exec'd below for the in-process profile() (api.py).
+_TRACER = r'''
+"""sofa_tpu_torch Kineto tracer (auto-generated)."""
+import json
+import os
+import sys
+import threading
+import time
+
+STOP_TIMEOUT_S = 300.0     # bound on the at-exit stop and trace export
+
+
+def _warn(msg):
+    sys.stderr.write("sofa_tpu_torch: %s\n" % msg)
+
+
+def _marker(torch):
+    with torch.profiler.record_function(
+            "sofa_timebase_marker:%d" % time.time_ns()):
+        pass
+
+
+def _arm_watchdog(timeout, state):
+    def _force_exit():
+        time.sleep(timeout)
+        if not state["done"]:
+            _warn("trace export exceeded %g s; force-exiting (120)" % timeout)
+            os._exit(120)
+
+    threading.Thread(target=_force_exit, daemon=True,
+                     name="sofa_torch_watchdog").start()
+
+
+def write_topology(torch, logdir):
+    """gpu_topo.json: the devices the program initialized (name, memory,
+    SMs, capability) and the nvidia-smi name and power limit."""
+    info = {"cuda_available": False, "devices": []}
+    try:
+        info["cuda_available"] = bool(torch.cuda.is_available())
+        if info["cuda_available"] and torch.cuda.is_initialized():
+            for i in range(torch.cuda.device_count()):
+                p = torch.cuda.get_device_properties(i)
+                info["devices"].append({
+                    "index": i, "name": p.name,
+                    "total_memory": int(p.total_memory),
+                    "multi_processor_count": int(p.multi_processor_count),
+                    "capability": "%d.%d" % (p.major, p.minor)})
+        import shutil
+        import subprocess
+
+        if shutil.which("nvidia-smi"):
+            r = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=30)
+            info["nvidia_smi"] = r.stdout.strip()
+        with open(os.path.join(logdir, "gpu_topo.json"), "w") as f:
+            json.dump(info, f, indent=1)
+    except Exception as e:  # noqa: BLE001
+        _warn("topology snapshot failed: %r" % (e,))
+
+
+def start_trace(torch, logdir):
+    """Start torch.profiler on the calling thread (its CPU ranges are per
+    thread) with the operand shapes recorded, the CUDA activity when the
+    program sees a card, and stamp the timebase marker; returns the state
+    stop_trace takes, or None when the profiler would not start."""
+    try:
+        import torch.profiler as tp
+
+        cuda = bool(torch.cuda.is_available())
+        acts = [tp.ProfilerActivity.CPU]
+        if cuda:
+            acts.append(tp.ProfilerActivity.CUDA)
+        prof = tp.profile(activities=acts, record_shapes=True,
+                          with_flops=True)
+        prof.start()
+    except Exception as e:  # noqa: BLE001
+        _warn("profiler start failed: %r" % (e,))
+        return None
+    _marker(torch)
+    return {"prof": prof, "cuda": cuda, "logdir": logdir, "done": False}
+
+
+def stop_trace(torch, state, watchdog=False):
+    """Stamp the end marker, synchronize the card (only if the program
+    initialized CUDA), stop the profiler, export the Chrome trace to
+    ``logdir/kineto/trace_<pid>.json`` and write gpu_topo.json.  At exit
+    (``watchdog``) a wedged export force-exits the process with code 120
+    after STOP_TIMEOUT_S."""
+    prof = state.pop("prof", None)
+    if prof is None:
+        return
+    if watchdog:
+        _arm_watchdog(STOP_TIMEOUT_S, state)
+    try:
+        _marker(torch)
+        if state["cuda"] and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        elif getattr(prof, "profiler", None) is not None:
+            # The program never used the card: stop without the profiler's
+            # own device synchronize, which would initialize CUDA.
+            prof.profiler.use_device = None
+        prof.stop()
+        out = os.path.join(state["logdir"], "kineto",
+                           "trace_%d.json" % os.getpid())
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        prof.export_chrome_trace(out + ".tmp")
+        os.replace(out + ".tmp", out)
+    except Exception as e:  # noqa: BLE001
+        _warn("trace stop/export failed: %r" % (e,))
+    write_topology(torch, state["logdir"])
+    state["done"] = True
+'''
+
+# One implementation: exec the tracer text for in-process callers.
+_ns: dict = {}
+exec(compile(_TRACER, "<sofa_torch_kineto>", "exec"), _ns)
+start_trace = _ns["start_trace"]
+stop_trace = _ns["stop_trace"]
+write_topology = _ns["write_topology"]
+
 
 class KinetoCollector(Collector):
     name = "kineto"
@@ -264,8 +319,10 @@ class KinetoCollector(Collector):
         os.makedirs(cfg.inject_dir, exist_ok=True)
         if cfg.enable_kineto:
             os.makedirs(cfg.kineto_dir, exist_ok=True)
-        with open(os.path.join(cfg.inject_dir, "sitecustomize.py"), "w") as f:
-            f.write(_SITECUSTOMIZE)
+        for name, text in (("sitecustomize.py", _SITECUSTOMIZE),
+                           ("sofa_torch_kineto.py", _TRACER)):
+            with open(os.path.join(cfg.inject_dir, name), "w") as f:
+                f.write(text)
         gpumon.write_sampler_module(cfg.inject_dir)
         pystacks.write_sampler_module(cfg.inject_dir)
 

@@ -44,6 +44,13 @@ class SofaConfig:
     enable_mem_prof: bool = True     # allocation-site snapshot (pprof) at
                                      # the observed occupancy peak
 
+    # --- analyze: region of interest ---------------------------------------
+    profile_region: str = ""         # "begin:end" manual ROI (seconds)
+    spotlight: bool = False          # auto-ROI from the kernel utilization
+    # set by the spotlight pass (or --profile_region); 0/0 = the whole run
+    roi_begin: float = 0.0
+    roi_end: float = 0.0
+
     def __post_init__(self) -> None:
         if not self.logdir.endswith("/"):
             self.logdir += "/"

@@ -1,10 +1,13 @@
-"""Carry a transformer param tree across packages as numpy arrays.
+"""Carry a model's parameters across packages as numpy arrays.
 
 Tests hold the port against the JAX package on ONE init: the JAX params go
 through ``jax.tree.map(np.asarray, params)`` and this module turns that
-nested dict of arrays into the port's params, same keys and layout.  (Two
-independent random inits would never agree.)  This module imports neither
-JAX nor the JAX package: it sees only numpy arrays.
+nested dict of arrays into the port's params: the transformer's keep their
+keys and layout (``params_from_numpy``), the ResNet's flax
+``{"params", "batch_stats"}`` tree becomes the torch module's state dict
+(``resnet_from_numpy``).  (Two independent random inits would never
+agree.)  This module imports neither JAX nor the JAX package: it sees only
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -35,3 +38,51 @@ def params_from_numpy(tree: Dict[str, Any],
                 for k, v in node.items()}
 
     return walk(tree)
+
+
+# flax names inside one Bottleneck, in creation order -> the port's modules
+_BLOCK_CONVS = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+                "Conv_3": "proj_conv"}
+_BLOCK_NORMS = {"BatchNorm_0": "bn1", "BatchNorm_1": "bn2",
+                "BatchNorm_2": "bn3", "BatchNorm_3": "proj_bn"}
+
+
+def resnet_from_numpy(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ResNet's ``{"params", "batch_stats"}`` (numpy leaves) ->
+    the state dict of ``sofa_tpu_torch.workloads.resnet.ResNet``, float32.
+
+    HWIO convolution kernels become OIHW, the [in, out] dense kernel the
+    [out, in] linear weight; each ``BatchNorm_k`` gives its module's
+    weight (scale), bias, running_mean and running_var."""
+    params, stats = variables["params"], variables["batch_stats"]
+
+    def t(x, perm=None):
+        a = np.array(x, dtype=np.float32)
+        return torch.from_numpy(np.ascontiguousarray(
+            a.transpose(perm) if perm else a))
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix, p):
+        out[f"{prefix}.weight"] = t(p["kernel"], (3, 2, 0, 1))
+
+    def norm(prefix, p, s):
+        out[f"{prefix}.weight"] = t(p["scale"])
+        out[f"{prefix}.bias"] = t(p["bias"])
+        out[f"{prefix}.running_mean"] = t(s["mean"])
+        out[f"{prefix}.running_var"] = t(s["var"])
+
+    conv("stem", params["Conv_0"])
+    norm("stem_bn", params["BatchNorm_0"], stats["BatchNorm_0"])
+    n_blocks = sum(k.startswith("Bottleneck_") for k in params)
+    for i in range(n_blocks):
+        p, s = params[f"Bottleneck_{i}"], stats[f"Bottleneck_{i}"]
+        for flax_name, name in _BLOCK_CONVS.items():
+            if flax_name in p:
+                conv(f"blocks.{i}.{name}", p[flax_name])
+        for flax_name, name in _BLOCK_NORMS.items():
+            if flax_name in p:
+                norm(f"blocks.{i}.{name}", p[flax_name], s[flax_name])
+    out["head.weight"] = t(params["Dense_0"]["kernel"], (1, 0))
+    out["head.bias"] = t(params["Dense_0"]["bias"])
+    return out

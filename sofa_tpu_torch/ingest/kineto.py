@@ -2,24 +2,43 @@
 
 The port's counterpart of ``sofa_tpu/ingest/xplane.py``.  One capture file
 per profiled process (``logdir/kineto/trace_<pid>.json``) yields three
-frames:
+frames, and the device ones a fourth:
 
   gputrace   ``kernel`` / ``gpu_memcpy`` / ``gpu_memset`` events: deviceId
              from ``args.device``, copyKind KERNEL or the memcpy direction,
-             payload the bytes copied, name the kernel symbol, and module
-             the innermost ``user_annotation`` (a ``record_function`` range)
-             that was open on the host when the event was launched;
+             payload the bytes copied, name the kernel symbol, and, from
+             the host ranges open when the event was launched (its
+             context, below): ``module`` the innermost ``user_annotation``
+             (a ``record_function`` range), ``op_path`` every range of the
+             context joined by "/" (``sofa_step_3/aten::conv2d/...``),
+             ``phase`` "bw" for work launched by the autograd engine (from
+             its device thread or under its ``autograd::engine`` ranges),
+             else "fw"; a kernel's ``flops`` and ``bytes_accessed`` are its
+             share of its owner's cost (``costs.py``) and ``hlo_category``
+             the owner's name (``aten::cudnn_convolution``,
+             ``sofa_flash_fwd``), else the Kineto category;
   hosttrace  ``cpu_op`` / ``user_annotation`` / ``cuda_runtime`` events;
   gpusteps   one row per ``sofa_step_N`` / ``ProfilerStep#N`` range, its
              device span (first start to last end of the device work it
-             launched) when it launched any, else its host span.
+             launched) when it launched any, else its host span;
+  gpuutil    a windowed series per device derived from gputrace
+             (``gpu_utilization``).
 
 An event's launch is the ``cuda_runtime`` / ``cuda_driver`` call with the
 same ``args.correlation``, on whichever thread of the process made it: the
 autograd engine launches a backward's kernels from its own device thread
 while the calling thread waits inside the step's range, so those kernels
 count in that step.  (Kineto's own ``gpu_user_annotation`` spans follow
-only the thread that opened the range, and are not used.)
+only the thread that opened the range, and are not used.)  The context of
+a launch is every cpu_op and user_annotation of the launching thread that
+contains it, and the user_annotations of other threads that do.
+
+A kernel's owner is the innermost range of its launching thread that is an
+aten op with a tensor operand or a flash kernel's cost range.  The owner's
+flops and bytes are split over the kernels it launched in proportion to
+their device time (equally when all took none), so each kernel of a
+several-kernel op (a cuDNN convolution with its layout transforms, say)
+runs at the op's own share of the roofline, and the op's totals stay whole.
 
 Clock: an event's time is ``baseTimeNanoseconds`` + ``ts`` (microseconds).
 The collector's ``sofa_timebase_marker:<unix_ns>`` range pins that clock to
@@ -33,19 +52,23 @@ import glob
 import json
 import os
 import re
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import pandas as pd
 
+from sofa_tpu_torch.costs import is_cost_range, op_cost, range_cost
 from sofa_tpu_torch.printing import print_warning
-from sofa_tpu_torch.trace import CopyKind, empty_frame, make_frame
+from sofa_tpu_torch.trace import (CopyKind, empty_frame, make_frame,
+                                  merged_intervals)
 
 MARKER_RE = re.compile(r"sofa_timebase_marker:(\d+)")
 STEP_RE = re.compile(r"^(?:sofa_step_(\d+)|ProfilerStep#(\d+))$")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# the autograd engine's ranges, and so its device threads
+ENGINE_PREFIX = "autograd::engine"
 _MEMCPY_KINDS = (("HtoD", CopyKind.H2D), ("DtoH", CopyKind.D2H),
                  ("DtoD", CopyKind.D2D), ("PtoP", CopyKind.P2P))
 
@@ -87,15 +110,79 @@ def clock_shift_s(doc: dict, time_base: float) -> float:
     return (base_ns + offset_ns - round(time_base * 1e9)) / 1e9
 
 
-def _innermost_ranges(t: np.ndarray, ranges) -> np.ndarray:
-    """Name of the narrowest host range (start, end, name) containing each
-    time in ``t``, "" where none does (and where ``t`` is NaN)."""
-    module = np.full(len(t), "", dtype=object)
-    # widest first, so narrower (inner) ranges overwrite
-    for a_start, a_end, a_name in sorted(ranges, key=lambda a: a[1] - a[0],
-                                         reverse=True):
-        module[(t >= a_start) & (t <= a_end)] = a_name
-    return module
+def _stacks(ranges, queries):
+    """For each query time, the indices of ``ranges`` (start, end) that
+    contain it, outermost first.  The ranges are one thread's and nest, as
+    one thread's profiler ranges do; a sweep in time order keeps the open
+    ones on a stack."""
+    order = sorted(range(len(ranges)),
+                   key=lambda i: (ranges[i][0], -ranges[i][1]))
+    out = [()] * len(queries)
+    stack, j = [], 0
+    for q in sorted(range(len(queries)), key=queries.__getitem__):
+        t = queries[q]
+        while j < len(order) and ranges[order[j]][0] <= t:
+            i = order[j]
+            while stack and ranges[stack[-1]][1] < ranges[i][0]:
+                stack.pop()
+            stack.append(i)
+            j += 1
+        while stack and ranges[stack[-1]][1] < t:
+            stack.pop()
+        # a range that ended before t may sit under one still open
+        out[q] = tuple(i for i in stack if ranges[i][1] >= t)
+    return out
+
+
+def _launch_context(events, launches):
+    """For each launch (time, thread) or None: the host ranges open at it,
+    outermost first, as event indices into ``events``: every cpu_op and
+    user_annotation of the launching thread that contains it, and the
+    user_annotations of other threads that do (a training step's range
+    spans the backward kernels the autograd engine launches from its own
+    thread)."""
+    by_tid, ann_by_tid = {}, {}
+    for i, e in enumerate(events):
+        cat = e.get("cat")
+        if cat not in ("cpu_op", "user_annotation") \
+                or MARKER_RE.search(str(e.get("name", ""))):
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), i)
+        by_tid.setdefault(e.get("tid"), []).append(span)
+        if cat == "user_annotation":
+            ann_by_tid.setdefault(e.get("tid"), []).append(span)
+    slots = [k for k, x in enumerate(launches) if x is not None]
+    open_at = {k: [] for k in slots}
+    for tid, spans in by_tid.items():
+        mine = [k for k in slots if launches[k][1] == tid]
+        for k, st in zip(mine, _stacks(spans, [launches[k][0] for k in mine])):
+            open_at[k] += [spans[i] for i in st]
+    for tid, spans in ann_by_tid.items():
+        other = [k for k in slots if launches[k][1] != tid]
+        for k, st in zip(other, _stacks(spans,
+                                        [launches[k][0] for k in other])):
+            open_at[k] += [spans[i] for i in st]
+    context = [()] * len(launches)
+    for k, spans in open_at.items():
+        context[k] = tuple(i for _, _, i in sorted(
+            spans, key=lambda s: (s[0], -s[1])))
+    return context
+
+
+def _owner(ctx, events, tid_of_launch):
+    """The event index whose cost a kernel carries: the innermost range on
+    the launching thread that is a flash cost range or an aten op with a
+    tensor operand, or None."""
+    for i in reversed(ctx):
+        e = events[i]
+        if e.get("tid") != tid_of_launch:
+            continue
+        name = str(e.get("name", ""))
+        if is_cost_range(name):
+            return i
+        if e.get("cat") == "cpu_op" and op_cost(name, e.get("args") or {}):
+            return i
+    return None
 
 
 def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
@@ -108,26 +195,58 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
     def correlation(e):
         return (e.get("args") or {}).get("correlation")
 
-    launched_at = {correlation(e): float(e["ts"]) for e in events
-                   if e.get("cat") in LAUNCH_CATS
+    launched_at = {correlation(e): (float(e["ts"]), e.get("tid"))
+                   for e in events if e.get("cat") in LAUNCH_CATS
                    and correlation(e) is not None}
     ranges = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
                str(e["name"])) for e in events
               if e.get("cat") == "user_annotation"
               and not MARKER_RE.search(str(e.get("name", "")))]
+    engine_tids = {e.get("tid") for e in events
+                   if str(e.get("name", "")).startswith(ENGINE_PREFIX)}
 
     dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS]
     dev = np.array([_device_of(e) for e in dev_ev], dtype=int)
     start = np.array([float(e["ts"]) for e in dev_ev])
     dur = np.array([float(e.get("dur", 0)) for e in dev_ev])
-    launch = np.array([launched_at.get(correlation(e), np.nan)
-                       for e in dev_ev])
-    modules = _innermost_ranges(launch, ranges)
+    launches = [launched_at.get(correlation(e)) for e in dev_ev]
+    launch = np.array([x[0] if x else np.nan for x in launches])
+    contexts = _launch_context(events, launches)
+
+    # each owner's cost, split over the kernels it launched by device time
+    owners = [_owner(ctx, events, x[1]) if x and e["cat"] == "kernel"
+              else None for ctx, x, e in zip(contexts, launches, dev_ev)]
+    owner_time: Dict[int, float] = {}
+    owner_count: Dict[int, int] = {}
+    for o, d in zip(owners, dur):
+        if o is not None:
+            owner_time[o] = owner_time.get(o, 0.0) + d
+            owner_count[o] = owner_count.get(o, 0) + 1
     gpu_rows = []
     for i, e in enumerate(dev_ev):
         args = e.get("args") or {}
         nbytes = int(args.get("bytes", 0) or 0)
         d = dur[i] * 1e-6
+        ctx = [events[j] for j in contexts[i]]
+        names = [str(c["name"]) for c in ctx]
+        module = next((n for c, n in zip(reversed(ctx), reversed(names))
+                       if c.get("cat") == "user_annotation"
+                       and not is_cost_range(n)), "")
+        flops = cost_bytes = 0.0
+        category = e["cat"]
+        o = owners[i]
+        if o is not None:
+            oname = str(events[o]["name"])
+            cost = range_cost(oname) or op_cost(oname,
+                                                events[o].get("args") or {})
+            share = (dur[i] / owner_time[o] if owner_time[o] > 0
+                     else 1.0 / owner_count[o])
+            flops, cost_bytes = cost[0] * share, cost[1] * share
+            category = oname.partition("[")[0]
+        phase = ""
+        if launches[i] is not None:
+            phase = "bw" if (launches[i][1] in engine_tids or any(
+                n.startswith(ENGINE_PREFIX) for n in names)) else "fw"
         gpu_rows.append({
             "timestamp": start[i] * 1e-6 + shift, "event": float(dev[i]),
             "duration": d, "deviceId": int(dev[i]),
@@ -136,7 +255,9 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
             "bandwidth": nbytes / d if nbytes and d > 0 else 0.0,
             "pid": int(host_pid), "tid": int(args.get("stream", e.get("tid", -1))),
             "name": str(e["name"]), "device_kind": "gpu",
-            "hlo_category": e["cat"], "module": modules[i]})
+            "hlo_category": category, "module": module, "flops": flops,
+            "bytes_accessed": cost_bytes, "phase": phase,
+            "op_path": "/".join(names)})
 
     host_rows = [{
         "timestamp": float(e["ts"]) * 1e-6 + shift,
@@ -183,3 +304,92 @@ def ingest_kineto_dir(kineto_dir: str, time_base: float
                    .sort_values("timestamp", kind="stable")
                    .reset_index(drop=True) if dfs else empty_frame())
             for name, dfs in parts.items()}
+
+
+def _windowed_integral(starts: np.ndarray, ends: np.ndarray,
+                       rates: np.ndarray, t0: float, n_win: int,
+                       window_s: float) -> np.ndarray:
+    """Exact per-window integral of sum_i rates[i]*[starts_i <= t < ends_i]
+    over a uniform window grid, in O(len(starts) + n_win)."""
+    acc = np.zeros(n_win)
+    delta = np.zeros(n_win + 1)
+    a = (starts - t0) / window_s
+    b = (ends - t0) / window_s
+    ia = np.clip(np.floor(a).astype(np.int64), 0, n_win - 1)
+    ib = np.clip(np.floor(b).astype(np.int64), 0, n_win - 1)
+    same = ia == ib
+    if same.any():
+        np.add.at(acc, ia[same], rates[same] * (ends[same] - starts[same]))
+    d = ~same
+    if d.any():
+        np.add.at(acc, ia[d], rates[d] * ((ia[d] + 1) - a[d]) * window_s)
+        np.add.at(acc, ib[d], rates[d] * (b[d] - ib[d]) * window_s)
+        np.add.at(delta, ia[d] + 1, rates[d])
+        np.add.at(delta, ib[d], -rates[d])
+    return acc + np.cumsum(delta[:-1]) * window_s
+
+
+def gpu_utilization(gputrace: pd.DataFrame, window_s: float = 0.1,
+                    device_meta: Optional[Dict[str, Dict[str, float]]] = None
+                    ) -> pd.DataFrame:
+    """Windowed utilization series per device, derived from the kernels of
+    the trace (no NVML), the counterpart of ``tpu_utilization``:
+
+      ==================  ================  =================================
+      JAX (tpuutil)       port (gpuutil)    per window
+      ==================  ================  =================================
+      ``tc_util``         ``kernel_util``   % covered by kernels (union)
+      ``mxu_util``        ``tensor_util``   % of the card's peak FLOP/s
+      ``hbm_gbps``        ``hbm_gbps``      bytes_accessed rate, GB/s
+      ==================  ================  =================================
+
+    ``tensor_util`` needs the card's peak (``device_meta``, as
+    ``analysis.sol.device_peaks`` gives it); an unknown card has none."""
+    if gputrace.empty:
+        return empty_frame()
+    frames = []
+    for device_id, df in gputrace.groupby("deviceId"):
+        kern = df[df["copyKind"] == int(CopyKind.KERNEL)]
+        if kern.empty:
+            continue
+        starts = kern["timestamp"].to_numpy(dtype=float)
+        ends = starts + kern["duration"].to_numpy(dtype=float)
+        t0 = float(starts.min())
+        t1 = float(ends.max())
+        edges = np.arange(t0, t1 + window_s, window_s)
+        n_win = len(edges) - 1
+        if n_win <= 0:
+            continue
+        marr = merged_intervals(starts, ends)
+        durs = np.maximum(ends - starts, 1e-12)
+        busy = _windowed_integral(
+            marr[:, 0], marr[:, 1], np.ones(len(marr)), t0, n_win, window_s)
+        wflops = _windowed_integral(
+            starts, ends, kern["flops"].to_numpy(dtype=float) / durs,
+            t0, n_win, window_s)
+        wbytes = _windowed_integral(
+            starts, ends, kern["bytes_accessed"].to_numpy(dtype=float) / durs,
+            t0, n_win, window_s)
+        peaks = (device_meta or {}).get(str(device_id), {})
+        peak_flops = peaks.get("peak_teraflops_per_second", 0.0) * 1e12
+        ts = edges[1:n_win + 1]
+        series = [("kernel_util", 100.0 * busy / window_s, np.zeros(n_win)),
+                  ("hbm_gbps", wbytes / window_s / 1e9, wbytes / window_s)]
+        if peak_flops > 0:
+            series.append(
+                ("tensor_util", 100.0 * (wflops / window_s) / peak_flops,
+                 np.zeros(n_win)))
+        frames.append(make_frame({
+            "timestamp": np.concatenate([ts] * len(series)),
+            "event": np.concatenate([v for _, v, _ in series]),
+            "bandwidth": np.concatenate([b for _, _, b in series]),
+            "duration": np.full(n_win * len(series), window_s),
+            "deviceId": np.full(n_win * len(series), int(device_id)),
+            "name": np.repeat([n for n, _, _ in series], n_win),
+            "device_kind": ["gpu"] * (n_win * len(series)),
+        }))
+    if not frames:
+        return empty_frame()
+    out = pd.concat(frames, ignore_index=True)
+    return out.sort_values(["deviceId", "timestamp"],
+                           kind="stable").reset_index(drop=True)

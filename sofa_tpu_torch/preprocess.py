@@ -4,7 +4,8 @@ A table of ingest tasks in the JAX package's order: the host samplers
 (mpstat, diskstat, netbandwidth, cpuinfo, vmstat), perf's CPU samples
 (cputrace), syscalls (strace), Python stacks (pystacks), packets
 (nettrace), the GPU memory sampler (gpumon), block IO (blktrace), then the
-Kineto capture (gputrace, gpusteps, hosttrace).  Each source is optional:
+Kineto capture (gputrace, gpusteps, hosttrace, and the gpuutil series
+derived from it).  Each source is optional:
 a missing raw file yields an empty frame, and a parse failure costs that
 source only, with a warning.  Every frame is written as ``<name>.csv``.
 """
@@ -16,18 +17,20 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import pandas as pd
 
+from sofa_tpu_torch.analysis.sol import device_peaks
 from sofa_tpu_torch.config import SofaConfig
 from sofa_tpu_torch.ingest import procfs, strace_parse
 from sofa_tpu_torch.ingest.blktrace_parse import ingest_blktrace
 from sofa_tpu_torch.ingest.gpumon_parse import ingest_gpumon
-from sofa_tpu_torch.ingest.kineto import ingest_kineto_dir
+from sofa_tpu_torch.ingest.kineto import gpu_utilization, ingest_kineto_dir
 from sofa_tpu_torch.ingest.pcap import ingest_pcap
 from sofa_tpu_torch.ingest.perf_script import ingest_perf
 from sofa_tpu_torch.ingest.timebase_align import converter
 from sofa_tpu_torch.printing import print_info, print_warning
 from sofa_tpu_torch.trace import empty_frame, read_csv, write_csv
 
-KINETO_FRAMES = ("gputrace", "gpusteps", "hosttrace")
+KINETO_FRAMES = ("gputrace", "gpusteps", "hosttrace", "gpuutil")
+UTIL_WINDOW_S = 0.1         # gpuutil's window, as the JAX tpuutil's
 
 
 def read_time_base(cfg: SofaConfig) -> float:
@@ -64,6 +67,15 @@ def _ingest_cputrace(logdir: str, time_base: float) -> pd.DataFrame:
                        procfs.cpu_mhz_interpolator(cpuinfo))
 
 
+def _ingest_kineto(cfg: SofaConfig, time_base: float):
+    """The Kineto frames, and gpuutil derived from gputrace against the
+    card's peaks (gpu_topo.json)."""
+    frames = ingest_kineto_dir(cfg.kineto_dir, time_base)
+    frames["gpuutil"] = gpu_utilization(frames["gputrace"], UTIL_WINDOW_S,
+                                        device_peaks(cfg))
+    return frames
+
+
 class _Task(NamedTuple):
     frames: Tuple[str, ...]   # frames produced, in output order
     fn: Callable              # () -> frame, or {frame name: frame}
@@ -92,8 +104,7 @@ def _tasks(cfg: SofaConfig, time_base: float) -> List[_Task]:
         _Task(("gpumon",), lambda: ingest_gpumon(cfg.logdir, time_base)),
         # blkparse times are already trace-relative
         _Task(("blktrace",), lambda: ingest_blktrace(cfg.logdir, 0.0)),
-        _Task(KINETO_FRAMES, lambda: ingest_kineto_dir(cfg.kineto_dir,
-                                                       time_base)),
+        _Task(KINETO_FRAMES, lambda: _ingest_kineto(cfg, time_base)),
     ]
 
 

@@ -15,3 +15,7 @@ def print_warning(msg: str) -> None:
 
 def print_title(msg: str) -> None:
     print(f"\n==== {msg} ====", flush=True)
+
+
+def print_hint(msg: str) -> None:
+    print(f"[HINT] {msg}", flush=True)

@@ -67,6 +67,8 @@ _RUN_FILES = (
     "memprof.pb.gz", "memprof.pb.gz.meta.json", "features.csv",
     "gpu_top_kernels.csv", "gpu_memprof.csv", "cpu_top.csv",
     "disk_summary.csv", "strace_top.csv", "pystacks_top.csv",
+    "gpu_categories.csv", "gpu_modules_summary.csv", "gpu_op_tree.csv",
+    "gpu_input_pipeline.csv", "roofline.csv", "sol_roofline.csv",
 )
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 from enum import IntEnum
+from typing import Optional
 
 import numpy as np
 import pandas as pd
@@ -120,6 +121,37 @@ def read_csv(path: str) -> pd.DataFrame:
         if col not in df.columns:
             df[col] = _DEFAULTS[col]
     return df[COLUMNS]
+
+
+def roi_bounds(cfg) -> "Optional[tuple]":
+    """(begin, end) when a region of interest is active, else None."""
+    begin, end = cfg.roi_begin, cfg.roi_end
+    if end > begin > 0 or (begin == 0 and end > 0):
+        return begin, end
+    return None
+
+
+def narrow(df: pd.DataFrame, cols) -> pd.DataFrame:
+    """Project a frame to the columns a pass reads before any row mask
+    copies the rest.  A frame lacking one of them passes through unchanged;
+    the result may be the input itself, so treat it as read-only."""
+    if list(df.columns) == list(cols):
+        return df
+    if all(c in df.columns for c in cols):
+        return df[list(cols)]
+    return df
+
+
+def roi_clip(df: pd.DataFrame, cfg) -> pd.DataFrame:
+    """The rows that overlap the region of interest when one is set (a
+    row straddling a bound stays whole), else the frame itself."""
+    bounds = roi_bounds(cfg)
+    if bounds is not None:
+        begin, end = bounds
+        starts = df["timestamp"]
+        ends = starts + df["duration"]
+        return df[(starts <= end) & (ends >= begin)]
+    return df
 
 
 def merged_intervals(starts, ends) -> np.ndarray:

@@ -11,16 +11,21 @@ materialized on the card.
 
 The attention wrappers are differentiable through ``_FlashAttention``, a
 ``torch.autograd.Function`` whose backward is ``_flash_backward``: on the
-card the two backward kernels, on the CPU their plain versions.
+card the two backward kernels, on the CPU their plain versions.  Each
+launch on the card runs inside a profiler range that names the kernel and
+its shapes, from which ingest credits the kernel with the flops and bytes
+of the Pallas kernel's ``pl.CostEstimate`` (``sofa_tpu_torch/costs.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 
 from sofa_tpu_torch import kernels
+from sofa_tpu_torch.costs import cost_range_name
 from sofa_tpu_torch.workloads.ring_attention import NEG_INF
 
 #: Head dims the CUDA kernel is compiled for.
@@ -128,7 +133,20 @@ def _flash_forward_plain(q, k, v, shift: int, seg_q=None, seg_kv=None
     return out, lse
 
 
-def _flash_forward_cuda(q, k, v, shift: int, seg_q=None, seg_kv=None
+def _cost_range(kern, q, k, causal: bool):
+    """The profiler range around one launch, named by the kernel and the
+    shapes its cost depends on (``costs.cost_range_name``): the kernel
+    launches through ctypes, so no aten op tells the trace what it does.
+    Opened only while a profiler runs."""
+    if not torch._C._autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    b, t, h, d = q.shape
+    return torch.profiler.record_function(cost_range_name(
+        kern.name, b, t, k.shape[1], h, k.shape[2], d, causal))
+
+
+def _flash_forward_cuda(q, k, v, shift: int, seg_q=None, seg_kv=None, *,
+                        static_causal: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``sofa_flash_fwd`` on q's device and current stream."""
     b, t, h, d = q.shape
@@ -140,7 +158,7 @@ def _flash_forward_cuda(q, k, v, shift: int, seg_q=None, seg_kv=None
         return out, lse
     kern = kernels.FLASH_FWD
     lib = kernels.library(kern)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _cost_range(kern, q, k, static_causal):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sofa_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -194,7 +212,8 @@ def _flash_forward(q, k, v, shift=0, static_causal: bool = False,
     seg_q, seg_kv = _normalize_segments(segment_ids, kv_segment_ids,
                                         q.shape[0], q.shape[1], k.shape[1])
     if _on_card(q):
-        return _flash_forward_cuda(q, k, v, int(shift), seg_q, seg_kv)
+        return _flash_forward_cuda(q, k, v, int(shift), seg_q, seg_kv,
+                                   static_causal=static_causal)
     return _flash_forward_plain(q, k, v, int(shift), seg_q, seg_kv)
 
 
@@ -266,7 +285,7 @@ def _card_grad_dtype(grad_dtype) -> bool:
 
 
 def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
-                out_f32: bool) -> None:
+                out_f32: bool, static_causal: bool) -> None:
     """Launch one backward kernel writing ``outs`` on q's current stream."""
     _check_card_inputs((q, k, v, g), (lse, delta, seg_q, seg_kv) + outs)
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
@@ -274,7 +293,7 @@ def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
     b, t, h, d = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     lib = kernels.library(kern)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _cost_range(kern, q, k, static_causal):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, kern.name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
@@ -288,7 +307,7 @@ def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
 
 
 def _flash_bwd_kv_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
-                       seg_kv=None, grad_dtype=None):
+                       seg_kv=None, grad_dtype=None, *, static_causal: bool):
     """Launch ``sofa_flash_bwd_kv``: (dk, dv) [B,Tk,KVH,D]."""
     out_f32 = _card_grad_dtype(grad_dtype)
     dt = torch.float32 if out_f32 else k.dtype
@@ -296,19 +315,19 @@ def _flash_bwd_kv_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
     dv = torch.empty(v.shape, dtype=dt, device=v.device)
     if q.numel() and k.numel():
         _bwd_launch(kernels.FLASH_BWD_KV, q, k, v, g, lse, delta, shift,
-                    seg_q, seg_kv, (dk, dv), out_f32)
+                    seg_q, seg_kv, (dk, dv), out_f32, static_causal)
     return dk, dv
 
 
 def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
-                       seg_kv=None, grad_dtype=None):
+                       seg_kv=None, grad_dtype=None, *, static_causal: bool):
     """Launch ``sofa_flash_bwd_dq``: dq [B,T,H,D]."""
     out_f32 = _card_grad_dtype(grad_dtype)
     dq = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype,
                      device=q.device)
     if q.numel() and k.numel():
         _bwd_launch(kernels.FLASH_BWD_DQ, q, k, v, g, lse, delta, shift,
-                    seg_q, seg_kv, (dq,), out_f32)
+                    seg_q, seg_kv, (dq,), out_f32, static_causal)
     return dq
 
 
@@ -339,8 +358,8 @@ def _flash_backward(q, k, v, g, out, lse, shift=0, static_causal: bool = True,
     args = (q, k, v, g.contiguous(), lse, delta, int(shift), seg_q, seg_kv,
             grad_dtype)
     if _on_card(q):
-        dk, dv = _flash_bwd_kv_cuda(*args)
-        return _flash_bwd_dq_cuda(*args), dk, dv
+        dk, dv = _flash_bwd_kv_cuda(*args, static_causal=static_causal)
+        return _flash_bwd_dq_cuda(*args, static_causal=static_causal), dk, dv
     return _flash_backward_plain(*args)
 
 

@@ -171,7 +171,8 @@ def test_kineto_start_writes_the_injected_modules(cfg):
     os.makedirs(cfg.logdir)
     KinetoCollector(cfg).start()
     assert sorted(os.listdir(cfg.inject_dir)) == [
-        "sitecustomize.py", "sofa_torch_gpumon.py", "sofa_torch_pystacks.py"]
+        "sitecustomize.py", "sofa_torch_gpumon.py", "sofa_torch_kineto.py",
+        "sofa_torch_pystacks.py"]
     for name in os.listdir(cfg.inject_dir):
         with open(os.path.join(cfg.inject_dir, name)) as f:
             compile(f.read(), name, "exec")

@@ -330,3 +330,21 @@ def test_library_binds_every_entry_point_it_holds(monkeypatch):
     assert lib.first.restype is lib.second.restype is kernels._I
     for smem in (lib.first_smem_bytes, lib.second_smem_bytes):
         assert smem.argtypes == [kernels._I] and smem.restype is kernels._I
+
+
+def test_cost_range_opens_only_under_a_profiler():
+    """The range that names a launch's shapes for the cost model is opened
+    only while a profiler runs: with tracing off a launch formats nothing."""
+    import contextlib
+
+    from sofa_tpu_torch.costs import cost_range_name
+
+    q, k = torch.zeros(2, 16, 4, 64), torch.zeros(2, 8, 2, 64)
+    assert isinstance(tfc._cost_range(kernels.FLASH_FWD, q, k, True),
+                      contextlib.nullcontext)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tfc._cost_range(kernels.FLASH_FWD, q, k, False):
+            pass
+    want = cost_range_name(kernels.FLASH_FWD.name, 2, 16, 8, 4, 2, 64, False)
+    assert want in {e.name for e in prof.events()}

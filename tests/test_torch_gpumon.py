@@ -339,12 +339,7 @@ def test_peak_trigger_growth_gate(tmp_path, monkeypatch):
     path = str(tmp_path / "memprof.pb.gz")
     monkeypatch.setitem(NS["_MEMPROF"], "snap", 0)
     monkeypatch.setitem(NS["_MEMPROF"], "last", 0.0)
-    ready = {"now": False}
-    monkeypatch.setitem(NS, "_symbolizer_ready", lambda: ready["now"])
     gate = NS["_maybe_memprof"]
-    gate(stub, path, 100 * 2**20)     # the program has not imported inductor
-    assert stub.snapshots == 0 and NS["_MEMPROF"]["snap"] == 0
-    ready["now"] = True
     gate(stub, path, 100 * 2**20)
     assert stub.snapshots == 1 and os.path.isfile(path)
     NS["_MEMPROF"]["last"] = 0.0
@@ -365,19 +360,46 @@ def test_peak_trigger_growth_gate(tmp_path, monkeypatch):
     assert stub.snapshots == 3
 
 
-def test_symbolizer_ready_only_after_the_program_imports_it(monkeypatch):
-    monkeypatch.delitem(sys.modules, "torch._inductor.codecache",
-                        raising=False)
-    assert not NS["_symbolizer_ready"]()
-    done = types.SimpleNamespace(__spec__=types.SimpleNamespace(
-        _initializing=False))
-    busy = types.SimpleNamespace(__spec__=types.SimpleNamespace(
-        _initializing=True))
-    monkeypatch.setitem(sys.modules, "torch._inductor", done)
-    monkeypatch.setitem(sys.modules, "torch._inductor.codecache", busy)
-    assert not NS["_symbolizer_ready"]()       # still being imported
-    monkeypatch.setitem(sys.modules, "torch._inductor.codecache", done)
-    assert NS["_symbolizer_ready"]()
+def test_snapshot_never_imports_a_lazy_module():
+    """torch's symbolizer probes ``hasattr(torch, "_inductor")``, which
+    torch's lazy module ``__getattr__`` turns into an import: inside the
+    sampler's snapshot the probe reads "absent", everywhere else it still
+    imports, and the frames are named all the same."""
+    imported = []
+    fake = types.ModuleType("fake_torch")
+
+    def lazy(name):
+        if name in ("_dynamo", "_inductor", "_export", "onnx"):
+            imported.append(name)
+            return types.SimpleNamespace()
+        raise AttributeError(name)
+
+    fake.__getattr__ = lazy
+
+    def _symbolizing_snapshot():
+        return {"probe": hasattr(fake, "_inductor"),
+                "segments": SNAPSHOT["segments"]}
+
+    fake.cuda = types.SimpleNamespace(memory=types.SimpleNamespace(
+        _snapshot=_symbolizing_snapshot))
+    snap = NS["_snapshot"](fake)
+    assert snap["probe"] is False and imported == []
+    assert NS["_snapshot_samples"](snap)            # frames still named
+    # the guard is installed once and leaves other callers alone
+    guard = fake.__dict__["__getattr__"]
+    NS["_snapshot"](fake)
+    assert fake.__dict__["__getattr__"] is guard and imported == []
+    assert hasattr(fake, "_inductor") and imported == ["_inductor"]
+    with pytest.raises(AttributeError):
+        fake.not_a_module                           # noqa: B018
+
+
+def test_snapshot_of_a_torch_without_lazy_modules(tmp_path):
+    """A stand-in with no module ``__getattr__`` (or a torch that imports
+    everything eagerly) is snapshotted as it is."""
+    stub = _StubTorch()
+    assert NS["_snapshot"](stub) is SNAPSHOT and stub.snapshots == 1
+    assert "__getattr__" not in vars(stub)
 
 
 def test_sampler_writes_the_tpumon_format_once_cuda_is_up(tmp_path,

@@ -338,6 +338,36 @@ def test_mpstat_profile_reads_cores_and_cpu_util():
     assert feats.get("cpu_util") == pytest.approx(0.65)
 
 
+# /proc/stat as a sandbox shows it: the counters never advance
+FROZEN_MPSTAT = "\n".join(
+    _mp(T0 + i, cpu, [100, 0, 100, 100, 0, 0, 0, 0])
+    for i in range(3) for cpu in ("cpuall", "cpu0", "cpu1"))
+
+
+def test_mpstat_profile_matches_jax_on_moving_counters():
+    """cpu_util is compared with the JAX pass only on counters that move
+    (the fixture's cpuall advances every interval)."""
+    frames = {"mpstat": procfs.parse_mpstat(MPSTAT, time_base=T0)}
+    got, ref = Features(), JaxFeatures()
+    host.mpstat_profile(frames, SofaConfig(logdir="/unused/"), got)
+    jax_host.mpstat_profile(frames, JaxConfig(logdir="/unused/"), ref)
+    assert got.get("cpu_util") == ref.get("cpu_util") == pytest.approx(0.65)
+
+
+def test_frozen_proc_stat_gives_no_cpu_util(capsys):
+    """A deliberate difference from the JAX package, which reads a frozen
+    /proc/stat as an idle host (cpu_util 0.0): the port leaves cpu_util out
+    and warns that the host CPU was not measured."""
+    frames = {"mpstat": procfs.parse_mpstat(FROZEN_MPSTAT, time_base=T0)}
+    got, ref = Features(), JaxFeatures()
+    host.mpstat_profile(frames, SofaConfig(logdir="/unused/"), got)
+    jax_host.mpstat_profile(frames, JaxConfig(logdir="/unused/"), ref)
+    assert ref.get("cpu_util") == 0.0
+    assert got.get("cpu_util") is None and got.get("mpstat_idl_pct") is None
+    assert got.get("num_cores") == 2
+    assert "host CPU was not measured" in capsys.readouterr().err
+
+
 def test_preprocess_runs_the_jax_task_table_in_order(tmp_path):
     from sofa_tpu.preprocess import _ingest_tasks
     from sofa_tpu_torch.preprocess import KINETO_FRAMES, frame_names

@@ -61,7 +61,11 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/collectors/kineto.py",
             "sofa_tpu_torch/collectors/gpumon.py",
             "sofa_tpu_torch/ingest/memprof.py",
-            "sofa_tpu_torch/analysis/host.py"} <= rel
+            "sofa_tpu_torch/analysis/host.py", "sofa_tpu_torch/api.py",
+            "sofa_tpu_torch/costs.py", "sofa_tpu_torch/analysis/device.py",
+            "sofa_tpu_torch/analysis/sol.py",
+            "sofa_tpu_torch/workloads/resnet.py",
+            "sofa_tpu_torch/tools/overhead_budget.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -69,7 +73,11 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.entry, sofa_tpu_torch.workloads.inference, "
             "sofa_tpu_torch.analyze, sofa_tpu_torch.convert, "
             "sofa_tpu_torch.record, sofa_tpu_torch.preprocess, "
-            "sofa_tpu_torch.ingest.memprof, sofa_tpu_torch.collectors.gpumon; "
+            "sofa_tpu_torch.ingest.memprof, sofa_tpu_torch.collectors.gpumon, "
+            "sofa_tpu_torch.api, sofa_tpu_torch.costs, "
+            "sofa_tpu_torch.analysis.device, sofa_tpu_torch.analysis.sol, "
+            "sofa_tpu_torch.workloads.resnet, "
+            "sofa_tpu_torch.tools.overhead_budget; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'sofa_tpu') or m.startswith('google.protobuf')]; "
             "print(bad); sys.exit(1 if bad else 0)")
