@@ -59,6 +59,16 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            CUDA kernels, convolution kernels carrying flops, a roofline no
            row of which runs faster than its bound); then ``stat`` over
            ``python -m sofa_tpu_torch.workloads.resnet --train``
+  board    ``report`` with no card visible (CUDA_VISIBLE_DEVICES="") over
+           the Llama-width training capture and the last ResNet-50
+           capture: report.js's series (the sofa_flash series holding all
+           three kernels), the tile pyramid (its deepest tiles hold every
+           gputrace row), the hints (the ResNet capture's idle steps);
+           ``viz`` in its own process serving every staged page, report.js
+           and every CSV a page names (404 where analyze wrote none), a 304
+           on revalidation, a deep tile gzipped and plain, nothing outside
+           the logdir; then ``clean`` on a copy of the ResNet logdir and
+           ``report`` over it again; prints the host times and sizes
 
 The last lines are the kernels JSON, the nvidia-smi line, and the result
 JSON.  It exits non-zero without a result when no CUDA device is visible.
@@ -1368,7 +1378,257 @@ class Smoke:
                                  "program that never used the card")
 
 
-PHASES = ("device", "kernel", "model", "train", "profile", "resnet")
+    # -- board ------------------------------------------------------------------
+    def board(self):
+        """The board over two captures the card made: ``report`` (host
+        only: no card visible) over the Llama-width training capture and
+        the last ResNet-50 ``api.profile()`` capture; report.js, the tile
+        pyramid and the hints; ``viz`` serving every page and what the
+        pages fetch; then ``clean`` on a copy of the ResNet logdir, and
+        ``report`` over the copy again."""
+        from sofa_tpu_torch.kernels import KERNELS
+
+        logdirs = (
+            ("llama", os.path.join(REPO, "build", "chip_smoke_profile_llama")),
+            ("resnet", os.path.join(REPO, "build", "chip_smoke_resnet_r4")))
+        for label, logdir in logdirs:
+            # measure the tile stage cold: the earlier phases built it
+            shutil.rmtree(os.path.join(logdir, "_tiles"), ignore_errors=True)
+            timing = self.board_report(label, logdir)
+            doc = self.board_report_js(label, logdir)
+            if label == "llama":
+                flash = next(s for s in doc["series"]
+                             if s["name"] == "gpu_sofa_flash")
+                held = {k.name: [n for n in flash["data"]["names"]
+                                 if k.name in n] for k in KERNELS}
+                log(f"board[llama]: gpu_sofa_flash holds {held}")
+                if not all(held.values()):
+                    raise AssertionError("the sofa_flash series lacks a "
+                                         "flash kernel")
+            elif "gputrace" not in doc["meta"].get("tiles", {}).get(
+                    "series", {}):
+                raise AssertionError("the ResNet-50 gputrace has no pyramid")
+            leaves = self.board_leaf_rows(label, logdir, doc)
+            hints = self.board_hints(label, logdir)
+            if label == "resnet" and not any(
+                    h.startswith("device idle inside steps on gpu0")
+                    for h in hints):
+                raise AssertionError("hints.txt lacks the idle-steps hint")
+            self.board_viz(label, logdir)
+            tiles = doc["meta"].get("tiles", {}).get("series", {})
+            log(f"board[{label}]: report {timing['wall']:.3f} s wall; series "
+                f"{timing['series']} s, tiles {timing['tiles']} s, report.js "
+                f"{timing['report_js']} s; report.js {timing['bytes']} bytes,"
+                f" {len(doc['series'])} series; tiles: " + (", ".join(
+                    f"{n} {e['tile_count']} in {e['levels']} levels "
+                    f"({e['bytes']} bytes)" for n, e in tiles.items())
+                    or "none") + f"; gputrace rows in the deepest tiles "
+                f"{leaves} | {self.smi}")
+        self.board_clean(logdirs[1][1])
+
+    def board_cli(self, *argv):
+        """``python -m sofa_tpu_torch <argv>`` with no card visible."""
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "sofa_tpu_torch", *argv],
+                           cwd=REPO, env=env, capture_output=True, text=True,
+                           timeout=600)
+        return r, time.perf_counter() - t0
+
+    def board_report(self, label, logdir):
+        import re
+
+        r, wall = self.board_cli("report", "--logdir", logdir)
+        for line in (r.stdout + r.stderr).splitlines():
+            if line.startswith(("[PROGRESS]", "[HINT]", "[WARNING]")):
+                log(f"  | {line}")
+        if r.returncode != 0 or "Complete!!" not in r.stdout:
+            raise AssertionError(f"report failed ({label}), rc "
+                                 f"{r.returncode}: {r.stderr[-3000:]}")
+        m = re.search(r"board data: \d+ series in ([\d.]+) s, tiles in "
+                      r"([\d.]+) s, report.js \((\d+) bytes\) in ([\d.]+) s",
+                      r.stdout)
+        if m is None:
+            raise AssertionError(f"report printed no board stage times "
+                                 f"({label})")
+        return {"wall": wall, "series": m.group(1), "tiles": m.group(2),
+                "bytes": int(m.group(3)), "report_js": m.group(4)}
+
+    def board_report_js(self, label, logdir):
+        from sofa_tpu_torch.trace import read_report_js_doc
+
+        doc = read_report_js_doc(os.path.join(logdir, "report.js"))
+        names = {s["name"] for s in doc["series"]}
+        want = {"gputrace", "gpu_phase_fw", "gpu_phase_bw", "gpuutil",
+                "gpusteps", "gpumon", "hosttrace"}
+        if label == "llama":
+            want.add("gpu_sofa_flash")
+        if not want <= names:
+            raise AssertionError(f"report.js lacks {sorted(want - names)} "
+                                 f"({label})")
+        return doc
+
+    def board_leaf_rows(self, label, logdir, doc):
+        """The gputrace rows the deepest level's tiles hold together; the
+        series is the whole frame, so they must number its rows."""
+        import pandas as pd
+        from sofa_tpu_torch.tiles import read_tile
+
+        rows = len(pd.read_csv(os.path.join(logdir, "gputrace.csv"),
+                               usecols=["timestamp"]))
+        ent = doc["meta"].get("tiles", {}).get("series", {}).get("gputrace")
+        if ent is None:
+            return f"no pyramid ({rows} rows)"
+        leaf = ent["levels"] - 1
+        held = 0
+        for i in range(1 << leaf):
+            t = read_tile(logdir, ent["path"], leaf, i)
+            if t is not None:
+                if not t["exact"] or len(t["xd"]) != t["count"]:
+                    raise AssertionError(f"leaf tile {i} is not exact")
+                held += t["count"]
+        if held != rows:
+            raise AssertionError(f"the deepest tiles hold {held} rows, "
+                                 f"gputrace.csv {rows} ({label})")
+        return f"{held} of {rows} in {ent['tiles'][leaf]} leaf tiles"
+
+    def board_hints(self, label, logdir):
+        try:
+            with open(os.path.join(logdir, "hints.txt")) as f:
+                hints = [h for h in f.read().splitlines() if h]
+        except FileNotFoundError:
+            hints = []
+        for h in hints:
+            log(f"board[{label}]: hint: {h}")
+        if not hints:
+            log(f"board[{label}]: no hint fired")
+        return hints
+
+    def board_viz(self, label, logdir):
+        """``viz`` in its own process: every staged page and what the pages
+        fetch, 304, gzip and plain tiles, nothing outside the logdir; then
+        the server is stopped and must be gone."""
+        import glob
+        import gzip
+        import http.client
+        import re
+        import signal
+
+        from sofa_tpu_torch.analyze import board_pages
+
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "sofa_tpu_torch", "viz", "--logdir",
+             logdir, "--viz_port", "8700"], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            port = None
+            t0 = time.perf_counter()
+            while port is None and time.perf_counter() - t0 < 60:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                m = re.search(r"serving .* at http://[^:]+:(\d+)/", line)
+                if m:
+                    port = int(m.group(1))
+            if port is None:
+                raise AssertionError(f"viz did not start ({label})")
+
+            def get(path, headers=None):
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=30)
+                try:
+                    conn.request("GET", path, headers=headers or {})
+                    resp = conn.getresponse()
+                    return resp.status, dict(resp.getheaders()), resp.read()
+                finally:
+                    conn.close()
+
+            bad = []
+            for name in board_pages() + ["report.js"]:
+                status = get("/" + name)[0]
+                if status != 200:
+                    bad.append((name, status))
+            fetched = set()
+            for page in glob.glob(os.path.join(logdir, "*.html")):
+                with open(page) as f:
+                    fetched |= set(re.findall(r'"([\w.]+\.csv)"', f.read()))
+            absent = []
+            for name in sorted(fetched):
+                want = 200 if os.path.isfile(os.path.join(logdir, name)) \
+                    else 404
+                status = get("/" + name)[0]
+                if status != want:
+                    bad.append((name, status))
+                if want == 404:
+                    absent.append(name)
+            _s, headers, _b = get("/report.js")
+            revalidated = get("/report.js",
+                              {"If-None-Match": headers["ETag"]})[0]
+            if revalidated != 304:
+                bad.append(("report.js If-None-Match", revalidated))
+            # the deepest tile of gputrace's pyramid, else of any series'
+            tiles = glob.glob(os.path.join(logdir, "_tiles", "gputrace",
+                                           "*", "*.json.gz")) or glob.glob(
+                os.path.join(logdir, "_tiles", "*", "*", "*.json.gz"))
+            if tiles:
+                deep = max(tiles, key=lambda p: (
+                    int(p.split(os.sep)[-2]), p))
+                url = "/tiles/" + "/".join(deep.split(os.sep)[-3:])
+                status, headers, body = get(url, {"Accept-Encoding": "gzip"})
+                plain = get(url)
+                if status != 200 or headers.get("Content-Encoding") != \
+                        "gzip" or plain[0] != 200 or \
+                        json.loads(plain[2]) != json.loads(
+                            gzip.decompress(body)):
+                    bad.append((url, status, plain[0]))
+            outside = get("/../../chip_smoke.py")[0]
+            if outside != 404:
+                bad.append(("/../../chip_smoke.py", outside))
+            log(f"board[{label}]: viz on port {port}: {len(board_pages())} "
+                f"staged files, report.js, {len(fetched) - len(absent)} CSVs "
+                f"200, absent (404, as expected) {absent}, 304 on "
+                f"revalidation, " + ("/".join(deep.split(os.sep)[-3:])
+                                      if tiles else "no tile") +
+                " gzip and plain, ../ 404")
+            if bad:
+                raise AssertionError(f"viz answered wrongly ({label}): {bad}")
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        if proc.poll() is None:
+            raise AssertionError("the viz process is still running")
+
+    def board_clean(self, logdir):
+        """``clean`` on a copy of a logdir keeps the raw files and
+        kineto/, removes the derived ones; ``report`` works again."""
+        from sofa_tpu_torch.record import RAW_FILES
+
+        copy = os.path.join(REPO, "build", "chip_smoke_board_clean")
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(logdir, copy)
+        before = set(os.listdir(copy))
+        r, _ = self.board_cli("clean", "--logdir", copy)
+        after = set(os.listdir(copy))
+        traces = os.listdir(os.path.join(copy, "kineto"))
+        log(f"board[clean]: {len(before)} entries -> {len(after)}: "
+            f"{sorted(after)}; kineto/ {traces}")
+        if r.returncode != 0 or not after <= set(RAW_FILES) | {"kineto"} \
+                or not traces or not (before & set(RAW_FILES)) <= after:
+            raise AssertionError(f"clean removed the wrong files: {r.stderr}")
+        r, wall = self.board_cli("report", "--logdir", copy)
+        if r.returncode != 0 or "Complete!!" not in r.stdout:
+            raise AssertionError(f"report after clean failed: "
+                                 f"{r.stderr[-3000:]}")
+        log(f"board[clean]: report over the cleaned copy {wall:.3f} s")
+        shutil.rmtree(copy, ignore_errors=True)
+
+PHASES = ("device", "kernel", "model", "train", "profile", "resnet", "board")
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 
 

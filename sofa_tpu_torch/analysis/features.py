@@ -5,7 +5,8 @@ table but not saved."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import re
+from typing import Dict, List, Optional, Tuple
 
 import pandas as pd
 
@@ -26,6 +27,17 @@ class Features:
             if n == name:
                 return v
         return None
+
+    def by_regex(self, pattern: str) -> List[Tuple[str, float]]:
+        """The latest value of every feature whose whole name matches, by
+        name.  Per-device rules scan ``gpu<N>_...`` with this: device 0
+        need not be the one that matters, or exist."""
+        rx = re.compile(pattern)
+        latest: Dict[str, float] = {}
+        for n, v in self._rows:
+            if rx.fullmatch(n):
+                latest[n] = v
+        return sorted(latest.items())
 
     def to_frame(self) -> pd.DataFrame:
         return pd.DataFrame(self._rows, columns=["name", "value"])

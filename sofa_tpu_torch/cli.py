@@ -1,9 +1,17 @@
-"""Command line: ``python -m sofa_tpu_torch {record,preprocess,analyze,stat}``.
+"""Command line: ``python -m sofa_tpu_torch <verb>``.
 
   record      run "cmd" under the collectors, raw traces into --logdir
-  preprocess  fold the raw traces into the unified frames (<source>.csv)
-  analyze     run the passes, write features.csv, print Complete!!
+  preprocess  fold the raw traces into the unified frames (<source>.csv),
+              the timeline's report.js and its tile pyramid (_tiles/)
+  analyze     run the passes, write features.csv and hints.txt, stage the
+              board's pages, print Complete!!
   stat        record + preprocess + analyze; exits with the command's rc
+  report      [preprocess] + analyze [+ viz with --with-gui]
+  viz         serve the board over --logdir (http://localhost:8000/)
+  clean       remove the derived files, keep the raw ones
+
+report, analyze, viz and clean run on the host only: they never touch a
+GPU.
 """
 
 from __future__ import annotations
@@ -14,19 +22,20 @@ from typing import Optional
 
 from sofa_tpu_torch.config import SofaConfig
 
-VERBS = ("record", "preprocess", "analyze", "stat")
+VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz", "clean")
 
 # Flags that map 1:1 onto SofaConfig fields.
 _FIELDS = (
     "logdir", "verbose", "perf_events", "no_perf_events", "cpu_sample_rate",
     "perf_call_graph", "sys_mon_rate", "enable_strace", "strace_min_time",
     "enable_py_stacks", "enable_tcpdump", "netstat_interface", "blkdev",
-    "gpu_mon_rate", "profile_region", "spotlight",
+    "gpu_mon_rate", "profile_region", "spotlight", "viz_port", "viz_bind",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
              "disable_gpu_mon": "enable_gpu_mon",
-             "disable_memprof": "enable_mem_prof"}
+             "disable_memprof": "enable_mem_prof",
+             "no_tiles": "enable_tiles"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +76,20 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--profile_region", help='manual ROI "begin:end" seconds')
     g.add_argument("--spotlight", action="store_true",
                    help="auto-ROI from the kernel utilization")
+
+    g = p.add_argument_group("board")
+    g.add_argument("--no_tiles", action="store_true",
+                   help="skip the deep-zoom tile pyramid")
+    g.add_argument("--skip_preprocess", action="store_true",
+                   help="report: analyze the CSVs an earlier preprocess "
+                   "wrote")
+    g.add_argument("--with-gui", dest="with_gui", action="store_true",
+                   help="report: serve the board afterwards")
+    g.add_argument("--viz_port", type=int,
+                   help="first port viz tries (default 8000; up to +19)")
+    g.add_argument("--viz_bind",
+                   help="bind address (default 127.0.0.1; 0.0.0.0 opens "
+                   "the board to the network)")
     return p
 
 
@@ -88,16 +111,28 @@ def main(argv: Optional[list] = None) -> int:
 
     from sofa_tpu_torch.analyze import sofa_analyze
     from sofa_tpu_torch.preprocess import sofa_preprocess
-    from sofa_tpu_torch.record import sofa_record
+    from sofa_tpu_torch.record import sofa_clean, sofa_record
+    from sofa_tpu_torch.viz import sofa_viz
 
+    verb = args.verb
+    if verb == "clean":
+        sofa_clean(cfg)
+        return 0
+    if verb == "viz":
+        return 0 if sofa_viz(cfg) is not None else 1
     rc = 0
-    if args.verb in ("record", "stat"):
+    if verb in ("record", "stat"):
         rc = sofa_record(args.command, cfg)
+    # preprocess hands its frames to analyze in memory
     frames = None
-    if args.verb in ("preprocess", "stat"):
+    if verb in ("preprocess", "stat") or (
+            verb == "report" and not getattr(args, "skip_preprocess", False)):
         frames = sofa_preprocess(cfg)
-    if args.verb in ("analyze", "stat"):
+    if verb in ("analyze", "stat", "report"):
         sofa_analyze(cfg, frames)
+    frames = None
+    if verb == "report" and getattr(args, "with_gui", False):
+        sofa_viz(cfg)
     return rc
 
 

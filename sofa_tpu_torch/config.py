@@ -3,14 +3,43 @@
 The collector fields and their defaults are the JAX package's
 (``SofaConfig``'s "record: host" block), except that its TPU sampler
 (``tpu_mon_rate`` / ``enable_tpu_mon``) is the GPU memory sampler here
-(``gpu_mon_rate`` / ``enable_gpu_mon``).
+(``gpu_mon_rate`` / ``enable_gpu_mon``), and its TPU timeline filters
+are the GPU ones below.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import List, Optional
+
+
+@dataclasses.dataclass
+class Filter:
+    """A keyword that pulls the matching rows of a frame (a substring of
+    ``name`` or of ``hlo_category``, case-insensitive) into a coloured
+    series of their own on the timeline."""
+
+    keyword: str
+    color: str
+
+
+# The JAX package highlights idle CPU and, on the device, infeed/outfeed,
+# copies, fusions and the collectives.  On the GPU: the three copy kinds
+# (Kineto's "Memcpy HtoD/DtoH/DtoD" rows), the hand-written flash kernels in
+# the place of XLA's fusions, and NCCL's collective kernels
+# ("ncclDevKernel_AllReduce_...", ..., "SendRecv" for point-to-point).
+DEFAULT_CPU_FILTERS = [Filter("idle", "black")]
+DEFAULT_GPU_FILTERS = [
+    Filter("HtoD", "red"),
+    Filter("DtoH", "greenyellow"),
+    Filter("DtoD", "royalblue"),
+    Filter("sofa_flash", "darkviolet"),
+    Filter("AllReduce", "indigo"),
+    Filter("AllGather", "tomato"),
+    Filter("ReduceScatter", "orange"),
+    Filter("SendRecv", "deeppink"),
+]
 
 
 @dataclasses.dataclass
@@ -50,6 +79,18 @@ class SofaConfig:
     # set by the spotlight pass (or --profile_region); 0/0 = the whole run
     roi_begin: float = 0.0
     roi_end: float = 0.0
+
+    # --- the board ----------------------------------------------------------
+    viz_downsample_to: int = 10000   # points per series in report.js
+    enable_tiles: bool = True        # the deep-zoom tile pyramid (--no_tiles)
+    viz_port: int = 8000             # first port viz tries (up to +19)
+    # loopback unless the user opts open: the board serves command lines
+    # and host names; --viz_bind 0.0.0.0 opens it
+    viz_bind: str = "127.0.0.1"
+    cpu_filters: List[Filter] = dataclasses.field(
+        default_factory=lambda: list(DEFAULT_CPU_FILTERS))
+    gpu_filters: List[Filter] = dataclasses.field(
+        default_factory=lambda: list(DEFAULT_GPU_FILTERS))
 
     def __post_init__(self) -> None:
         if not self.logdir.endswith("/"):

@@ -13,6 +13,10 @@ def print_warning(msg: str) -> None:
     print(f"[WARNING] {msg}", file=sys.stderr, flush=True)
 
 
+def print_progress(msg: str) -> None:
+    print(f"[PROGRESS] {msg}", flush=True)
+
+
 def print_title(msg: str) -> None:
     print(f"\n==== {msg} ====", flush=True)
 

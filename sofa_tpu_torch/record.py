@@ -14,7 +14,8 @@
   epilogue  stop the collectors in reverse order, then harvest each, and
             write ``misc.txt`` (elapsed time, cores, pid, rc).
 
-Returns the command's exit code.
+Returns the command's exit code.  ``sofa_clean`` (the ``clean`` verb)
+removes what preprocess and analyze derived, keeping the raw output.
 """
 
 from __future__ import annotations
@@ -57,33 +58,82 @@ def build_collectors(cfg: SofaConfig):
     ]
 
 
-# What a recording and its preprocess/analyze leave in the logdir, beside
-# the frame CSVs; only these are cleaned, never other files of the logdir.
-_RUN_FILES = (
+# What a recording leaves in the logdir (beside kineto/): kept by clean.
+RAW_FILES = (
     "sofa_time.txt", "timebase.txt", "misc.txt", "gpu_topo.json",
     "mpstat.txt", "diskstat.txt", "netstat.txt", "cpuinfo.txt", "vmstat.txt",
-    "sofa.pcap", "net_addrs.csv", "blktrace.txt", "strace.txt", "perf.data",
-    "perf.script", "time.txt", "kallsyms", "gpumon.txt", "pystacks.txt",
-    "memprof.pb.gz", "memprof.pb.gz.meta.json", "features.csv",
+    "sofa.pcap", "blktrace.txt", "strace.txt", "perf.data", "perf.script",
+    "time.txt", "kallsyms", "gpumon.txt", "pystacks.txt", "memprof.pb.gz",
+    "memprof.pb.gz.meta.json",
+)
+# What preprocess and analyze derive from it, beside the frame CSVs and the
+# staged board pages: removed by clean.
+ANALYSIS_FILES = (
+    "net_addrs.csv", "report.js", "features.csv", "hints.txt",
     "gpu_top_kernels.csv", "gpu_memprof.csv", "cpu_top.csv",
     "disk_summary.csv", "strace_top.csv", "pystacks_top.csv",
     "gpu_categories.csv", "gpu_modules_summary.csv", "gpu_op_tree.csv",
     "gpu_input_pipeline.csv", "roofline.csv", "sol_roofline.csv",
+    "_derived.writing",
 )
+DERIVED_DIRS = ("_tiles",)
+
+
+def derived_names():
+    """THE list of derived files (frame CSVs, analysis files, staged
+    pages), shared by ``_clean_stale`` and ``sofa_clean``."""
+    from sofa_tpu_torch.analyze import board_pages
+    from sofa_tpu_torch.preprocess import frame_names
+
+    return ([f"{n}.csv" for n in frame_names()] + list(ANALYSIS_FILES)
+            + board_pages())
+
+
+def _remove(path: str) -> bool:
+    """Remove a file or a directory tree; a failure costs this entry only,
+    with a warning.  Returns whether something was removed."""
+    try:
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        elif os.path.isfile(path):
+            os.unlink(path)
+        else:
+            return False
+        return True
+    except OSError as e:
+        print_warning(f"cannot remove {path}: {e}")
+        return False
 
 
 def _clean_stale(cfg: SofaConfig) -> None:
-    """Drop a previous recording's files so frames never mix runs."""
-    from sofa_tpu_torch.preprocess import frame_names
-
-    stale = [cfg.path(n) for n in _RUN_FILES]
-    stale += [cfg.path(f"{n}.csv") for n in frame_names()]
+    """Drop a previous recording's files, raw and derived, so frames
+    never mix runs."""
+    stale = [cfg.path(n) for n in RAW_FILES + DERIVED_DIRS]
+    stale += [cfg.path(n) for n in derived_names()]
     stale += glob.glob(os.path.join(cfg.kineto_dir, "*.json*"))
     stale += glob.glob(cfg.path("blktrace.blktrace.*"))
+    stale.append(cfg.inject_dir)
     for path in stale:
-        if os.path.isfile(path):
-            os.unlink(path)
-    shutil.rmtree(cfg.inject_dir, ignore_errors=True)
+        _remove(path)
+
+
+def sofa_clean(cfg: SofaConfig) -> int:
+    """Remove the derived files (frame and analysis CSVs, report.js, the
+    tile pyramid, the staged pages, hints.txt, features.csv) and every
+    stray ``*.tmp`` under the logdir (an interrupted atomic write); keep
+    the raw collector output and ``kineto/``.  Returns how many entries
+    went."""
+    if not os.path.isdir(cfg.logdir):
+        print_info(f"nothing to clean: {cfg.logdir} does not exist")
+        return 0
+    names = derived_names() + list(DERIVED_DIRS)
+    removed = sum(_remove(cfg.path(n)) for n in names)
+    removed += _remove(cfg.inject_dir)
+    for root, _dirs, files in os.walk(cfg.logdir):
+        removed += sum(_remove(os.path.join(root, n)) for n in files
+                       if n.endswith(".tmp"))
+    print_info(f"cleaned {removed} derived entries from {cfg.logdir}")
+    return removed
 
 
 def _signal_tree(child: subprocess.Popen, sig: int) -> None:

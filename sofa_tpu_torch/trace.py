@@ -10,9 +10,13 @@ since the run's time base (``sofa_time.txt``).
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
+import time
+from dataclasses import dataclass, field
 from enum import IntEnum
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import pandas as pd
@@ -207,3 +211,208 @@ def write_net_addrs(ids, logdir: str):
             f.write(f"{aid},{literal}\n")
     os.replace(out + ".tmp", out)
     return out
+
+
+# --- atomic writes and the derived-write guard -------------------------------
+
+@contextlib.contextmanager
+def atomic_write(path: str, mode: str = "w", fsync: bool = False):
+    """Open ``<path>.tmp`` and rename it over ``path`` on a clean exit; on
+    any exception the tmp file is removed and ``path`` is untouched, so a
+    reader racing the writer sees the old complete file.  ``fsync=True``
+    syncs before the rename (a commit point, such as a tile index)."""
+    tmp = path + ".tmp"
+    f = open(tmp, mode)
+    try:
+        yield f
+        f.flush()
+        if fsync:
+            os.fsync(f.fileno())
+        f.close()
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            f.close()
+        finally:
+            with contextlib.suppress(OSError):
+                os.unlink(tmp)
+        raise
+
+
+# Frame CSVs stream and the tile pyramid lands file by file, so a board
+# request racing preprocess or analyze could read a torn file.  Writers hold
+# this sentinel (its content: the writer's pid) while derived data is in
+# flight; viz answers data requests 503 + Retry-After while it exists.
+WRITING_SENTINEL = "_derived.writing"
+SENTINEL_STALE_S = 1800.0
+
+
+def derived_writing(logdir: str) -> bool:
+    """True while a pipeline verb is mid-write on this logdir.  The
+    sentinel is ignored when its writer is dead, and when it is older than
+    SENTINEL_STALE_S (a torn sentinel or a recycled pid must not 503 the
+    board forever)."""
+    path = os.path.join(logdir, WRITING_SENTINEL)
+    try:
+        st = os.stat(path)
+    except OSError:
+        return False
+    if time.time() - st.st_mtime > SENTINEL_STALE_S:
+        return False
+    try:
+        with open(path) as f:
+            pid = int(f.read().strip() or "0")
+    except OSError:
+        return False
+    except ValueError:
+        return True              # torn but fresh: plausibly mid-write
+    if pid <= 0:
+        return True
+    try:
+        os.kill(pid, 0)          # signal 0: a liveness probe
+        return True
+    except ProcessLookupError:
+        return False             # the writer died without cleaning up
+    except OSError:
+        return True
+
+
+def reap_stale_sentinel(logdir: str) -> bool:
+    """Remove a sentinel whose writer is dead or timed out (run before
+    serving and before writing: a crashed writer must not wedge the next
+    run's readers).  Returns whether one was removed."""
+    path = os.path.join(logdir, WRITING_SENTINEL)
+    if not os.path.exists(path) or derived_writing(logdir):
+        return False
+    try:
+        os.unlink(path)
+    except OSError:
+        return False
+    from sofa_tpu_torch.printing import print_info
+
+    print_info(f"reaped a stale {WRITING_SENTINEL} (its writer is gone)")
+    return True
+
+
+class derived_write_guard:
+    """Held across non-atomic derived writes.  Reentrant per process: an
+    inner guard on a logdir this pid already holds leaves the sentinel to
+    the outer one."""
+
+    def __init__(self, logdir: str):
+        self._path = os.path.join(logdir, WRITING_SENTINEL)
+        self._owned = False
+
+    def __enter__(self):
+        try:
+            with open(self._path) as f:
+                if f.read().strip() == str(os.getpid()):
+                    return self
+        except OSError:
+            pass
+        try:
+            os.makedirs(os.path.dirname(self._path), exist_ok=True)
+            with open(self._path, "w") as f:
+                f.write(str(os.getpid()))
+            self._owned = True
+        except OSError:
+            pass             # an unwritable logdir fails later, loudly
+        return self
+
+    def __exit__(self, *exc):
+        if self._owned:
+            with contextlib.suppress(OSError):
+                os.unlink(self._path)
+        return False
+
+
+# --- timeline series and report.js -------------------------------------------
+
+def downsample(df: pd.DataFrame, max_points: int,
+               rank_col: str = "duration") -> pd.DataFrame:
+    """About ``max_points`` rows of ``df``: a stride sample united with the
+    top max_points/10 rows by ``rank_col``, in their order, so a rare long
+    kernel between strides is never dropped."""
+    if max_points <= 0 or len(df) <= max_points:
+        return df
+    rv = None
+    if rank_col in df.columns:
+        rv = pd.to_numeric(df[rank_col], errors="coerce").fillna(0.0) \
+            .to_numpy()
+    return df.iloc[downsample_indices(len(df), max_points, rv)]
+
+
+def downsample_indices(n: int, max_points: int,
+                       rank_values: "np.ndarray | None" = None) -> np.ndarray:
+    """The row positions :func:`downsample` keeps."""
+    if max_points <= 0 or n <= max_points:
+        return np.arange(n)
+    k = max(1, max_points // 10) if rank_values is not None else 0
+    stride = int(np.ceil(n / max(1, max_points - k)))
+    keep = np.zeros(n, dtype=bool)
+    keep[::stride] = True
+    if k:
+        keep[np.argsort(rank_values)[-k:]] = True
+    return np.flatnonzero(keep)
+
+
+def _scrub(values, digits: int) -> list:
+    """NaN/Inf to 0 (bare NaN is invalid JSON for the board), rounded."""
+    a = np.asarray(values, dtype=float)
+    a = np.where(np.isfinite(a), a, 0.0)
+    return np.round(a, digits).tolist()
+
+
+@dataclass
+class SofaSeries:
+    """One named, coloured series on the board's timeline."""
+
+    name: str            # unique key
+    title: str           # legend text
+    color: str
+    data: pd.DataFrame = field(default_factory=empty_frame)
+    y_axis: str = "event"      # the column that gives y
+    kind: str = "scatter"      # scatter | line
+
+    def to_columnar(self, max_points: int = 10000) -> dict:
+        """The downsampled series as ``{"x", "y", "d", "names", "ni"}``:
+        parallel arrays with the names interned into a table."""
+        df = downsample(self.data, max_points)
+        if df.empty:
+            return {"x": [], "y": [], "d": [], "names": [], "ni": []}
+        ys = df[self.y_axis] if self.y_axis in df.columns else df["event"]
+        codes, uniques = pd.factorize(df["name"], use_na_sentinel=False)
+        return {
+            "x": _scrub(df["timestamp"].to_numpy(), 6),
+            "y": _scrub(ys.to_numpy(), 6),
+            "d": _scrub(df["duration"].to_numpy(), 9),
+            "names": [str(u) for u in uniques],
+            "ni": codes.tolist(),
+        }
+
+
+def series_to_report_js(series: List[SofaSeries], path: str,
+                        max_points: int = 10000,
+                        extra: Optional[dict] = None) -> None:
+    """Write every series to ``report.js``, the board's data contract:
+    each series' data is its columnar overview; ``meta.tiles`` names the
+    deep-zoom pyramids (``tiles.py``)."""
+    payload = [{"name": s.name, "title": s.title, "color": s.color,
+                "kind": s.kind, "data": s.to_columnar(max_points)}
+               for s in series]
+    write_report_js_doc({"series": payload, "meta": extra or {}}, path)
+
+
+def write_report_js_doc(doc: dict, path: str) -> None:
+    """THE report.js writer (``sofa_traces = <json>;``), atomic."""
+    with atomic_write(path) as f:
+        f.write("sofa_traces = ")
+        f.write(json.dumps(doc))
+        f.write(";\n")
+
+
+def read_report_js_doc(path: str) -> dict:
+    """Parse a report.js back into its document."""
+    with open(path) as f:
+        text = f.read()
+    return json.loads(text[len("sofa_traces = "):].rstrip(";\n"))

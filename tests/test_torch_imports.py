@@ -65,7 +65,9 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/costs.py", "sofa_tpu_torch/analysis/device.py",
             "sofa_tpu_torch/analysis/sol.py",
             "sofa_tpu_torch/workloads/resnet.py",
-            "sofa_tpu_torch/tools/overhead_budget.py"} <= rel
+            "sofa_tpu_torch/tools/overhead_budget.py",
+            "sofa_tpu_torch/tiles.py", "sofa_tpu_torch/viz.py",
+            "sofa_tpu_torch/analysis/advice.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -77,7 +79,8 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.api, sofa_tpu_torch.costs, "
             "sofa_tpu_torch.analysis.device, sofa_tpu_torch.analysis.sol, "
             "sofa_tpu_torch.workloads.resnet, "
-            "sofa_tpu_torch.tools.overhead_budget; "
+            "sofa_tpu_torch.tools.overhead_budget, sofa_tpu_torch.tiles, "
+            "sofa_tpu_torch.viz, sofa_tpu_torch.analysis.advice; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'sofa_tpu') or m.startswith('google.protobuf')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -85,3 +88,18 @@ def test_importing_the_port_loads_no_jax():
                        capture_output=True, text=True, timeout=120,
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_board_files_are_the_ports_own():
+    """The board's pages are files of the port, and no port module reads
+    the JAX package's board directory."""
+    from sofa_tpu_torch.analyze import BOARD_DIR, board_pages
+
+    assert os.path.dirname(BOARD_DIR) == os.path.join(REPO, "sofa_tpu_torch")
+    assert {"index.html", "gpu-report.html", "sofa_board.js",
+            "style.css"} <= set(board_pages())
+    for path in _port_files():
+        with open(path) as f:
+            src = f.read()
+        assert "sofa_tpu/board" not in src and \
+            '"sofa_tpu", "board"' not in src, path
