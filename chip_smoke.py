@@ -59,6 +59,10 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            CUDA kernels, convolution kernels carrying flops, a roofline no
            row of which runs faster than its bound); then ``stat`` over
            ``python -m sofa_tpu_torch.workloads.resnet --train``
+  (every ``stat`` run of ``profile`` and ``resnet`` writes the run
+  manifest: each is held to the port's validate_manifest, every started
+  collector must end ``stopped``, ``status`` must exit 0, and Kineto's
+  source wall_s and events are printed)
   board    ``report`` with no card visible (CUDA_VISIBLE_DEVICES="") over
            the Llama-width training capture and the last ResNet-50
            capture: report.js's series (the sofa_flash series holding all
@@ -69,6 +73,25 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            on revalidation, a deep tile gzipped and plain, nothing outside
            the logdir; then ``clean`` on a copy of the ResNet logdir and
            ``report`` over it again; prints the host times and sizes
+  robust   the supervised, self-reporting record, one line a cell:
+           (1) ``stat`` over the Llama-width training with procmon killed
+           5 s in and the Kineto harvest wedged (5 s deadline): one
+           restart with mpstat rows after the death, kineto ``timed_out``
+           at harvest, all three kernels in gputrace, ``report`` complete,
+           ``status`` as ``render_status`` says; (2) ``stat`` over the
+           entry forward with procmon killed at 1 s and no restarts:
+           ``died``, ``status`` nonzero, the ``[self]`` hint; (3) a copy
+           of the Llama-width capture with its Kineto JSON cut in half:
+           ``preprocess`` quarantines it, ``analyze`` completes with the
+           ``[self]`` hint, a second ``preprocess`` does not serve it
+           warm; (4) ``report`` over a copy of the last ResNet-50 capture
+           (and of the Llama-width one) cold, warm and cold with ``--jobs
+           1`` (no card visible): wall times, per-source wall_s and stage
+           times, the cache's format, byte-identical report.js,
+           features.csv and tiles cold and warm, then ``clean``; (5) ``record --epilogue_deadline_s 5`` over a child
+           wedged at exit returns within 30 s and warns; (6) ``record
+           --pid`` of an entry-forward serving run in its own process,
+           then ``report``
 
 The last lines are the kernels JSON, the nvidia-smi line, and the result
 JSON.  It exits non-zero without a result when no CUDA device is visible.
@@ -812,9 +835,10 @@ class Smoke:
             f" entries in two steps: the {MAX_ENTRIES}-entry ring wraps "
             f"after {MAX_ENTRIES / self.trace_per_step:.1f} steps")
 
-    def run_stat(self, label: str, cmd: str, flags=()):
+    def run_stat(self, label: str, cmd: str, flags=(), healthy=True):
         """``python -m sofa_tpu_torch stat [flags]`` over ``cmd``; checks that
-        it completes.  Returns (features, logdir, output)."""
+        it completes and, for a ``healthy`` run, its manifest
+        (``check_manifest``).  Returns (features, logdir, output)."""
         import pandas as pd
 
         logdir = os.path.join(REPO, "build", f"chip_smoke_profile_{label}")
@@ -841,16 +865,47 @@ class Smoke:
             f"{time.perf_counter() - t0:.1f} s")
         if proc.returncode != 0 or "Complete!!" not in out:
             raise AssertionError(f"sofa_tpu_torch stat failed ({label})")
+        if healthy:
+            self.check_manifest(label, logdir)
         feats = pd.read_csv(os.path.join(logdir, "features.csv"))
         return dict(zip(feats["name"], feats["value"])), logdir, out
 
-    def stat(self, label: str, cmd: str, steps: int, names, flags=()):
+    def check_manifest(self, label, logdir, healthy=True):
+        """The run manifest: valid by the port's validate_manifest; for a
+        ``healthy`` run every started collector ``stopped`` and ``status``
+        exiting 0.  Prints Kineto's source wall_s and events.  Returns
+        (manifest, status's exit code)."""
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.tools.manifest_check import validate_manifest
+
+        doc = telemetry.load_manifest(logdir)
+        probs = validate_manifest(doc) if doc is not None else ["missing"]
+        if probs:
+            raise AssertionError(f"run_manifest.json invalid ({label}): "
+                                 f"{probs}")
+        ended = {n: e["status"] for n, e in doc.get("collectors", {}).items()
+                 if "start_seq" in e}
+        r, _ = self.board_cli("status", "--logdir", logdir)
+        src = doc.get("sources", {}).get("kineto", {})
+        log(f"manifest[{label}]: valid; started collectors {ended}; status "
+            f"rc {r.returncode}; kineto source {src.get('status')} "
+            f"{src.get('events')} events in {src.get('wall_s')} s "
+            f"(cache {src.get('cache')})")
+        if healthy and (any(st != "stopped" for st in ended.values())
+                        or r.returncode != 0):
+            raise AssertionError(f"the manifest is not healthy ({label}): "
+                                 f"{ended}, status rc {r.returncode}: "
+                                 f"{r.stdout[-2000:]}")
+        return doc, r.returncode
+
+    def stat(self, label: str, cmd: str, steps: int, names, flags=(),
+             healthy=True):
         """``run_stat``, then checks that gputrace has rows of each kernel
         in ``names`` and gpusteps ``steps`` rows; logs where the ranged
         device time goes.  Returns (features, logdir, output, kernels)."""
         import pandas as pd
 
-        feats, logdir, out = self.run_stat(label, cmd, flags)
+        feats, logdir, out = self.run_stat(label, cmd, flags, healthy)
         gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
         kern = gpu[gpu["copyKind"] == 0]
         kname = kern["name"].astype(str)
@@ -1285,8 +1340,19 @@ class Smoke:
             f"(their middle pass: {pct(controls, 'second')} %)")
         cfg = SofaConfig(logdir=runs[-1][1])
         t0 = time.perf_counter()
-        frames = sofa_preprocess(cfg)
+        # in this process, which holds a CUDA context: the parser process
+        # pool (forced on) must start by forkserver or spawn, never fork
+        os.environ["SOFA_PREPROCESS_POOL"] = "always"
+        try:
+            frames = sofa_preprocess(cfg)
+        finally:
+            del os.environ["SOFA_PREPROCESS_POOL"]
         feats = sofa_analyze(cfg, frames)
+        from sofa_tpu_torch.pool import process_context
+
+        self.check_manifest("resnet_api", cfg.logdir)
+        log(f"resnet: in-process preprocess with the parser process pool "
+            f"forced on: {process_context().get_start_method()}")
         kern = frames["gputrace"][frames["gputrace"]["copyKind"] == 0]
         conv = kern[kern["hlo_category"].isin(
             ("aten::cudnn_convolution", "aten::convolution_backward"))]
@@ -1628,7 +1694,284 @@ class Smoke:
         log(f"board[clean]: report over the cleaned copy {wall:.3f} s")
         shutil.rmtree(copy, ignore_errors=True)
 
-PHASES = ("device", "kernel", "model", "train", "profile", "resnet", "board")
+    # -- robust -----------------------------------------------------------------
+    def robust(self):
+        """The supervised, self-reporting record: six cells, one line each
+        (the module docstring lists them)."""
+        for cell in (self.robust_faulted, self.robust_sticky,
+                     self.robust_truncated, self.robust_cache,
+                     self.robust_epilogue, self.robust_attach):
+            t0 = time.perf_counter()
+            line = cell()
+            log(f"robust[{cell.__name__[7:]}]: {line} "
+                f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
+
+    def robust_faulted(self):
+        """stat over the Llama-width training with procmon killed 5 s in
+        and the Kineto harvest wedged past a 5 s deadline."""
+        import pandas as pd
+        from sofa_tpu_torch import kernels, telemetry
+
+        steps = 3
+        cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
+               f"--steps {steps} --batch 4 --seq 2048 --vocab 128256 "
+               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
+               "--d_ff 14336")
+        flags = ("--inject_faults", "procmon:die@5s,kineto:wedge@harvest",
+                 "--collector_harvest_timeout_s", "5")
+        _, logdir, _, kern = self.stat(
+            "faulted", cmd, steps, [k.name for k in kernels.KERNELS], flags,
+            healthy=False)
+        doc, status_rc = self.check_manifest("faulted", logdir, False)
+        pm, kt = doc["collectors"]["procmon"], doc["collectors"]["kineto"]
+        start = next(st["t0_unix"] for st in doc["stages"]
+                     if st["name"] == "procmon.start")
+        with open(os.path.join(logdir, "sofa_time.txt")) as f:
+            zero = float(f.read().split()[0])
+        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
+        after = int((mp["timestamp"] > start + 5 - zero + 0.5).sum())
+        r, _ = self.board_cli("report", "--logdir", logdir)
+        want_rc = telemetry.render_status(doc, logdir)[1]
+        launches = {k.name: int(kern["name"].astype(str).str.contains(
+            k.name).sum()) for k in kernels.KERNELS}
+        if pm.get("restarts") != 1 or not pm.get("died") or not after:
+            raise AssertionError(f"procmon was not restarted once with rows "
+                                 f"after its death: {pm}, {after} rows")
+        if kt.get("status") != "timed_out" or kt.get("phase") != "harvest":
+            raise AssertionError(f"kineto did not time out at harvest: {kt}")
+        if r.returncode != 0 or "Complete!!" not in r.stdout:
+            raise AssertionError(f"report failed: {r.stderr[-2000:]}")
+        if status_rc != want_rc or want_rc != 1:
+            raise AssertionError(f"status exited {status_rc}, render_status "
+                                 f"says {want_rc}")
+        return (f"procmon died at 5 s, restarts {pm['restarts']}, "
+                f"{after} mpstat rows after the death; kineto "
+                f"{kt['status']} at {kt['phase']}; launches {launches}; "
+                f"report complete; status rc {status_rc} (render_status "
+                f"{want_rc})")
+
+    def robust_sticky(self):
+        """stat over the entry forward with procmon killed at 1 s and no
+        restart budget."""
+        cmd = f"{sys.executable} -m sofa_tpu_torch.entry --steps 3"
+        _, logdir, _ = self.run_stat(
+            "sticky", cmd, ("--collector_restarts", "0", "--inject_faults",
+                            "procmon:die@1s"), healthy=False)
+        doc, status_rc = self.check_manifest("sticky", logdir, False)
+        pm = doc["collectors"]["procmon"]
+        with open(os.path.join(logdir, "hints.txt")) as f:
+            hint = [h for h in f.read().splitlines()
+                    if h.startswith("[self] collector procmon died mid-run")]
+        if pm.get("status") != "died" or status_rc == 0 or not hint:
+            raise AssertionError(f"the death was not sticky: {pm}, status "
+                                 f"rc {status_rc}, hint {hint}")
+        return f"procmon {pm['status']}, status rc {status_rc}; {hint[0]}"
+
+    def robust_truncated(self):
+        """A copy of the Llama-width capture, its Kineto JSON cut in half
+        with no fault spec: quarantined by the real decoder."""
+        from sofa_tpu_torch import telemetry
+
+        import glob
+
+        src = os.path.join(REPO, "build", "chip_smoke_profile_llama")
+        copy = os.path.join(REPO, "build", "chip_smoke_robust_truncated")
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(src, copy)
+        cache = os.path.join(copy, "_ingest_cache")
+
+        def cached():
+            return sorted(os.path.basename(p) for p in
+                          glob.glob(os.path.join(cache, "kineto.key.json"))
+                          + glob.glob(os.path.join(cache, "kineto__*")))
+
+        r, _ = self.board_cli("preprocess", "--logdir", copy)  # warms it
+        warm = cached()
+        trace = sorted(os.listdir(os.path.join(copy, "kineto")))[0]
+        path = os.path.join(copy, "kineto", trace)
+        size = os.path.getsize(path)
+        os.truncate(path, size // 2)
+        r1, t1 = self.board_cli("preprocess", "--logdir", copy)
+        ent = telemetry.load_manifest(copy)["sources"]["kineto"]
+        left = cached()
+        r2, _ = self.board_cli("analyze", "--logdir", copy)
+        with open(os.path.join(copy, "hints.txt")) as f:
+            hint = [h for h in f.read().splitlines()
+                    if h.startswith("[self] ingest source kineto")]
+        r3, _ = self.board_cli("preprocess", "--logdir", copy)
+        again = telemetry.load_manifest(copy)["sources"]["kineto"]
+        moved = os.path.join(copy, "_quarantine", trace)
+        if r.returncode or r1.returncode or r3.returncode \
+                or ent.get("status") != "quarantined" \
+                or ent.get("quarantined_file") != moved \
+                or not os.path.isfile(moved):
+            raise AssertionError(f"the cut capture was not quarantined: "
+                                 f"{ent}, {r1.stderr[-2000:]}")
+        if "kineto.key.json" not in warm or len(warm) < 2 or left:
+            raise AssertionError(f"the quarantine did not purge the warm "
+                                 f"cache entry: {warm} before, {left} after")
+        if r2.returncode or "Complete!!" not in r2.stdout or not hint:
+            raise AssertionError(f"analyze gave no [self] hint: {hint}")
+        if again.get("cache") == "hit":
+            raise AssertionError(f"the quarantined source came back warm: "
+                                 f"{again}")
+        shutil.rmtree(copy, ignore_errors=True)
+        return (f"{trace} cut from {size} to {size // 2} bytes: "
+                f"{ent['status']} by preprocess in {t1:.3f} s "
+                f"({ent['error'].rsplit(': ', 2)[-2][:60]}), its "
+                f"{len(warm)} cache files purged; analyze: "
+                f"{hint[0].split(' — ')[0]}; next preprocess "
+                f"{again['status']} (cache {again['cache']})")
+
+    def robust_cache(self):
+        """report over a copy of the last ResNet-50 capture cold, warm and
+        cold with --jobs 1, no card visible, then clean; the same over a
+        copy of the Llama-width capture, for its split by source and
+        stage."""
+        resnet = os.path.join(REPO, "build", "chip_smoke_resnet_r4")
+        llama = os.path.join(REPO, "build", "chip_smoke_profile_llama")
+        return "; ".join(self.cold_warm(label, src) for label, src in
+                         (("llama", llama), ("resnet", resnet)))
+
+    def cold_warm(self, label, src):
+        """``report`` over a cleaned copy of ``src``: cold, warm, cold with
+        --jobs 1; the warm outputs byte-identical to the cold ones; then
+        ``clean`` removes the cache, the manifest and the self trace and
+        keeps the raw files."""
+        import glob
+
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.record import RAW_FILES
+
+        copy = os.path.join(REPO, "build", f"chip_smoke_robust_{label}")
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(src, copy)
+        self.board_cli("clean", "--logdir", copy)
+
+        def snapshot():
+            out = {}
+            for p in sorted([os.path.join(copy, "report.js"),
+                             os.path.join(copy, "features.csv")]
+                            + glob.glob(os.path.join(copy, "_tiles", "**",
+                                                     "*"), recursive=True)):
+                if os.path.isfile(p):
+                    with open(p, "rb") as f:
+                        out[os.path.relpath(p, copy)] = f.read()
+            return out
+
+        runs = {}
+        for kind, argv in (("cold", ()), ("warm", ()),
+                           ("cold_jobs1", ("--jobs", "1"))):
+            if kind.startswith("cold"):
+                shutil.rmtree(os.path.join(copy, "_ingest_cache"),
+                              ignore_errors=True)
+            r, wall = self.board_cli("report", "--logdir", copy, *argv)
+            if r.returncode or "Complete!!" not in r.stdout:
+                raise AssertionError(f"report {label} {kind} failed: "
+                                     f"{r.stderr[-2000:]}")
+            doc = telemetry.load_manifest(copy)
+            walls = {n: e["wall_s"] for n, e in doc["sources"].items()
+                     if e.get("events")}
+            stages = {st["name"]: st["dur_s"] for st in doc["stages"]
+                      if st["verb"] in ("preprocess", "analyze")}
+            icache = doc["meta"]["ingest_cache"]
+            runs[kind] = (wall, snapshot(), doc)
+            log(f"robust[cache]: {label} report {kind} {wall:.3f} s wall; "
+                f"preprocess {doc['runs']['preprocess']['wall_s']:.3f} s, "
+                f"analyze {doc['runs']['analyze']['wall_s']:.3f} s; stages "
+                f"{stages}; sources {walls}; kineto cache "
+                f"{doc['sources']['kineto']['cache']}, format "
+                f"{icache.get('formats', {}).get('kineto')}; jobs "
+                f"{doc['meta']['pool']['jobs']}")
+        cold, warm = runs["cold"][1], runs["warm"][1]
+        differ = sorted(k for k in set(cold) | set(warm)
+                        if cold.get(k) != warm.get(k))
+        if runs["warm"][2]["sources"]["kineto"]["cache"] != "hit" or differ:
+            raise AssertionError(f"the warm report missed the cache or "
+                                 f"differs from the cold one ({label}): "
+                                 f"{differ}")
+        r, _ = self.board_cli("clean", "--logdir", copy)
+        left = set(os.listdir(copy))
+        gone = {"_ingest_cache", "run_manifest.json", "sofa_self_trace.json"}
+        if r.returncode or left & gone or \
+                not (left & set(RAW_FILES)) or "kineto" not in left:
+            raise AssertionError(f"clean left {sorted(left)} ({label})")
+        fmt = runs["warm"][2]["meta"]["ingest_cache"]["formats"]["kineto"]
+        shutil.rmtree(copy, ignore_errors=True)
+        return (f"{label}: report cold {runs['cold'][0]:.3f} s, warm "
+                f"{runs['warm'][0]:.3f} s, cold --jobs 1 "
+                f"{runs['cold_jobs1'][0]:.3f} s; cache format {fmt}; "
+                f"{len(cold)} files byte-identical cold and warm; clean "
+                f"kept {len(left)} raw entries and kineto/")
+
+    def robust_epilogue(self):
+        """record --epilogue_deadline_s 5 over a child that writes a done,
+        not-ok breadcrumb and sleeps 600 s."""
+        logdir = os.path.join(REPO, "build", "chip_smoke_robust_epilogue")
+        shutil.rmtree(logdir, ignore_errors=True)
+        prog = ("import json, os, time; "
+                "d = os.path.join(json.loads(os.environ['SOFA_TORCH_KINETO_"
+                "OPTS'])['logdir'], '_inject'); "
+                "json.dump({'pid': os.getpid(), 't': time.time(), "
+                "'timeout_s': 0, 'grace_s': 0, 'done': True, 'ok': False}, "
+                "open(os.path.join(d, 'atexit_stop.json'), 'w')); "
+                "time.sleep(600)")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "sofa_tpu_torch", "record", "--logdir",
+             logdir, "--epilogue_deadline_s", "5",
+             f'{sys.executable} -c "{prog}"'], cwd=REPO,
+            capture_output=True, text=True, timeout=120)
+        wall = time.perf_counter() - t0
+        warned = [ln for ln in r.stderr.splitlines()
+                  if "trace may be partial" in ln]
+        if wall > 30 or r.returncode != 143 or not warned:
+            raise AssertionError(f"record did not cut the wedged epilogue: "
+                                 f"{wall:.1f} s, rc {r.returncode}, "
+                                 f"{r.stderr[-2000:]}")
+        return f"record returned in {wall:.1f} s, rc 143; {warned[0]}"
+
+    def robust_attach(self):
+        """record --pid of an entry-forward serving run started in its own
+        process; then report."""
+        import pandas as pd
+
+        logdir = os.path.join(REPO, "build", "chip_smoke_robust_attach")
+        shutil.rmtree(logdir, ignore_errors=True)
+        target = subprocess.Popen(
+            [sys.executable, "-m", "sofa_tpu_torch.entry", "--steps", "3",
+             "--serve_requests", "4", "--serve_layers", "2"], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "sofa_tpu_torch", "record",
+                 "--logdir", logdir, "--pid", str(target.pid)], cwd=REPO,
+                capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            out, _ = target.communicate(timeout=60)
+        finally:
+            if target.poll() is None:
+                target.kill()
+                target.wait()
+        with open(os.path.join(logdir, "misc.txt")) as f:
+            misc = dict(ln.split(None, 1) for ln in f.read().splitlines())
+        rep, _ = self.board_cli("report", "--logdir", logdir)
+        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
+        served = [ln for ln in out.splitlines() if ln.startswith("serve:")]
+        if r.returncode or int(misc["pid"]) != target.pid or not served:
+            raise AssertionError(f"attach failed: rc {r.returncode}, misc "
+                                 f"{misc}, {r.stderr[-2000:]}")
+        if rep.returncode or "Complete!!" not in rep.stdout or mp.empty:
+            raise AssertionError(f"report after attach failed: "
+                                 f"{rep.stderr[-2000:]}")
+        return (f"record --pid {target.pid} returned {wall:.1f} s later, "
+                f"when the process exited ({served[0][:60]}...); misc.txt "
+                f"pid {misc['pid']}; report complete, mpstat {len(mp)} rows")
+
+
+PHASES = ("device", "kernel", "model", "train", "profile", "resnet", "board",
+          "robust")
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 
 

@@ -11,3 +11,5 @@ and allocation-site snapshots, the host collectors) into the unified trace
 schema.  Importing the package imports no torch; the workloads and kernels
 do.
 """
+
+__version__ = "0.1.0"

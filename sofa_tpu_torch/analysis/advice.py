@@ -106,10 +106,21 @@ def generate_hints(features: Features, cfg) -> List[str]:
     return hints
 
 
+def self_hints(logdir: str) -> List[str]:
+    """The run manifest's health warnings as ``[self]`` hints (the JAX
+    package's ``advice.py:257-264``): a hint computed from a half-captured
+    trace is advice about the gap, so these ride the same channel."""
+    from sofa_tpu_torch import telemetry
+
+    return [f"[self] {w}" for w in
+            telemetry.manifest_warnings(telemetry.load_manifest(logdir))]
+
+
 def hint_report(features: Features, cfg) -> List[str]:
-    """Print the hints and write them to ``hints.txt`` (atomically); a
-    run with none leaves no hints.txt, not an older run's."""
-    hints = generate_hints(features, cfg)
+    """Print the hints, the ``[self]`` ones last, and write them to
+    ``hints.txt`` (atomically); a run with none leaves no hints.txt, not
+    an older run's."""
+    hints = generate_hints(features, cfg) + self_hints(cfg.logdir)
     for h in hints:
         print_hint(h)
     path = cfg.path("hints.txt")

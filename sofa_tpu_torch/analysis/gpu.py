@@ -224,8 +224,10 @@ def memprof_profile(frames, cfg, features: Features) -> None:
         print(sites.head(10).to_string(index=False))
 
 
-#: The GPU passes analyze runs, in the JAX package's order.
-PASSES = [device.spotlight_roi, gpu_profile, device.op_tree_profile,
+#: The GPU passes analyze runs after the host ones, in the JAX package's
+#: order (the region of interest, ``device.spotlight_roi``, runs first of
+#: all: analyze.PASSES).
+PASSES = [gpu_profile, device.op_tree_profile,
           device.overlap_profile, device.input_pipeline_profile,
           device.roofline_profile, serving_profile, device.gpuutil_profile,
           gpumon_profile, memprof_profile, sol.sol_roofline]

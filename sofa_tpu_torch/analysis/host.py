@@ -1,7 +1,9 @@
 """Host-side analysis passes: CPU samples, mpstat, vmstat, disk, block IO,
-strace and Python stacks (the JAX package's analysis/host.py, without its
-region-of-interest clip; ``mpstat_profile`` reports a frozen /proc/stat
-as not measured)."""
+strace and Python stacks (the JAX package's analysis/host.py;
+``mpstat_profile`` reports a frozen /proc/stat as not measured).
+``cpu_profile`` clips the CPU samples to the region of interest, so
+analyze runs it after ``device.spotlight_roi``, as the JAX registry
+orders it (``after=("spotlight",)``)."""
 
 from __future__ import annotations
 
@@ -9,18 +11,20 @@ import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
 from sofa_tpu_torch.printing import print_title, print_warning
+from sofa_tpu_torch.trace import roi_clip
 
 
 def cpu_profile(frames, cfg, features: Features) -> None:
     df = frames.get("cputrace")
     if df is None or df.empty:
         return
-    features.add("cpu_samples", len(df))
-    per_core = df.groupby("deviceId")["duration"].sum()
+    roi = roi_clip(df, cfg)
+    features.add("cpu_samples", len(roi))
+    per_core = roi.groupby("deviceId")["duration"].sum()
     for core, total in per_core.items():
         features.add(f"cpu_core{core}_exec_time", total)
     top = (
-        df.groupby("name")["duration"]
+        roi.groupby("name")["duration"]
         .agg(["sum", "count"])
         .sort_values("sum", ascending=False)
         .head(20)

@@ -1,12 +1,15 @@
 """analyze: run the analysis passes over the preprocessed frames.
 
-Passes run as a plain ordered list: the host passes
-(``analysis.host.PASSES``), then the GPU passes (``analysis.gpu.PASSES``).
-Then, in the JAX package's order: the tile pyramid is brought up to date
+Passes run as a plain ordered list in the JAX registry's order: the
+region of interest first (``device.spotlight_roi``), then the host passes
+(``analysis.host.PASSES``, whose CPU samples it clips), then the GPU
+passes (``analysis.gpu.PASSES``).  Then, in the JAX package's order: the tile pyramid is brought up to date
 (nothing to do after a ``report``; built for an older logdir), the feature
 vector is printed and saved as ``features.csv``, the rule-based hints are
 printed and written to ``hints.txt``, the board's pages are staged beside
-the data, and the run ends with the ``Complete!!`` line.
+the data, and the run ends with the ``Complete!!`` line.  The run lands in the run
+manifest (``telemetry.py``; the JAX package's ``analyze.py:192-212``), and
+the manifest's health warnings ride the hints as ``[self]`` lines.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from typing import Dict, Optional
 
 import pandas as pd
 
-from sofa_tpu_torch.analysis import advice, gpu, host
+from sofa_tpu_torch import telemetry
+from sofa_tpu_torch.analysis import advice, device, gpu, host
 from sofa_tpu_torch.analysis.features import Features
 from sofa_tpu_torch.config import SofaConfig
 from sofa_tpu_torch.preprocess import load_frames, read_misc
@@ -39,17 +43,35 @@ def stage_board(cfg: SofaConfig) -> None:
         shutil.copy2(os.path.join(BOARD_DIR, name), cfg.path(name))
 
 
+#: Every pass analyze runs, in order.
+PASSES = [device.spotlight_roi, *host.PASSES, *gpu.PASSES]
+
+
 def sofa_analyze(cfg: SofaConfig,
                  frames: Optional[Dict[str, pd.DataFrame]] = None
                  ) -> Features:
     reap_stale_sentinel(cfg.logdir)
+    tel = telemetry.begin("analyze")
+    ok = False
+    try:
+        features = _analyze_body(cfg, frames, tel)
+        ok = True
+        return features
+    finally:
+        tel.write(cfg.logdir, rc=0 if ok else 1, cfg=cfg)
+        telemetry.end(tel)
+
+
+def _analyze_body(cfg: SofaConfig, frames, tel) -> Features:
     if frames is None:
-        frames = load_frames(cfg)
+        with tel.span("load_frames", cat="stage"):
+            frames = load_frames(cfg)
     misc = read_misc(cfg)
     features = Features()
     features.add("elapsed_time", float(misc.get("elapsed_time", 0) or 0))
-    for analysis_pass in host.PASSES + gpu.PASSES:
-        analysis_pass(frames, cfg, features)
+    with tel.span("passes", cat="stage"):
+        for analysis_pass in PASSES:
+            analysis_pass(frames, cfg, features)
     # without the mpstat sampler (api.profile()), the cores record wrote
     if not features.get("num_cores") and misc.get("cores"):
         features.add("num_cores", int(misc["cores"]))

@@ -8,10 +8,14 @@
   stat        record + preprocess + analyze; exits with the command's rc
   report      [preprocess] + analyze [+ viz with --with-gui]
   viz         serve the board over --logdir (http://localhost:8000/)
+  status      render --logdir's run_manifest.json (the pipeline's own
+              health: collectors, sources, stages); exits 1 when a
+              collector failed, died, timed out or hit the disk budget,
+              2 without a manifest
   clean       remove the derived files, keep the raw ones
 
-report, analyze, viz and clean run on the host only: they never touch a
-GPU.
+report, analyze, viz, status and clean run on the host only: they never
+touch a GPU.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Optional
 
 from sofa_tpu_torch.config import SofaConfig
 
-VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz", "clean")
+VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
+         "status", "clean")
 
 # Flags that map 1:1 onto SofaConfig fields.
 _FIELDS = (
@@ -30,12 +35,17 @@ _FIELDS = (
     "perf_call_graph", "sys_mon_rate", "enable_strace", "strace_min_time",
     "enable_py_stacks", "enable_tcpdump", "netstat_interface", "blkdev",
     "gpu_mon_rate", "profile_region", "spotlight", "viz_port", "viz_bind",
+    "jobs", "pid", "epilogue_deadline_s", "inject_faults",
+    "collector_restarts", "collector_stop_timeout_s",
+    "collector_harvest_timeout_s", "disk_budget_mb",
+    "collector_disk_budget_mb",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
              "disable_gpu_mon": "enable_gpu_mon",
              "disable_memprof": "enable_mem_prof",
-             "no_tiles": "enable_tiles"}
+             "no_tiles": "enable_tiles",
+             "no_ingest_cache": "ingest_cache"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,9 +55,16 @@ def build_parser() -> argparse.ArgumentParser:
                                 argument_default=argparse.SUPPRESS)
     p.add_argument("verb", choices=VERBS)
     p.add_argument("command", nargs="?", default=None,
-                   help="shell command to profile (record, stat)")
+                   help="shell command to profile (record, stat); the "
+                   "logdir for status")
     p.add_argument("--logdir")
     p.add_argument("--verbose", action="store_true")
+    p.add_argument("--jobs", type=int,
+                   help="worker count of the preprocess pools; 0 = auto "
+                   "(SOFA_JOBS, else the CPU count)")
+    p.add_argument("--no_ingest_cache", action="store_true",
+                   help="bypass the content-keyed ingest cache (always "
+                   "reparse the raw files)")
 
     g = p.add_argument_group("record: host")
     g.add_argument("--perf_events")
@@ -62,6 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--enable_tcpdump", action="store_true")
     g.add_argument("--netstat_interface")
     g.add_argument("--blkdev")
+    g.add_argument("--pid", type=int,
+                   help="attach to a running pid instead of launching; "
+                   "record returns when it exits")
 
     g = p.add_argument_group("record: gpu")
     g.add_argument("--disable_kineto", action="store_true",
@@ -71,6 +91,31 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--disable_gpu_mon", action="store_true")
     g.add_argument("--disable_memprof", action="store_true",
                    help="skip the peak-memory allocation-site snapshot")
+    g.add_argument("--epilogue_deadline_s", type=float,
+                   help="seconds past the child's at-exit breadcrumb before "
+                   "record presumes it wedged and kills its process group "
+                   "(default: from the breadcrumb's own timeouts)")
+
+    g = p.add_argument_group("record: fault tolerance")
+    g.add_argument("--inject_faults",
+                   help="fault spec, e.g. 'procmon:die@2s,kineto:wedge@"
+                   "harvest,kineto:corrupt' (SOFA_FAULTS alike; kinds die, "
+                   "wedge, fail, truncate, corrupt)")
+    g.add_argument("--collector_restarts", type=int,
+                   help="restarts of a collector that dies mid-run (default "
+                   "1; 0 disables)")
+    g.add_argument("--collector_stop_timeout_s", type=float,
+                   help="per-collector stop deadline, s (default 15; 0 = "
+                   "unbounded)")
+    g.add_argument("--collector_harvest_timeout_s", type=float,
+                   help="per-collector harvest deadline, s (default 120; "
+                   "0 = unbounded)")
+    g.add_argument("--disk_budget", type=float, dest="disk_budget_mb",
+                   help="raw-output budget in MB over all collectors: the "
+                   "oldest files rotate, the worst offender stops (0 = off)")
+    g.add_argument("--collector_disk_budget", type=float,
+                   dest="collector_disk_budget_mb",
+                   help="raw-output budget in MB per collector (0 = off)")
 
     g = p.add_argument_group("analyze")
     g.add_argument("--profile_region", help='manual ROI "begin:end" seconds')
@@ -103,18 +148,33 @@ def config_from_args(args: argparse.Namespace) -> SofaConfig:
 
 
 def main(argv: Optional[list] = None) -> int:
+    from sofa_tpu_torch.printing import SofaUserError, print_error
+
     p = build_parser()
     args = p.parse_intermixed_args(argv)
-    if args.verb in ("record", "stat") and not args.command:
-        p.error(f"{args.verb} needs a command")
+    if args.verb in ("record", "stat") and not args.command \
+            and "pid" not in vars(args):
+        p.error(f"{args.verb} needs a command (or --pid)")
+    if args.verb == "status" and args.command and "logdir" not in vars(args):
+        args.logdir = args.command      # `status <logdir>` reads naturally
     cfg = config_from_args(args)
+    try:
+        return _run(args, cfg)
+    except SofaUserError as e:
+        print_error(str(e))
+        return 1
 
+
+def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     from sofa_tpu_torch.analyze import sofa_analyze
     from sofa_tpu_torch.preprocess import sofa_preprocess
     from sofa_tpu_torch.record import sofa_clean, sofa_record
+    from sofa_tpu_torch.telemetry import sofa_status
     from sofa_tpu_torch.viz import sofa_viz
 
     verb = args.verb
+    if verb == "status":
+        return sofa_status(cfg)
     if verb == "clean":
         sofa_clean(cfg)
         return 0

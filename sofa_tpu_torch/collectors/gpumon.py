@@ -581,7 +581,10 @@ def _loop(rate_hz, out_path, stop, memprof_path=None):
 
 def _mark(memprof_path, payload):
     """The at-exit breadcrumb (_inject/atexit_stop.json): when the final
-    snapshot started, its deadline, and whether it finished."""
+    snapshot started, its deadline, and whether it finished.  The Kineto
+    stop writes the same file after this (atexit is last-in, first-out);
+    both merge with the same process's earlier write, "ok" false sticky
+    (the tracer's write_marker)."""
     try:
         import json
         d = os.path.join(os.path.dirname(os.path.abspath(memprof_path)),
@@ -589,6 +592,14 @@ def _mark(memprof_path, payload):
         if not os.path.isdir(d):
             return
         p = os.path.join(d, "atexit_stop.json")
+        try:
+            with open(p) as f:
+                prev = json.load(f)
+        except Exception:
+            prev = {}
+        if isinstance(prev, dict) and prev.get("pid") == payload["pid"] \\
+                and prev.get("ok") is False:
+            payload["ok"] = False
         with open(p + ".tmp", "w") as f:
             json.dump(payload, f)
         os.replace(p + ".tmp", p)

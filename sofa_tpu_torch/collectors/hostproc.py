@@ -16,8 +16,21 @@ class VmstatCollector(ProcessCollector):
     def probe(self) -> Optional[str]:
         if not self.cfg.enable_vmstat:
             return "disabled"
-        if self.which("vmstat") is None:
+        path = self.which("vmstat")
+        if path is None:
             return "vmstat not installed"
+        # One report, at once: a vmstat that cannot read its /proc files
+        # (a host with a restricted /proc) exits 1 before its first line,
+        # and would only die under the supervisor.  A deliberate addition
+        # to the JAX package's probe, which checks the binary alone.
+        try:
+            r = subprocess.run([path, "1", "1"], capture_output=True,
+                               text=True, timeout=10)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return f"vmstat does not run here ({e})"
+        if r.returncode != 0:
+            why = (r.stderr.strip().splitlines() or [""])[0][:120]
+            return f"vmstat exits {r.returncode} here ({why})"
         return None
 
     def argv(self) -> List[str]:

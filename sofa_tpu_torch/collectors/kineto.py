@@ -22,7 +22,10 @@ and swaps the tracer:
      ``logdir/kineto/trace_<pid>.json``, under a watchdog that force-exits
      with code 120 if the epilogue wedges; then writes ``gpu_topo.json``
      (device properties and the ``nvidia-smi`` name and power limit, when
-     that binary exists).
+     that binary exists).  The stop writes the at-exit breadcrumb
+     ``_inject/atexit_stop.json`` as it begins and as it ends (the JAX
+     tracer's, ``sofa_tpu/collectors/xprof.py:219-303``), so that record
+     can bound its wait on a child that wedges there (``record.py``).
 
 Steps 2 to 4 live in the tracer module written beside the sitecustomize
 (``sofa_torch_kineto.py``, the ``_TRACER`` text); the in-process
@@ -195,6 +198,35 @@ def _warn(msg):
     sys.stderr.write("sofa_tpu_torch: %s\n" % msg)
 
 
+def write_marker(logdir, payload):
+    """The at-exit breadcrumb (logdir/_inject/atexit_stop.json) that lets
+    the parent record bound its wait on a child wedged at exit: written as
+    a stop begins ({pid, t, timeout_s, grace_s}) and as it ends (done, ok).
+    The memory sampler's final snapshot writes the same file, before this
+    stop (atexit runs last-in, first-out), so each write merges with the
+    same process's earlier one: "ok" false is sticky, and one writer's
+    success never hides the other's failure.  Only under record (the
+    injection directory exists)."""
+    d = os.path.join(logdir, "_inject")
+    if not os.path.isdir(d):
+        return
+    p = os.path.join(d, "atexit_stop.json")
+    try:
+        with open(p) as f:
+            prev = json.load(f)
+    except Exception:  # noqa: BLE001 - none yet, or torn
+        prev = {}
+    if isinstance(prev, dict) and prev.get("pid") == payload.get("pid") \
+            and prev.get("ok") is False:
+        payload["ok"] = False
+    try:
+        with open(p + ".tmp", "w") as f:
+            json.dump(payload, f)
+        os.replace(p + ".tmp", p)
+    except OSError:
+        pass
+
+
 def _marker(torch):
     with torch.profiler.record_function(
             "sofa_timebase_marker:%d" % time.time_ns()):
@@ -206,6 +238,9 @@ def _arm_watchdog(timeout, state):
         time.sleep(timeout)
         if not state["done"]:
             _warn("trace export exceeded %g s; force-exiting (120)" % timeout)
+            write_marker(state["logdir"], {
+                "pid": os.getpid(), "t": time.time(), "timeout_s": timeout,
+                "grace_s": 0, "done": True, "ok": False})
             os._exit(120)
 
     threading.Thread(target=_force_exit, daemon=True,
@@ -273,6 +308,9 @@ def stop_trace(torch, state, watchdog=False):
     if prof is None:
         return
     if watchdog:
+        write_marker(state["logdir"], {
+            "pid": os.getpid(), "t": time.time(),
+            "timeout_s": STOP_TIMEOUT_S, "grace_s": 0})
         _arm_watchdog(STOP_TIMEOUT_S, state)
     try:
         _marker(torch)
@@ -292,6 +330,13 @@ def stop_trace(torch, state, watchdog=False):
         _warn("trace stop/export failed: %r" % (e,))
     write_topology(torch, state["logdir"])
     state["done"] = True
+    if watchdog:
+        # finished inside its bound: "ok" (an export error is warned
+        # above; it wedged nothing)
+        write_marker(state["logdir"], {
+            "pid": os.getpid(), "t": time.time(),
+            "timeout_s": STOP_TIMEOUT_S, "grace_s": 0, "done": True,
+            "ok": True})
 '''
 
 # One implementation: exec the tracer text for in-process callers.

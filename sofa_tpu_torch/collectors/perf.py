@@ -73,6 +73,12 @@ class PerfCollector(Collector):
             return ["/usr/bin/time", "-v", "-o", self.cfg.path("time.txt")]
         return []
 
+    def attach_argv(self, pid: int) -> List[str]:
+        """``perf record -p <pid>`` for attach mode; [] without perf."""
+        if self.mode != "perf":
+            return []
+        return self._record_argv() + ["-p", str(pid)]
+
     def outputs(self) -> List[str]:
         cfg = self.cfg
         return [cfg.path("perf.data"), cfg.path("perf.script"),

@@ -117,6 +117,8 @@ class ProcMonCollector(Collector):
         return None
 
     def start(self) -> None:
+        # a fresh event each (re)start: a supervisor restart after a death
+        # must not inherit the stop that ended the previous sampler
         self._stop_event = threading.Event()
         self._thread = threading.Thread(target=self._sample_loop,
                                         daemon=True, name="sofa_procmon")
@@ -124,6 +126,13 @@ class ProcMonCollector(Collector):
 
     def alive(self) -> Optional[bool]:
         return None if self._thread is None else self._thread.is_alive()
+
+    def fault_kill(self) -> None:
+        """The ``die`` fault (the JAX package's ``procmon.py:130-141``):
+        end the sampler thread; a restart appends to the same files."""
+        self._stop_event.set()
+
+    kill = fault_kill
 
     def _sample_loop(self) -> None:
         cfg = self.cfg

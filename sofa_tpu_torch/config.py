@@ -46,6 +46,12 @@ DEFAULT_GPU_FILTERS = [
 class SofaConfig:
     logdir: str = "sofalog/"
     verbose: bool = False
+    # Worker count of the report path's pools (ingest, frame writes); 0 =
+    # auto (SOFA_JOBS, else the usable CPUs, at most 32: pool.py).
+    jobs: int = 0
+    # The content-keyed ingest cache (ingest/cache.py); --no_ingest_cache
+    # bypasses it.
+    ingest_cache: bool = True
 
     # --- record: host collectors ------------------------------------------
     perf_events: str = ""            # extra `perf record -e` events
@@ -63,6 +69,7 @@ class SofaConfig:
     netstat_interface: Optional[str] = None
     blkdev: Optional[str] = None     # block device for blktrace (opt-in)
     enable_vmstat: bool = True
+    pid: Optional[int] = None        # attach to a running process (--pid)
 
     # --- record: GPU collectors (injected into the profiled program) ------
     # Trace the profiled program with torch.profiler (Kineto: CPU ops and,
@@ -72,6 +79,20 @@ class SofaConfig:
     gpu_mon_rate: int = 1            # its rate, Hz
     enable_mem_prof: bool = True     # allocation-site snapshot (pprof) at
                                      # the observed occupancy peak
+    # Seconds past the child's at-exit breadcrumb (_inject/atexit_stop.json)
+    # before record presumes it wedged and kills its process group; None
+    # derives the allowance from the breadcrumb's own timeouts.
+    epilogue_deadline_s: Optional[float] = None
+
+    # --- record: fault tolerance (the JAX package's config.py:76-137) ------
+    inject_faults: str = ""          # fault spec (faults.py; SOFA_FAULTS)
+    collector_restarts: int = 1      # restarts of a collector that dies
+                                     # mid-run (0 = never restart)
+    collector_stop_timeout_s: float = 15.0      # 0 = unbounded
+    collector_harvest_timeout_s: float = 120.0  # 0 = unbounded
+    disk_budget_mb: float = 0.0      # --disk_budget: MB over all watched
+                                     # collectors (0 = off)
+    collector_disk_budget_mb: float = 0.0       # per collector (0 = off)
 
     # --- analyze: region of interest ---------------------------------------
     profile_region: str = ""         # "begin:end" manual ROI (seconds)

@@ -58,6 +58,7 @@ import numpy as np
 import pandas as pd
 
 from sofa_tpu_torch.costs import is_cost_range, op_cost, range_cost
+from sofa_tpu_torch.ingest import CorruptRawError
 from sofa_tpu_torch.printing import print_warning
 from sofa_tpu_torch.trace import (CopyKind, empty_frame, make_frame,
                                   merged_intervals)
@@ -288,15 +289,34 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
             "gpusteps": make_frame(step_rows)}
 
 
+def capture_files(kineto_dir: str) -> List[str]:
+    """The capture files under ``kineto_dir``, in name order."""
+    return sorted(glob.glob(os.path.join(kineto_dir, "*.json")))
+
+
+def load_capture(path: str) -> dict:
+    """One Chrome trace; CorruptRawError when it is not one."""
+    try:
+        with open(path, "rb") as f:
+            doc = json.loads(f.read())
+    except (ValueError, UnicodeDecodeError) as e:
+        raise CorruptRawError(path, f"not a JSON document ({e})") from None
+    if not isinstance(doc, dict) or \
+            not isinstance(doc.get("traceEvents"), list):
+        raise CorruptRawError(path, "no traceEvents list")
+    return doc
+
+
 def ingest_kineto_dir(kineto_dir: str, time_base: float
                       ) -> Dict[str, pd.DataFrame]:
     """Every ``*.json`` capture under ``kineto_dir``, merged and sorted by
-    time.  A missing or empty directory yields empty frames."""
+    time.  A missing or empty directory yields empty frames; a capture that
+    does not decode (a run killed mid-export) or that holds no
+    ``traceEvents`` list raises CorruptRawError."""
     parts: Dict[str, List[pd.DataFrame]] = {
         "gputrace": [], "hosttrace": [], "gpusteps": []}
-    for path in sorted(glob.glob(os.path.join(kineto_dir, "*.json"))):
-        with open(path) as f:
-            doc = json.load(f)
+    for path in capture_files(kineto_dir):
+        doc = load_capture(path)
         for name, df in ingest_trace(doc, time_base).items():
             if not df.empty:
                 parts[name].append(df)

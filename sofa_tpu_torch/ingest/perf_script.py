@@ -23,20 +23,13 @@ from typing import Callable, Optional
 
 import pandas as pd
 
+from sofa_tpu_torch.ingest import IngestToolError
 from sofa_tpu_torch.trace import empty_frame, make_frame
 
 # Deadline for the perf.data -> text conversion subprocess; a large
 # perf.data can legitimately take minutes, so the bound is generous and
 # env-tunable.
 _PERF_SCRIPT_TIMEOUT_S = 600.0
-
-
-class IngestToolError(RuntimeError):
-    """A raw file exists but the tool that converts it failed."""
-
-    def __init__(self, path: str, reason: str):
-        super().__init__(f"{path}: {reason}")
-        self.path = path
 
 
 def _conversion_timeout_s() -> float:

@@ -67,7 +67,11 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/workloads/resnet.py",
             "sofa_tpu_torch/tools/overhead_budget.py",
             "sofa_tpu_torch/tiles.py", "sofa_tpu_torch/viz.py",
-            "sofa_tpu_torch/analysis/advice.py"} <= rel
+            "sofa_tpu_torch/analysis/advice.py",
+            "sofa_tpu_torch/telemetry.py", "sofa_tpu_torch/supervisor.py",
+            "sofa_tpu_torch/faults.py", "sofa_tpu_torch/concurrency.py",
+            "sofa_tpu_torch/pool.py", "sofa_tpu_torch/ingest/cache.py",
+            "sofa_tpu_torch/tools/manifest_check.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -80,7 +84,11 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.analysis.device, sofa_tpu_torch.analysis.sol, "
             "sofa_tpu_torch.workloads.resnet, "
             "sofa_tpu_torch.tools.overhead_budget, sofa_tpu_torch.tiles, "
-            "sofa_tpu_torch.viz, sofa_tpu_torch.analysis.advice; "
+            "sofa_tpu_torch.viz, sofa_tpu_torch.analysis.advice, "
+            "sofa_tpu_torch.telemetry, sofa_tpu_torch.supervisor, "
+            "sofa_tpu_torch.faults, sofa_tpu_torch.concurrency, "
+            "sofa_tpu_torch.pool, sofa_tpu_torch.ingest.cache, "
+            "sofa_tpu_torch.tools.manifest_check; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'sofa_tpu') or m.startswith('google.protobuf')]; "
             "print(bad); sys.exit(1 if bad else 0)")
