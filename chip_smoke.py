@@ -6,7 +6,9 @@
 Phases, all of them, in order; any failure raises and exits non-zero:
 
   device   the card's name and power limit; builds the three CUDA kernels
-           from the sources in the checkout (one nvcc each, all at once)
+           from the sources in the checkout (one nvcc each, all at once),
+           and the native sysmon /proc sampler with the machine's C++
+           compiler, printing it and the build seconds
   kernel   holds each kernel against its plain PyTorch version at the
            shapes the main paths give it and at the mask and tiling edge
            cases, checks that every kernel is deterministic (two launches
@@ -72,7 +74,9 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            and every CSV a page names (404 where analyze wrote none), a 304
            on revalidation, a deep tile gzipped and plain, nothing outside
            the logdir; then ``clean`` on a copy of the ResNet logdir and
-           ``report`` over it again; prints the host times and sizes
+           ``report`` over it again, whose concurrency breakdown must give
+           performance.csv and five elapsed ratios summing to 1; prints the
+           host times and sizes
   robust   the supervised, self-reporting record, one line a cell:
            (1) ``stat`` over the Llama-width training with procmon killed
            5 s in and the Kineto harvest wedged (5 s deadline): one
@@ -91,7 +95,23 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            features.csv and tiles cold and warm, then ``clean``; (5) ``record --epilogue_deadline_s 5`` over a child
            wedged at exit returns within 30 s and warns; (6) ``record
            --pid`` of an entry-forward serving run in its own process,
-           then ``report``
+           then ``report``.  Cell (1)'s procmon is the native sysmon, and
+           its restart runs it again
+  cluster  ``record --cluster_hosts localhost,127.0.0.1`` of the
+           Llama-width training at batch 1 (two copies on the one card at
+           once), then ``report --cluster_hosts`` with no card visible: each
+           host's misc.txt rc 0, a healthy manifest and ``status`` 0, its
+           native sysmon running under its recorder, all three kernels
+           launched as often as in the profile phase's run; the merged
+           report.js (meta.cluster_hosts, every host series under
+           ``<host>_``, the second host's shifted by the difference of the
+           time bases within 1e-6 s) and cluster_summary.csv; both hosts'
+           peaks
+
+After each phase the script names any process the phase left running;
+once the phases end (or one fails) it stops every process still under it.
+It is its tree's child subreaper, so orphans of a killed recorder or
+workload are stopped too.
 
 The last lines are the kernels JSON, the nvidia-smi line, and the result
 JSON.  It exits non-zero without a result when no CUDA device is visible.
@@ -105,6 +125,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -206,6 +227,106 @@ def descendants(root: int):
     return out
 
 
+def adopt_orphans() -> bool:
+    """Makes this process the child subreaper of its tree (Linux prctl
+    PR_SET_CHILD_SUBREAPER): a descendant whose parent exits is re-parented
+    here, not to init, so that ``stop_descendants`` still finds it."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def live_descendants(root: int):
+    """{pid: "comm: command line"} of ``root``'s descendants that are not
+    zombies."""
+    out = {}
+    for pid in descendants(root):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    continue
+            with open(f"/proc/{pid}/comm") as f:
+                comm = f.read().strip()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (OSError, IndexError):
+            continue
+        out[pid] = f"{comm}: {argv.strip()[:200]}"
+    return out
+
+
+def reap_children() -> None:
+    """Collects the exit status of every child of this process that has
+    ended (re-parented orphans among them)."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def wait_descendants(timeout: float):
+    """Waits up to ``timeout`` s for this process's descendants to exit, and
+    returns those still running."""
+    deadline = time.monotonic() + timeout
+    while True:
+        left = live_descendants(os.getpid())
+        if not left or time.monotonic() >= deadline:
+            return left
+        time.sleep(0.1)
+
+
+def stop_mp_helpers(timeout: float = 10.0) -> None:
+    """Stops the multiprocessing forkserver and resource tracker that the
+    in-process parser pool of the ``resnet`` phase started here, as the
+    standard library's own tests stop them (closing each one's "alive" pipe
+    and waiting), forkserver first: it holds the tracker's pipe too."""
+    import threading
+    from multiprocessing import forkserver, resource_tracker
+
+    def run():
+        for helper in (getattr(forkserver, "_forkserver", None),
+                       getattr(resource_tracker, "_resource_tracker", None)):
+            stop = getattr(helper, "_stop", None)
+            if stop is not None:
+                try:
+                    stop()
+                except (OSError, ChildProcessError):
+                    pass
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+
+
+def stop_descendants() -> dict:
+    """Ends every process still running under this one once the phases are
+    over (or one failed): this process's own multiprocessing helpers the
+    standard way, the rest with 5 s to exit, then SIGTERM, 5 s more,
+    SIGKILL; then reaps them.  Returns what was still running after the
+    first 5 s."""
+    stop_mp_helpers()
+    reap_children()
+    left = wait_descendants(5.0)
+    for sig, grace in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 5.0)):
+        alive = live_descendants(os.getpid())
+        for pid in alive:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        if alive:
+            reap_children()
+            wait_descendants(grace)
+    reap_children()
+    return left
+
+
 def _leaf_names(tree, prefix=()):
     """Key paths of a nested param dict, in param_leaves order."""
     for key, val in tree.items():
@@ -259,6 +380,28 @@ class Smoke:
             log(f"  {kern.name}: dynamic shared memory a block, D 64 / D 128 "
                 f"(from the library): {kernels.smem_bytes(kern, 64)} / "
                 f"{kernels.smem_bytes(kern, 128)} bytes")
+        self.native_helpers()
+
+    def native_helpers(self):
+        """Builds the native /proc sampler daemon from the checkout's source
+        with the machine's C++ compiler: the Python sampler thread, meant for
+        hosts without a compiler, must not be what runs here."""
+        from sofa_tpu_torch.collectors import native_build
+
+        cxx = native_build.find_compiler()
+        if cxx is None:
+            raise AssertionError("no C++ compiler: the native sysmon "
+                                 "cannot be built")
+        path = native_build.binary_path("sysmon")
+        if os.path.exists(path):
+            os.unlink(path)        # time the build itself
+        got = native_build.ensure_built("sysmon")
+        built = native_build.BUILDS.get("sysmon")
+        if got != path or built is None or not os.access(got, os.X_OK):
+            raise AssertionError("native sysmon was not built: the Python "
+                                 "fallback would run")
+        log(f"device: native sysmon built by {built['compiler']} in "
+            f"{built['seconds']:.2f} s -> {os.path.relpath(got, REPO)}")
 
     def kernel(self):
         torch = self.torch
@@ -995,6 +1138,10 @@ class Smoke:
                "--d_ff 14336")
         feats, logdir, out, kern = self.stat("llama", cmd, steps, names,
                                              ("--enable_py_stacks",))
+        # launches of each kernel in one 3-step run (the cluster phase's
+        # hosts must launch as many)
+        self.llama_launches = {n: int(kern["name"].astype(str).str.contains(
+            n).sum()) for n in names}
         rate = [("on", [ln for ln in out.splitlines()
                         if ln.startswith("transformer:")])]
         in_steps = {"on": self.kernels_in_steps(kern, steps)}
@@ -1692,7 +1839,97 @@ class Smoke:
             raise AssertionError(f"report after clean failed: "
                                  f"{r.stderr[-3000:]}")
         log(f"board[clean]: report over the cleaned copy {wall:.3f} s")
+        self.board_new_passes(copy)
         shutil.rmtree(copy, ignore_errors=True)
+
+    def board_new_passes(self, logdir):
+        """The concurrency breakdown and the network passes over the copied
+        ResNet-50 capture: performance.csv, five elapsed ratios that cover
+        the windows, and netrank.csv beside any nettrace."""
+        import pandas as pd
+
+        feats = pd.read_csv(os.path.join(logdir, "features.csv"))
+        feats = dict(zip(feats["name"], feats["value"]))
+        classes = ("gpu", "usr", "sys", "iow", "idl")
+        ratios = {c: feats.get(f"elapsed_{c}_ratio") for c in classes}
+        perf_csv = os.path.join(logdir, "performance.csv")
+        windows = (pd.read_csv(perf_csv)["class"].value_counts().to_dict()
+                   if os.path.isfile(perf_csv) else {})
+        log(f"board[passes]: performance.csv {sum(windows.values())} windows "
+            f"{windows}; elapsed ratios {ratios}, sum "
+            f"{sum(v or 0 for v in ratios.values())!r}; breakdown_elapsed "
+            f"{feats.get('breakdown_elapsed')} s; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in feats.items()
+                        if k.startswith("corr_gpu_")))
+        if not windows or None in ratios.values() \
+                or abs(sum(ratios.values()) - 1.0) > 1e-9:
+            raise AssertionError("the concurrency breakdown is missing or "
+                                 "its ratios do not sum to 1")
+        self.board_recheck_windows(logdir, feats)
+        nettrace = os.path.join(logdir, "nettrace.csv")
+        rows = (len(pd.read_csv(nettrace, usecols=["timestamp"]))
+                if os.path.isfile(nettrace) else 0)
+        log(f"board[passes]: nettrace {rows} rows, netrank.csv "
+            f"{os.path.isfile(os.path.join(logdir, 'netrank.csv'))} (no "
+            "tcpdump on this machine: the packet passes are held on the "
+            "CPU); net_tx_total_bytes "
+            f"{feats.get('net_tx_total_bytes')}")
+
+    def board_recheck_windows(self, logdir, feats):
+        """Recomputes performance.csv from the frames it was made of, apart
+        from the pass: each window's mean of mpstat's aggregate usr, sys and
+        iow and of gpuutil's kernel_util, then its class (the largest, in
+        the order gpu, usr, sys, iow; idl below 1 %).  Both must equal the
+        file's, and the capture, which ran on the card, must have gpu
+        windows."""
+        import numpy as np
+        import pandas as pd
+
+        perf = pd.read_csv(os.path.join(logdir, "performance.csv"))
+        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
+        mp = mp[mp["deviceId"] == -1]
+        util = pd.read_csv(os.path.join(logdir, "gpuutil.csv"))
+        edges = perf["timestamp"].to_numpy(dtype=float)
+        n = len(edges)
+        window = 1.0 / round(1.0 / (edges[1] - edges[0])) if n > 1 else 0.1
+        t0 = float(mp["timestamp"].min())
+        t1 = float(mp["timestamp"].max())
+        if edges[0] != t0 or abs(t1 - t0 - float(feats["breakdown_elapsed"])) > 1e-9:
+            raise AssertionError(f"performance.csv spans {edges[0]} + "
+                                 f"{feats['breakdown_elapsed']} s, mpstat "
+                                 f"{t0} to {t1}")
+
+        def means(rows):
+            rows = rows[(rows["timestamp"] >= t0) & (rows["timestamp"] < t1)]
+            idx = np.clip(((rows["timestamp"].to_numpy(dtype=float) - t0)
+                           / window).astype(int), 0, n - 1)
+            got = rows["event"].groupby(idx).mean()
+            out = np.zeros(n)
+            out[got.index.to_numpy()] = got.to_numpy()
+            return out
+
+        cols = {"gpu_util": means(util[util["name"] == "kernel_util"])}
+        for name in ("usr", "sys", "iow"):
+            cols[name] = means(mp[mp["name"] == name])
+        for col, want in cols.items():
+            err = float(np.max(np.abs(perf[col].to_numpy(dtype=float)
+                                      - want)))
+            if err > 1e-9:
+                raise AssertionError(f"performance.csv {col} differs from "
+                                     f"the frames' window means by {err}")
+        order = ("gpu_util", "usr", "sys", "iow")
+        classes = []
+        for i in range(n):
+            top = max(order, key=lambda c: cols[c][i])
+            classes.append("idl" if cols[top][i] < 1.0
+                           else top.replace("_util", ""))
+        wrong = int((perf["class"].to_numpy() != np.array(classes)).sum())
+        log(f"board[passes]: recomputed {n} windows of {window} s from "
+            f"mpstat.csv and gpuutil.csv: {wrong} classed otherwise, "
+            f"{classes.count('gpu')} gpu")
+        if wrong or "gpu" not in classes:
+            raise AssertionError(f"{wrong} windows classed otherwise than "
+                                 "their frames say, or no gpu window")
 
     # -- robust -----------------------------------------------------------------
     def robust(self):
@@ -1719,7 +1956,7 @@ class Smoke:
                "--d_ff 14336")
         flags = ("--inject_faults", "procmon:die@5s,kineto:wedge@harvest",
                  "--collector_harvest_timeout_s", "5")
-        _, logdir, _, kern = self.stat(
+        _, logdir, out, kern = self.stat(
             "faulted", cmd, steps, [k.name for k in kernels.KERNELS], flags,
             healthy=False)
         doc, status_rc = self.check_manifest("faulted", logdir, False)
@@ -1737,6 +1974,12 @@ class Smoke:
         if pm.get("restarts") != 1 or not pm.get("died") or not after:
             raise AssertionError(f"procmon was not restarted once with rows "
                                  f"after its death: {pm}, {after} rows")
+        # the death hit the native daemon, and the restart started another
+        native = [ln for ln in out.splitlines()
+                  if ln.startswith("[INFO] procmon: ") and "/sysmon-" in ln]
+        if len(native) != 2 or "Python fallback" in out:
+            raise AssertionError(f"procmon did not run the native sysmon "
+                                 f"twice (start, restart): {native}")
         if kt.get("status") != "timed_out" or kt.get("phase") != "harvest":
             raise AssertionError(f"kineto did not time out at harvest: {kt}")
         if r.returncode != 0 or "Complete!!" not in r.stdout:
@@ -1744,7 +1987,8 @@ class Smoke:
         if status_rc != want_rc or want_rc != 1:
             raise AssertionError(f"status exited {status_rc}, render_status "
                                  f"says {want_rc}")
-        return (f"procmon died at 5 s, restarts {pm['restarts']}, "
+        return (f"procmon (native sysmon) died at 5 s, restarts "
+                f"{pm['restarts']}, "
                 f"{after} mpstat rows after the death; kineto "
                 f"{kt['status']} at {kt['phase']}; launches {launches}; "
                 f"report complete; status rc {status_rc} (render_status "
@@ -1969,9 +2213,192 @@ class Smoke:
                 f"when the process exited ({served[0][:60]}...); misc.txt "
                 f"pid {misc['pid']}; report complete, mpstat {len(mp)} rows")
 
+    # -- cluster ----------------------------------------------------------------
+    def cluster(self):
+        """Two ``localhost`` hosts record the Llama-width training at batch
+        1 on the one card at once (``record --cluster_hosts``), then
+        ``report --cluster_hosts`` with no card visible merges them: each
+        host's record healthy and its native sysmon running under its
+        recorder, all three kernels launched as often as in the profile
+        phase's run, one report.js with both hosts' series shifted by the
+        difference of their time bases, and cluster_summary.csv."""
+        import threading
+
+        import numpy as np
+        import pandas as pd
+        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.trace import read_report_js_doc
+
+        hosts = ["localhost", "127.0.0.1"]
+        base = os.path.join(REPO, "build", "chip_smoke_cluster")
+        host_dirs = {h: f"{base}-{h}" for h in hosts}
+        for d in [base] + list(host_dirs.values()):
+            shutil.rmtree(d, ignore_errors=True)
+        steps = 3
+        cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
+               f"--steps {steps} --batch 1 --seq 2048 --vocab 128256 "
+               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
+               "--d_ff 14336")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "sofa_tpu_torch", "record",
+             "--cluster_hosts", ",".join(hosts), "--logdir", base + "/",
+             cmd], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        sysmons = {h: set() for h in hosts}
+        lines = []
+        reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                                  daemon=True)
+        reader.start()
+        try:
+            while proc.poll() is None:
+                for h, pids in self.cluster_sysmons(proc.pid, host_dirs):
+                    sysmons[h] |= pids
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("the cluster record ran over 300 s")
+                time.sleep(0.5)
+        finally:
+            if proc.poll() is None:
+                proc.terminate()        # every host's recorder stops
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            reader.join(timeout=60)
+        record_s = time.perf_counter() - t0
+        out = "".join(lines)
+        for line in out.splitlines():
+            if line.startswith(("[WARNING]", "[PROGRESS]", "transformer:")):
+                log(f"  | {line}")
+        log(f"cluster: record rc {proc.returncode} in {record_s:.1f} s; "
+            f"sysmon pids seen under each host's recorder "
+            f"{ {h: sorted(p) for h, p in sysmons.items()} }")
+        if proc.returncode != 0:
+            raise AssertionError(f"the cluster record failed: "
+                                 f"{out[-3000:]}")
+        if not all(sysmons.values()) or "Python fallback" in out:
+            raise AssertionError("a host's procmon did not run the native "
+                                 "sysmon under its recorder")
+        for h, d in host_dirs.items():
+            with open(os.path.join(d, "misc.txt")) as f:
+                misc = dict(ln.split(None, 1) for ln in f.read().splitlines())
+            if misc.get("rc") != "0":
+                raise AssertionError(f"{h}: misc.txt says rc {misc.get('rc')}")
+        t1 = time.perf_counter()
+        r, _ = self.board_cli("report", "--cluster_hosts", ",".join(hosts),
+                              "--logdir", base)
+        report_s = time.perf_counter() - t1
+        if r.returncode != 0 or r.stdout.count("Complete!!") != 2:
+            raise AssertionError(f"the cluster report failed, rc "
+                                 f"{r.returncode}: {r.stderr[-3000:]}")
+        # each host: all three kernels, as many as the profile phase's run
+        names = [k.name for k in KERNELS]
+        peaks, bases, own = {}, {}, {}
+        for h, d in host_dirs.items():
+            # record's collectors and the report's sources, healthy
+            self.check_manifest(f"cluster {h}", d)
+            gpu = pd.read_csv(os.path.join(d, "gputrace.csv"))
+            kname = gpu[gpu["copyKind"] == 0]["name"].astype(str)
+            got = {n: int(kname.str.contains(n).sum()) for n in names}
+            feats = pd.read_csv(os.path.join(d, "features.csv"))
+            feats = dict(zip(feats["name"], feats["value"]))
+            peaks[h] = feats.get("gpu0_hbm_peak_gb")
+            with open(os.path.join(d, "sofa_time.txt")) as f:
+                bases[h] = float(f.read().split()[0])
+            own[h] = read_report_js_doc(os.path.join(d, "report.js"))
+            log(f"cluster[{h}]: launches {got} (profile phase "
+                f"{self.llama_launches}); gpu0_hbm_peak_gb {peaks[h]}; "
+                f"elapsed_time {feats.get('elapsed_time')} s; "
+                f"elapsed_gpu_ratio {feats.get('elapsed_gpu_ratio')}; "
+                f"gpu_step_busy_pct {feats.get('gpu_step_busy_pct')}")
+            if got != self.llama_launches:
+                raise AssertionError(f"{h}: flash launches {got}, the "
+                                     f"profile phase's {self.llama_launches}")
+        # the merged timeline
+        doc = read_report_js_doc(os.path.join(base, "report.js"))
+        merged = {s["name"]: s for s in doc["series"]}
+        tb0 = min(bases.values())
+        worst = 0.0
+        for h in hosts:
+            shift = bases[h] - tb0
+            want = [f"{h}_{s['name']}" for s in own[h]["series"]]
+            missing = [n for n in want if n not in merged]
+            if missing or f"{h}_gpu_sofa_flash" not in merged:
+                raise AssertionError(f"report.js lacks {missing} of {h}")
+            # each merged point against its frame's rows plus the shift
+            # (the merged series may be a downsampled subset)
+            for frame in ("gputrace", "hosttrace"):
+                ts = pd.read_csv(os.path.join(host_dirs[h], f"{frame}.csv"),
+                                 usecols=["timestamp"])["timestamp"]
+                expect = np.sort(ts.to_numpy() + shift)
+                x = np.asarray(merged[f"{h}_{frame}"]["data"]["x"])
+                i = np.clip(np.searchsorted(expect, x), 1, len(expect) - 1)
+                err = np.minimum(np.abs(x - expect[i - 1]),
+                                 np.abs(x - expect[i]))
+                worst = max(worst, float(err.max()))
+        log(f"cluster: report {report_s:.1f} s; report.js meta.cluster_hosts "
+            f"{doc['meta'].get('cluster_hosts')}, time_base "
+            f"{doc['meta'].get('time_base')!r}, {len(merged)} series; "
+            f"host time bases {bases}, shift "
+            f"{bases[hosts[1]] - bases[hosts[0]]:.6f} s; merged gputrace and "
+            f"hosttrace x off their host's CSV + shift by at most "
+            f"{worst:.3g} s")
+        if doc["meta"].get("cluster_hosts") != hosts or \
+                doc["meta"].get("time_base") != tb0 or worst > 1e-6:
+            raise AssertionError("the merged report.js is not the two hosts "
+                                 "on one clock")
+        summary = pd.read_csv(os.path.join(base, "cluster_summary.csv"))
+        log("cluster: cluster_summary.csv\n" + summary.to_string(index=False))
+        net_cols = [c for c in ("net_tx_total_bytes", "net_rx_total_bytes")
+                    if c in summary.columns]
+        # an interface that moved no bytes over the run is idle and gives
+        # no netbandwidth rows (nor, as in the JAX package, net_* features)
+        nics = {h: len(pd.read_csv(os.path.join(d, "netbandwidth.csv"),
+                                   usecols=["timestamp"]))
+                for h, d in host_dirs.items()}
+        if list(summary["host"]) != hosts or "elapsed_time" not in summary \
+                or (any(nics.values()) and len(net_cols) != 2):
+            raise AssertionError(f"cluster_summary.csv is wrong: "
+                                 f"{list(summary.columns)}")
+        log(f"cluster: netbandwidth rows {nics}, net columns {net_cols}"
+            + ("" if any(nics.values()) else ": no interface but lo (which "
+               "the sampler skips) moved a byte during the run, so there "
+               "are no net_* columns to check"))
+        log(f"cluster: gpu0_hbm_peak_gb {peaks}; record {record_s:.1f} s, "
+            f"report {report_s:.1f} s | {self.smi}")
+
+    @staticmethod
+    def cluster_sysmons(root, host_dirs):
+        """(host, sysmon pids) for each host recorder under ``root``: the
+        recorder is the process whose command line names the host's
+        logdir, its sampler a descendant named sysmon-<hash>."""
+        for pid in descendants(root):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().decode(errors="replace").split("\0")
+            except OSError:
+                continue
+            if "record" not in argv or "--logdir" not in argv:
+                continue
+            logdir = argv[argv.index("--logdir") + 1].rstrip("/")
+            host = next((h for h, d in host_dirs.items() if d == logdir),
+                        None)
+            if host is None:
+                continue
+            found = set()
+            for child in descendants(pid):
+                try:
+                    with open(f"/proc/{child}/comm") as f:
+                        if f.read().startswith("sysmon-"):
+                            found.add(child)
+                except OSError:
+                    continue
+            yield host, found
+
 
 PHASES = ("device", "kernel", "model", "train", "profile", "resnet", "board",
-          "robust")
+          "robust", "cluster")
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 
 
@@ -2029,13 +2456,29 @@ def main() -> int:
     if sys.argv[1:2] == ["--resnet-pass"]:
         resnet_pass(sys.argv[2])
         return 0
+    adopted = adopt_orphans()
     smoke = Smoke()
     t_all = time.perf_counter()
-    for phase in PHASES:
-        t0 = time.perf_counter()
-        log(f"=== {phase}")
-        getattr(smoke, phase)()
-        log(f"=== {phase} ok in {time.perf_counter() - t0:.1f} s")
+    seen = {}
+    try:
+        for phase in PHASES:
+            t0 = time.perf_counter()
+            log(f"=== {phase}")
+            getattr(smoke, phase)()
+            log(f"=== {phase} ok in {time.perf_counter() - t0:.1f} s")
+            # what a phase leaves running outlives it by name here
+            reap_children()
+            new = {p: d for p, d in wait_descendants(2.0).items()
+                   if seen.get(p) != d}
+            seen.update(new)
+            for pid, desc in new.items():
+                log(f"  still running after {phase}: pid {pid} {desc}")
+    finally:
+        left = stop_descendants()
+        log(f"chip_smoke: {len(left)} processes still running when the "
+            f"phases ended (subreaper {'set' if adopted else 'not set'}), "
+            f"all stopped"
+            + "".join(f"\n  pid {p} {d}" for p, d in left.items()))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": list(smoke.kernel_rows.values())}))
     log(smoke.smi)

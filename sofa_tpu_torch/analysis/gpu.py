@@ -6,9 +6,8 @@ share, flops and bytes, forward and backward time, op categories, ranges,
 top kernels); ``serving_profile`` of its ``serving_profile`` (the
 prefill/decode split, read from the ``module`` column: the ``run_prefill``
 / ``run_decode`` profiler ranges the serving loop wraps its phases in).
-The other single-device passes are in ``analysis/device.py``, the
-speed-of-light pass in ``analysis/sol.py``; ``PASSES`` runs them all in
-the JAX package's order.
+The other single-device passes are in ``analysis/device.py``; ``PASSES``
+lists them all in the JAX package's order.
 
 Over the memory sampler: ``gpumon_profile`` (occupancy and peak per
 device, from the gpumon frame) and ``memprof_profile`` (which allocation
@@ -18,7 +17,7 @@ sites held the peak, from the memprof snapshot), the counterparts of
 
 from __future__ import annotations
 
-from sofa_tpu_torch.analysis import device, sol
+from sofa_tpu_torch.analysis import device
 from sofa_tpu_torch.analysis.features import Features
 from sofa_tpu_torch.printing import print_title, print_warning
 from sofa_tpu_torch.trace import CopyKind, merged_intervals, roi_clip
@@ -224,10 +223,11 @@ def memprof_profile(frames, cfg, features: Features) -> None:
         print(sites.head(10).to_string(index=False))
 
 
-#: The GPU passes analyze runs after the host ones, in the JAX package's
-#: order (the region of interest, ``device.spotlight_roi``, runs first of
-#: all: analyze.PASSES).
+#: The GPU passes analyze runs after the host and network ones, in the JAX
+#: package's order (the region of interest, ``device.spotlight_roi``, runs
+#: first of all, the concurrency breakdown and ``sol.sol_roofline`` after
+#: these: analyze.PASSES).
 PASSES = [gpu_profile, device.op_tree_profile,
           device.overlap_profile, device.input_pipeline_profile,
           device.roofline_profile, serving_profile, device.gpuutil_profile,
-          gpumon_profile, memprof_profile, sol.sol_roofline]
+          gpumon_profile, memprof_profile]

@@ -11,9 +11,11 @@ process and do not want the wrap-a-command CLI:
 
 The counterpart of ``sofa_tpu/api.py``.  It records what ``record`` does
 minus the process-level collectors (perf, strace, vmstat, tcpdump,
-blktrace, the Python stack sampler): the time base, the /proc sampler, the
-GPU memory sampler with its allocation-site snapshots, and the Kineto
-trace, through the same functions the ``record`` injection runs.  A logdir
+blktrace, the Python stack sampler): the time base, the /proc sampler (the
+native ``sysmon`` daemon, a child process outside the measurement; a
+thread only where no C++ compiler can build it), the GPU memory sampler
+with its allocation-site snapshots, and the Kineto trace, through the same
+functions the ``record`` injection runs.  A logdir
 holds one run: the previous run's files are dropped first.
 """
 

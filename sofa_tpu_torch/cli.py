@@ -16,11 +16,18 @@
 
 report, analyze, viz, status and clean run on the host only: they never
 touch a GPU.
+
+With --cluster_hosts h1,h2,... record runs on every host at once, each
+into <logdir>-<host>/ (localhost and 127.0.0.1 here, any other host over
+ssh), and report preprocesses each host's logdir, analyzes each, and
+writes one clock-aligned report.js and cluster_summary.csv into
+--logdir.  stat and analyze stay single-host.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Optional
 
@@ -117,6 +124,11 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="collector_disk_budget_mb",
                    help="raw-output budget in MB per collector (0 = off)")
 
+    g = p.add_argument_group("cluster")
+    g.add_argument("--cluster_hosts",
+                   help="comma-joined host list: record and report over "
+                   "every host, each into <logdir>-<host>/")
+
     g = p.add_argument_group("analyze")
     g.add_argument("--profile_region", help='manual ROI "begin:end" seconds')
     g.add_argument("--spotlight", action="store_true",
@@ -144,6 +156,9 @@ def config_from_args(args: argparse.Namespace) -> SofaConfig:
     for flag, field in _DISABLES.items():
         if passed.get(flag):
             setattr(cfg, field, False)
+    if "cluster_hosts" in passed:
+        cfg.cluster_hosts = [h for h in passed["cluster_hosts"].split(",")
+                             if h]
     return cfg
 
 
@@ -168,7 +183,7 @@ def main(argv: Optional[list] = None) -> int:
 def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     from sofa_tpu_torch.analyze import sofa_analyze
     from sofa_tpu_torch.preprocess import sofa_preprocess
-    from sofa_tpu_torch.record import sofa_clean, sofa_record
+    from sofa_tpu_torch.record import cluster_record, sofa_clean, sofa_record
     from sofa_tpu_torch.telemetry import sofa_status
     from sofa_tpu_torch.viz import sofa_viz
 
@@ -180,6 +195,11 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
         return 0
     if verb == "viz":
         return 0 if sofa_viz(cfg) is not None else 1
+    if cfg.cluster_hosts and verb == "record":
+        return cluster_record(args.command, cfg)
+    if cfg.cluster_hosts and verb == "report":
+        _cluster_report(args, cfg)
+        return 0
     rc = 0
     if verb in ("record", "stat"):
         rc = sofa_record(args.command, cfg)
@@ -194,6 +214,25 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     if verb == "report" and getattr(args, "with_gui", False):
         sofa_viz(cfg)
     return rc
+
+
+def _cluster_report(args: argparse.Namespace, cfg: SofaConfig) -> None:
+    """Preprocess each host's logdir (unless --skip_preprocess) and hand
+    its frames to ``cluster_analyze`` (the JAX package's
+    ``cli.py:534-544``); then serve the merged board with --with-gui."""
+    from sofa_tpu_torch.analyze import cluster_analyze, cluster_host_cfgs
+    from sofa_tpu_torch.preprocess import sofa_preprocess
+    from sofa_tpu_torch.viz import sofa_viz
+
+    preloaded = {}
+    if not getattr(args, "skip_preprocess", False):
+        for _i, host, host_cfg in cluster_host_cfgs(cfg):
+            if os.path.isdir(host_cfg.logdir):
+                preloaded[host] = sofa_preprocess(host_cfg)
+    cluster_analyze(cfg, preloaded=preloaded or None)
+    preloaded = None
+    if getattr(args, "with_gui", False):
+        sofa_viz(cfg)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,23 @@ def _read_int(path: str) -> Optional[int]:
         return None
 
 
+def _count_events(spec: str) -> int:
+    """Top-level events in a perf -e list: commas inside raw PMU
+    descriptors (cpu/event=0x3c,umask=0x1/) or {group} syntax separate
+    parameters, not events."""
+    n, depth, in_pmu = 1, 0, False
+    for ch in spec:
+        if ch == "/":
+            in_pmu = not in_pmu
+        elif ch == "{":
+            depth += 1
+        elif ch == "}":
+            depth = max(depth - 1, 0)
+        elif ch == "," and depth == 0 and not in_pmu:
+            n += 1
+    return n
+
+
 class PerfCollector(Collector):
     name = "perf"
 
@@ -78,6 +95,19 @@ class PerfCollector(Collector):
         if self.mode != "perf":
             return []
         return self._record_argv() + ["-p", str(pid)]
+
+    def scoped_argv(self, cgroup: str) -> List[str]:
+        """Container-scoped sampling (``record``'s docker scoping):
+        system-wide, filtered to the container's cgroup (``-a -G``); the
+        pid attach is ``attach_argv``.  [] without perf."""
+        if self.mode != "perf":
+            return []
+        # perf pairs cgroups with events positionally: one -G entry per -e
+        # event, or only the first event is scoped
+        n_events = (_count_events(self.cfg.perf_events)
+                    if self.cfg.perf_events else 1)
+        return self._record_argv() + ["-a", "-G",
+                                      ",".join([cgroup] * n_events)]
 
     def outputs(self) -> List[str]:
         cfg = self.cfg

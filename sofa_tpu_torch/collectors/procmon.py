@@ -1,6 +1,14 @@
 """System-monitor sampling: /proc/stat, /proc/diskstats, /proc/net/dev and
-/proc/cpuinfo at cfg.sys_mon_rate Hz, from a daemon thread of the recording
-process.
+/proc/cpuinfo at cfg.sys_mon_rate Hz.
+
+The sampler is the native ``sysmon`` daemon (native/sysmon.cc, built at
+first use by ``native_build``): one process outside the measurement, which
+matters most under ``api.profile()``, where a sampler thread would run
+inside the profiled program.  Where it cannot be built (no C++ compiler),
+a daemon thread of the recording process writes the same files, as the
+JAX package's ``collectors/procmon.py`` falls back.  ``alive`` and
+``fault_kill`` cover both routes, so the supervisor's restart and the
+``die`` fault work the same on either.
 
 Line formats (parsed by ingest/procfs.py, byte-identical to the JAX
 package's sampler):
@@ -22,7 +30,9 @@ import threading
 import time
 from typing import List, Optional
 
-from sofa_tpu_torch.collectors.base import Collector
+from sofa_tpu_torch.collectors.base import ProcessCollector
+from sofa_tpu_torch.collectors.native_build import ensure_built
+from sofa_tpu_torch.printing import print_info
 
 
 def read_proc_stat_lines(ts: float) -> List[str]:
@@ -101,7 +111,7 @@ def read_cpuinfo_line(ts: float) -> str:
     return f"{ts:.6f} " + " ".join(mhz)
 
 
-class ProcMonCollector(Collector):
+class ProcMonCollector(ProcessCollector):
     """Samples host system counters at sys_mon_rate Hz."""
 
     name = "procmon"
@@ -117,6 +127,15 @@ class ProcMonCollector(Collector):
         return None
 
     def start(self) -> None:
+        cfg = self.cfg
+        tool = ensure_built("sysmon")
+        if tool:
+            argv = [tool, cfg.logdir, str(cfg.sys_mon_rate)]
+            if cfg.netstat_interface:
+                argv.append(cfg.netstat_interface)
+            self.launch(argv)
+            return
+        print_info("procmon: Python fallback sampler thread")
         # a fresh event each (re)start: a supervisor restart after a death
         # must not inherit the stop that ended the previous sampler
         self._stop_event = threading.Event()
@@ -125,12 +144,18 @@ class ProcMonCollector(Collector):
         self._thread.start()
 
     def alive(self) -> Optional[bool]:
+        if self.proc is not None:
+            return super().alive()
         return None if self._thread is None else self._thread.is_alive()
 
     def fault_kill(self) -> None:
         """The ``die`` fault (the JAX package's ``procmon.py:130-141``):
-        end the sampler thread; a restart appends to the same files."""
-        self._stop_event.set()
+        the daemon is killed, or the sampler thread ends; a restart appends
+        to the same files."""
+        if self.proc is not None:
+            super().kill()
+        else:
+            self._stop_event.set()
 
     kill = fault_kill
 
@@ -156,10 +181,11 @@ class ProcMonCollector(Collector):
             for f in files.values():
                 f.close()
 
-    def stop(self) -> None:
+    def stop(self, **kwargs) -> None:
         if self._thread is not None:
             self._stop_event.set()
             self._thread.join(timeout=5)
+        super().stop(**kwargs)
 
     def outputs(self) -> List[str]:
         cfg = self.cfg

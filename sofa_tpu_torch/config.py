@@ -70,6 +70,9 @@ class SofaConfig:
     blkdev: Optional[str] = None     # block device for blktrace (opt-in)
     enable_vmstat: bool = True
     pid: Optional[int] = None        # attach to a running process (--pid)
+    # --cluster_hosts: record and report over several hosts at once, each
+    # into <logdir>-<host>/ (record.cluster_record, analyze.cluster_analyze)
+    cluster_hosts: List[str] = dataclasses.field(default_factory=list)
 
     # --- record: GPU collectors (injected into the profiled program) ------
     # Trace the profiled program with torch.profiler (Kineto: CPU ops and,

@@ -213,6 +213,53 @@ def write_net_addrs(ids, logdir: str):
     return out
 
 
+def unpack_ip(value: int, addrs: Optional[dict] = None) -> str:
+    """An address id of pkt_src/pkt_dst -> its literal.  ``addrs`` is the
+    interned id -> literal table (net_addrs.csv) for IPv6 ids; without it
+    a v6 id reads as a stable placeholder, never a wrong dotted quad."""
+    if value < 0:                   # -1: the schema's "not a packet"
+        return "n/a"
+    v = int(value)
+    if v >= V6_ID_BASE:
+        if addrs:
+            hit = addrs.get(v)
+            if hit:
+                return hit
+        return f"ipv6#{v - V6_ID_BASE}"
+    octets = []
+    for i in range(4):
+        octets.append(v // 1000 ** (3 - i))
+        v %= 1000 ** (3 - i)
+    return ".".join(str(o) for o in octets)
+
+
+def read_net_addrs(path: str) -> dict:
+    """A capture's interned id -> literal address table (net_addrs.csv,
+    written by the pcap ingest when non-IPv4 packets appear).  A missing
+    file gives {}; an unreadable one (a preprocess mid-write, the guard's
+    sentinel present) gives the rows read so far, with a warning."""
+    import csv
+
+    table: dict = {}
+    if not os.path.isfile(path):
+        return table
+    try:
+        with open(path, newline="") as f:
+            for row in csv.DictReader(f):
+                try:
+                    table[int(row["id"])] = row["address"]
+                except (KeyError, ValueError, TypeError):
+                    continue
+    except OSError as e:
+        from sofa_tpu_torch.printing import print_warning
+
+        why = ("a preprocess is mid-write on this logdir"
+               if derived_writing(os.path.dirname(path) or ".") else e)
+        print_warning(f"net_addrs: cannot read {path} ({why}); addresses "
+                      "degrade to placeholders")
+    return table
+
+
 # --- atomic writes and the derived-write guard -------------------------------
 
 @contextlib.contextmanager

@@ -351,7 +351,7 @@ CONTRACT = {
 # fetched but only shown whole by renderTable (any header will do)
 TABLE_ONLY = {"cpu_top.csv", "pystacks_top.csv", "strace_top.csv",
               "disk_summary.csv", "gpu_top_kernels.csv",
-              "gpu_modules_summary.csv"}
+              "gpu_modules_summary.csv", "performance.csv"}
 
 
 def _board_sources():

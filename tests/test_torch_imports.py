@@ -71,7 +71,10 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/telemetry.py", "sofa_tpu_torch/supervisor.py",
             "sofa_tpu_torch/faults.py", "sofa_tpu_torch/concurrency.py",
             "sofa_tpu_torch/pool.py", "sofa_tpu_torch/ingest/cache.py",
-            "sofa_tpu_torch/tools/manifest_check.py"} <= rel
+            "sofa_tpu_torch/tools/manifest_check.py",
+            "sofa_tpu_torch/collectors/native_build.py",
+            "sofa_tpu_torch/analysis/comm.py",
+            "sofa_tpu_torch/analysis/concurrency.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -88,7 +91,9 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.telemetry, sofa_tpu_torch.supervisor, "
             "sofa_tpu_torch.faults, sofa_tpu_torch.concurrency, "
             "sofa_tpu_torch.pool, sofa_tpu_torch.ingest.cache, "
-            "sofa_tpu_torch.tools.manifest_check; "
+            "sofa_tpu_torch.tools.manifest_check, "
+            "sofa_tpu_torch.collectors.native_build, "
+            "sofa_tpu_torch.analysis.comm, sofa_tpu_torch.analysis.concurrency; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'sofa_tpu') or m.startswith('google.protobuf')]; "
             "print(bad); sys.exit(1 if bad else 0)")
