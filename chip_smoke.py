@@ -31,6 +31,18 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            gradients, and the fused-vs-plain loss along the training
            trajectory (seed weights and after each of the 6 steps) on a
            fresh build, then the allocator trace's entries a step
+  ring     ring and zig-zag flash attention over four ranks at Llama-3-8B
+           attention width (B 4, T 4 x 2048; then B 1, T 4 x 1024), every
+           rank's hop bodies driven in lockstep on the one card (the code a
+           distributed run calls; only the rotation indexes a list of
+           shards): out, lse and dq/dk/dv against the one-device kernels
+           over the whole T (and at B 1 against the plain versions), two
+           runs bit-identical, each kernel launched once per rank, hop and
+           half-chunk pair (counts zeroed just before, read just after);
+           the ring's time against the one-device kernels' by CUDA events,
+           and, at B 4, one more forward and backward each under a
+           torch.profiler trace: device time of the flash kernels, the other
+           kernels, memsets and copies, and the span's idle share
   profile  ``python -m sofa_tpu_torch stat`` over the flagship forward with
            a short serving run (with and without allocation-stack
            recording, in turns, twice each), over the training workload's
@@ -108,6 +120,17 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            time bases within 1e-6 s) and cluster_summary.csv; both hosts'
            peaks
 
+  mesh     torchrun with NCCL and one rank over the training ``main`` at
+           the train phase's shape (--data 1 --seq_par 1): the losses must
+           equal the train phase's; the same under ``stat``, logging what
+           the capture holds for the gradient all-reduce; then two gloo
+           ranks sharing the card (--data 2, batch 1 each) under ``stat``:
+           two rank traces, device ids 0 and 1, one gpumon file per rank
+           (named by its rank), gpu_step_skew.csv, equal losses, per-rank flash launches as in a one-rank run, the
+           merged topology, mesh_advice.txt, and comm-report.html rendered
+           by ``report`` and served by ``viz``; the collectives microbench
+           at one rank prints its single-device line
+
 After each phase the script names any process the phase left running;
 once the phases end (or one fails) it stops every process still under it.
 It is its tree's child subreaper, so orphans of a killed recorder or
@@ -165,6 +188,12 @@ TRAIN_LOSS_REL = 6e-5
 # on the same inputs: the loss and every gradient must be bit-identical (the
 # reading on an H100 was 0 for all of them).
 REMAT_REL = 0.0
+# The ring phase's ranks (the lockstep schedule's shards on the one card).
+RING_RANKS = 4
+# The NCCL world of one against the train phase: the same program on the
+# same seed, so the losses are expected to be equal to the bit; the limit
+# leaves room only for a reduction that a one-rank collective reorders.
+MESH_LOSS_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -325,6 +354,28 @@ def stop_descendants() -> dict:
             wait_descendants(grace)
     reap_children()
     return left
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on (torchrun's
+    rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_losses(out: str) -> dict:
+    """{rank: [loss, ...]} from the transformer main's ``transformer: rank
+    R losses (warm-up first) ...`` lines."""
+    import re
+
+    found = {}
+    for m in re.finditer(r"^transformer: rank (\d+) losses \(warm-up "
+                         r"first\) (.*)$", out, re.M):
+        found[int(m.group(1))] = [float(x) for x in m.group(2).split()]
+    return found
 
 
 def _leaf_names(tree, prefix=()):
@@ -845,6 +896,7 @@ class Smoke:
         peak = torch.cuda.max_memory_allocated()
         self.train_peak, self.train_params = peak, n_params
         losses = [x.item() for x in losses]
+        self.train_losses = losses          # the mesh phase's reference
         for name in ("sofa_flash_bwd_kv", "sofa_flash_bwd_dq"):
             self.kernel_rows[name]["launches"] = counts[name]
         log(f"train: main path launches over {steps} steps "
@@ -2396,9 +2448,434 @@ class Smoke:
                     continue
             yield host, found
 
+    # -- the ring: four ranks' hops in lockstep on the one card -------------
+    def ring(self):
+        """Ring and zig-zag flash attention at Llama-3-8B attention width
+        (H 32, KVH 8, D 128, bf16) over four ranks, T = 4 x 2048 at B 4,
+        every rank's hop bodies driven by the lockstep schedule on this
+        card (the code a distributed run calls; only the rotation indexes
+        a list): out and lse against the one-device forward kernel over
+        the whole T, dq/dk/dv against the one-device backward kernels;
+        at B 1, T = 4 x 1024, also against the plain versions; two runs
+        bit-identical; each kernel launched once per (rank, hop, pair).
+        Times the lockstep ring against the one-device kernels."""
+        torch = self.torch
+        from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.workloads import ring_flash as rf
+        from sofa_tpu_torch.workloads.flash_cuda import (
+            _flash_backward, _flash_backward_plain, _flash_forward,
+            _flash_forward_plain)
 
-PHASES = ("device", "kernel", "model", "train", "profile", "resnet", "board",
-          "robust", "cluster")
+        n, h, kvh, d = RING_RANKS, 32, 8, 128
+        ring_counts = {}
+        for b, t_local, plain in ((4, 2048, False), (1, 1024, True)):
+            t = n * t_local
+            q, k, v = self.flash_inputs(b, t, h, kvh, d, seed=61 + b)
+            g = self.flash_inputs(b, t, h, kvh, d, seed=71 + b)[0]
+            ref_out, ref_lse = _flash_forward(q, k, v, 0, True)
+            refs = {"kernels": (ref_out, ref_lse, *_flash_backward(
+                q, k, v, g, ref_out, ref_lse, 0, True))}
+            if plain:
+                p_out, p_lse = _flash_forward_plain(q, k, v, 0)
+                refs["plain"] = (p_out, p_lse, *_flash_backward_plain(
+                    q, k, v, g.contiguous(), p_lse,
+                    (g.float() * p_out.float()).sum(-1).transpose(1, 2)
+                    .contiguous(), 0))
+            torch.cuda.synchronize()
+            for zigzag in (False, True):
+                label = (f"{'zigzag' if zigzag else 'ring'} B{b} "
+                         f"T{n}x{t_local}")
+                counts, got, times = self.ring_run(rf, (q, k, v, g), n,
+                                                   zigzag)
+                per = 3 if zigzag else 1
+                want = per * n * n
+                log(f"ring: {label} launches {json.dumps(counts)} ({want} "
+                    f"each: {per} pair(s) x {n} hops x {n} ranks, masked "
+                    f"hops included)")
+                if any(c != want for c in counts.values()):
+                    raise AssertionError(f"ring {label}: launches {counts}, "
+                                         f"expected {want} of each kernel")
+                if b == 4:
+                    ring_counts["zigzag" if zigzag else "ring"] = counts
+                for ref_name, ref in refs.items():
+                    self.ring_compare(f"{label} vs one-device {ref_name}",
+                                      got, ref)
+                if b == 4:
+                    one = (cuda_ms(lambda: _flash_forward(q, k, v, 0, True),
+                                   5),
+                           cuda_ms(lambda: _flash_backward(
+                               q, k, v, g, ref_out, ref_lse, 0, True), 5))
+                    log(f"ring: {label} time by CUDA events: forward "
+                        f"{times[0]:.3f} ms, backward {times[1]:.3f} ms for "
+                        f"all {n} ranks' hops ({times[0] / n:.3f} / "
+                        f"{times[1] / n:.3f} ms a rank), against the "
+                        f"one-device kernels over T {t}: forward "
+                        f"{one[0]:.3f} ms, backward {one[1]:.3f} ms | "
+                        f"{self.smi}")
+                    self.ring_trace(rf, (q, k, v, g), n, zigzag)
+            if b == 4:
+                # one logsumexp merge of a shard's float32 accumulator, the
+                # plain PyTorch step between the ring's forward hops
+                o = torch.zeros(b, t_local, h, d, device=self.dev)
+                lse = torch.zeros(b, h, t_local, device=self.dev)
+                o_i = q[:, :t_local].contiguous()
+                merge_ms = cuda_ms(lambda: rf._lse_merge(o, lse, o_i, lse),
+                                   10)
+                log(f"ring: one _lse_merge at a shard's shape {tuple(o.shape)}"
+                    f" {merge_ms:.3f} ms; the ring's {n * n} merges "
+                    f"{n * n * merge_ms:.3f} ms | {self.smi}")
+                del o, lse, o_i
+            del q, k, v, g, refs, got
+            torch.cuda.empty_cache()
+        for name, row in self.kernel_rows.items():
+            row["ring_launches"] = {variant: c[name]
+                                    for variant, c in ring_counts.items()}
+
+    def ring_shards(self, rf, qkvg, n, zigzag):
+        """The ranks' shards of q, k, v, g (zig-zag chunks when
+        ``zigzag``) and the inverse order (None for the plain ring)."""
+        torch = self.torch
+        t = qkvg[0].shape[1]
+        order = (rf.zigzag_indices(t, n)[0] if zigzag else None)
+
+        def shards(x):
+            if order is not None:
+                x = x[:, torch.from_numpy(order).to(x.device)]
+            return [s.contiguous() for s in x.chunk(n, dim=1)]
+
+        inv = None if order is None else torch.from_numpy(
+            rf.zigzag_indices(t, n)[1]).to(qkvg[0].device)
+        return (*(shards(x) for x in qkvg), inv)
+
+    def ring_trace(self, rf, qkvg, n, zigzag):
+        """One more lockstep forward, then backward, each under its own
+        torch.profiler trace of the card: where each pass's span goes
+        (the flash kernels, the other kernels: the plain PyTorch merges,
+        accumulations, casts and state fills, memsets, copies) and the
+        span's idle share, the time the host left the card empty."""
+        import torch.profiler as tp
+
+        torch = self.torch
+        qs, ks, vs, gs, _ = self.ring_shards(rf, qkvg, n, zigzag)
+        label = "zigzag" if zigzag else "ring"
+        fwd = []
+        passes = (("forward", lambda: fwd.extend(
+                      rf.lockstep_forward(qs, ks, vs, zigzag))),
+                  ("backward", lambda: rf.lockstep_backward(
+                      qs, ks, vs, fwd[0], fwd[1], gs, zigzag)))
+        for name, fn in passes:
+            torch.cuda.synchronize()
+            with tp.profile(activities=[tp.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            path = os.path.join(REPO, "build",
+                                f"chip_smoke_ring_{label}_{name}.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                evs = [e for e in json.load(f).get("traceEvents", [])
+                       if e.get("ph") == "X" and e.get("cat") in
+                       ("kernel", "gpu_memset", "gpu_memcpy")]
+            if not evs:
+                raise AssertionError(f"ring {label} {name}: the trace holds "
+                                     "no device event")
+            spans = sorted((float(e["ts"]), float(e["ts"]) + float(
+                e.get("dur", 0))) for e in evs)
+            busy, end = 0.0, spans[0][0]
+            for a, b in spans:
+                busy += max(0.0, b - max(a, end))
+                end = max(end, b)
+            span = spans[-1][1] - spans[0][0]
+            by, other = {}, {}
+            for e in evs:
+                nm = str(e.get("name", ""))
+                cls = ("flash" if "sofa_flash" in nm else
+                       "other kernels" if e["cat"] == "kernel" else
+                       "memsets" if e["cat"] == "gpu_memset" else "copies")
+                ms_n = by.setdefault(cls, [0.0, 0])
+                ms_n[0] += float(e.get("dur", 0)) / 1e3
+                ms_n[1] += 1
+                if cls == "other kernels":
+                    key = nm.split("<")[0].split("(")[0][-48:]
+                    o = other.setdefault(key, [0.0, 0])
+                    o[0] += float(e.get("dur", 0)) / 1e3
+                    o[1] += 1
+            top = sorted(other.items(), key=lambda x: -x[1][0])[:4]
+            log(f"ring: {label} B{qs[0].shape[0]} T{n}x{qs[0].shape[1]} "
+                f"{name} trace: span {span / 1e3:.3f} ms, device busy "
+                f"{busy / 1e3:.3f} ms, idle share "
+                f"{100 * (1 - busy / span):.1f} %; " + ", ".join(
+                    f"{c} {v[0]:.3f} ms in {v[1]}" for c, v in by.items())
+                + "; top other kernels " + ", ".join(
+                    f"{k_} {v[0]:.3f} ms x{v[1]}" for k_, v in top)
+                + f" | {self.smi}")
+
+    def ring_run(self, rf, qkvg, n, zigzag):
+        """The lockstep ring forward and backward over ``n`` shards, twice
+        (bit-identical), with the launch counts of the first run (zeroed
+        just before, read just after) and the second run's device times
+        (the first one's include the allocator growing its pool)."""
+        torch = self.torch
+        from sofa_tpu_torch import kernels
+
+        q = qkvg[0]
+        qs, ks, vs, gs, inv = self.ring_shards(rf, qkvg, n, zigzag)
+
+        def whole(parts, dim=1):
+            x = torch.cat(parts, dim=dim)
+            return x if inv is None else x.index_select(dim, inv)
+
+        runs = []
+        for i in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            if i == 0:
+                kernels.reset_counts()
+            ev[0].record()
+            outs, lses = rf.lockstep_forward(qs, ks, vs, zigzag)
+            ev[1].record()
+            dqs, dks, dvs = rf.lockstep_backward(qs, ks, vs, outs, lses, gs,
+                                                 zigzag)
+            ev[2].record()
+            torch.cuda.synchronize()
+            if i == 0:
+                counts = kernels.counts()
+            times = (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]))
+            runs.append((whole(outs), whole(lses, -1), whole(dqs),
+                         whole(dks), whole(dvs)))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"ring: {'zigzag' if zigzag else 'ring'} {tuple(q.shape)}: a "
+            f"second run gives bit-identical out, lse, dq, dk, dv: {same}")
+        if not same:
+            raise AssertionError("the ring is not deterministic")
+        return counts, runs[0], times
+
+    def ring_compare(self, label, got, ref):
+        """out within the forward limits, lse within LSE_ATOL, dq/dk/dv
+        within GRAD_REL (max |err| over max |ref|)."""
+        torch = self.torch
+        out, lse, *grads = got
+        r_out, r_lse, *r_grads = ref
+        err = (out.float() - r_out.float()).abs()
+        out_ok = bool((err <= OUT_ATOL + OUT_RTOL * r_out.float().abs()).all())
+        lse_err = (lse - r_lse).abs().max().item()
+        rels = {}
+        for name, a, r in zip(("dq", "dk", "dv"), grads, r_grads):
+            scale = r.float().abs().max().item()
+            rels[name] = (a.float() - r.float()).abs().max().item() / scale
+        ok = out_ok and lse_err <= LSE_ATOL and all(
+            x <= GRAD_REL for x in rels.values()) and all(
+            bool(torch.isfinite(x.float()).all()) for x in got)
+        log(f"ring: {label}: out max|err| {err.max().item():.3e} lse "
+            f"max|err| {lse_err:.3e}; max|err|/max|ref| " + " ".join(
+                f"{n} {r:.3e}" for n, r in rels.items()) +
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the ring disagrees: {label}")
+
+    # -- the mesh: the NCCL world of one, two gloo ranks on the card --------
+    def mesh(self):
+        """(1) torchrun with NCCL and one rank runs the transformer's main
+        at the train phase's shape (--data 1 --seq_par 1): its losses must
+        equal the train phase's; then the same command under ``stat``,
+        logging what the capture holds for the gradient all-reduce.
+        (2) two gloo ranks sharing the card (--data 2, B 1 each) under
+        ``stat``: two rank traces, device ids 0 and 1, both ranks' steps,
+        gpu_step_skew.csv, the same loss on both ranks at every step, each
+        flash kernel launched per rank as often as in a one-rank 3-step
+        run, a merged topology of two ranks on one card, mesh_advice.txt,
+        and comm-report.html rendered and served.  (3) the collectives
+        microbench at one rank prints its single-device line."""
+        width = ("--seq 2048 --vocab 128256 --d_model 4096 --n_layers 4 "
+                 "--n_heads 32 --n_kv_heads 8 --d_ff 14336")
+        steps = 3
+        one = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
+               f"1 --master_port {free_port()} -m "
+               f"sofa_tpu_torch.workloads.transformer --steps {steps} "
+               f"--batch 4 {width} --data 1 --seq_par 1")
+        t0 = time.perf_counter()
+        r = subprocess.run(one.split(), cwd=REPO, capture_output=True,
+                           text=True, timeout=600)
+        out = r.stdout + r.stderr
+        for line in out.splitlines():
+            if line.startswith("transformer:"):
+                log(f"  | {line}")
+        losses = mesh_losses(out)
+        if r.returncode != 0 or 0 not in losses:
+            raise AssertionError(f"the NCCL world of one failed, rc "
+                                 f"{r.returncode}: {out[-3000:]}")
+        want = self.train_losses[:len(losses[0])]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[0], want))
+        log(f"mesh: NCCL world of one, {time.perf_counter() - t0:.1f} s: "
+            f"losses {losses[0]} against the train phase's {want}: max "
+            f"relative difference {rel:.3e} (limit {MESH_LOSS_REL}; exact: "
+            f"{losses[0] == want})")
+        if len(losses[0]) != 2 + steps or rel > MESH_LOSS_REL:
+            raise AssertionError("the NCCL world of one does not train as "
+                                 "the unsharded step does")
+        self.mesh_nccl_capture(one, steps)
+        self.mesh_two_ranks(width, steps)
+        r = subprocess.run([sys.executable, "-m",
+                            "sofa_tpu_torch.workloads.collectives"],
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=300)
+        log(f"mesh: collectives at one rank: rc {r.returncode}: "
+            f"{r.stdout.strip()!r}")
+        if r.returncode or r.stdout.strip() != \
+                "collectives: single device, nothing to do":
+            raise AssertionError("the collectives microbench did not print "
+                                 "its single-device line")
+
+    def mesh_nccl_capture(self, cmd, steps):
+        """``stat`` over the NCCL world of one: what the capture holds for
+        the gradient all-reduce (record_param_comms rows and their
+        arguments, NCCL kernels, copies) and what comm_profile makes of
+        it."""
+        import glob
+
+        import pandas as pd
+
+        feats, logdir, out = self.run_stat("mesh_nccl1", cmd)
+        gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
+        host = pd.read_csv(os.path.join(logdir, "hosttrace.csv"),
+                           usecols=["name"])
+        comms = int((host["name"] == "record_param_comms").sum())
+        nccl = gpu[gpu["name"].astype(str).str.startswith("nccl")]
+        kinds = gpu.groupby("copyKind").size().to_dict()
+        args, info = None, {}
+        for path in glob.glob(os.path.join(logdir, "kineto", "*.json")):
+            with open(path) as f:
+                doc = json.load(f)
+            info = doc.get("distributedInfo") or info
+            args = args or next(
+                (e.get("args") for e in doc["traceEvents"]
+                 if e.get("name") == "record_param_comms"), None)
+        with open(os.path.join(logdir, "gpu_topo.json")) as f:
+            topo = json.load(f)
+        # the device work the collectives launched: rows whose launch
+        # context holds a record_param_comms op
+        under = gpu[gpu["op_path"].fillna("").astype(str).str.contains(
+            "record_param_comms")]
+        launched = under.groupby(["copyKind", "name"])["payload"].agg(
+            ["count", "sum"]).reset_index().to_dict("records")
+        log(f"mesh[nccl1]: device rows launched under record_param_comms "
+            f"(copyKind, name, count, bytes): {launched}")
+        log(f"mesh[nccl1]: {comms} record_param_comms rows; NCCL kernels "
+            f"{nccl['name'].astype(str).str[:60].value_counts().to_dict()}; "
+            f"gputrace rows by copyKind {kinds}; distributedInfo {info}; "
+            f"one record_param_comms' args {json.dumps(args)}")
+        log("mesh[nccl1]: comm_profile: " + ", ".join(
+            f"{k} {v}" for k, v in feats.items() if str(k).startswith(
+                ("comm_", "link_"))) + f"; comm.csv "
+            + (open(os.path.join(logdir, "comm.csv")).read().strip()
+               .replace("\n", " | ")
+               if os.path.isfile(os.path.join(logdir, "comm.csv"))
+               else "absent") + f"; topology devices {topo.get('devices')}")
+        if info.get("rank") != 0 or info.get("backend") != "nccl" \
+                or [d.get("id") for d in topo.get("devices", [])] != [0]:
+            raise AssertionError("the NCCL capture lacks its rank or the "
+                                 "rank's topology record")
+        if not gpu[gpu["copyKind"] == 0]["name"].astype(str).str.contains(
+                "sofa_flash").any():
+            raise AssertionError("the NCCL capture lacks the flash kernels")
+
+    def mesh_two_ranks(self, width, steps):
+        """Two gloo ranks sharing the card under ``stat`` (--data 2)."""
+        import pandas as pd
+
+        from sofa_tpu_torch.kernels import KERNELS
+
+        cmd = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
+               f"2 --master_port {free_port()} -m "
+               f"sofa_tpu_torch.workloads.transformer --steps {steps} "
+               f"--batch 2 {width} --data 2 --backend gloo --share_device")
+        t0 = time.perf_counter()
+        feats, logdir, out = self.run_stat("mesh_gloo2", cmd)
+        stat_s = time.perf_counter() - t0
+        for line in out.splitlines():
+            if line.startswith(("transformer:", "rank ")):
+                log(f"  | {line}")
+        losses = mesh_losses(out)
+        traces = []
+        for name in sorted(os.listdir(os.path.join(logdir, "kineto"))):
+            with open(os.path.join(logdir, "kineto", name)) as f:
+                info = json.load(f).get("distributedInfo")
+            traces.append((name, info))
+        ranked = sorted(i["rank"] for _, i in traces if i)
+        gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
+        steps_df = pd.read_csv(os.path.join(logdir, "gpusteps.csv"))
+        names = [k.name for k in KERNELS]
+        kern = gpu[gpu["copyKind"] == 0]
+        per_rank = {int(dev): {n: int(rows["name"].astype(str).str.contains(
+            n).sum()) for n in names} for dev, rows in kern.groupby(
+            "deviceId")}
+        want = self.llama_launches      # measured by the profile phase
+        skew_path = os.path.join(logdir, "gpu_step_skew.csv")
+        skew = pd.read_csv(skew_path) if os.path.isfile(skew_path) else None
+        with open(os.path.join(logdir, "gpu_topo.json")) as f:
+            topo = json.load(f)
+        cards = {(d.get("host"), d.get("cuda_ordinal"), d.get("uuid"))
+                 for d in topo.get("devices", [])}
+        advice = os.path.join(logdir, "sofa_hints", "mesh_advice.txt")
+        # each rank's sampler names its files by its rank in the group
+        mon = sorted(f for f in os.listdir(logdir)
+                     if f.startswith(("gpumon", "memprof")))
+        gpumon = pd.read_csv(os.path.join(logdir, "gpumon.csv"))
+        mon_devs = sorted(gpumon[gpumon["deviceId"] >= 0]["deviceId"]
+                          .unique().tolist())
+        log(f"mesh[gloo2]: sampler files {mon}; gpumon device ids "
+            f"{mon_devs}")
+        log(f"mesh[gloo2]: stat {stat_s:.1f} s; traces "
+            f"{[(n, i and i.get('rank')) for n, i in traces]}; gputrace "
+            f"device ids {sorted(gpu['deviceId'].unique().tolist())}; "
+            f"gpusteps per device "
+            f"{steps_df.groupby('deviceId').size().to_dict()}; flash "
+            f"launches per rank {per_rank} (a one-rank {steps}-step run: "
+            f"{want}); losses per rank {losses}")
+        log(f"mesh[gloo2]: gpu_step_skew.csv "
+            + (skew.to_string(index=False).replace("\n", " | ")
+               if skew is not None else "absent")
+            + f"; step_time_mean {feats.get('step_time_mean')} s, "
+            f"step_skew_mean {feats.get('step_skew_mean')} s, "
+            f"step_skew_max {feats.get('step_skew_max')} s; per-rank peaks "
+            + ", ".join(f"{k} {v}" for k, v in feats.items()
+                        if str(k).endswith("_hbm_peak_gb"))
+            + f"; merged topology: {len(topo.get('devices', []))} ranks on "
+            f"cards {cards} | {self.smi}")
+        if os.path.isfile(advice):
+            with open(advice) as f:
+                log("mesh[gloo2]: mesh_advice.txt: "
+                    + f.read().strip().replace("\n", " | "))
+        if ranked != [0, 1] or sorted(gpu["deviceId"].unique()) != [0, 1]:
+            raise AssertionError("the two-rank capture is not two ranks' "
+                                 "traces on device ids 0 and 1")
+        if sorted(steps_df[steps_df["deviceId"] >= 0]["deviceId"].unique()
+                  ) != [0, 1] or skew is None or list(skew["count"]) != \
+                [2] * steps or feats.get("step_skew_mean") is None:
+            raise AssertionError("no step skew from both ranks' steps")
+        if sorted(losses) != [0, 1] or losses[0] != losses[1] \
+                or len(losses[0]) != 2 + steps:
+            raise AssertionError(f"the ranks' losses differ: {losses}")
+        if any(per_rank.get(r) != want for r in (0, 1)):
+            raise AssertionError(f"flash launches per rank {per_rank}, "
+                                 f"expected {want}")
+        if not {"gpumon.rank0.txt", "gpumon.rank1.txt"} <= set(mon) \
+                or any(".pid" in f for f in mon) or "gpumon.txt" in mon \
+                or mon_devs != [0, 1]:
+            raise AssertionError(f"the ranks' sampler files {mon} are not "
+                                 f"one per rank, or their rows are not on "
+                                 f"device ids 0 and 1 ({mon_devs})")
+        if len(topo.get("devices", [])) != 2 or len(cards) != 1:
+            raise AssertionError("the merged topology does not name two "
+                                 "ranks on one card")
+        if not os.path.isfile(advice):
+            raise AssertionError("no mesh_advice.txt")
+        self.board_report("mesh_gloo2", logdir)
+        if not os.path.isfile(os.path.join(logdir, "comm-report.html")):
+            raise AssertionError("report did not stage comm-report.html")
+        self.board_viz("mesh_gloo2", logdir)
+
+
+PHASES = ("device", "kernel", "model", "train", "ring", "profile", "resnet",
+          "board", "robust", "cluster", "mesh")
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 
 

@@ -1,21 +1,104 @@
-"""Rule-based hints on the feature vector (the JAX package's local rules,
-``sofa_tpu/analysis/advice.py``), with the same thresholds over the port's
-features.
+"""Mesh advice and rule-based hints on the feature vector (the JAX
+package's ``sofa_tpu/analysis/advice.py``), with the same thresholds over
+the port's features.
+
+``mesh_advice`` orders the ranks into a ring along the peer access
+between their cards (the merged topology, ``gpu_topo.json``), where the
+reference's xring searched the NVLink topology for a
+``CUDA_VISIBLE_DEVICES`` order and the JAX package snakes over the torus
+coordinates, and suggests (data, seq) meshes; it writes
+``sofa_hints/mesh_advice.txt``.
 
 Per-device rules scan ``gpu<N>_`` features, and the worst device drives
-each hint.  The rules that need multi-GPU or what-if features (the
-communication ratio, step skew, the what-if payoffs, the custom-call rule)
-and the mesh advice wait for those subsystems.
+each hint.  ``tpu_ops`` is ``gpu_kernels`` (the compute-bound verdict
+needs a kernel: ``gpu_profile`` writes 0 for an empty trace, where the
+JAX pass writes nothing) and ``tpu0_op_time`` ``gpu0_kernel_time``.  The what-if payoffs and the custom-call rule wait
+for their subsystems.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
+from sofa_tpu_torch.analysis.comm import load_topology
 from sofa_tpu_torch.analysis.features import Features
 from sofa_tpu_torch.printing import print_hint
 from sofa_tpu_torch.trace import atomic_write
+
+
+def _factorizations(n: int) -> List[Tuple[int, int]]:
+    """All 2D factor pairs of n, most-square first (good default meshes)."""
+    out = []
+    for a in range(1, int(n ** 0.5) + 1):
+        if n % a == 0:
+            out.append((a, n // a))
+    return sorted(out, key=lambda p: abs(p[0] - p[1]))
+
+
+def _linked(a: dict, b: dict, peer_access: dict) -> bool:
+    """Whether two ranks' cards reach each other directly: the same card,
+    or two cards of one host with peer access."""
+    if a.get("host") != b.get("host") or a.get("cuda_ordinal") is None:
+        return False
+    pair = [a.get("cuda_ordinal"), b.get("cuda_ordinal")]
+    return pair[0] == pair[1] or pair in peer_access.get(a.get("host"), [])
+
+
+def link_ring(topo: dict) -> Tuple[List[int], bool]:
+    """(ring order of the ranks, whether any step of it follows a link):
+    from the lowest rank, each step goes to the lowest unvisited rank
+    whose card the current one reaches directly, else to the lowest
+    unvisited rank."""
+    devices = sorted(topo.get("devices", []), key=lambda d: d["id"])
+    peer_access = topo.get("peer_access") or {}
+    if not isinstance(peer_access, dict):
+        peer_access = {}
+    if not devices:
+        return [], False
+    order, linked = [devices[0]], False
+    left = devices[1:]
+    while left:
+        nxt = next((d for d in left
+                    if _linked(order[-1], d, peer_access)), None)
+        linked |= nxt is not None
+        nxt = nxt or left[0]
+        order.append(nxt)
+        left.remove(nxt)
+    return [d["id"] for d in order], linked
+
+
+def mesh_advice(frames, cfg, features: Features) -> None:
+    """``sofa_hints/mesh_advice.txt``: the device count, a ring order of
+    the ranks, and (data, seq) mesh shapes for ``make_mesh``, most
+    square first; ``mesh_advice`` names the file."""
+    topo = load_topology(cfg)
+    if topo is None:
+        return
+    n = len(topo.get("devices", []))
+    if n == 0:
+        return
+    ring, linked = link_ring(topo)
+    lines = ["# sofa_tpu_torch mesh advice", f"device_count = {n}"]
+    if linked:
+        lines.append(f"link_ring_order = {ring}  # along the peer access "
+                     "between the ranks' cards")
+    else:
+        lines.append(f"ring_order = {ring}  # by rank (no peer access "
+                     "between the cards)")
+    if n > 1:
+        lines.append("suggested 2D meshes (data, seq):")
+        for dp, sp in _factorizations(n)[:3]:
+            lines.append(f'  make_mesh(("data", "seq", "model"), '
+                         f"({dp}, {sp}, 1))")
+        lines.append(
+            "put the seq axis on ranks next to each other in the ring order"
+            " so that the ring attention's K/V hops take the shortest links")
+    hints_dir = cfg.path("sofa_hints")
+    os.makedirs(hints_dir, exist_ok=True)
+    with atomic_write(os.path.join(hints_dir, "mesh_advice.txt")) as f:
+        f.write("\n".join(lines) + "\n")
+    features.add_info("mesh_advice", f"{hints_dir}/mesh_advice.txt")
 
 
 def _pct(v: Optional[float]) -> float:
@@ -25,6 +108,18 @@ def _pct(v: Optional[float]) -> float:
 def generate_hints(features: Features, cfg) -> List[str]:
     hints: List[str] = []
     get = features.get
+
+    comm_ratio = _pct(get("comm_ratio"))
+    if comm_ratio >= 0.15:
+        # the reference's compute- vs communication-bound threshold
+        hints.append(
+            f"communication-bound: collectives take {comm_ratio:.0%} of"
+            " device time — try a larger per-GPU batch, gradient"
+            " accumulation, or a mesh shape that shortens the all-reduce"
+            " ring (see mesh_advice)")
+    elif get("gpu_kernels"):
+        hints.append(f"compute-bound: collectives take {comm_ratio:.0%} of "
+                     "device time")
 
     effs = features.by_regex(r"gpu\d+_roofline_efficiency")
     if effs:
@@ -81,12 +176,28 @@ def generate_hints(features: Features, cfg) -> List[str]:
                 f" {100.0 - gap:.0f}% of step time — {cause}"
                 " (see gpu_input_pipeline.csv)")
 
+    skew = get("step_skew_mean")
+    step_mean = get("step_time_mean")
+    if skew is not None and step_mean and skew > 0.05 * step_mean:
+        hints.append(
+            f"straggler skew: devices start the same step {skew * 1e3:.2f} ms"
+            " apart on average — check uneven sharding, host input"
+            " pipelines, or host-network interference (see"
+            " gpu_step_skew.csv)")
+
     tensor = get("tensor_util_mean")
     if tensor is not None and tensor < 30.0:
         hints.append(
             f"tensor-core utilization is low ({tensor:.1f}% mean) — check"
             " for small matmul shapes, fp32 where bf16 would do, or"
             " elementwise kernels that cannot use the tensor cores")
+    h2d = get("comm_h2d_time")
+    busy = get("gpu0_kernel_time")
+    if h2d and busy and h2d > 0.2 * busy:
+        hints.append(
+            "input-bound: host->device transfer is a large fraction of"
+            " device time — prefetch batches (pinned memory, a side"
+            " stream) or move preprocessing off the host")
     iow = _pct(get("elapsed_iow_ratio"))
     if iow > 0.2:
         hints.append(

@@ -1,10 +1,45 @@
-"""Host-network passes: the NIC byte counters, the packet profile and how
-the network traffic follows the device's activity.
+"""Communication passes: data movement by kind and the card-to-card link
+traffic, and the host network.
 
-The port's counterpart of the JAX package's ``analysis/comm.py``, its
-host-network half for now (``netbandwidth_profile``, ``net_profile``,
-``dcn_step_correlation``, ``_busy_bins``; ``comm_profile`` and
-``comm_scatter`` come with multi-GPU).  Device activity is the CUDA
+The port's counterpart of the JAX package's ``analysis/comm.py``.
+
+The device half (``load_topology``, ``_wire_bytes``, ``comm_profile``,
+``link_traffic_matrix``, ``comm_scatter``) reads ``gputrace``: NCCL
+kernels carry copyKind 20-25 or P2P 10 with their payload and process
+group (``ingest/kineto.py``), memcpys and memsets the copy kinds.  Where
+the JAX package reads its synchronous op line (category 0) the port reads
+the kernels, and its asynchronous DMA line (category 2) the copy engines'
+memcpys and memsets: ingest writes the same categories.  The TPU's
+inter-chip links (ICI) are the cards' links here (NVLink, PCIe), under
+one name map, which the parity tests apply:
+
+  ====================  ======================
+  JAX package           port
+  ====================  ======================
+  ``tputrace``          ``gputrace``
+  ``tpu_topo.json``     ``gpu_topo.json`` (the ranks' merged records)
+  ``comm_*_ici_bytes``  ``comm_*_link_bytes``
+  ``comm_ici_bytes``    ``comm_link_bytes``
+  ``comm_ici_bandwidth``  ``comm_link_bandwidth``
+  ``ici_est_bytes``     ``link_est_bytes``
+  ``ici_matrix.csv``    ``link_matrix.csv``
+  ``ici_bytes`` column  ``link_bytes`` (and ``link_bandwidth``)
+  ``cls=ici``           ``cls=link``
+  peers ``tpu<N>``      peers ``gpu<N>`` (N the global rank)
+  ====================  ======================
+
+A device's id is its rank's global index, so the devices order by id where
+the JAX package snakes over torus coordinates (a card has none).  One
+deliberate difference: an NCCL P2P kernel (a ring's send/recv hop,
+category 0, copyKind P2P) always counts as moved data, where the JAX
+package takes P2P ops of its synchronous line only when the trace has no
+asynchronous copy (which a run with any memcpy always has): the ring
+attention's hops would otherwise vanish from comm.csv.  They are not
+collectives, so ``comm_time`` and the link matrix leave them out, as the
+JAX package's do; ``comm_ratio``'s denominator is every kernel's time.
+
+The host-network half (``netbandwidth_profile``, ``net_profile``,
+``dcn_step_correlation``, ``_busy_bins``): device activity is the CUDA
 kernels (``gputrace`` rows of copyKind KERNEL) where the JAX package reads
 its device ops (``tputrace`` category 0).  The feature names stay the JAX
 package's (``net_*``, ``dcn_top_peer``, ``dcn_top_peer_corr``): they name
@@ -13,13 +48,297 @@ the host network (DCN, the data-centre network), not the device.
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+from typing import List, Optional
 
 import numpy as np
 import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
-from sofa_tpu_torch.trace import CopyKind
+from sofa_tpu_torch.printing import print_title
+from sofa_tpu_torch.trace import CK_NAMES, CopyKind
+
+#: the kinds whose payload crosses a card-to-card link as it is
+_PAIRWISE = (int(CopyKind.COLLECTIVE_PERMUTE),
+             int(CopyKind.COLLECTIVE_BROADCAST), int(CopyKind.P2P))
+
+
+def load_topology(cfg) -> Optional[dict]:
+    """The topology (``gpu_topo.json``: the ranks' merged records, or one
+    process's cards), or None.  Each device's ``id`` is its trace
+    deviceId: the rank where ranks merged, else the CUDA ordinal."""
+    try:
+        with open(cfg.path("gpu_topo.json")) as f:
+            topo = json.load(f)
+    except (OSError, ValueError):
+        return None
+    for d in topo.get("devices", []):
+        d.setdefault("id", d.get("index"))
+    return topo
+
+
+def _copy_mask(df: pd.DataFrame) -> pd.Series:
+    """The copy engines' memcpys and memsets (category 2), and the NCCL
+    P2P kernels (category 0), which count beside them."""
+    ck, cat = df["copyKind"], df["category"]
+    return (((cat == 2) & (ck > 0) & (ck < 20))
+            | ((cat == 0) & (ck == int(CopyKind.P2P))))
+
+
+def _group_size(groups_json: str) -> int:
+    """Size of the first group of a ``groups`` cell (0 when unknown)."""
+    if not groups_json:
+        return 0
+    try:
+        parsed = json.loads(groups_json)
+    except ValueError:
+        return 0
+    return len(parsed[0]) if parsed and parsed[0] else 0
+
+
+def _wire_bytes(sel: pd.DataFrame, kind: int, n_devices: int) -> float:
+    """Estimated bytes a collective moves over the links, per device row:
+    nccl-tests' bus factors with each op's own group size g
+    (``workloads/collectives._bus_factor``):
+
+      all-reduce            2 P (g-1)/g
+      all-gather / r-s        P (g-1)/g
+      all-to-all              P (g-1)/g
+      permute / broadcast     P        (P2P too)
+
+    P is the op's payload; ops with no recorded group count every device
+    of the topology."""
+    total = 0.0
+    for groups_json, payload in sel.groupby("groups")["payload"].sum().items():
+        payload = float(payload)
+        g = _group_size(groups_json)
+        if g < 2:
+            g = n_devices
+        if kind in _PAIRWISE:
+            total += payload
+        elif g >= 2:
+            factor = (g - 1) / g
+            if kind == int(CopyKind.ALL_REDUCE):
+                factor *= 2.0
+            total += payload * factor
+    return total
+
+
+def comm_profile(frames, cfg, features: Features) -> None:
+    """Data movement by kind (``comm.csv``): count, time, bytes and rate of
+    the copies (H2D, D2H, D2D, P2P) and the collectives, with each
+    collective's and P2P's estimated link bytes; ``comm_ratio``, the
+    collectives' share of the kernels' time; and the estimated link
+    traffic between the ranks (``link_matrix.csv``)."""
+    from sofa_tpu_torch.trace import narrow, roi_clip
+
+    df = frames.get("gputrace")
+    if df is None or df.empty:
+        return
+    df = narrow(df, ["timestamp", "duration", "deviceId", "category",
+                     "copyKind", "payload", "groups"])
+    # the same window as the device passes, so that comm_ratio's numerator
+    # and denominator come from one interval
+    df = roi_clip(df, cfg)
+    if df.empty:
+        return
+    # kernels (collectives among them) are category 0, the copy engines'
+    # memcpys and memsets category 2; copies among the kernels count only
+    # where no copy engine ran
+    sync = df[df["category"] == 0]
+    coll_rows = sync[sync["copyKind"] >= 20]
+    copies = df[_copy_mask(df)]
+    if copies.empty:
+        copies = sync[(sync["copyKind"] > 0) & (sync["copyKind"] < 20)]
+    moved = pd.concat([coll_rows, copies], ignore_index=True)
+    if moved.empty:
+        features.add("comm_time", 0.0)
+        return
+    topo = load_topology(cfg)
+    n_devices = len((topo or {}).get("devices", []))
+    rows = []
+    total_link = 0.0
+    for kind, sel in moved.groupby("copyKind"):
+        kname = CK_NAMES.get(int(kind), str(kind))
+        dur = float(sel["duration"].sum())
+        payload = float(sel["payload"].sum())
+        row = {
+            "copyKind": int(kind),
+            "kind": kname,
+            "count": len(sel),
+            "total_time": dur,
+            "total_bytes": payload,
+            "mean_bandwidth": payload / dur if dur > 0 else 0.0,
+        }
+        features.add(f"comm_{kname.lower()}_time", dur)
+        features.add(f"comm_{kname.lower()}_bytes", payload)
+        if int(kind) >= 20 or int(kind) == int(CopyKind.P2P):
+            # what crosses the links (the bus factors), beside the payload
+            wire = _wire_bytes(sel, int(kind), n_devices)
+            row["link_bytes"] = wire
+            row["link_bandwidth"] = wire / dur if dur > 0 else 0.0
+            features.add(f"comm_{kname.lower()}_link_bytes", wire)
+            total_link += wire
+        else:
+            row["link_bytes"] = 0.0
+            row["link_bandwidth"] = 0.0
+        rows.append(row)
+    if total_link > 0:
+        features.add("comm_link_bytes", total_link)
+        link_mask = (moved["copyKind"] >= 20) | \
+                    (moved["copyKind"] == int(CopyKind.P2P))
+        link_dur = float(moved.loc[link_mask, "duration"].sum())
+        if link_dur > 0:
+            features.add("comm_link_bandwidth", total_link / link_dur)
+    summary = pd.DataFrame(rows).sort_values("total_time", ascending=False)
+    summary.to_csv(cfg.path("comm.csv"), index=False)
+
+    coll = moved[moved["copyKind"] >= 20]
+    comm_time = float(coll["duration"].sum())
+    features.add("comm_time", comm_time)
+    total = float(df[df["category"] == 0]["duration"].sum())
+    features.add("comm_ratio", comm_time / total if total > 0 else 0.0)
+    if cfg.verbose and not summary.empty:
+        print_title("Data movement by kind")
+        print(summary.to_string(index=False))
+
+    matrix = link_traffic_matrix(coll, topo)
+    if matrix is not None:
+        matrix.to_csv(cfg.path("link_matrix.csv"))
+        features.add("link_est_bytes", float(matrix.to_numpy().sum()))
+
+
+def link_traffic_matrix(coll: pd.DataFrame, topo: Optional[dict]
+                        ) -> Optional[pd.DataFrame]:
+    """Estimated traffic between the ranks from their collective rows,
+    participant-aware (the JAX package's ``ici_traffic_matrix``): each
+    rank's row of an op sends to its successor within the op's group (a
+    ring over the group, in rank order), by kind (P the payload, g the
+    group size):
+
+      all-reduce          2 P (g-1)/g
+      all-gather / r-s      P (g-1)/g
+      all-to-all            P/g to EACH other member
+      permute/broadcast/p2p P to the ring successor
+
+    Ops with no recorded group count every rank of the topology.  None
+    without a topology of two ranks or more, or without collectives."""
+    if topo is None:
+        return None
+    devices = topo.get("devices", [])
+    n = len(devices)
+    if n < 2 or coll is None or coll.empty:
+        return None
+    ids = sorted(int(d["id"]) for d in devices)
+    pos = {d: i for i, d in enumerate(ids)}
+    mat = np.zeros((n, n))
+    # one booking per distinct (rank, kind, group), not per op instance
+    agg = coll.groupby(["deviceId", "copyKind", "groups"])["payload"].sum()
+    for (dev, kind, groups_json), payload in agg.items():
+        payload = float(payload)
+        dev = int(dev)
+        if payload <= 0 or dev not in pos:
+            continue
+        groups: List[List[int]] = []
+        if groups_json:
+            try:
+                groups = json.loads(groups_json)
+            except ValueError:
+                groups = []
+        group = next((g for g in groups if dev in g), None)
+        if group is None:
+            group = ids
+        members = [d for d in ids if d in set(group)]
+        g = len(members)
+        if g < 2:
+            continue
+        i = pos[dev]
+        kind = int(kind)
+        if kind == int(CopyKind.ALL_TO_ALL):
+            for m in members:
+                if m != dev:
+                    mat[i, pos[m]] += payload / g
+            continue
+        if kind == int(CopyKind.ALL_REDUCE):
+            sent = 2.0 * payload * (g - 1) / g
+        elif kind in (int(CopyKind.ALL_GATHER),
+                      int(CopyKind.REDUCE_SCATTER)):
+            sent = payload * (g - 1) / g
+        else:
+            sent = payload
+        succ = members[(members.index(dev) + 1) % g]
+        mat[i, pos[succ]] += sent
+    labels = [f"gpu{d}" for d in ids]
+    return pd.DataFrame(mat, index=labels, columns=labels)
+
+
+def comm_scatter(frames, cfg, features: Features) -> None:
+    """Time-resolved communication for the board's scatter
+    (``commtrace.csv``): the collectives and copies (cls ``link``: peer
+    the rank, dst and kind the collective's or copy's kind) and the
+    host's packets (cls ``dcn``: peer the source address, dst the
+    destination) on one time axis, each class downsampled with the
+    straggler-preserving sampler so that the big transfers stay."""
+    from sofa_tpu_torch.trace import (downsample, downsample_indices,
+                                      read_net_addrs, roi_bounds, roi_clip,
+                                      unpack_ip)
+
+    parts = []
+    df = frames.get("gputrace")
+    if df is not None and not df.empty:
+        ck = df["copyKind"].to_numpy()
+        cat = df["category"].to_numpy()
+        coll_m = (cat == 0) & (ck >= 20)
+        async_m = _copy_mask(df).to_numpy()
+        if not async_m.any():
+            async_m = (cat == 0) & (ck > 0) & (ck < 20)
+        mask = coll_m | async_m
+        bounds = roi_bounds(cfg)
+        if bounds is not None:
+            begin, end = bounds
+            starts = df["timestamp"].to_numpy(dtype=float)
+            ends = starts + df["duration"].to_numpy(dtype=float)
+            mask &= (starts <= end) & (ends >= begin)
+        sel = np.flatnonzero(mask)
+        if sel.size:
+            pay = pd.to_numeric(df["payload"].iloc[sel],
+                                errors="coerce").fillna(0.0).to_numpy()
+            sel = sel[downsample_indices(sel.size, cfg.viz_downsample_to,
+                                         pay)]
+            link = df[["timestamp", "duration", "payload", "deviceId",
+                       "copyKind"]].iloc[sel]
+            kinds = link["copyKind"].map(
+                lambda k: CK_NAMES.get(int(k), str(int(k))))
+            parts.append(pd.DataFrame({
+                "timestamp": link["timestamp"],
+                "duration": link["duration"],
+                "payload": link["payload"],
+                "peer": "gpu" + link["deviceId"].astype(int).astype(str),
+                "dst": kinds,
+                "kind": kinds,
+                "cls": "link",
+            }))
+    net = frames.get("nettrace")
+    if net is not None and not net.empty:
+        net = roi_clip(net, cfg)
+    if net is not None and not net.empty:
+        net = downsample(
+            net[["timestamp", "duration", "payload", "pkt_src", "pkt_dst"]],
+            cfg.viz_downsample_to, rank_col="payload")
+        addrs = read_net_addrs(cfg.path("net_addrs.csv"))
+        parts.append(pd.DataFrame({
+            "timestamp": net["timestamp"],
+            "duration": net["duration"],
+            "payload": net["payload"],
+            "peer": net["pkt_src"].map(lambda v: unpack_ip(v, addrs)),
+            "dst": net["pkt_dst"].map(lambda v: unpack_ip(v, addrs)),
+            "kind": "packet",
+            "cls": "dcn",
+        }))
+    if not parts:
+        return
+    merged = pd.concat(parts, ignore_index=True).sort_values("timestamp")
+    merged.to_csv(cfg.path("commtrace.csv"), index=False)
 
 
 def _kernels(frames) -> Optional[pd.DataFrame]:

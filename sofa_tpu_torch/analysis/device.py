@@ -10,7 +10,9 @@ synchronous ops, 2 the asynchronous copies), these read the CUDA work:
 kernels are the compute, memcpys and memsets the copies.  Feature and file
 names swap the ``tpu`` prefix for ``gpu``; ``tc_util`` is ``kernel_util``
 and ``mxu_util`` ``tensor_util`` (``ingest.kineto.gpu_utilization``).
-``step_skew_profile`` needs several devices and is not here.
+``step_skew_profile``, the counterpart of ``tpu.py``'s, reads the steps
+of several devices: under torch.distributed each rank is a device (its
+global index, ``ingest/kineto.py``), so two ranks on one card are two.
 """
 
 from __future__ import annotations
@@ -330,3 +332,30 @@ def gpuutil_profile(frames, cfg, features: Features) -> None:
         features.add(f"{metric}_max", float(rows["event"].max()))
         q = rows["event"].quantile([0.25, 0.5, 0.75])
         features.add(f"{metric}_median", float(q.loc[0.5]))
+
+
+def step_skew_profile(frames, cfg, features: Features) -> None:
+    """Straggler skew across devices from the per-device step spans: step
+    k should begin on every device at once, and the spread of its begins
+    (max - min over the devices that ran it) is collective wait or a
+    straggler.  ``step_time_mean`` (the mean device step), and with two
+    devices or more ``step_skew_mean`` / ``step_skew_max`` and
+    ``gpu_step_skew.csv`` (step, skew, count: one row per step at least
+    two devices ran)."""
+    steps = frames.get("gpusteps")
+    if steps is None or steps.empty:
+        return
+    features.add("step_time_mean", float(steps["duration"].mean()))
+    if steps["deviceId"].nunique() < 2:
+        return
+    per = steps.groupby("event")["timestamp"].agg(["min", "max", "count"])
+    per = per[per["count"] >= 2]
+    if per.empty:
+        return
+    skew = per["max"] - per["min"]
+    out = per.reset_index().rename(columns={"event": "step"})
+    out["skew"] = skew.values
+    out[["step", "skew", "count"]].to_csv(cfg.path("gpu_step_skew.csv"),
+                                          index=False)
+    features.add("step_skew_mean", float(skew.mean()))
+    features.add("step_skew_max", float(skew.max()))

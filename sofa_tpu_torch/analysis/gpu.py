@@ -228,6 +228,7 @@ def memprof_profile(frames, cfg, features: Features) -> None:
 #: first of all, the concurrency breakdown and ``sol.sol_roofline`` after
 #: these: analyze.PASSES).
 PASSES = [gpu_profile, device.op_tree_profile,
-          device.overlap_profile, device.input_pipeline_profile,
+          device.overlap_profile, device.step_skew_profile,
+          device.input_pipeline_profile,
           device.roofline_profile, serving_profile, device.gpuutil_profile,
           gpumon_profile, memprof_profile]

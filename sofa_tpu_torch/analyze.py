@@ -4,9 +4,12 @@ Passes run as a plain ordered list in the JAX registry's order (its
 ``order=`` positions): the region of interest first
 (``device.spotlight_roi``), then the host passes (``analysis.host.PASSES``,
 whose CPU samples it clips), the host network (``comm.netbandwidth_profile``,
-``comm.net_profile``), the GPU passes (``analysis.gpu.PASSES``), the
-concurrency breakdown (``concurrency.concurrency_breakdown``) and the
-speed-of-light roofline (``sol.sol_roofline``).  Then, in the JAX package's
+``comm.net_profile``), the GPU passes (``analysis.gpu.PASSES``, the step
+skew across ranks among them), the device communication
+(``comm.comm_profile``, ``comm.comm_scatter``), the concurrency breakdown
+(``concurrency.concurrency_breakdown``), the mesh advice
+(``advice.mesh_advice``) and the speed-of-light roofline
+(``sol.sol_roofline``).  Then, in the JAX package's
 order: the tile pyramid is brought up to date (nothing to do after a
 ``report``; built for an older logdir), the feature vector is printed and
 saved as ``features.csv``, the rule-based hints are printed and written to
@@ -56,10 +59,12 @@ def stage_board(cfg: SofaConfig) -> None:
 
 
 #: Every pass analyze runs, in order (the JAX registry's positions: 10,
-#: 20-80, 90, 100, 110-200, 230, 270).
+#: 20-80, 90, 100, 110-200 with the step skew at 140, 210, 220, 230, 240,
+#: 270).
 PASSES = [device.spotlight_roi, *host.PASSES, comm.netbandwidth_profile,
-          comm.net_profile, *gpu.PASSES, concurrency.concurrency_breakdown,
-          sol.sol_roofline]
+          comm.net_profile, *gpu.PASSES, comm.comm_profile,
+          comm.comm_scatter, concurrency.concurrency_breakdown,
+          advice.mesh_advice, sol.sol_roofline]
 
 
 def sofa_analyze(cfg: SofaConfig,
@@ -112,10 +117,9 @@ def _analyze_body(cfg: SofaConfig, frames, tel) -> Features:
 #: The features of each host's row in cluster_summary.csv.  The JAX
 #: package's ``tpu0_op_time`` is ``gpu0_kernel_time`` here (device 0's
 #: kernel time, ``analysis/gpu.py``) and its ``tc_util_mean`` (TensorCore
-#: duty cycle) is ``kernel_util_mean`` (``gpuutil``'s kernel utilization);
-#: its ``comm_ratio`` joins with the multi-GPU passes.
+#: duty cycle) is ``kernel_util_mean`` (``gpuutil``'s kernel utilization).
 SUMMARY_KEYS = ("elapsed_time", "cpu_util", "gpu0_kernel_time",
-                "net_tx_total_bytes", "net_rx_total_bytes",
+                "comm_ratio", "net_tx_total_bytes", "net_rx_total_bytes",
                 "kernel_util_mean")
 
 

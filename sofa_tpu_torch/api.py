@@ -79,6 +79,9 @@ def profile(logdir: str = "sofalog/", cfg: Optional[SofaConfig] = None):
             # joined before the exit snapshot, so that the sampler's last
             # tick cannot publish after it
             sampler.join(timeout=2.0)
+            if not sampler.is_alive():
+                sampler.names.update()  # a group joined after the last tick
+            memprof_path = sampler.names.get("memprof")
         if memprof_path:
             if torch.cuda.is_initialized():
                 gpumon.final_memprof(torch, memprof_path)

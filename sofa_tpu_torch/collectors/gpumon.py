@@ -21,6 +21,17 @@ heartbeat (device -1), byte-compatible with tpumon.txt:
 
 Parsed by ingest/gpumon_parse.py.
 
+The files are per process (``_Names``).  A rank of a process group of two
+or more, the rank its Kineto trace names (the group's, noted while the
+group exists), writes ``gpumon.rank<r>.txt`` and ``memprof.rank<r>.pb.gz``;
+any other process the plain names.  A process that may yet join a group (a
+torchrun worker, RANK in its environment, or a ``multiprocessing`` child
+such as the ranks of ``torch.multiprocessing.spawn``) writes
+``gpumon.pid<pid>.txt`` until it does, and then moves what it wrote to its
+rank's names.  So no two processes share a file, except two processes
+launched otherwise that both initialize CUDA before they join their group:
+they share the plain names until then.
+
 The sampler doubles as the trigger for allocation-site snapshots: when the
 summed bytes in use grow more than 2 % past the last snapshot (at most one
 every 2 s), it walks ``torch.cuda.memory._snapshot()``, aggregates the
@@ -535,7 +546,65 @@ def disarm_history(torch):
         torch.cuda.memory._record_memory_history(enabled=None)
 
 
-def _loop(rate_hz, out_path, stop, memprof_path=None):
+def _tagged(path, tag):
+    """gpumon.txt -> gpumon.<tag>.txt, memprof.pb.gz -> memprof.<tag>.pb.gz"""
+    stem, dot, ext = os.path.basename(path).partition(".")
+    return os.path.join(os.path.dirname(path),
+                        "%s.%s%s%s" % (stem, tag, dot, ext))
+
+
+def _group_rank():
+    """(rank, world size) of the process group this process joined, or
+    None; imports nothing."""
+    dist = sys.modules.get("torch.distributed")
+    try:
+        if dist is not None and dist.is_available() and dist.is_initialized():
+            return dist.get_rank(), dist.get_world_size()
+    except Exception:
+        pass
+    return None
+
+
+class _Names:
+    """Where this process's sampler files go (the module docstring)."""
+
+    def __init__(self, **plain):
+        import multiprocessing
+
+        self.plain = {k: p for k, p in plain.items() if p}
+        self.rank = None
+        self.unsettled = ("RANK" in os.environ
+                          or multiprocessing.parent_process() is not None)
+        self.now = {k: self._want(p) for k, p in self.plain.items()}
+
+    def _want(self, path):
+        if self.rank is not None:
+            rank, world = self.rank
+            return path if world < 2 else _tagged(path, "rank%d" % rank)
+        return _tagged(path, "pid%d" % os.getpid()) if self.unsettled \
+            else path
+
+    def get(self, key):
+        return self.now.get(key)
+
+    def update(self):
+        """Note the group's rank once it exists (it sticks: a group torn
+        down before exit keeps it) and move the files written so far to
+        the rank's names.  Same thread as the writes, or after them."""
+        if self.rank is not None:
+            return
+        self.rank = _group_rank()
+        if self.rank is None:
+            return
+        for key, old in self.now.items():
+            new = self._want(self.plain[key])
+            for suffix in ("", ".meta.json"):
+                if os.path.exists(old + suffix):
+                    os.replace(old + suffix, new + suffix)
+            self.now[key] = new
+
+
+def _loop(rate_hz, names, stop):
     torch = None
     while torch is None:
         if stop.is_set():
@@ -546,7 +615,8 @@ def _loop(rate_hz, out_path, stop, memprof_path=None):
     interval = 1.0 / max(rate_hz, 1e-3)
     limits = {}
     try:
-        out = open(out_path, "a", buffering=1)
+        names.update()
+        out = open(names.get("out"), "a", buffering=1)
     except OSError:
         return
     with out:
@@ -571,7 +641,8 @@ def _loop(rate_hz, out_path, stop, memprof_path=None):
                     out.write("%d %d %d %d %d\\n" % (
                         ts, d, used, limits[d],
                         int(ms.get("allocated_bytes.all.peak", 0))))
-                _maybe_memprof(torch, memprof_path, total_used)
+                names.update()      # the open file moves with its name
+                _maybe_memprof(torch, names.get("memprof"), total_used)
             except Exception:
                 return
             if stopping:
@@ -612,16 +683,20 @@ def start_sampler(rate_hz, out_path, stop=None, memprof_path=None):
     initialize CUDA by itself, so it is safe to start right after ``import
     torch``.  Pass a threading.Event as ``stop`` to end the loop yourself;
     without one the sampler stops and joins at exit.  Pass
-    ``memprof_path`` to take peak-triggered allocation-site snapshots."""
+    ``memprof_path`` to take peak-triggered allocation-site snapshots.
+    Both paths are the plain names; a rank's files take its rank's names
+    (``_Names``), and the thread's ``names`` says where they are."""
     own_stop = stop is None
     if own_stop:
         stop = threading.Event()
     if memprof_path:
         _MEMPROF.update(snap=0, last=0.0)
+    names = _Names(out=out_path, memprof=memprof_path)
     t = threading.Thread(
-        target=_loop, args=(rate_hz, out_path, stop, memprof_path),
+        target=_loop, args=(rate_hz, names, stop),
         daemon=True, name="sofa_torch_gpumon",
     )
+    t.names = names
     t.start()
     if own_stop:
         # A daemon thread inside a CUDA call during interpreter teardown can
@@ -631,6 +706,9 @@ def start_sampler(rate_hz, out_path, stop=None, memprof_path=None):
         def _shutdown():
             stop.set()
             t.join(timeout=2.0)
+            if not t.is_alive():
+                names.update()      # a group joined after the last tick
+            memprof_path = names.get("memprof")
             # The at-exit snapshot (final_memprof), only when the program
             # initialized CUDA (the snapshot must not).
             if not (memprof_path and _cuda_ready() is not None):

@@ -21,8 +21,13 @@ and swaps the tracer:
      CUDA), stops the profiler and exports the Chrome trace to
      ``logdir/kineto/trace_<pid>.json``, under a watchdog that force-exits
      with code 120 if the epilogue wedges; then writes ``gpu_topo.json``
-     (device properties and the ``nvidia-smi`` name and power limit, when
-     that binary exists).  The stop writes the at-exit breadcrumb
+     (device properties, peer access, and the ``nvidia-smi`` name and
+     power limit, when that binary exists), or, in a rank of a process
+     group (noted when the program calls ``init_process_group``: the
+     trace started before it), the rank's record
+     ``gpu_topo/rank_<rank>.json``, and the rank into the trace's
+     ``distributedInfo``; ``preprocess`` merges the records
+     (``merge_rank_topology``).  The stop writes the at-exit breadcrumb
      ``_inject/atexit_stop.json`` as it begins and as it ends (the JAX
      tracer's, ``sofa_tpu/collectors/xprof.py:219-303``), so that record
      can bound its wait on a child that wedges there (``record.py``).
@@ -247,21 +252,74 @@ def _arm_watchdog(timeout, state):
                      name="sofa_torch_watchdog").start()
 
 
-def write_topology(torch, logdir):
-    """gpu_topo.json: the devices the program initialized (name, memory,
-    SMs, capability) and the nvidia-smi name and power limit."""
+def _dist_info(torch):
+    """{backend, rank, world_size} of the process group this process
+    joined, or None (none yet, or torch.distributed is absent)."""
+    try:
+        dist = torch.distributed
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        return {"backend": str(dist.get_backend()), "rank": dist.get_rank(),
+                "world_size": dist.get_world_size()}
+    except Exception:  # noqa: BLE001 - a probe of the program's state
+        return None
+
+
+def _watch_process_group(torch, state):
+    """Note the rank when the program joins a process group: the profiler
+    started before it did, so its trace names no rank, and a program may
+    leave the group before exit.  Undone by stop_trace."""
+    try:
+        import torch.distributed as dist
+
+        if not dist.is_available():
+            return
+        c10d = dist.distributed_c10d
+        orig = c10d.init_process_group
+
+        def init_process_group(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            state["dist"] = _dist_info(torch) or state.get("dist")
+            return out
+
+        c10d.init_process_group = dist.init_process_group = \
+            init_process_group
+
+        def unwatch():
+            c10d.init_process_group = dist.init_process_group = orig
+
+        state["unwatch"] = unwatch
+    except Exception as e:  # noqa: BLE001 - never break the program
+        _warn("process-group watch failed: %r" % (e,))
+
+
+def write_topology(torch, logdir, dist_info=None):
+    """The devices the program initialized (name, memory, SMs,
+    capability, uuid), which of them can reach each other's memory (peer
+    access), and the nvidia-smi name and power limit: gpu_topo.json, or,
+    for a rank of a process group (``dist_info``), the rank's own record
+    ``gpu_topo/rank_<rank>.json`` with its rank, world size, backend,
+    host and CUDA ordinal (preprocess merges the records into
+    gpu_topo.json).  A process that never joined a group (torchrun's
+    agent, a plain program) is not a rank."""
     info = {"cuda_available": False, "devices": []}
     try:
         info["cuda_available"] = bool(torch.cuda.is_available())
         if info["cuda_available"] and torch.cuda.is_initialized():
-            for i in range(torch.cuda.device_count()):
+            n = torch.cuda.device_count()
+            for i in range(n):
                 p = torch.cuda.get_device_properties(i)
                 info["devices"].append({
                     "index": i, "name": p.name,
                     "total_memory": int(p.total_memory),
                     "multi_processor_count": int(p.multi_processor_count),
-                    "capability": "%d.%d" % (p.major, p.minor)})
+                    "capability": "%d.%d" % (p.major, p.minor),
+                    "uuid": str(getattr(p, "uuid", ""))})
+            info["peer_access"] = [
+                [i, j] for i in range(n) for j in range(n)
+                if i != j and torch.cuda.can_device_access_peer(i, j)]
         import shutil
+        import socket
         import subprocess
 
         if shutil.which("nvidia-smi"):
@@ -270,8 +328,18 @@ def write_topology(torch, logdir):
                  "--format=csv,noheader"],
                 capture_output=True, text=True, timeout=30)
             info["nvidia_smi"] = r.stdout.strip()
-        with open(os.path.join(logdir, "gpu_topo.json"), "w") as f:
+        path = os.path.join(logdir, "gpu_topo.json")
+        if dist_info is not None:
+            info.update(dist_info, host=socket.gethostname(),
+                        pid=os.getpid(), cuda_ordinal=(
+                            torch.cuda.current_device()
+                            if torch.cuda.is_initialized() else None))
+            path = os.path.join(logdir, "gpu_topo",
+                                "rank_%d.json" % dist_info["rank"])
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".tmp", "w") as f:
             json.dump(info, f, indent=1)
+        os.replace(path + ".tmp", path)
     except Exception as e:  # noqa: BLE001
         _warn("topology snapshot failed: %r" % (e,))
 
@@ -295,13 +363,17 @@ def start_trace(torch, logdir):
         _warn("profiler start failed: %r" % (e,))
         return None
     _marker(torch)
-    return {"prof": prof, "cuda": cuda, "logdir": logdir, "done": False}
+    state = {"prof": prof, "cuda": cuda, "logdir": logdir, "done": False,
+             "dist": _dist_info(torch)}
+    _watch_process_group(torch, state)
+    return state
 
 
 def stop_trace(torch, state, watchdog=False):
     """Stamp the end marker, synchronize the card (only if the program
     initialized CUDA), stop the profiler, export the Chrome trace to
-    ``logdir/kineto/trace_<pid>.json`` and write gpu_topo.json.  At exit
+    ``logdir/kineto/trace_<pid>.json`` (with the rank, when the program
+    joined a process group) and write the topology.  At exit
     (``watchdog``) a wedged export force-exits the process with code 120
     after STOP_TIMEOUT_S."""
     prof = state.pop("prof", None)
@@ -312,8 +384,14 @@ def stop_trace(torch, state, watchdog=False):
             "pid": os.getpid(), "t": time.time(),
             "timeout_s": STOP_TIMEOUT_S, "grace_s": 0})
         _arm_watchdog(STOP_TIMEOUT_S, state)
+    state.pop("unwatch", lambda: None)()
+    dist_info = _dist_info(torch) or state.get("dist")
     try:
         _marker(torch)
+        if dist_info is not None:
+            # what torch.profiler records only when the group exists as
+            # the trace starts: ingest reads the rank from it
+            prof.add_metadata_json("distributedInfo", json.dumps(dist_info))
         if state["cuda"] and torch.cuda.is_initialized():
             torch.cuda.synchronize()
         elif getattr(prof, "profiler", None) is not None:
@@ -328,7 +406,7 @@ def stop_trace(torch, state, watchdog=False):
         os.replace(out + ".tmp", out)
     except Exception as e:  # noqa: BLE001
         _warn("trace stop/export failed: %r" % (e,))
-    write_topology(torch, state["logdir"])
+    write_topology(torch, state["logdir"], dist_info)
     state["done"] = True
     if watchdog:
         # finished inside its bound: "ok" (an export error is warned
@@ -338,6 +416,51 @@ def stop_trace(torch, state, watchdog=False):
             "timeout_s": STOP_TIMEOUT_S, "grace_s": 0, "done": True,
             "ok": True})
 '''
+
+def merge_rank_topology(logdir: str) -> bool:
+    """Merge the ranks' records (``gpu_topo/rank_<r>.json``) into the
+    ``gpu_topo.json`` the passes read: one device per rank, its ``id``
+    and ``index`` the global rank (the trace's deviceId), with the card it
+    ran on (host, CUDA ordinal, name, uuid), the rank records themselves
+    and, per host, the cards' peer access.  False (nothing written) when
+    no rank wrote a record."""
+    import glob
+
+    records = []
+    for path in glob.glob(os.path.join(logdir, "gpu_topo", "rank_*.json")):
+        try:
+            with open(path) as f:
+                records.append(json.load(f))
+        except (OSError, ValueError):
+            continue
+    if not records:
+        return False
+    records.sort(key=lambda r: r["rank"])
+    devices = []
+    for r in records:
+        card = next((d for d in r.get("devices", [])
+                     if d.get("index") == r.get("cuda_ordinal")), {})
+        devices.append({**card, "id": r["rank"], "index": r["rank"],
+                        "rank": r["rank"], "host": r.get("host", ""),
+                        "cuda_ordinal": r.get("cuda_ordinal")})
+    merged = {"cuda_available": any(r.get("cuda_available")
+                                    for r in records),
+              "world_size": records[0].get("world_size", len(records)),
+              "backend": records[0].get("backend", ""),
+              "devices": devices,
+              "peer_access": {r.get("host", ""): r.get("peer_access", [])
+                              for r in records},
+              "ranks": records}
+    smi = next((r["nvidia_smi"] for r in records if r.get("nvidia_smi")),
+               None)
+    if smi is not None:
+        merged["nvidia_smi"] = smi
+    path = os.path.join(logdir, "gpu_topo.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(merged, f, indent=1)
+    os.replace(path + ".tmp", path)
+    return True
+
 
 # One implementation: exec the tracer text for in-process callers.
 _ns: dict = {}
@@ -397,6 +520,7 @@ class KinetoCollector(Collector):
     def outputs(self) -> List[str]:
         cfg = self.cfg
         return [cfg.kineto_dir, cfg.path("gpu_topo.json"),
+                cfg.path("gpu_topo"),
                 cfg.path("gpumon.txt"), cfg.path("pystacks.txt"),
                 cfg.path("memprof.pb.gz"),
                 cfg.path("memprof.pb.gz.meta.json")]

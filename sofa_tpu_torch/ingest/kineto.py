@@ -5,8 +5,16 @@ per profiled process (``logdir/kineto/trace_<pid>.json``) yields three
 frames, and the device ones a fourth:
 
   gputrace   ``kernel`` / ``gpu_memcpy`` / ``gpu_memset`` events: deviceId
-             from ``args.device``, copyKind KERNEL or the memcpy direction,
-             payload the bytes copied, name the kernel symbol, and, from
+             from ``args.device``, or the process's global rank whenever
+             the trace's ``distributedInfo`` names one and its events name
+             one card (two ranks on one card stay two devices, as the JAX
+             package's chip ids do); a rank that drives several cards
+             keeps their ordinals, with a warning;
+             category 0 for kernels and 2 for the copy engines' memcpys
+             and memsets (the TPU trace's synchronous and asynchronous
+             lines); copyKind KERNEL, the memcpy direction, or an NCCL
+             kernel's collective (below); payload the bytes copied or
+             communicated, name the kernel symbol, and, from
              the host ranges open when the event was launched (its
              context, below): ``module`` the innermost ``user_annotation``
              (a ``record_function`` range), ``op_path`` every range of the
@@ -23,6 +31,19 @@ frames, and the device ones a fourth:
              launched) when it launched any, else its host span;
   gpuutil    a windowed series per device derived from gputrace
              (``gpu_utilization``).
+
+An NCCL kernel takes its copyKind from the ``record_param_comms`` op in
+its launch context, the op torch's process group wraps each collective
+in: its ``Collective name`` gives AllReduce 20, AllGather 21,
+ReduceScatter 22, AllToAll 23, Broadcast 25 or a send/recv's P2P 10, its
+message sizes and ``dtype`` the payload (the larger of the input and
+output message: nccl-tests' size), its ``Process Group Ranks`` the
+``groups`` column (a JSON list of lists of global ranks, as the JAX
+package writes replica groups).  Without that op the kernel's name
+decides (``ncclDevKernel_AllReduce_Sum_bf16_RING_LL``,
+``ncclKernel_AllReduce_RING_LL_Sum_float``, ``ncclDevKernel_SendRecv``):
+only a context tells a grouped SendRecv that serves ``all_to_all`` from a
+ring's P2P hop.
 
 An event's launch is the ``cuda_runtime`` / ``cuda_driver`` call with the
 same ``args.correlation``, on whichever thread of the process made it: the
@@ -72,6 +93,29 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 ENGINE_PREFIX = "autograd::engine"
 _MEMCPY_KINDS = (("HtoD", CopyKind.H2D), ("DtoH", CopyKind.D2H),
                  ("DtoD", CopyKind.D2D), ("PtoP", CopyKind.P2P))
+#: the op torch's process groups wrap a collective in, and its argument keys
+COMMS_OP = "record_param_comms"
+#: a collective's name (lower case, no underscores) by prefix -> its kind
+_COMM_KINDS = (("allreduce", CopyKind.ALL_REDUCE),
+               ("allgather", CopyKind.ALL_GATHER),
+               ("reducescatter", CopyKind.REDUCE_SCATTER),
+               ("alltoall", CopyKind.ALL_TO_ALL),
+               ("broadcast", CopyKind.COLLECTIVE_BROADCAST),
+               ("send", CopyKind.P2P), ("recv", CopyKind.P2P))
+#: an NCCL kernel's collective, from its symbol
+NCCL_KERNEL_RE = re.compile(r"^nccl(?:Dev)?Kernel_([A-Za-z]+)")
+_NCCL_KERNELS = {"AllReduce": CopyKind.ALL_REDUCE,
+                 "AllGather": CopyKind.ALL_GATHER,
+                 "ReduceScatter": CopyKind.REDUCE_SCATTER,
+                 "AllToAll": CopyKind.ALL_TO_ALL,
+                 "Broadcast": CopyKind.COLLECTIVE_BROADCAST,
+                 "SendRecv": CopyKind.P2P, "Send": CopyKind.P2P,
+                 "Recv": CopyKind.P2P}
+#: bytes of an element of each c10 scalar type the ``dtype`` argument names
+DTYPE_BYTES = {"Float": 4, "Double": 8, "Half": 2, "BFloat16": 2, "Int": 4,
+               "Long": 8, "Short": 2, "Char": 1, "Byte": 1, "Bool": 1,
+               "ComplexFloat": 8, "ComplexDouble": 16, "Float8_e4m3fn": 1,
+               "Float8_e5m2": 1}
 
 
 def copy_kind(cat: str, name: str) -> int:
@@ -85,6 +129,48 @@ def copy_kind(cat: str, name: str) -> int:
         if key in name:
             return int(kind)
     return int(CopyKind.NA)
+
+
+def comm_kind(collective: str) -> Optional[int]:
+    """CopyKind of a ``record_param_comms`` op's ``Collective name``, or
+    None for one outside the taxonomy (reduce, barrier, gather, ...)."""
+    key = collective.lower().replace("_", "")
+    for prefix, kind in _COMM_KINDS:
+        if key.startswith(prefix):
+            return int(kind)
+    return None
+
+
+def nccl_kernel_kind(name: str) -> Optional[int]:
+    """CopyKind of an NCCL kernel from its symbol alone, or None."""
+    m = NCCL_KERNEL_RE.match(name)
+    kind = _NCCL_KERNELS.get(m.group(1)) if m else None
+    return None if kind is None else int(kind)
+
+
+def _ranks_list(value) -> List[int]:
+    """``Process Group Ranks`` (a list, or its text "[0, 1]") as ints."""
+    if isinstance(value, str):
+        try:
+            value = json.loads(value)
+        except ValueError:
+            return []
+    return [int(x) for x in value] if isinstance(value, list) else []
+
+
+def comm_columns(args: dict) -> Optional[dict]:
+    """copyKind, payload and groups of a kernel launched under the
+    ``record_param_comms`` op whose args are ``args``, or None when that
+    op's collective is outside the taxonomy."""
+    kind = comm_kind(str(args.get("Collective name", "")))
+    if kind is None:
+        return None
+    size = DTYPE_BYTES.get(str(args.get("dtype", "")), 0)
+    nelems = max(int(args.get("In msg nelems", 0) or 0),
+                 int(args.get("Out msg nelems", 0) or 0))
+    ranks = _ranks_list(args.get("Process Group Ranks", []))
+    return {"copyKind": kind, "payload": nelems * size,
+            "groups": json.dumps([ranks]) if ranks else ""}
 
 
 def _device_of(ev: dict) -> int:
@@ -189,6 +275,7 @@ def _owner(ctx, events, tid_of_launch):
 def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
     """One parsed Chrome trace -> {"gputrace", "hosttrace", "gpusteps"}."""
     shift = clock_shift_s(doc, time_base)
+    rank = (doc.get("distributedInfo") or {}).get("rank")
     events = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
     host_pid = next((e.get("pid") for e in events
                      if e.get("cat") in HOST_CATS), -1)
@@ -208,6 +295,14 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
 
     dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS]
     dev = np.array([_device_of(e) for e in dev_ev], dtype=int)
+    if rank is not None:
+        cards = sorted(set(dev.tolist()))
+        if len(cards) <= 1:
+            dev[:] = int(rank)
+        else:
+            print_warning("kineto: rank %s drives cards %s: its events keep "
+                          "the ordinals (one device per rank holds for a "
+                          "rank that drives one card)" % (rank, cards))
     start = np.array([float(e["ts"]) for e in dev_ev])
     dur = np.array([float(e.get("dur", 0)) for e in dev_ev])
     launches = [launched_at.get(correlation(e)) for e in dev_ev]
@@ -248,11 +343,21 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
         if launches[i] is not None:
             phase = "bw" if (launches[i][1] in engine_tids or any(
                 n.startswith(ENGINE_PREFIX) for n in names)) else "fw"
+        kind, groups = copy_kind(e["cat"], str(e["name"])), ""
+        if e["cat"] == "kernel" and NCCL_KERNEL_RE.match(str(e["name"])):
+            comm = next((comm_columns(c.get("args") or {})
+                         for c in reversed(ctx) if c.get("name") == COMMS_OP
+                         and c.get("tid") == launches[i][1]), None)
+            if comm is not None:
+                kind, nbytes, groups = (comm["copyKind"], comm["payload"],
+                                        comm["groups"])
+            else:
+                kind = nccl_kernel_kind(str(e["name"])) or kind
         gpu_rows.append({
             "timestamp": start[i] * 1e-6 + shift, "event": float(dev[i]),
-            "duration": d, "deviceId": int(dev[i]),
-            "copyKind": copy_kind(e["cat"], str(e["name"])),
-            "payload": nbytes,
+            "duration": d, "deviceId": int(dev[i]), "copyKind": kind,
+            "category": 0 if e["cat"] == "kernel" else 2,
+            "payload": nbytes, "groups": groups,
             "bandwidth": nbytes / d if nbytes and d > 0 else 0.0,
             "pid": int(host_pid), "tid": int(args.get("stream", e.get("tid", -1))),
             "name": str(e["name"]), "device_kind": "gpu",

@@ -47,7 +47,7 @@ from sofa_tpu_torch.ingest import CorruptRawError, IngestToolError, procfs
 from sofa_tpu_torch.ingest.blktrace_parse import ingest_blktrace
 from sofa_tpu_torch.ingest.cache import (CACHE_DIR_NAME, IngestCache,
                                          make_key, raw_files_present)
-from sofa_tpu_torch.ingest.gpumon_parse import ingest_gpumon
+from sofa_tpu_torch.ingest.gpumon_parse import gpumon_files, ingest_gpumon
 from sofa_tpu_torch.ingest.kineto import (capture_files, gpu_utilization,
                                           ingest_kineto_dir)
 from sofa_tpu_torch.ingest.pcap import ingest_pcap
@@ -194,7 +194,7 @@ def _ingest_tasks(cfg: SofaConfig, time_base: float) -> List[_IngestTask]:
     T("nettrace", "proc", ingest_pcap, (P("sofa.pcap"), time_base),
       [P("sofa.pcap")])
     T("gpumon", "thread", ingest_gpumon, (cfg.logdir, time_base),
-      [P("gpumon.txt")])
+      gpumon_files(cfg.logdir))
     # blkparse times are already trace-relative
     T("blktrace", "thread", ingest_blktrace, (cfg.logdir, 0.0),
       [P("blktrace.txt")])
@@ -423,7 +423,10 @@ def sofa_preprocess(cfg: SofaConfig) -> Dict[str, pd.DataFrame]:
 
 
 def _preprocess_body(cfg: SofaConfig, tel) -> Dict[str, pd.DataFrame]:
+    from sofa_tpu_torch.collectors.kineto import merge_rank_topology
+
     time_base = read_time_base(cfg)
+    merge_rank_topology(cfg.logdir)     # the ranks' records, before peaks
     jobs = pool.cfg_jobs(cfg)
     tel.set_meta(pool={"jobs": jobs, "cpu_count": os.cpu_count() or 1})
     with tel.span("ingest", cat="stage"):

@@ -105,12 +105,13 @@ ANALYSIS_FILES = (
     "disk_summary.csv", "strace_top.csv", "pystacks_top.csv",
     "gpu_categories.csv", "gpu_modules_summary.csv", "gpu_op_tree.csv",
     "gpu_input_pipeline.csv", "roofline.csv", "sol_roofline.csv",
-    "netrank.csv", "performance.csv", "cluster_summary.csv",
+    "netrank.csv", "performance.csv", "cluster_summary.csv", "comm.csv",
+    "commtrace.csv", "link_matrix.csv", "gpu_step_skew.csv",
     "_derived.writing", "run_manifest.json", "sofa_self_trace.json",
     # the container id docker publishes for perf's scoping: scratch
     "docker.cid",
 )
-DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine")
+DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine", "sofa_hints")
 # The at-exit breadcrumb of the injected stops, in the injection directory.
 MARKER_NAME = "atexit_stop.json"
 

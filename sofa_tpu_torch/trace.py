@@ -86,6 +86,10 @@ class CopyKind(IntEnum):
     COLLECTIVE_BROADCAST = 25
 
 
+#: copyKind -> its name (comm.csv's ``kind``, the ``comm_<kind>_*`` features)
+CK_NAMES = {int(k): k.name for k in CopyKind}
+
+
 def empty_frame() -> pd.DataFrame:
     return pd.DataFrame(
         {c: pd.Series(dtype=object if isinstance(d, str) else type(d))

@@ -1,6 +1,10 @@
 """Shared plumbing for the PyTorch workloads.
 
-Device choice, timing loops and the ``sofa_step_N`` step annotation.  The
+Device choice, timing loops, the ``sofa_step_N`` step annotation, and the
+ranks: ``init_distributed`` (torchrun's environment, or a FileStore for
+``spawn_ranks``), ``make_mesh`` (a DeviceMesh with the JAX package's
+sizing rules) and ``Ring``, the rank's neighbours along one mesh axis,
+which rotates tensors around it by P2P.  The
 annotation is a ``torch.profiler.record_function`` range, which the Kineto
 trace carries on the host (``user_annotation``); the port's ingest turns it
 into one ``gpusteps`` row per step, spanning the device work launched while
@@ -9,9 +13,11 @@ it was open (from any thread, the autograd engine's included).
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import time
 from contextlib import nullcontext
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -90,3 +96,235 @@ def parse_workload_args(argv, defaults: Dict[str, object]):
         else:
             p.add_argument(f"--{k}", type=type(v), default=v)
     return p.parse_args(argv)
+
+
+# --- the mesh and the ranks ---------------------------------------------------
+
+def balanced_factorization(n: int, num_axes: int) -> Tuple[int, ...]:
+    """Factor ``n`` into ``num_axes`` factors, largest first, as balanced as
+    a greedy prime split allows (8, 3 axes -> (2, 2, 2); 12, 2 -> (4, 3))."""
+    factors = [1] * num_axes
+    primes = []
+    m, p = n, 2
+    while p * p <= m:
+        while m % p == 0:
+            primes.append(p)
+            m //= p
+        p += 1
+    if m > 1:
+        primes.append(m)
+    for prime in sorted(primes, reverse=True):
+        i = factors.index(min(factors))
+        factors[i] *= prime
+    return tuple(sorted(factors, reverse=True))
+
+
+def mesh_sizes(n: int, axis_names: Sequence[str],
+               axis_sizes: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
+    """The JAX package's sizing rules for ``n`` ranks: balanced over the
+    axes when ``axis_sizes`` is None; an explicit -1 means "whatever is
+    left"; the sizes must multiply to ``n``."""
+    if axis_sizes is None:
+        return balanced_factorization(n, len(axis_names))
+    sizes = list(axis_sizes)
+    if -1 in sizes:
+        known = math.prod(s for s in sizes if s != -1)
+        if n % known:
+            raise ValueError(f"{n} ranks not divisible by {known}")
+        sizes[sizes.index(-1)] = n // known
+    if math.prod(sizes) != n:
+        raise ValueError(f"mesh {dict(zip(axis_names, sizes))} != {n} ranks")
+    return tuple(sizes)
+
+
+def make_mesh(axis_names: Sequence[str],
+              axis_sizes: Optional[Sequence[int]] = None,
+              device_type: str = "cuda"):
+    """A ``torch.distributed`` DeviceMesh over every rank of the process
+    group (``init_distributed`` first), sized by ``mesh_sizes``.  Rank
+    ``i`` sits at the row-major position ``i`` of the mesh, so an axis's
+    process group lists its ranks in mesh order."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sizes = mesh_sizes(dist.get_world_size(), axis_names, axis_sizes)
+    return init_device_mesh(device_type, sizes,
+                            mesh_dim_names=tuple(axis_names))
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``axis`` on ``mesh`` (1 without a mesh or that axis)."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's position along ``axis`` (0 without a mesh or axis)."""
+    if axis_size(mesh, axis) == 1:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankInfo:
+    """What ``init_distributed`` set up for this process."""
+
+    rank: int
+    world_size: int
+    local_rank: int
+    device: torch.device
+    backend: str
+    shared: bool        # the card is shared with other ranks (asked for)
+
+
+def init_distributed(backend: Optional[str] = None, device=None,
+                     share_device: bool = False,
+                     store_path: Optional[str] = None,
+                     rank: Optional[int] = None,
+                     world_size: Optional[int] = None) -> RankInfo:
+    """Join the process group and pick this rank's device.
+
+    The rank comes from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, and ``MASTER_ADDR`` /
+    ``MASTER_PORT`` for the rendezvous), or, for ranks started by
+    ``spawn_ranks``, from ``rank`` and ``world_size`` with a ``FileStore``
+    at ``store_path``.  ``device`` as ``resolve_device``: the card unless
+    the caller names the CPU.  Rank r runs on ``cuda:LOCAL_RANK``; ranks
+    share a card only with ``share_device`` (each says so on its first
+    line), and never under NCCL, which refuses two ranks on one card.  The
+    backend defaults to ``nccl`` on the card and ``gloo`` on the CPU;
+    ``gloo`` over CUDA tensors runs only when the caller names it.
+    Nothing switches backend or device on a failure."""
+    import os
+
+    import torch.distributed as dist
+
+    if store_path is None:
+        try:
+            rank = int(os.environ["RANK"])
+            world_size = int(os.environ["WORLD_SIZE"])
+        except KeyError:
+            raise RuntimeError(
+                "no RANK / WORLD_SIZE in the environment: start the ranks "
+                "with torchrun (python -m torch.distributed.run)") from None
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    else:
+        if rank is None or world_size is None:
+            raise ValueError("a FileStore rendezvous needs rank and "
+                             "world_size")
+        local_rank, local_world = rank, world_size
+    dev = resolve_device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    shared = False
+    if dev.type == "cuda":
+        count = torch.cuda.device_count()
+        shared = local_world > count
+        if shared and not share_device:
+            raise RuntimeError(
+                f"{local_world} ranks on this host but {count} CUDA devices: "
+                f"ranks share a card only when asked (--share_device)")
+        if shared and backend == "nccl":
+            raise RuntimeError("NCCL refuses two ranks on one card; share "
+                               "a card over gloo (--backend gloo)")
+        dev = torch.device("cuda", local_rank % count)
+        torch.cuda.set_device(dev)
+        torch.cuda.init()       # so that the mesh keeps this device
+        if shared:
+            print(f"rank {rank}: shares {dev} with the other ranks of this "
+                  f"host ({local_world} ranks, {count} cards), as asked",
+                  flush=True)
+    if store_path is None:
+        dist.init_process_group(backend, rank=rank, world_size=world_size)
+    else:
+        dist.init_process_group(
+            backend, store=dist.FileStore(store_path, world_size),
+            rank=rank, world_size=world_size)
+    return RankInfo(rank, world_size, local_rank, dev, backend, shared)
+
+
+def spawn_ranks(n: int, fn, *args, timeout: float = 120.0) -> None:
+    """Run ``fn(rank, *args)`` in ``n`` spawned processes and join them
+    within ``timeout`` seconds; past it, kill them all and raise
+    TimeoutError (a deadlocked exchange fails in seconds, not at the
+    suite's limit).  A rank that raises fails the call, as
+    ``torch.multiprocessing.spawn`` does.  ``fn`` must be importable (a
+    module-level function)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(fn, args=args, nprocs=n, join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{n} ranks of {fn.__name__} did not "
+                                   f"finish in {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+
+
+class Ring:
+    """One rank's place on a ring of ranks: position ``index`` of ``size``
+    over the process group ``group`` whose global ranks, in ring order,
+    are ``ranks``.  ``rotate`` sends to the next position and receives
+    from the previous one; with one rank it is the identity (torch refuses
+    a send to self; JAX's ppermute of one is the identity)."""
+
+    def __init__(self, index: int, size: int, group=None, ranks=()):
+        self.index, self.size, self.group = index, size, group
+        self.ranks = tuple(ranks)
+
+    def _exchange(self, tensors, to: int, frm: int):
+        import torch.distributed as dist
+
+        recv = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                for t in tensors]
+        ops = ([dist.P2POp(dist.isend, t.contiguous(), self.ranks[to],
+                           self.group) for t in tensors]
+               + [dist.P2POp(dist.irecv, r, self.ranks[frm], self.group)
+                  for r in recv])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv
+
+    def rotate(self, tensors):
+        """Each tensor to position (index + 1) mod size, in one batch of
+        P2P operations; returns what came from (index - 1) mod size.
+        Differentiable: the gradient rotates the other way, as the
+        transpose of JAX's ppermute does."""
+        if self.size == 1:
+            return list(tensors)
+        return list(_Rotate.apply(self, *tensors))
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ring, *tensors):
+        ctx.ring = ring
+        n = ring.size
+        return tuple(ring._exchange(tensors, (ring.index + 1) % n,
+                                    (ring.index - 1) % n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ring = ctx.ring     # None grads arrive as zeros (materialized)
+        n = ring.size
+        back = ring._exchange(grads, (ring.index - 1) % n,
+                              (ring.index + 1) % n)
+        return (None, *back)
+
+
+def mesh_ring(mesh, axis: str) -> Ring:
+    """This rank's ring along ``axis`` of ``mesh``."""
+    import torch.distributed as dist
+
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return Ring(0, 1)
+    group = mesh.get_group(axis)
+    return Ring(mesh.get_local_rank(axis), n, group,
+                dist.get_process_group_ranks(group))

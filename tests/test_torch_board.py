@@ -347,11 +347,14 @@ CONTRACT = {
     "gpu_op_tree.csv": ["path", "depth", "time", "time_pct", "count",
                         "flops"],
     "features.csv": ["name", "value"],
+    "commtrace.csv": ["timestamp", "duration", "payload", "peer", "dst",
+                      "kind", "cls"],
 }
 # fetched but only shown whole by renderTable (any header will do)
 TABLE_ONLY = {"cpu_top.csv", "pystacks_top.csv", "strace_top.csv",
               "disk_summary.csv", "gpu_top_kernels.csv",
-              "gpu_modules_summary.csv", "performance.csv"}
+              "gpu_modules_summary.csv", "performance.csv", "comm.csv",
+              "link_matrix.csv", "netrank.csv"}
 
 
 def _board_sources():
@@ -396,8 +399,8 @@ def test_board_static_references_covered():
 
 
 STAGED = ["index.html", "gpu-report.html", "op-tree.html", "flame.html",
-          "cpu-report.html", "disk.html", "net.html", "serving.html",
-          "run-report.html"]
+          "cpu-report.html", "comm-report.html", "disk.html", "net.html",
+          "serving.html", "run-report.html"]
 
 
 @pytest.mark.parametrize("page", STAGED)

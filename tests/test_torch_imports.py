@@ -74,7 +74,12 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/tools/manifest_check.py",
             "sofa_tpu_torch/collectors/native_build.py",
             "sofa_tpu_torch/analysis/comm.py",
-            "sofa_tpu_torch/analysis/concurrency.py"} <= rel
+            "sofa_tpu_torch/analysis/concurrency.py",
+            "sofa_tpu_torch/workloads/common.py",
+            "sofa_tpu_torch/workloads/ring_attention.py",
+            "sofa_tpu_torch/workloads/ring_flash.py",
+            "sofa_tpu_torch/workloads/collectives.py",
+            "sofa_tpu_torch/workloads/transformer.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -93,7 +98,12 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.pool, sofa_tpu_torch.ingest.cache, "
             "sofa_tpu_torch.tools.manifest_check, "
             "sofa_tpu_torch.collectors.native_build, "
-            "sofa_tpu_torch.analysis.comm, sofa_tpu_torch.analysis.concurrency; "
+            "sofa_tpu_torch.analysis.comm, sofa_tpu_torch.analysis.concurrency, "
+            "sofa_tpu_torch.workloads.common, "
+            "sofa_tpu_torch.workloads.ring_attention, "
+            "sofa_tpu_torch.workloads.ring_flash, "
+            "sofa_tpu_torch.workloads.collectives, "
+            "sofa_tpu_torch.workloads.transformer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'sofa_tpu') or m.startswith('google.protobuf')]; "
             "print(bad); sys.exit(1 if bad else 0)")
