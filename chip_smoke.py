@@ -45,18 +45,17 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            kernels, memsets and copies, and the span's idle share
   profile  ``python -m sofa_tpu_torch stat`` over the flagship forward with
            a short serving run (with and without allocation-stack
-           recording, in turns, twice each), over the training workload's
-           ``main`` at its defaults, and over it at Llama-3-8B width cut to
-           4 layers with the Python stack sampler on (and with
-           --disable_memprof, in turns, twice each); checks the device
-           traces and steps (the backward kernels, launched from autograd's
-           device thread, inside the steps, the same in both modes), the
+           recording), over the training workload's ``main`` at its
+           defaults, and over it at Llama-3-8B width cut to 4 layers with
+           the Python stack sampler on, set by a ``--config`` TOML file;
+           checks the device traces and steps (the backward kernels,
+           launched from autograd's device thread, inside the steps), the
            memory sampler's readings and peak against the train phase's,
-           the allocation-site snapshot, the host frames; then a run long
-           enough to wrap the allocation trace's ring, and what its
-           replayed snapshot and the gate's hold; the same Llama-width run
-           without the Kineto trace, its allocation sites against the
-           traced run's; an eager Llama-width run without the trace killed
+           the allocation-site snapshot, the host frames; then a run
+           without the Kineto trace long enough to wrap the allocation
+           trace's ring, what its replayed snapshot and the gate's hold,
+           and its allocation sites against the traced run's; an eager
+           Llama-width run without the trace killed
            mid-run, which must leave a gate snapshot; logs each collector's
            probe; checks that a profiled torch program that never uses the
            card stays CUDA-uninitialized; prints the flash kernels'
@@ -65,14 +64,20 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            classes, bf16, channels_last): 20 train steps bare, then 20
            under ``sofa_tpu_torch.api.profile()`` with a sofa_step_N range
            each, then 20 bare again, three such pairs each in a fresh
-           process, beside two processes that run three bare passes;
-           images/s, the overhead, the paired t-test, and the bare pass
-           after the profiled one against the first (what the profiler
-           leaves behind, beside the bare processes' drift);
+           process; images/s, the overhead, the paired t-test, and the
+           bare pass after the profiled one against the first (what the
+           profiler leaves behind);
            then preprocess and analyze of the last capture (coverage guard:
            CUDA kernels, convolution kernels carrying flops, a roofline no
-           row of which runs faster than its bound); then ``stat`` over
-           ``python -m sofa_tpu_torch.workloads.resnet --train``
+           row of which runs faster than its bound); one more pair at
+           ``--kineto_host_tracer_level 0`` (no aten op recorded): its
+           overhead beside the default's median, its kernel rows (> 0);
+           then ``stat`` over ``python -m sofa_tpu_torch.workloads.resnet
+           --train --batch 128`` at trace level 0, and once more (level 2)
+           with ``--kineto_delay_s`` and
+           ``--kineto_duration_s`` set from that run's capture: kernels
+           only inside the window, fewer step ranges than the run made,
+           every kernel with its launch context
   (every ``stat`` run of ``profile`` and ``resnet`` writes the run
   manifest: each is held to the port's validate_manifest, every started
   collector must end ``stopped``, ``status`` must exit 0, and Kineto's
@@ -85,23 +90,30 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            ``viz`` in its own process serving every staged page, report.js
            and every CSV a page names (404 where analyze wrote none), a 304
            on revalidation, a deep tile gzipped and plain, nothing outside
-           the logdir; then ``clean`` on a copy of the ResNet logdir and
-           ``report`` over it again, whose concurrency breakdown must give
-           performance.csv and five elapsed ratios summing to 1; prints the
-           host times and sizes
+           the logdir (the report runs at ``--jobs 4``); ``report --jobs
+           1`` over each, whose features.csv and hints.txt must be
+           byte-identical to the first report's; then ``clean`` on a copy
+           of the ResNet logdir and ``report`` over it again, whose
+           concurrency breakdown must give
+           performance.csv and five elapsed ratios summing to 1; a
+           ``--plugin`` whose pass raises, over a copy of the Llama-width
+           capture: ``Complete!!``, the pass ``failed`` in the manifest,
+           ``status`` 1 naming it; ``passes`` over the capture, every
+           built-in pass with its last run's time; prints the host times
+           and sizes
   robust   the supervised, self-reporting record, one line a cell:
            (1) ``stat`` over the Llama-width training with procmon killed
            5 s in and the Kineto harvest wedged (5 s deadline): one
            restart with mpstat rows after the death, kineto ``timed_out``
            at harvest, all three kernels in gputrace, ``report`` complete,
-           ``status`` as ``render_status`` says; (2) ``stat`` over the
-           entry forward with procmon killed at 1 s and no restarts:
+           ``status`` as ``render_status`` says; (2) ``stat`` over a
+           3-second command with procmon killed at 1 s and no restarts:
            ``died``, ``status`` nonzero, the ``[self]`` hint; (3) a copy
            of the Llama-width capture with its Kineto JSON cut in half:
            ``preprocess`` quarantines it, ``analyze`` completes with the
            ``[self]`` hint, a second ``preprocess`` does not serve it
            warm; (4) ``report`` over a copy of the last ResNet-50 capture
-           (and of the Llama-width one) cold, warm and cold with ``--jobs
+           cold, warm and cold with ``--jobs
            1`` (no card visible): wall times, per-source wall_s and stage
            times, the cache's format, byte-identical report.js,
            features.csv and tiles cold and warm, then ``clean``; (5) ``record --epilogue_deadline_s 5`` over a child
@@ -121,9 +133,9 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            peaks
 
   mesh     torchrun with NCCL and one rank over the training ``main`` at
-           the train phase's shape (--data 1 --seq_par 1): the losses must
-           equal the train phase's; the same under ``stat``, logging what
-           the capture holds for the gradient all-reduce; then two gloo
+           the train phase's shape (--data 1 --seq_par 1) under ``stat``:
+           the losses must equal the train phase's; logs what the capture
+           holds for the gradient all-reduce; then two gloo
            ranks sharing the card (--data 2, batch 1 each) under ``stat``:
            two rank traces, device ids 0 and 1, one gpumon file per rank
            (named by its rank), gpu_step_skew.csv, equal losses, per-rank flash launches as in a one-rank run, the
@@ -144,9 +156,11 @@ Imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -1156,7 +1170,7 @@ class Smoke:
                  "--serve_requests 4 --serve_layers 2 --prompt 128 "
                  "--new_tokens 8")
         lines = []
-        for state in ("on", "off", "off", "on"):       # in turns
+        for state in ("on", "off"):
             flags = ("--disable_memprof",) if state == "off" else ()
             feats, _, out, _ = self.stat(f"serve_{state}", serve, steps,
                                          ["sofa_flash_fwd"], flags)
@@ -1188,15 +1202,20 @@ class Smoke:
                f"--steps {steps} --batch 4 --seq 2048 --vocab 128256 "
                "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
                "--d_ff 14336")
+        # the whole swarm's settings from a config file (the flags of the
+        # other runs): the pystacks check below shows the file took effect
+        cfg_file = os.path.join(REPO, "build", "chip_smoke_llama.toml")
+        with open(cfg_file, "w") as f:
+            f.write("enable_py_stacks = true\n")
         feats, logdir, out, kern = self.stat("llama", cmd, steps, names,
-                                             ("--enable_py_stacks",))
+                                             ("--config", cfg_file))
         # launches of each kernel in one 3-step run (the cluster phase's
         # hosts must launch as many)
         self.llama_launches = {n: int(kern["name"].astype(str).str.contains(
             n).sum()) for n in names}
         rate = [("on", [ln for ln in out.splitlines()
                         if ln.startswith("transformer:")])]
-        in_steps = {"on": self.kernels_in_steps(kern, steps)}
+        self.kernels_in_steps(kern, steps)
         total = self.torch.cuda.get_device_properties(0).total_memory
         # the sampler: heartbeats and device-0 rows at the card's size
         with open(os.path.join(logdir, "gpumon.txt")) as f:
@@ -1272,23 +1291,11 @@ class Smoke:
         if not mine.any():
             raise AssertionError("pystacks has no frame of the workload")
         self.flash_roofline(logdir, steps)
-        self.sites_without_trace(cmd, sites)
-        # the cost of allocation-stack recording: the same run without it,
-        # in turns (on, off, off, on), and the step ranges in both modes
-        for i, state in enumerate(("off", "off", "on")):
-            flags = ("--enable_py_stacks",) + (
-                ("--disable_memprof",) if state == "off" else ())
-            _, _, out, kern = self.stat(f"llama_{state}{i}", cmd, steps,
-                                        names, flags)
-            rate.append((state, [ln for ln in out.splitlines()
-                                 if ln.startswith("transformer:")]))
-            in_steps.setdefault(state, self.kernels_in_steps(kern, steps))
+        # the wrapped-ring run (no Kineto trace) compares its sites to these
+        self.llama_sites = sites
         for state, got in rate:
             log(f"profile[llama]: allocation stacks {state}: "
                 + " | ".join(got) + f" | {self.smi}")
-        if in_steps["on"] != in_steps["off"]:
-            raise AssertionError(f"the steps hold other kernels with memprof"
-                                 f" on and off: {in_steps}")
 
     def flash_roofline(self, logdir, steps):
         """The three flash kernels' rows of the traced Llama-width run's
@@ -1316,15 +1323,11 @@ class Smoke:
                 raise AssertionError(f"{kern}'s roofline rows do not carry "
                                      f"its CostEstimate flops")
 
-    def sites_without_trace(self, cmd, traced_sites):
-        """The same Llama-width run with allocation stacks and without the
-        Kineto trace: its peak and sites against the traced run's (the
-        trace's run reads 0.3-1.2 % above the train phase's peak)."""
-        import pandas as pd
-
-        feats, logdir, _ = self.run_stat("llama_notrace", cmd,
-                                         ("--disable_kineto",))
-        sites = pd.read_csv(os.path.join(logdir, "gpu_memprof.csv"))
+    def sites_without_trace(self, feats, sites, traced_sites):
+        """The Llama-width run's allocation sites without the Kineto trace
+        (the wrapped-ring run's) against the traced run's: its peak and the
+        sites that differ most (the trace's run reads 0.3-1.2 % above the
+        train phase's peak)."""
         log(f"profile[notrace]: gpu0_hbm_peak_gb "
             f"{feats.get('gpu0_hbm_peak_gb', 0.0):.4f}, memprof_held_gb "
             f"{feats.get('memprof_held_gb', 0.0):.4f} (train phase "
@@ -1474,6 +1477,7 @@ class Smoke:
         if "sofa_tpu_torch/" not in top:
             raise AssertionError(f"the top allocation site is not a line "
                                  f"of sofa_tpu_torch/: {top}")
+        self.sites_without_trace(feats, sites, self.llama_sites)
 
     def resnet(self):
         """ResNet-50 train steps bare and under the in-process profile(),
@@ -1491,13 +1495,9 @@ class Smoke:
 
         batch, steps = RESNET_BATCH, RESNET_STEPS
         runs = []
-        for i, kind in enumerate(("pair", "control", "pair", "control",
-                                  "pair")):
-            logdir = "-"
-            if kind == "pair":
-                logdir = os.path.join(REPO, "build",
-                                      f"chip_smoke_resnet_r{i}")
-                shutil.rmtree(logdir, ignore_errors=True)
+        for i in range(3):
+            logdir = os.path.join(REPO, "build", f"chip_smoke_resnet_r{i}")
+            shutil.rmtree(logdir, ignore_errors=True)
             r = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--resnet-pass",
                  logdir], cwd=REPO, capture_output=True, text=True,
@@ -1508,18 +1508,16 @@ class Smoke:
                 raise AssertionError(f"the ResNet-50 process failed, rc "
                                      f"{r.returncode}: {r.stderr[-3000:]}")
             d = json.loads(got[-1].split(" ", 1)[1])
-            runs.append((kind, logdir, d))
-            mid = d.get("profiled", d.get("second"))
-            log(f"resnet: process {i} ({kind}): {d['params']:,} params, "
+            runs.append((logdir, d))
+            log(f"resnet: process {i}: {d['params']:,} params, "
                 f"batch {batch}, 224x224, 1000 classes, bf16, channels_last,"
                 f" warm-up {d['warmup_s']:.1f} s; bare {d['bare']:.4f} s "
-                f"({steps * batch / d['bare']:.1f} images/s), "
-                f"{'profiled' if kind == 'pair' else 'bare again'} "
-                f"{mid:.4f} s ({steps * batch / mid:.1f} images/s), bare "
-                f"after it {d['after']:.4f} s ({steps * batch / d['after']:.1f}"
-                f" images/s), loss {d['loss']:.4f}")
-        pairs = [d for kind, _, d in runs if kind == "pair"]
-        controls = [d for kind, _, d in runs if kind == "control"]
+                f"({steps * batch / d['bare']:.1f} images/s), profiled "
+                f"{d['profiled']:.4f} s ({steps * batch / d['profiled']:.1f} "
+                f"images/s), bare after it {d['after']:.4f} s "
+                f"({steps * batch / d['after']:.1f} images/s), loss "
+                f"{d['loss']:.4f}")
+        pairs = [d for _, d in runs]
         bare = [d["bare"] for d in pairs]
         prof = [d["profiled"] for d in pairs]
         repeats = len(pairs)
@@ -1527,17 +1525,13 @@ class Smoke:
         t_bare, t_prof = sorted(bare)[repeats // 2], sorted(prof)[repeats // 2]
         overhead = max(0.0, (t_prof - t_bare) / t_bare * 100.0)
 
-        def pct(ds, key):
-            return ", ".join(f"{(d[key] / d['bare'] - 1) * 100:+.1f}"
-                             for d in ds)
-        # What a profiler leaves behind once stopped: the bare pass after
-        # the profiled one against the process's first, beside the same
-        # two passes of processes that never profile (their drift).
-        log(f"resnet: bare after the profiled pass vs before it, each pair "
-            f"process: {pct(pairs, 'after')} %; the same passes of the "
-            f"processes without a profiler: {pct(controls, 'after')} % "
-            f"(their middle pass: {pct(controls, 'second')} %)")
-        cfg = SofaConfig(logdir=runs[-1][1])
+        # what a profiler leaves behind once stopped: the bare pass after
+        # the profiled one against the process's first
+        log("resnet: bare after the profiled pass vs before it, each "
+            "process: " + ", ".join(
+                f"{(d['after'] / d['bare'] - 1) * 100:+.1f}" for d in pairs)
+            + " %")
+        cfg = SofaConfig(logdir=runs[-1][0])
         t0 = time.perf_counter()
         # in this process, which holds a CUDA context: the parser process
         # pool (forced on) must start by forkserver or spawn, never fork
@@ -1616,8 +1610,127 @@ class Smoke:
             raise AssertionError("a roofline row runs faster than its bound")
         if feats.get("gpu0_step_gap_pct") is None:
             raise AssertionError("no step gap was measured")
-        self.stat("resnet", f"{sys.executable} -m "
-                  "sofa_tpu_torch.workloads.resnet --train --steps 5", 5, [])
+        self.resnet_light(overhead)
+        # at batch 128 a step is bound by the card, not the host: the
+        # windowed run's steps are then as long as its kernels (below); at
+        # trace level 0 (under record) its warm-up is close to an untraced
+        # one's, which the window's delay is doubled from
+        _, logdir, _, _ = self.stat("resnet", f"{sys.executable} -m "
+                                    "sofa_tpu_torch.workloads.resnet --train "
+                                    "--batch 128 --steps 5", 5, [],
+                                    ("--kineto_host_tracer_level", "0"))
+        self.resnet_window(logdir)
+
+    def resnet_light(self, default_overhead):
+        """One more fresh-process pair at the lightest trace detail that
+        keeps the kernel rows (--kineto_host_tracer_level 0: the device
+        activity, its launches and the record_function ranges, no aten
+        op): its overhead beside the default pairs' median, and its
+        coverage guard (CUDA-kernel rows in gputrace; the flops guard is the
+        default level's)."""
+        from sofa_tpu_torch.config import SofaConfig
+        from sofa_tpu_torch.preprocess import sofa_preprocess
+
+        batch, steps = RESNET_BATCH, RESNET_STEPS
+        logdir = os.path.join(REPO, "build", "chip_smoke_resnet_light")
+        shutil.rmtree(logdir, ignore_errors=True)
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--resnet-pass",
+             logdir, "0"], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        got = [ln for ln in r.stdout.splitlines()
+               if ln.startswith("RESNET_PASS ")]
+        if r.returncode or not got:
+            raise AssertionError(f"the light ResNet-50 process failed, rc "
+                                 f"{r.returncode}: {r.stderr[-3000:]}")
+        d = json.loads(got[-1].split(" ", 1)[1])
+        overhead = (d["profiled"] - d["bare"]) / d["bare"] * 100.0
+        frames = sofa_preprocess(SofaConfig(logdir=logdir))
+        kern = frames["gputrace"][frames["gputrace"]["copyKind"] == 0]
+        trace_mb = sum(os.path.getsize(p) for p in glob.glob(
+            os.path.join(logdir, "kineto", "*.json"))) / 1e6
+        log(f"resnet[light]: host tracer level 0: bare {d['bare']:.4f} s "
+            f"({steps * batch / d['bare']:.1f} images/s), profiled "
+            f"{d['profiled']:.4f} s ({steps * batch / d['profiled']:.1f} "
+            f"images/s): overhead {overhead:.2f} % against the default "
+            f"level's median {default_overhead:.2f} % (target 5 %); "
+            f"gputrace {len(kern)} kernel rows, {int(kern['flops'].isna().sum())}"
+            f" without flops (absent), phase absent on "
+            f"{int((kern['phase'] == '').sum())}; trace {trace_mb:.1f} MB | "
+            f"{self.smi}")
+        if kern.empty:
+            raise AssertionError("coverage guard: the light capture holds "
+                                 "no CUDA kernel rows")
+
+    def resnet_window(self, full_logdir):
+        """``stat`` of the ResNet-50 workload with the trace's window set
+        from the full run's capture (the same workload, traced from
+        ``import torch`` at level 0): start at twice that run's first step
+        plus 2 P (P its traced step period; warm-ups, cuDNN's search among
+        them, vary from process to process) and stop 4 P later; its steps,
+        each at least the device time a traced step held, outlast the
+        window: it holds some steps and not all.  Its kernels must lie
+        inside the window (a 0.5 s margin), its steps be fewer than the
+        run's, and its kernels keep their launch context (op_path, fw and
+        bw phases)."""
+        import pandas as pd
+
+        doc = json.load(open(glob.glob(os.path.join(
+            full_logdir, "kineto", "*.json"))[0]))
+        marks = sorted(float(e["ts"]) for e in doc["traceEvents"]
+                       if str(e.get("name", "")).startswith(
+                           "sofa_timebase_marker:"))
+        steps = sorted((float(e["ts"]), float(e["dur"]))
+                       for e in doc["traceEvents"]
+                       if e.get("cat") == "user_annotation"
+                       and str(e.get("name", "")).startswith("sofa_step_"))
+        first = (steps[0][0] - marks[0]) / 1e6
+        period = (steps[-1][0] - steps[0][0]) / 1e6 / (len(steps) - 1)
+        full = pd.read_csv(os.path.join(full_logdir, "gputrace.csv"),
+                           keep_default_na=False)
+        in_steps = full[(full["copyKind"] == 0) & full["module"].astype(
+            str).str.match(r"sofa_step_\d+$")]
+        device_step = float(in_steps["duration"].sum()) / len(steps)
+        delay, duration = 2 * first + 2 * period, 4 * period
+        n_steps = int(math.ceil((delay + duration) / device_step))
+        feats, logdir, out = self.run_stat(
+            "resnet_window", f"{sys.executable} -m sofa_tpu_torch.workloads."
+            f"resnet --train --batch 128 --steps {n_steps}",
+            ("--kineto_delay_s", f"{delay:.3f}", "--kineto_duration_s",
+             f"{duration:.3f}"))
+        with open(os.path.join(logdir, "sofa_time.txt")) as f:
+            time_base = float(f.read().split()[0])
+        wdoc = json.load(open(glob.glob(os.path.join(
+            logdir, "kineto", "*.json"))[0]))
+        detail = wdoc["sofa_trace_detail"]
+        t0 = detail["start_unix"] - time_base
+        t1 = detail["stop_unix"] - time_base
+        gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"),
+                          keep_default_na=False)
+        kern = gpu[gpu["copyKind"] == 0]
+        ksteps = pd.read_csv(os.path.join(logdir, "gpusteps.csv"))
+        ends = kern["timestamp"] + kern["duration"]
+        margin = 0.5
+        outside = int(((kern["timestamp"] < t0 - margin)
+                       | (ends > t1 + margin)).sum())
+        with_path = float((kern["op_path"] != "").mean()) if len(kern) else 0
+        phases = sorted(set(kern["phase"]))
+        log(f"resnet[window]: the full run's first step {first:.3f} s after "
+            f"the trace's start, period {period * 1e3:.1f} ms, "
+            f"{device_step * 1e3:.1f} ms of kernels a step; window "
+            f"--kineto_delay_s {delay:.3f} --kineto_duration_s "
+            f"{duration:.3f}: traced [{t0:.3f}, {t1:.3f}] s of the run "
+            f"({t1 - t0:.3f} s); gputrace {len(kern)} kernel rows in "
+            f"[{kern['timestamp'].min():.3f}, {ends.max():.3f}] s, {outside} "
+            f"outside the window (margin {margin} s); {len(ksteps)} "
+            f"sofa_step ranges of {n_steps}; op_path on "
+            f"{with_path:.1%} of the kernels, phases {phases}")
+        if kern.empty or outside or not 0 < len(ksteps) < n_steps:
+            raise AssertionError("the windowed capture holds kernels outside "
+                                 "its window, none, or every step")
+        if with_path < 0.99 or not {"fw", "bw"} <= set(phases):
+            raise AssertionError("the windowed capture's kernels lack their "
+                                 "launch context")
 
     def profile_untouched_card(self):
         """A profiled torch program that never uses the card stays
@@ -1655,11 +1768,12 @@ class Smoke:
 
         logdirs = (
             ("llama", os.path.join(REPO, "build", "chip_smoke_profile_llama")),
-            ("resnet", os.path.join(REPO, "build", "chip_smoke_resnet_r4")))
+            ("resnet", os.path.join(REPO, "build", "chip_smoke_resnet_r2")))
         for label, logdir in logdirs:
             # measure the tile stage cold: the earlier phases built it
             shutil.rmtree(os.path.join(logdir, "_tiles"), ignore_errors=True)
             timing = self.board_report(label, logdir)
+            self.board_jobs(label, logdir)
             doc = self.board_report_js(label, logdir)
             if label == "llama":
                 flash = next(s for s in doc["series"]
@@ -1690,6 +1804,104 @@ class Smoke:
                     or "none") + f"; gputrace rows in the deepest tiles "
                 f"{leaves} | {self.smi}")
         self.board_clean(logdirs[1][1])
+        self.board_registry(logdirs[0][1])
+
+    def board_jobs(self, label, logdir):
+        """``report --jobs 1`` after the phase's ``--jobs 4`` one: the
+        passes run in waves on the pool or one by one, and features.csv
+        and hints.txt must come out byte-identical."""
+        def outputs():
+            got = {}
+            for name in ("features.csv", "hints.txt"):
+                with open(os.path.join(logdir, name), "rb") as f:
+                    got[name] = f.read()
+            return got
+
+        first = outputs()
+        walls = []
+        for jobs in ("1",):
+            r, wall = self.board_cli("report", "--logdir", logdir, "--jobs",
+                                     jobs)
+            if r.returncode != 0 or "Complete!!" not in r.stdout:
+                raise AssertionError(f"report --jobs {jobs} failed ({label})"
+                                     f": {r.stderr[-3000:]}")
+            walls.append(f"--jobs {jobs} {wall:.2f} s")
+            if outputs() != first:
+                raise AssertionError(f"report --jobs {jobs} wrote other "
+                                     f"features.csv or hints.txt ({label})")
+        from sofa_tpu_torch import telemetry
+
+        ledger = telemetry.load_manifest(logdir)["meta"]["passes"]
+        log(f"board[{label}]: features.csv ({len(first['features.csv'])} "
+            f"bytes) and hints.txt ({len(first['hints.txt'])} bytes) "
+            f"byte-identical: " + ", ".join(walls)
+            + f" (the first --jobs 4); waves "
+            f"{[len(w) for w in ledger['schedule']]}, the slowest "
+            "passes " + ", ".join(
+                f"{n} {e['wall_s']:.3f} s" for n, e in sorted(
+                    ledger["passes"].items(),
+                    key=lambda kv: -kv[1].get("wall_s", 0))[:3]))
+
+    def board_registry(self, logdir):
+        """A plugin whose pass raises, over a copy of the Llama-width
+        capture: ``report --skip_preprocess --plugin`` still completes, the
+        manifest marks the pass ``failed`` (valid by the validator) and
+        ``status`` names it and exits 1; then ``passes`` over the capture
+        lists every built-in pass with its last run's time."""
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.analysis import registry
+        from sofa_tpu_torch.tools.manifest_check import validate_manifest
+
+        plugdir = os.path.join(REPO, "build", "chip_smoke_plugin")
+        os.makedirs(plugdir, exist_ok=True)
+        with open(os.path.join(plugdir, "chip_smoke_boom.py"), "w") as f:
+            f.write("def chip_smoke_boom(cfg):\n"
+                    "    from sofa_tpu_torch.analysis.registry import "
+                    "register_pass\n"
+                    "    def boom(frames, cfg, features):\n"
+                    "        raise KeyError('chip_smoke_boom')\n"
+                    "    register_pass(boom, name='boom_pass')\n")
+        copy = os.path.join(REPO, "build", "chip_smoke_board_plugin")
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(logdir, copy, ignore=shutil.ignore_patterns(
+            "kineto", "_tiles", "_ingest_cache"))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.pathsep.join([plugdir, REPO]))
+        r = subprocess.run([sys.executable, "-m", "sofa_tpu_torch", "report",
+                            "--skip_preprocess", "--no_tiles", "--logdir",
+                            copy, "--plugin", "chip_smoke_boom"], cwd=REPO,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        doc = telemetry.load_manifest(copy)
+        ent = doc["meta"]["passes"]["passes"].get("boom_pass", {})
+        st, _ = self.board_cli("status", "--logdir", copy)
+        log(f"board[plugin]: report rc {r.returncode}, Complete!! "
+            f"{'Complete!!' in r.stdout}; boom_pass {ent.get('status')} "
+            f"({ent.get('origin')}: {ent.get('error')}); status rc "
+            f"{st.returncode}: "
+            + " | ".join(ln.strip() for ln in st.stdout.splitlines()
+                         if "pass" in ln))
+        if r.returncode != 0 or "Complete!!" not in r.stdout \
+                or ent.get("status") != "failed" \
+                or ent.get("origin") != "plugin:chip_smoke_boom" \
+                or validate_manifest(doc) != [] or st.returncode != 1 \
+                or "boom_pass failed" not in st.stdout:
+            raise AssertionError("a raising plugin pass did not end as one "
+                                 f"failed pass: {r.stderr[-2000:]}")
+        shutil.rmtree(copy)
+        r, wall = self.board_cli("passes", "--logdir", logdir)
+        registry.load_builtin_passes()
+        names = [sp.name for sp in registry.registered()]
+        timed = [n for n in names if re.search(
+            rf"^{n}  \[builtin\]  \[last run: ok [\d.]+s\]", r.stdout,
+            re.M)]
+        waves = [ln for ln in r.stdout.splitlines() if ln.startswith("wave ")]
+        log(f"board[passes]: rc {r.returncode} in {wall:.2f} s; "
+            f"{len(timed)} of {len(names)} built-in passes with their last "
+            f"run's time; " + "; ".join(w[:100] for w in waves))
+        if r.returncode != 0 or timed != names:
+            raise AssertionError(f"passes lacks the last run of "
+                                 f"{sorted(set(names) - set(timed))}")
 
     def board_cli(self, *argv):
         """``python -m sofa_tpu_torch <argv>`` with no card visible."""
@@ -1701,9 +1913,7 @@ class Smoke:
         return r, time.perf_counter() - t0
 
     def board_report(self, label, logdir):
-        import re
-
-        r, wall = self.board_cli("report", "--logdir", logdir)
+        r, wall = self.board_cli("report", "--logdir", logdir, "--jobs", "4")
         for line in (r.stdout + r.stderr).splitlines():
             if line.startswith(("[PROGRESS]", "[HINT]", "[WARNING]")):
                 log(f"  | {line}")
@@ -2047,9 +2257,9 @@ class Smoke:
                 f"{want_rc})")
 
     def robust_sticky(self):
-        """stat over the entry forward with procmon killed at 1 s and no
+        """stat over a 3-second command with procmon killed at 1 s and no
         restart budget."""
-        cmd = f"{sys.executable} -m sofa_tpu_torch.entry --steps 3"
+        cmd = f"{sys.executable} -c \"import time; time.sleep(3)\""
         _, logdir, _ = self.run_stat(
             "sticky", cmd, ("--collector_restarts", "0", "--inject_faults",
                             "procmon:die@1s"), healthy=False)
@@ -2121,13 +2331,9 @@ class Smoke:
 
     def robust_cache(self):
         """report over a copy of the last ResNet-50 capture cold, warm and
-        cold with --jobs 1, no card visible, then clean; the same over a
-        copy of the Llama-width capture, for its split by source and
-        stage."""
-        resnet = os.path.join(REPO, "build", "chip_smoke_resnet_r4")
-        llama = os.path.join(REPO, "build", "chip_smoke_profile_llama")
-        return "; ".join(self.cold_warm(label, src) for label, src in
-                         (("llama", llama), ("resnet", resnet)))
+        cold with --jobs 1, no card visible, then clean."""
+        return self.cold_warm("resnet", os.path.join(
+            REPO, "build", "chip_smoke_resnet_r2"))
 
     def cold_warm(self, label, src):
         """``report`` over a cleaned copy of ``src``: cold, warm, cold with
@@ -2674,9 +2880,9 @@ class Smoke:
     # -- the mesh: the NCCL world of one, two gloo ranks on the card --------
     def mesh(self):
         """(1) torchrun with NCCL and one rank runs the transformer's main
-        at the train phase's shape (--data 1 --seq_par 1): its losses must
-        equal the train phase's; then the same command under ``stat``,
-        logging what the capture holds for the gradient all-reduce.
+        at the train phase's shape (--data 1 --seq_par 1) under ``stat``:
+        its losses must equal the train phase's; logs what the capture
+        holds for the gradient all-reduce.
         (2) two gloo ranks sharing the card (--data 2, B 1 each) under
         ``stat``: two rank traces, device ids 0 and 1, both ranks' steps,
         gpu_step_skew.csv, the same loss on both ranks at every step, each
@@ -2691,27 +2897,19 @@ class Smoke:
                f"1 --master_port {free_port()} -m "
                f"sofa_tpu_torch.workloads.transformer --steps {steps} "
                f"--batch 4 {width} --data 1 --seq_par 1")
-        t0 = time.perf_counter()
-        r = subprocess.run(one.split(), cwd=REPO, capture_output=True,
-                           text=True, timeout=600)
-        out = r.stdout + r.stderr
-        for line in out.splitlines():
-            if line.startswith("transformer:"):
-                log(f"  | {line}")
+        out = self.mesh_nccl_capture(one, steps)
         losses = mesh_losses(out)
-        if r.returncode != 0 or 0 not in losses:
-            raise AssertionError(f"the NCCL world of one failed, rc "
-                                 f"{r.returncode}: {out[-3000:]}")
+        if 0 not in losses:
+            raise AssertionError(f"the NCCL world of one printed no losses: "
+                                 f"{out[-3000:]}")
         want = self.train_losses[:len(losses[0])]
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses[0], want))
-        log(f"mesh: NCCL world of one, {time.perf_counter() - t0:.1f} s: "
-            f"losses {losses[0]} against the train phase's {want}: max "
-            f"relative difference {rel:.3e} (limit {MESH_LOSS_REL}; exact: "
-            f"{losses[0] == want})")
+        log(f"mesh: NCCL world of one under stat: losses {losses[0]} against "
+            f"the train phase's {want}: max relative difference {rel:.3e} "
+            f"(limit {MESH_LOSS_REL}; exact: {losses[0] == want})")
         if len(losses[0]) != 2 + steps or rel > MESH_LOSS_REL:
             raise AssertionError("the NCCL world of one does not train as "
                                  "the unsharded step does")
-        self.mesh_nccl_capture(one, steps)
         self.mesh_two_ranks(width, steps)
         r = subprocess.run([sys.executable, "-m",
                             "sofa_tpu_torch.workloads.collectives"],
@@ -2728,7 +2926,7 @@ class Smoke:
         """``stat`` over the NCCL world of one: what the capture holds for
         the gradient all-reduce (record_param_comms rows and their
         arguments, NCCL kernels, copies) and what comm_profile makes of
-        it."""
+        it.  Returns the run's output."""
         import glob
 
         import pandas as pd
@@ -2776,6 +2974,7 @@ class Smoke:
         if not gpu[gpu["copyKind"] == 0]["name"].astype(str).str.contains(
                 "sofa_flash").any():
             raise AssertionError("the NCCL capture lacks the flash kernels")
+        return out
 
     def mesh_two_ranks(self, width, steps):
         """Two gloo ranks sharing the card under ``stat`` (--data 2)."""
@@ -2879,17 +3078,18 @@ PHASES = ("device", "kernel", "model", "train", "ring", "profile", "resnet",
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 
 
-def resnet_pass(logdir: str) -> None:
+def resnet_pass(logdir: str, level: int = 2) -> None:
     """One process of the ``resnet`` phase: ResNet-50 at batch 32, 224 x
     224, warmed up (the first step and cuDNN's search), then 20 train
-    steps bare, 20 under ``api.profile(logdir)`` with a sofa_step_N range
-    each (20 bare again when ``logdir`` is "-"), and 20 bare after them;
-    prints the seconds of each as one JSON line."""
+    steps bare, 20 under ``api.profile(logdir)`` at trace detail ``level``
+    with a sofa_step_N range each, and 20 bare after them; prints the
+    seconds of each as one JSON line."""
     import contextlib
 
     import torch
 
     from sofa_tpu_torch import api
+    from sofa_tpu_torch.config import SofaConfig
     from sofa_tpu_torch.workloads import resnet
     from sofa_tpu_torch.workloads.common import fence, step_annotation
 
@@ -2915,11 +3115,8 @@ def resnet_pass(logdir: str) -> None:
         return time.perf_counter() - t0, loss.item()
 
     out["bare"], _ = timed(False)
-    if logdir == "-":
-        out["second"], out["loss"] = timed(False)
-    else:
-        with api.profile(logdir):
-            out["profiled"], out["loss"] = timed(True)
+    with api.profile(logdir, cfg=SofaConfig(kineto_host_tracer_level=level)):
+        out["profiled"], out["loss"] = timed(True)
     out["after"], _ = timed(False)
     print("RESNET_PASS " + json.dumps(out), flush=True)
 
@@ -2931,7 +3128,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--resnet-pass"]:
-        resnet_pass(sys.argv[2])
+        resnet_pass(sys.argv[2], *map(int, sys.argv[3:4]))
         return 0
     adopted = adopt_orphans()
     smoke = Smoke()

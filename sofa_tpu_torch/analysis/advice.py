@@ -23,6 +23,7 @@ from typing import List, Optional, Tuple
 
 from sofa_tpu_torch.analysis.comm import load_topology
 from sofa_tpu_torch.analysis.features import Features
+from sofa_tpu_torch.analysis.registry import analysis_pass
 from sofa_tpu_torch.printing import print_hint
 from sofa_tpu_torch.trace import atomic_write
 
@@ -68,6 +69,11 @@ def link_ring(topo: dict) -> Tuple[List[int], bool]:
     return [d["id"] for d in order], linked
 
 
+@analysis_pass(
+    name="mesh_advice", order=240,
+    provides_features=("mesh_advice",),
+    provides_artifacts=("mesh_advice.txt",),
+)
 def mesh_advice(frames, cfg, features: Features) -> None:
     """``sofa_hints/mesh_advice.txt``: the device count, a ring order of
     the ranks, and (data, seq) mesh shapes for ``make_mesh``, most

@@ -55,6 +55,7 @@ import numpy as np
 import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
+from sofa_tpu_torch.analysis.registry import analysis_pass
 from sofa_tpu_torch.printing import print_title
 from sofa_tpu_torch.trace import CK_NAMES, CopyKind
 
@@ -124,6 +125,17 @@ def _wire_bytes(sel: pd.DataFrame, kind: int, n_devices: int) -> float:
     return total
 
 
+@analysis_pass(
+    name="comm_profile", order=210,
+    reads_frames=("gputrace",),
+    reads_columns=("timestamp", "duration", "deviceId", "category",
+                   "copyKind", "payload", "groups"),
+    provides_features=("comm_*_time", "comm_*_bytes", "comm_*_link_bytes",
+                       "comm_link_bytes", "comm_link_bandwidth", "comm_time",
+                       "comm_ratio", "link_est_bytes"),
+    provides_artifacts=("comm.csv", "link_matrix.csv"),
+    after=("spotlight",),
+)
 def comm_profile(frames, cfg, features: Features) -> None:
     """Data movement by kind (``comm.csv``): count, time, bytes and rate of
     the copies (H2D, D2H, D2D, P2P) and the collectives, with each
@@ -272,6 +284,14 @@ def link_traffic_matrix(coll: pd.DataFrame, topo: Optional[dict]
     return pd.DataFrame(mat, index=labels, columns=labels)
 
 
+@analysis_pass(
+    name="comm_scatter", order=220,
+    reads_frames=("gputrace", "nettrace"),
+    reads_columns=("timestamp", "duration", "deviceId", "category",
+                   "copyKind", "payload", "pkt_src", "pkt_dst"),
+    provides_artifacts=("commtrace.csv",),
+    after=("spotlight",),
+)
 def comm_scatter(frames, cfg, features: Features) -> None:
     """Time-resolved communication for the board's scatter
     (``commtrace.csv``): the collectives and copies (cls ``link``: peer
@@ -406,6 +426,15 @@ def _busy_bins(ops: pd.DataFrame, edges: np.ndarray) -> np.ndarray:
     return busy
 
 
+@analysis_pass(
+    name="net_profile", order=100,
+    reads_frames=("nettrace", "gputrace"),
+    reads_columns=("timestamp", "duration", "category", "payload",
+                   "pkt_src", "pkt_dst"),
+    provides_features=("net_packets", "net_total_bytes", "net_total_time",
+                       "dcn_top_peer_corr", "dcn_top_peer"),
+    provides_artifacts=("netrank.csv",),
+)
 def net_profile(frames, cfg, features: Features) -> None:
     """The packet profile: packets, bytes and time, and ``netrank.csv``,
     the (src, dst) flows by bytes with, for the top 8, how their bytes
@@ -470,6 +499,13 @@ def net_profile(frames, cfg, features: Features) -> None:
     pairs[out_cols].to_csv(cfg.path("netrank.csv"), index=False)
 
 
+@analysis_pass(
+    name="netbandwidth_profile", order=90,
+    reads_frames=("netbandwidth",),
+    reads_columns=("name", "event", "payload"),
+    provides_features=("net_*_q1", "net_*_median", "net_*_q3",
+                       "net_*_total_bytes"),
+)
 def netbandwidth_profile(frames, cfg, features: Features) -> None:
     """The NIC byte counters: quartiles of the tx and rx rates and the
     bytes each direction moved."""

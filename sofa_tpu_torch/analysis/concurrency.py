@@ -5,7 +5,8 @@ Each 1/sys_mon_rate window of the run (or of the region of interest) is
 classed by its dominant activity: ``gpu`` (the kernel utilization,
 ``gpuutil``'s ``kernel_util``, where the JAX package reads ``tpuutil``'s
 ``tc_util``), ``usr``, ``sys`` or ``iow`` (mpstat's aggregate row), or
-``idl`` when even the dominant one is below ``IDLE_THRESHOLD``.
+``idl`` when even the dominant one is below ``cfg.is_idle_threshold``
+(``--is_idle_threshold``, a share of 1; default 0.01).
 Features: ``elapsed_<class>_ratio`` (``elapsed_gpu_ratio`` where the JAX
 package writes ``elapsed_tpu_ratio``), ``breakdown_windows``,
 ``breakdown_elapsed``, and the Pearson correlation of the GPU's activity
@@ -21,12 +22,10 @@ import numpy as np
 import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
+from sofa_tpu_torch.analysis.registry import analysis_pass
 from sofa_tpu_torch.printing import print_title
 
 CLASSES = ("gpu", "usr", "sys", "iow", "idl")
-# A window whose dominant activity is below this share (of 1) is idle: the
-# JAX package's default ``is_idle_threshold``.
-IDLE_THRESHOLD = 0.01
 
 
 def _window_series(df, name_filter, t0, t1, window, value_col="event"):
@@ -50,6 +49,15 @@ def _window_series(df, name_filter, t0, t1, window, value_col="event"):
     return edges, out
 
 
+@analysis_pass(
+    name="concurrency_breakdown", order=230,
+    reads_frames=("mpstat", "gpuutil", "netbandwidth"),
+    reads_columns=("timestamp", "deviceId", "name", "event"),
+    provides_features=("elapsed_*_ratio", "breakdown_windows",
+                       "breakdown_elapsed", "corr_gpu_*"),
+    provides_artifacts=("performance.csv",),
+    after=("spotlight",),
+)
 def concurrency_breakdown(frames, cfg, features: Features) -> None:
     mpstat = frames.get("mpstat")
     if mpstat is None or mpstat.empty:
@@ -85,7 +93,7 @@ def concurrency_breakdown(frames, cfg, features: Features) -> None:
         tx = np.zeros(len(edges) - 1)
         rx = np.zeros(len(edges) - 1)
 
-    idle_floor = IDLE_THRESHOLD * 100.0
+    idle_floor = cfg.is_idle_threshold * 100.0
     classes = []
     for i in range(len(edges) - 1):
         candidates = {"gpu": gpu[i], "usr": usr[i], "sys": sys_[i],

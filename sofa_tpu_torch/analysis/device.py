@@ -21,7 +21,8 @@ import numpy as np
 import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
-from sofa_tpu_torch.analysis.sol import device_peaks
+from sofa_tpu_torch.analysis.registry import analysis_pass
+from sofa_tpu_torch.analysis.sol import device_peaks, no_costs
 from sofa_tpu_torch.printing import print_hint, print_title, print_warning
 from sofa_tpu_torch.trace import (CopyKind, merged_intervals, narrow,
                                   roi_bounds, roi_clip)
@@ -94,6 +95,12 @@ def _hysteresis_roi(ev, ts, dur, high: float, low: float, up_count: int,
     return begin, float(ts[j] - dur[j])
 
 
+@analysis_pass(
+    name="spotlight", order=10,
+    reads_frames=("gpuutil",),
+    reads_columns=("timestamp", "duration", "name", "event"),
+    provides_features=("roi_begin", "roi_end"),
+)
 def spotlight_roi(frames, cfg, features: Features) -> None:
     """Set cfg.roi_begin/roi_end from the kernel utilization: >= 50 % for
     3 windows begins the region, < 10 % ends it.  A manual
@@ -131,10 +138,20 @@ def spotlight_roi(frames, cfg, features: Features) -> None:
         print_hint(f"spotlight ROI: {begin:.3f}s .. {end:.3f}s")
 
 
+@analysis_pass(
+    name="op_tree_profile", order=120,
+    reads_frames=("gputrace",),
+    reads_columns=("timestamp", "duration", "copyKind", "op_path", "flops",
+                   "bytes_accessed"),
+    provides_features=("op_tree_paths",),
+    provides_artifacts=("gpu_op_tree.csv",),
+    after=("spotlight",),
+)
 def op_tree_profile(frames, cfg, features: Features) -> None:
     """Kernel time credited to every prefix of its ``op_path`` (the host
     ranges open at its launch): ``gpu_op_tree.csv`` (path, depth, time,
-    count, flops, bytes_accessed, time_pct) and ``op_tree_paths``."""
+    count, flops, bytes_accessed, time_pct; flops and bytes absent for a
+    prefix over a kernel whose are) and ``op_tree_paths``."""
     df = frames.get("gputrace")
     if df is None or df.empty or "op_path" not in df.columns:
         return
@@ -145,6 +162,11 @@ def op_tree_profile(frames, cfg, features: Features) -> None:
     per_path = kern.groupby("op_path", sort=False).agg(
         time=("duration", "sum"), count=("duration", "count"),
         flops=("flops", "sum"), nbytes=("bytes_accessed", "sum"))
+    for col, key in (("flops", "flops"), ("bytes_accessed", "nbytes")):
+        if kern[col].isna().any():      # absent under every prefix of it
+            absent = kern[col].isna().groupby(kern["op_path"],
+                                              sort=False).any()
+            per_path.loc[absent[absent].index, key] = float("nan")
     agg: dict = {}
     for path, dur, cnt, flops, nbytes in per_path.itertuples(name=None):
         parts = path.split("/")
@@ -172,6 +194,13 @@ def op_tree_profile(frames, cfg, features: Features) -> None:
               .to_string(index=False))
 
 
+@analysis_pass(
+    name="overlap_profile", order=130,
+    reads_frames=("gputrace",),
+    reads_columns=("timestamp", "duration", "deviceId", "category"),
+    provides_features=("gpu*_async_time", "gpu*_async_hidden_pct"),
+    after=("spotlight",),
+)
 def overlap_profile(frames, cfg, features: Features) -> None:
     """How much copy time hides under kernels, per device:
     ``gpu<N>_async_time`` (the copies' total time) and
@@ -198,6 +227,15 @@ def overlap_profile(frames, cfg, features: Features) -> None:
                      100.0 * min(hidden / total, 1.0))
 
 
+@analysis_pass(
+    name="input_pipeline_profile", order=150,
+    reads_frames=("gpusteps", "gputrace"),
+    reads_columns=("timestamp", "duration", "deviceId", "category",
+                   "copyKind", "event"),
+    provides_features=("gpu*_step_gap_pct", "gpu*_step_h2d_pct"),
+    provides_artifacts=("gpu_input_pipeline.csv",),
+    after=("spotlight",),
+)
 def input_pipeline_profile(frames, cfg, features: Features) -> None:
     """Device idle time inside the steps (``gpusteps``): per device and
     step, ``busy_pct`` (share covered by kernels), ``gap_ms`` (no kernel
@@ -256,6 +294,17 @@ def input_pipeline_profile(frames, cfg, features: Features) -> None:
         features.add(f"gpu{device_id}_step_h2d_pct", float(h2d_pct))
 
 
+@analysis_pass(
+    name="roofline_profile", order=160,
+    reads_frames=("gputrace",),
+    reads_columns=("timestamp", "duration", "deviceId", "category",
+                   "copyKind", "name", "flops", "bytes_accessed"),
+    provides_features=("gpu*_roofline_efficiency", "gpu*_compute_bound_time",
+                       "gpu*_memory_bound_time",
+                       "gpu*_arithmetic_intensity"),
+    provides_artifacts=("roofline.csv",),
+    after=("spotlight",),
+)
 def roofline_profile(frames, cfg, features: Features) -> None:
     """Per kernel name, the speed-of-light time max(flops / peak FLOP/s,
     bytes / peak bandwidth) against the time taken: ``roofline.csv``
@@ -272,8 +321,10 @@ def roofline_profile(frames, cfg, features: Features) -> None:
     if not meta:
         return
     df = roi_clip(df, cfg)
-    rows = df[(df["copyKind"] == KERNEL) & (df["duration"] > 0)
-              & ((df["flops"] > 0) | (df["bytes_accessed"] > 0))]
+    kern = df[(df["copyKind"] == KERNEL) & (df["duration"] > 0)]
+    if no_costs(kern, "roofline_profile"):
+        return
+    rows = kern[(kern["flops"] > 0) | (kern["bytes_accessed"] > 0)]
     if rows.empty:
         return
     out = []
@@ -319,6 +370,12 @@ def roofline_profile(frames, cfg, features: Features) -> None:
             index=False))
 
 
+@analysis_pass(
+    name="gpuutil_profile", order=180,
+    reads_frames=("gpuutil",),
+    reads_columns=("name", "event"),
+    provides_features=("*_mean", "*_max", "*_median"),
+)
 def gpuutil_profile(frames, cfg, features: Features) -> None:
     """Mean, max and median of each ``gpuutil`` series."""
     df = frames.get("gpuutil")
@@ -334,6 +391,13 @@ def gpuutil_profile(frames, cfg, features: Features) -> None:
         features.add(f"{metric}_median", float(q.loc[0.5]))
 
 
+@analysis_pass(
+    name="step_skew_profile", order=140,
+    reads_frames=("gpusteps",),
+    reads_columns=("timestamp", "duration", "deviceId", "event"),
+    provides_features=("step_time_mean", "step_skew_mean", "step_skew_max"),
+    provides_artifacts=("gpu_step_skew.csv",),
+)
 def step_skew_profile(frames, cfg, features: Features) -> None:
     """Straggler skew across devices from the per-device step spans: step
     k should begin on every device at once, and the spread of its begins

@@ -28,6 +28,12 @@ class Features:
                 return v
         return None
 
+    def merge_from(self, other: "Features") -> None:
+        """Append another accumulator's rows (the registry merges each
+        pass's buffer in canonical order)."""
+        self._rows.extend(other._rows)
+        self._info.extend(other._info)
+
     def by_regex(self, pattern: str) -> List[Tuple[str, float]]:
         """The latest value of every feature whose whole name matches, by
         name.  Per-device rules scan ``gpu<N>_...`` with this: device 0

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from sofa_tpu_torch.analysis import device
 from sofa_tpu_torch.analysis.features import Features
+from sofa_tpu_torch.analysis.registry import analysis_pass
 from sofa_tpu_torch.printing import print_title, print_warning
 from sofa_tpu_torch.trace import CopyKind, merged_intervals, roi_clip
 
@@ -54,10 +55,26 @@ def _slug(name: str) -> str:
     return name.strip().lower().replace(" ", "_").replace("-", "_")
 
 
+@analysis_pass(
+    name="gpu_profile", order=110,
+    reads_frames=("gputrace", "gpusteps", "hosttrace"),
+    reads_columns=("timestamp", "duration", "deviceId", "copyKind", "name",
+                   "hlo_category", "module", "phase", "flops",
+                   "bytes_accessed"),
+    provides_features=("gpu_devices", "gpu_kernels", "gpu*_kernel_time",
+                       "gpu*_memcpy_time", "gpu*_busy_pct", "gpu_busy_pct",
+                       "gpu_step_busy_pct", "gpu_total_flops",
+                       "gpu_total_bytes_accessed", "gpu_fw_time",
+                       "gpu_bw_time", "gpu_bw_fw_ratio", "gpu_op_time_*"),
+    provides_artifacts=("gpu_top_kernels.csv", "gpu_categories.csv",
+                        "gpu_modules_summary.csv"),
+    after=("spotlight",),
+)
 def gpu_profile(frames, cfg, features: Features) -> None:
     """Kernel and copy time per device, the busy share of the traced window
     and of the annotated steps, and what ``tpu_profile`` gives: the flops
-    and bytes of the kernels, the forward and backward time, the time per
+    and bytes of the kernels (absent when a kernel's are), the forward and
+    backward time, the time per
     op category (``gpu_op_time_<op>``, ``gpu_categories.csv``), per
     annotated range (``gpu_modules_summary.csv``) and the top kernels with
     their flops and bytes (``gpu_top_kernels.csv``)."""
@@ -99,9 +116,13 @@ def gpu_profile(frames, cfg, features: Features) -> None:
         if in_steps > 0:
             features.add("gpu_step_busy_pct",
                          100.0 * _overlap_s(dev_spans, step_spans) / in_steps)
-    features.add("gpu_total_flops", float(kern["flops"].sum()))
-    features.add("gpu_total_bytes_accessed",
-                 float(kern["bytes_accessed"].sum()))
+    # absent (NaN) costs leave the totals absent too: a trace without
+    # operand shapes (--kineto_host_tracer_level below 2)
+    if not kern["flops"].isna().any():
+        features.add("gpu_total_flops", float(kern["flops"].sum()))
+    if not kern["bytes_accessed"].isna().any():
+        features.add("gpu_total_bytes_accessed",
+                     float(kern["bytes_accessed"].sum()))
     fw = float(kern.loc[kern["phase"] == "fw", "duration"].sum())
     bw = float(kern.loc[kern["phase"] == "bw", "duration"].sum())
     if fw > 0 or bw > 0:
@@ -114,6 +135,10 @@ def gpu_profile(frames, cfg, features: Features) -> None:
                 mean_time=("duration", "mean"), flops=("flops", "sum"),
                 bytes_accessed=("bytes_accessed", "sum"))
            .sort_values("total_time", ascending=False))
+    for col in ("flops", "bytes_accessed"):
+        if kern[col].isna().any():      # a kernel without its cost: absent
+            absent = kern[col].isna().groupby(kern["name"]).any()
+            top.loc[absent[absent].index, col] = float("nan")
     top.to_csv(cfg.path("gpu_top_kernels.csv"))
     if cfg.verbose and not top.empty:
         print_title("Top-10 CUDA kernels by total time")
@@ -130,6 +155,15 @@ def gpu_profile(frames, cfg, features: Features) -> None:
             cfg.path("gpu_modules_summary.csv"))
 
 
+@analysis_pass(
+    name="serving_profile", order=170,
+    reads_frames=("gputrace", "hosttrace"),
+    reads_columns=("timestamp", "duration", "category", "module", "name",
+                   "flops", "bytes_accessed"),
+    provides_features=("serving_prefill_time", "serving_decode_time",
+                       "serving_decode_calls", "serving_ttft"),
+    after=("spotlight",),
+)
 def serving_profile(frames, cfg, features: Features) -> None:
     """Device time of the prefill and decode phases, decode dispatches,
     and time to first token: from the first prefill dispatch on the host
@@ -160,6 +194,15 @@ def serving_profile(frames, cfg, features: Features) -> None:
         features.add("serving_ttft", end - start)
 
 
+@analysis_pass(
+    name="gpumon_profile", order=190,
+    reads_frames=("gpumon",),
+    reads_columns=("timestamp", "name", "deviceId", "event", "payload"),
+    provides_features=("gpumon_samples", "gpumon_span",
+                       "gpu*_hbm_used_mean_gb", "gpu*_hbm_used_max_gb",
+                       "gpu*_hbm_occupancy_mean", "gpu*_hbm_occupancy_max",
+                       "gpu*_hbm_peak_gb"),
+)
 def gpumon_profile(frames, cfg, features: Features) -> None:
     """Live memory occupancy and liveness features from the in-process
     sampler: present even when the Kineto trace was off."""
@@ -192,6 +235,13 @@ def gpumon_profile(frames, cfg, features: Features) -> None:
             features.add(f"gpu{device_id}_hbm_peak_gb", peak / 1e9)
 
 
+@analysis_pass(
+    name="memprof_profile", order=200,
+    provides_features=("memprof_held_gb", "memprof_buffers",
+                       "memprof_sites", "memprof_devices",
+                       "memprof_trigger", "memprof_top_site"),
+    provides_artifacts=("gpu_memprof.csv",),
+)
 def memprof_profile(frames, cfg, features: Features) -> None:
     """Which allocation sites held the occupancy peak: the snapshot
     collectors/gpumon.py took (ingest/memprof.py), as the top-site table
@@ -221,14 +271,3 @@ def memprof_profile(frames, cfg, features: Features) -> None:
     if cfg.verbose:
         print_title("Top GPU memory allocation sites")
         print(sites.head(10).to_string(index=False))
-
-
-#: The GPU passes analyze runs after the host and network ones, in the JAX
-#: package's order (the region of interest, ``device.spotlight_roi``, runs
-#: first of all, the concurrency breakdown and ``sol.sol_roofline`` after
-#: these: analyze.PASSES).
-PASSES = [gpu_profile, device.op_tree_profile,
-          device.overlap_profile, device.step_skew_profile,
-          device.input_pipeline_profile,
-          device.roofline_profile, serving_profile, device.gpuutil_profile,
-          gpumon_profile, memprof_profile]

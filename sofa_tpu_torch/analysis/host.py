@@ -1,19 +1,27 @@
 """Host-side analysis passes: CPU samples, mpstat, vmstat, disk, block IO,
 strace and Python stacks (the JAX package's analysis/host.py;
 ``mpstat_profile`` reports a frozen /proc/stat as not measured).
-``cpu_profile`` clips the CPU samples to the region of interest, so
-analyze runs it after ``device.spotlight_roi``, as the JAX registry
-orders it (``after=("spotlight",)``)."""
+``cpu_profile`` clips the CPU samples to the region of interest, so it
+runs ``after=("spotlight",)``, as the JAX registry declares it."""
 
 from __future__ import annotations
 
 import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
+from sofa_tpu_torch.analysis.registry import analysis_pass
 from sofa_tpu_torch.printing import print_title, print_warning
 from sofa_tpu_torch.trace import roi_clip
 
 
+@analysis_pass(
+    name="cpu_profile", order=20,
+    reads_frames=("cputrace",),
+    reads_columns=("duration", "deviceId", "name"),
+    provides_features=("cpu_samples", "cpu_core*_exec_time"),
+    provides_artifacts=("cpu_top.csv",),
+    after=("spotlight",),
+)
 def cpu_profile(frames, cfg, features: Features) -> None:
     df = frames.get("cputrace")
     if df is None or df.empty:
@@ -35,6 +43,13 @@ def cpu_profile(frames, cfg, features: Features) -> None:
     top.to_csv(cfg.path("cpu_top.csv"))
 
 
+@analysis_pass(
+    name="mpstat_profile", order=30,
+    reads_frames=("mpstat",),
+    reads_columns=("duration", "deviceId", "name", "event"),
+    provides_features=("num_cores", "mpstat_*_pct", "mpstat_*_time",
+                       "cpu_util"),
+)
 def mpstat_profile(frames, cfg, features: Features) -> None:
     """Cores, and the mean share of each jiffy counter over the run with
     ``cpu_util`` (user + system).
@@ -71,6 +86,12 @@ def mpstat_profile(frames, cfg, features: Features) -> None:
     features.add("cpu_util", (usr + sys_) / 100.0)
 
 
+@analysis_pass(
+    name="vmstat_profile", order=40,
+    reads_frames=("vmstat",),
+    reads_columns=("name", "event"),
+    provides_features=("vmstat_mean_*",),
+)
 def vmstat_profile(frames, cfg, features: Features) -> None:
     df = frames.get("vmstat")
     if df is None or df.empty:
@@ -81,6 +102,14 @@ def vmstat_profile(frames, cfg, features: Features) -> None:
             features.add(f"vmstat_mean_{metric}", float(rows["event"].mean()))
 
 
+@analysis_pass(
+    name="diskstat_profile", order=50,
+    reads_frames=("diskstat",),
+    reads_columns=("timestamp", "deviceId", "name", "event", "payload"),
+    provides_features=("disk_*_r_bw_mean", "disk_*_w_bw_mean",
+                       "disk_total_bytes"),
+    provides_artifacts=("disk_summary.csv",),
+)
 def diskstat_profile(frames, cfg, features: Features) -> None:
     df = frames.get("diskstat")
     if df is None or df.empty:
@@ -101,6 +130,12 @@ def diskstat_profile(frames, cfg, features: Features) -> None:
     features.add("disk_total_bytes", float(total_bytes))
 
 
+@analysis_pass(
+    name="blktrace_latency_profile", order=60,
+    reads_frames=("blktrace",),
+    reads_columns=("timestamp", "duration", "name", "payload"),
+    provides_features=("blktrace_*",),
+)
 def blktrace_latency_profile(frames, cfg, features: Features) -> None:
     """Per-IO dispatch-to-complete latency quartiles and totals."""
     df = frames.get("blktrace")
@@ -125,6 +160,13 @@ def blktrace_latency_profile(frames, cfg, features: Features) -> None:
         features.add("blktrace_bandwidth", float(df["payload"].sum()) / span)
 
 
+@analysis_pass(
+    name="strace_profile", order=70,
+    reads_frames=("strace",),
+    reads_columns=("duration", "name"),
+    provides_features=("syscall_total_time", "syscall_count"),
+    provides_artifacts=("strace_top.csv",),
+)
 def strace_profile(frames, cfg, features: Features) -> None:
     df = frames.get("strace")
     if df is None or df.empty:
@@ -140,6 +182,13 @@ def strace_profile(frames, cfg, features: Features) -> None:
     top.head(20).to_csv(cfg.path("strace_top.csv"))
 
 
+@analysis_pass(
+    name="pystacks_profile", order=80,
+    reads_frames=("pystacks",),
+    reads_columns=("timestamp", "name"),
+    provides_features=("py_samples",),
+    provides_artifacts=("pystacks_top.csv",),
+)
 def pystacks_profile(frames, cfg, features: Features) -> None:
     df = frames.get("pystacks")
     if df is None or df.empty:
@@ -147,8 +196,3 @@ def pystacks_profile(frames, cfg, features: Features) -> None:
     features.add("py_samples", len(df))
     top = df.groupby("name")["timestamp"].count().sort_values(ascending=False)
     top.head(20).to_csv(cfg.path("pystacks_top.csv"))
-
-
-#: The host passes analyze runs, in order.
-PASSES = [cpu_profile, mpstat_profile, vmstat_profile, diskstat_profile,
-          blktrace_latency_profile, strace_profile, pystacks_profile]

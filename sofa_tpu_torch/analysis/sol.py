@@ -22,6 +22,7 @@ from typing import Dict
 import pandas as pd
 
 from sofa_tpu_torch.analysis.features import Features
+from sofa_tpu_torch.analysis.registry import analysis_pass
 from sofa_tpu_torch.printing import print_warning
 from sofa_tpu_torch.trace import CopyKind, narrow, roi_clip
 
@@ -56,6 +57,29 @@ def device_peaks(cfg) -> Dict[str, Dict[str, float]]:
     return out
 
 
+def no_costs(kern, what: str) -> bool:
+    """Whether some kernel's flops or bytes are absent (NaN: the trace
+    recorded no operand shapes); warns once for the pass ``what``, which
+    then writes nothing rather than a roofline of zeros."""
+    n = int((kern["flops"].isna() | kern["bytes_accessed"].isna()).sum())
+    if n:
+        print_warning(f"{what}: {n} of {len(kern)} kernels carry no flops "
+                      "or bytes (the trace recorded no operand shapes: "
+                      "--kineto_host_tracer_level below 2); no roofline")
+    return n > 0
+
+
+@analysis_pass(
+    name="sol_roofline", order=270,
+    reads_frames=("gputrace",),
+    reads_columns=("timestamp", "duration", "deviceId", "category",
+                   "copyKind", "device_kind", "hlo_category", "flops",
+                   "bytes_accessed"),
+    provides_features=("gpu*_sol_peak_tflops", "gpu*_sol_distance",
+                       "sol_peak_source"),
+    provides_artifacts=("sol_roofline.csv",),
+    after=("spotlight",),
+)
 def sol_roofline(frames, cfg, features: Features) -> None:
     """Distance from speed of light, per device and op (``hlo_category``):
     for the kernels with flops, the attainable time is the larger of
@@ -69,8 +93,10 @@ def sol_roofline(frames, cfg, features: Features) -> None:
     df = narrow(df, ["timestamp", "duration", "deviceId", "copyKind",
                      "hlo_category", "flops", "bytes_accessed"])
     df = roi_clip(df, cfg)
-    rows = df[(df["copyKind"] == int(CopyKind.KERNEL))
-              & (df["duration"] > 0) & (df["flops"] > 0)]
+    kern = df[(df["copyKind"] == int(CopyKind.KERNEL)) & (df["duration"] > 0)]
+    if no_costs(kern, "sol_roofline"):
+        return
+    rows = kern[kern["flops"] > 0]
     if rows.empty:
         return
     peaks = device_peaks(cfg)

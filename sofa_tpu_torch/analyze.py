@@ -1,22 +1,21 @@
 """analyze: run the analysis passes over the preprocessed frames.
 
-Passes run as a plain ordered list in the JAX registry's order (its
-``order=`` positions): the region of interest first
-(``device.spotlight_roi``), then the host passes (``analysis.host.PASSES``,
-whose CPU samples it clips), the host network (``comm.netbandwidth_profile``,
-``comm.net_profile``), the GPU passes (``analysis.gpu.PASSES``, the step
-skew across ranks among them), the device communication
-(``comm.comm_profile``, ``comm.comm_scatter``), the concurrency breakdown
-(``concurrency.concurrency_breakdown``), the mesh advice
-(``advice.mesh_advice``) and the speed-of-light roofline
-(``sol.sol_roofline``).  Then, in the JAX package's
-order: the tile pyramid is brought up to date (nothing to do after a
-``report``; built for an older logdir), the feature vector is printed and
-saved as ``features.csv``, the rule-based hints are printed and written to
-``hints.txt``, the board's pages are staged beside the data, and the run
-ends with the ``Complete!!`` line.  The run lands in the run manifest
-(``telemetry.py``; the JAX package's ``analyze.py:192-212``), and the
-manifest's health warnings ride the hints as ``[self]`` lines.
+Every pass runs through the registry (``analysis/registry.py``): the
+built-ins declared in ``analysis/device.py``, ``host.py``, ``comm.py``,
+``gpu.py``, ``concurrency.py``, ``advice.py`` and ``sol.py`` at the JAX
+registry's positions, and any plugin's (``--plugin``).  They run in waves
+on the ``--jobs`` pool, a pass that raises is a warning and a ``failed``
+entry, and the run's ledger lands in the manifest as ``meta.passes``.
+Then, in the JAX package's order: the tile pyramid is brought up to date
+(nothing to do after a ``report``; built for an older logdir), the
+feature vector is printed and saved as ``features.csv``, the remote advice
+service is asked when one is configured (``--hint_server`` or
+``SOFA_HINT_SERVER``; an unreachable one is a warning), the rule-based
+hints are printed and written to ``hints.txt``, the board's pages are
+staged beside the data, and the run ends with the ``Complete!!`` line.
+The run lands in the run manifest (``telemetry.py``; the JAX package's
+``analyze.py:192-212``), and the manifest's health warnings ride the hints
+as ``[self]`` lines.
 
 ``cluster_analyze`` (``report --cluster_hosts``) analyzes each host's
 ``<logdir>-<host>/`` and writes one merged, clock-aligned timeline and
@@ -34,13 +33,12 @@ from typing import Dict, Iterator, Optional, Tuple
 import pandas as pd
 
 from sofa_tpu_torch import pool, telemetry
-from sofa_tpu_torch.analysis import (advice, comm, concurrency, device, gpu,
-                                     host, sol)
+from sofa_tpu_torch.analysis import advice, comm, registry
 from sofa_tpu_torch.analysis.features import Features
 from sofa_tpu_torch.config import SofaConfig
 from sofa_tpu_torch.preprocess import (build_series, load_frames, read_misc,
                                        read_time_base)
-from sofa_tpu_torch.printing import print_progress, print_warning
+from sofa_tpu_torch.printing import print_hint, print_progress, print_warning
 from sofa_tpu_torch.trace import derived_write_guard, reap_stale_sentinel
 
 BOARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "board")
@@ -56,15 +54,6 @@ def stage_board(cfg: SofaConfig) -> None:
     os.makedirs(cfg.logdir, exist_ok=True)
     for name in board_pages():
         shutil.copy2(os.path.join(BOARD_DIR, name), cfg.path(name))
-
-
-#: Every pass analyze runs, in order (the JAX registry's positions: 10,
-#: 20-80, 90, 100, 110-200 with the step skew at 140, 210, 220, 230, 240,
-#: 270).
-PASSES = [device.spotlight_roi, *host.PASSES, comm.netbandwidth_profile,
-          comm.net_profile, *gpu.PASSES, comm.comm_profile,
-          comm.comm_scatter, concurrency.concurrency_breakdown,
-          advice.mesh_advice, sol.sol_roofline]
 
 
 def sofa_analyze(cfg: SofaConfig,
@@ -89,9 +78,13 @@ def _analyze_body(cfg: SofaConfig, frames, tel) -> Features:
     misc = read_misc(cfg)
     features = Features()
     features.add("elapsed_time", float(misc.get("elapsed_time", 0) or 0))
+    registry.load_builtin_passes()
     with tel.span("passes", cat="stage"):
-        for analysis_pass in PASSES:
-            analysis_pass(frames, cfg, features)
+        ledger, series = registry.run_passes(frames, cfg, features, tel=tel)
+    tel.set_meta(passes=ledger)
+    if series:
+        print_warning(f"analyze: {len(series)} board series from passes are "
+                      "not merged into report.js")
     # without the mpstat sampler (api.profile()), the cores record wrote
     if not features.get("num_cores") and misc.get("cores"):
         features.add("num_cores", int(misc["cores"]))
@@ -106,8 +99,15 @@ def _analyze_body(cfg: SofaConfig, frames, tel) -> Features:
                           "serves the overview only")
     print(features.render())
     features.save(cfg.path("features.csv"))
-    advice.hint_report(features, cfg)
-    stage_board(cfg)
+    from sofa_tpu_torch.analysis.hint_service import fetch_hints
+
+    with tel.span("hint_service", cat="stage"):
+        for hint in fetch_hints(cfg, features):
+            print_hint(f"[remote] {hint}")
+    with tel.span("hints", cat="stage"):
+        advice.hint_report(features, cfg)
+    with tel.span("stage_board", cat="stage"):
+        stage_board(cfg)
     print("Complete!!")
     return features
 
@@ -185,7 +185,9 @@ def cluster_analyze(cfg: SofaConfig,
         frames = (preloaded[hostname]
                   if preloaded and hostname in preloaded
                   else load_frames(host_cfg))
-        features = sofa_analyze(host_cfg, frames)
+        # a pass one host's analyze registers stays that host's
+        with registry.scoped():
+            features = sofa_analyze(host_cfg, frames)
         return (hostname, frames, features, read_time_base(host_cfg),
                 comm.dcn_step_correlation(frames))
 

@@ -15,8 +15,11 @@ blktrace, the Python stack sampler): the time base, the /proc sampler (the
 native ``sysmon`` daemon, a child process outside the measurement; a
 thread only where no C++ compiler can build it), the GPU memory sampler
 with its allocation-site snapshots, and the Kineto trace, through the same
-functions the ``record`` injection runs.  A logdir
-holds one run: the previous run's files are dropped first.
+functions the ``record`` injection runs, at the trace detail and window of
+``cfg`` (``kineto_host_tracer_level``, ``kineto_python_tracer``,
+``kineto_delay_s``, ``kineto_duration_s``).  ``misc.txt``'s elapsed_time
+is taken after the stops, as the JAX package takes it.  A logdir holds one
+run: the previous run's files are dropped first.
 """
 
 from __future__ import annotations
@@ -63,13 +66,12 @@ def profile(logdir: str = "sofalog/", cfg: Optional[SofaConfig] = None):
         sampler = gpumon.start_sampler(cfg.gpu_mon_rate,
                                        cfg.path("gpumon.txt"), stop,
                                        memprof_path=memprof_path)
-    trace = kineto.start_trace(torch, cfg.logdir) if cfg.enable_kineto \
-        else None
+    trace = (kineto.start_trace(torch, cfg.logdir, kineto.trace_opts(cfg))
+             if cfg.enable_kineto else None)
     start = time.time()
     try:
         yield cfg
     finally:
-        elapsed = time.time() - start
         if trace is not None:
             kineto.stop_trace(torch, trace)
         else:
@@ -88,6 +90,9 @@ def profile(logdir: str = "sofalog/", cfg: Optional[SofaConfig] = None):
             gpumon.disarm_history(torch)
         procmon.stop()
         timebase.stop()
+        # after the stops, as the JAX package takes it: elapsed_time covers
+        # what profiling the block cost, the trace's export included
+        elapsed = time.time() - start
         with open(cfg.path("misc.txt"), "w") as f:
             f.write(f"elapsed_time {elapsed:.6f}\n")
             f.write(f"cores {os.cpu_count() or 1}\n")

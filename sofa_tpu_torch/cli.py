@@ -9,13 +9,21 @@
   report      [preprocess] + analyze [+ viz with --with-gui]
   viz         serve the board over --logdir (http://localhost:8000/)
   status      render --logdir's run_manifest.json (the pipeline's own
-              health: collectors, sources, stages); exits 1 when a
-              collector failed, died, timed out or hit the disk budget,
-              2 without a manifest
+              health: collectors, sources, stages, analysis passes);
+              exits 1 when a collector failed, died, timed out or hit the
+              disk budget, or a pass failed, 2 without a manifest
+  passes      print the analysis passes' schedule (waves), contracts and
+              the last run's statuses and times; exits 2 when the
+              declared graph cannot be scheduled
   clean       remove the derived files, keep the raw ones
 
-report, analyze, viz, status and clean run on the host only: they never
-touch a GPU.
+report, analyze, viz, status, passes and clean run on the host only: they
+never touch a GPU.
+
+--config FILE loads a TOML file of SofaConfig fields; flags given on the
+command line override it.  --plugin mod[:func] (repeatable) imports mod
+and calls func(cfg) before the verb runs; a plugin may register analysis
+passes.
 
 With --cluster_hosts h1,h2,... record runs on every host at once, each
 into <logdir>-<host>/ (localhost and 127.0.0.1 here, any other host over
@@ -31,10 +39,11 @@ import os
 import sys
 from typing import Optional
 
-from sofa_tpu_torch.config import SofaConfig
+from sofa_tpu_torch import __version__
+from sofa_tpu_torch.config import Filter, SofaConfig
 
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
-         "status", "clean")
+         "status", "passes", "clean")
 
 # Flags that map 1:1 onto SofaConfig fields.
 _FIELDS = (
@@ -45,7 +54,10 @@ _FIELDS = (
     "jobs", "pid", "epilogue_deadline_s", "inject_faults",
     "collector_restarts", "collector_stop_timeout_s",
     "collector_harvest_timeout_s", "disk_budget_mb",
-    "collector_disk_budget_mb",
+    "collector_disk_budget_mb", "kineto_host_tracer_level",
+    "kineto_python_tracer", "kineto_delay_s", "kineto_duration_s",
+    "cpu_time_offset_ms", "gpu_time_offset_ms", "viz_downsample_to",
+    "tile_levels", "is_idle_threshold", "hint_server", "plugins",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
@@ -60,11 +72,18 @@ def build_parser() -> argparse.ArgumentParser:
                                 description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter,
                                 argument_default=argparse.SUPPRESS)
+    p.add_argument("--version", action="version",
+                   version=f"sofa_tpu_torch {__version__}")
     p.add_argument("verb", choices=VERBS)
     p.add_argument("command", nargs="?", default=None,
                    help="shell command to profile (record, stat); the "
-                   "logdir for status")
+                   "logdir for status and passes")
     p.add_argument("--logdir")
+    p.add_argument("--config",
+                   help="TOML file of config fields; flags override it")
+    p.add_argument("--plugin", action="append", dest="plugins",
+                   help="module[:func] called with the config at start "
+                   "(repeatable)")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--jobs", type=int,
                    help="worker count of the preprocess pools; 0 = auto "
@@ -98,6 +117,18 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--disable_gpu_mon", action="store_true")
     g.add_argument("--disable_memprof", action="store_true",
                    help="skip the peak-memory allocation-site snapshot")
+    g.add_argument("--kineto_host_tracer_level", type=int,
+                   choices=(0, 1, 2, 3),
+                   help="trace detail: 0 device activity, its launches and "
+                   "record_function ranges; 1 + aten ops; 2 + shapes and "
+                   "flops (default); 3 + Python stacks")
+    g.add_argument("--kineto_python_tracer", action="store_true",
+                   help="record Python stacks with the ops (with_stack)")
+    g.add_argument("--kineto_delay_s", type=float,
+                   help="start the trace this long after torch is imported")
+    g.add_argument("--kineto_duration_s", type=float,
+                   help="stop the trace this long after it starts (0 = at "
+                   "exit)")
     g.add_argument("--epilogue_deadline_s", type=float,
                    help="seconds past the child's at-exit breadcrumb before "
                    "record presumes it wedged and kills its process group "
@@ -129,14 +160,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-joined host list: record and report over "
                    "every host, each into <logdir>-<host>/")
 
+    g = p.add_argument_group("preprocess")
+    g.add_argument("--cpu_time_offset_ms", type=int,
+                   help="shift the host frames by this many ms")
+    g.add_argument("--gpu_time_offset_ms", type=float,
+                   help="shift the Kineto frames by this many ms when the "
+                   "marker alignment is wrong")
+    g.add_argument("--cpu_filters",
+                   help="comma-joined keyword:color timeline filters")
+    g.add_argument("--gpu_filters",
+                   help="comma-joined keyword:color timeline filters")
+
     g = p.add_argument_group("analyze")
     g.add_argument("--profile_region", help='manual ROI "begin:end" seconds')
     g.add_argument("--spotlight", action="store_true",
                    help="auto-ROI from the kernel utilization")
+    g.add_argument("--is_idle_threshold", type=float,
+                   help="concurrency breakdown: a window below this share "
+                   "(of 1) is idle (default 0.01)")
+    g.add_argument("--hint_server",
+                   help="gRPC advice service host[:port] (also "
+                   "SOFA_HINT_SERVER)")
 
     g = p.add_argument_group("board")
     g.add_argument("--no_tiles", action="store_true",
                    help="skip the deep-zoom tile pyramid")
+    g.add_argument("--viz_downsample_to", type=int,
+                   help="points per series in report.js (default 10000)")
+    g.add_argument("--tile_levels", type=int,
+                   help="cap the tile pyramid's depth (0 = auto)")
     g.add_argument("--skip_preprocess", action="store_true",
                    help="report: analyze the CSVs an earlier preprocess "
                    "wrote")
@@ -151,14 +203,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> SofaConfig:
+    """The config of a command line: the --config file's, or the
+    defaults, with every flag given set over it."""
     passed = vars(args)
-    cfg = SofaConfig(**{k: passed[k] for k in _FIELDS if k in passed})
+    cfg = (SofaConfig.from_toml(passed["config"]) if passed.get("config")
+           else SofaConfig())
+    for name in _FIELDS:
+        if name in passed:
+            setattr(cfg, name, passed[name])
     for flag, field in _DISABLES.items():
         if passed.get(flag):
             setattr(cfg, field, False)
-    if "cluster_hosts" in passed:
-        cfg.cluster_hosts = [h for h in passed["cluster_hosts"].split(",")
-                             if h]
+    for name in ("cluster_hosts", "cpu_filters", "gpu_filters"):
+        if name in passed:
+            specs = [s for s in passed[name].split(",") if s]
+            setattr(cfg, name, specs if name == "cluster_hosts"
+                    else [Filter.parse(s) for s in specs])
+    cfg.__post_init__()
     return cfg
 
 
@@ -170,9 +231,17 @@ def main(argv: Optional[list] = None) -> int:
     if args.verb in ("record", "stat") and not args.command \
             and "pid" not in vars(args):
         p.error(f"{args.verb} needs a command (or --pid)")
-    if args.verb == "status" and args.command and "logdir" not in vars(args):
+    if args.verb in ("status", "passes") and args.command \
+            and "logdir" not in vars(args):
         args.logdir = args.command      # `status <logdir>` reads naturally
-    cfg = config_from_args(args)
+    try:
+        cfg = config_from_args(args)
+    except (ValueError, OSError) as e:
+        print_error(f"bad configuration: {e}")
+        return 2
+    from sofa_tpu_torch.plugins import load_plugins
+
+    load_plugins(cfg)
     try:
         return _run(args, cfg)
     except SofaUserError as e:
@@ -190,6 +259,10 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     verb = args.verb
     if verb == "status":
         return sofa_status(cfg)
+    if verb == "passes":
+        from sofa_tpu_torch.analysis.registry import sofa_passes
+
+        return sofa_passes(cfg)
     if verb == "clean":
         sofa_clean(cfg)
         return 0

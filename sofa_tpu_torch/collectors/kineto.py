@@ -13,7 +13,13 @@ and swaps the tracer:
      op's operand shapes and dtypes (``record_shapes``, ``with_flops``:
      what ingest computes a kernel's flops and bytes from), with the CUDA
      activity added only when ``torch.cuda.is_available()`` in the child —
-     so CUPTI is live before the program's first CUDA launch;
+     so CUPTI is live before the program's first CUDA launch.  How much it
+     records is ``--kineto_host_tracer_level`` (0 to 3, ``_profiler``)
+     and ``--kineto_python_tracer``; ``--kineto_delay_s`` starts it later
+     and ``--kineto_duration_s`` stops it early, each on the importing
+     thread at its next Python call after the timer fires (a
+     ``sys.monitoring`` hook: the profiler records, and stops from, the
+     thread that started it);
   3. it stamps a ``record_function("sofa_timebase_marker:<unix_ns>")`` range
      that pins the trace clock to unix time at ingest, at the start and
      again at the stop;
@@ -119,7 +125,7 @@ _chain_next_sitecustomize()
 def _start(torch):
     from sofa_torch_kineto import start_trace, stop_trace   # beside us
 
-    state = start_trace(torch, _OPTS["logdir"])
+    state = start_trace(torch, _OPTS["logdir"], _OPTS)
     if state is not None:
         atexit.register(stop_trace, torch, state, True)
 
@@ -344,40 +350,156 @@ def write_topology(torch, logdir, dist_info=None):
         _warn("topology snapshot failed: %r" % (e,))
 
 
-def start_trace(torch, logdir):
-    """Start torch.profiler on the calling thread (its CPU ranges are per
-    thread) with the operand shapes recorded, the CUDA activity when the
-    program sees a card, and stamp the timebase marker; returns the state
-    stop_trace takes, or None when the profiler would not start."""
-    try:
-        import torch.profiler as tp
+def _profiler(torch, opts):
+    """A started torch.profiler at the detail ``opts`` asks for, and
+    whether it records the CUDA activity (when the program sees a card).
 
-        cuda = bool(torch.cuda.is_available())
-        acts = [tp.ProfilerActivity.CPU]
-        if cuda:
-            acts.append(tp.ProfilerActivity.CUDA)
-        prof = tp.profile(activities=acts, record_shapes=True,
-                          with_flops=True)
+    ``host_tracer_level``: 0 records the device activity, the runtime
+    calls that launched it and the program's record_function ranges (the
+    clock marker, sofa_step_N, module ranges and the flash kernels' cost
+    ranges) but no aten op; 1 adds the aten ops, without their operand
+    shapes; 2 (the default) adds the shapes and flops, which a kernel's
+    flops and bytes come from; 3 adds each op's Python stack, as
+    ``python_tracer`` does at any level."""
+    import torch.profiler as tp
+
+    level = int(opts.get("host_tracer_level", 2))
+    cuda = bool(torch.cuda.is_available())
+    acts = [tp.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(tp.ProfilerActivity.CUDA)
+    prof = tp.profile(activities=acts, record_shapes=level >= 2,
+                      with_flops=level >= 2,
+                      with_stack=level >= 3 or bool(opts.get("python_tracer")))
+    if level > 0:
         prof.start()
+        return prof, cuda
+    # level 0: the CPU callbacks are registered for the record_function
+    # scope alone, through the scopes argument torch.profiler leaves unset
+    import torch.autograd.profiler as ap
+    from torch._C._profiler import RecordScope
+
+    enable = ap._enable_profiler
+
+    def user_scope_only(config, activities, scopes=None):
+        return enable(config, activities, {RecordScope.USER_SCOPE})
+
+    ap._enable_profiler = user_scope_only
+    try:
+        prof.start()
+    finally:
+        ap._enable_profiler = enable
+    return prof, cuda
+
+
+def _on_thread(ident, fn):
+    """Run ``fn()`` on the thread ``ident`` at its next Python call outside
+    this module, through a sys.monitoring PY_START hook that removes itself
+    (torch.profiler records the CPU side of the thread that starts it, and
+    stops only from that thread).  The hook does nothing once the program
+    is exiting: the at-exit stop owns that.  False when there is no free
+    monitoring tool (or no sys.monitoring: Python < 3.12)."""
+    mon = getattr(sys, "monitoring", None)
+    if mon is None:
+        return False
+    tool = None
+    for t in (4, 3, 5, 2, 1, 0):
+        try:
+            mon.use_tool_id(t, "sofa_tpu_torch")
+            tool = t
+            break
+        except ValueError:
+            continue
+    if tool is None:
+        return False
+    here = _on_thread.__code__.co_filename
+    fired = []
+
+    def hook(code, offset):
+        if fired or threading.get_ident() != ident \
+                or code.co_filename == here:
+            return None
+        fired.append(True)
+        mon.set_events(tool, 0)
+        mon.register_callback(tool, mon.events.PY_START, None)
+        mon.free_tool_id(tool)
+        if threading.main_thread().is_alive():
+            fn()
+        return None
+
+    mon.register_callback(tool, mon.events.PY_START, hook)
+    mon.set_events(tool, mon.events.PY_START)
+    return True
+
+
+def _later(seconds, ident, fn, what):
+    """``fn()`` on the thread ``ident`` ``seconds`` from now."""
+    def arm():
+        if not _on_thread(ident, fn):
+            _warn("%s: no sys.monitoring tool is free; ignored" % what)
+
+    timer = threading.Timer(seconds, arm)
+    timer.daemon = True
+    timer.start()
+
+
+def start_trace(torch, logdir, opts=None):
+    """Start torch.profiler on the calling thread at the detail of
+    ``opts`` (``_profiler``) and stamp the timebase marker; returns the
+    state stop_trace takes, or None when the profiler would not start.
+
+    The window: with ``opts["delay_s"]`` the trace starts that long from
+    now, at the calling thread's next Python call (``_on_thread``), and
+    with ``opts["duration_s"]`` it stops that long after it started, on
+    that thread too; the at-exit stop then finds it stopped."""
+    opts = dict(opts or {})
+    state = {"logdir": logdir, "opts": opts, "done": False,
+             "dist": _dist_info(torch)}
+    ident = threading.get_ident()
+    delay = float(opts.get("delay_s") or 0)
+    if delay > 0:
+        state["pending"] = True
+        _later(delay, ident, lambda: _begin(torch, state, ident),
+               "kineto_delay_s")
+        return state
+    return state if _begin(torch, state, ident) else None
+
+
+def _begin(torch, state, ident):
+    if state.get("stopping") or "prof" in state:
+        return False
+    state.pop("pending", None)
+    try:
+        prof, cuda = _profiler(torch, state["opts"])
     except Exception as e:  # noqa: BLE001
         _warn("profiler start failed: %r" % (e,))
-        return None
+        return False
     _marker(torch)
-    state = {"prof": prof, "cuda": cuda, "logdir": logdir, "done": False,
-             "dist": _dist_info(torch)}
+    state.update(prof=prof, cuda=cuda, t_start=time.time(),
+                 dist=_dist_info(torch) or state.get("dist"))
     _watch_process_group(torch, state)
-    return state
+    duration = float(state["opts"].get("duration_s") or 0)
+    if duration > 0:
+        _later(duration, ident, lambda: stop_trace(torch, state),
+               "kineto_duration_s")
+    return True
 
 
 def stop_trace(torch, state, watchdog=False):
     """Stamp the end marker, synchronize the card (only if the program
-    initialized CUDA), stop the profiler, export the Chrome trace to
+    initialized CUDA), stop the profiler (with the detail and window in
+    the trace's ``sofa_trace_detail``), export the Chrome trace to
     ``logdir/kineto/trace_<pid>.json`` (with the rank, when the program
     joined a process group) and write the topology.  At exit
     (``watchdog``) a wedged export force-exits the process with code 120
     after STOP_TIMEOUT_S."""
+    state["stopping"] = True       # a start still pending never fires
     prof = state.pop("prof", None)
     if prof is None:
+        if state.pop("pending", False):
+            _warn("the trace never started: the run ended within "
+                  "kineto_delay_s")
+            write_topology(torch, state["logdir"], state.get("dist"))
         return
     if watchdog:
         write_marker(state["logdir"], {
@@ -392,6 +514,14 @@ def stop_trace(torch, state, watchdog=False):
             # what torch.profiler records only when the group exists as
             # the trace starts: ingest reads the rank from it
             prof.add_metadata_json("distributedInfo", json.dumps(dist_info))
+        # what the trace recorded, and when: ingest reads the level
+        opts = state["opts"]
+        prof.add_metadata_json("sofa_trace_detail", json.dumps({
+            "host_tracer_level": int(opts.get("host_tracer_level", 2)),
+            "python_tracer": bool(opts.get("python_tracer")),
+            "delay_s": float(opts.get("delay_s") or 0),
+            "duration_s": float(opts.get("duration_s") or 0),
+            "start_unix": state.get("t_start"), "stop_unix": time.time()}))
         if state["cuda"] and torch.cuda.is_initialized():
             torch.cuda.synchronize()
         elif getattr(prof, "profiler", None) is not None:
@@ -462,6 +592,15 @@ def merge_rank_topology(logdir: str) -> bool:
     return True
 
 
+def trace_opts(cfg) -> dict:
+    """The trace's detail and window from a SofaConfig, as start_trace
+    takes them."""
+    return {"host_tracer_level": int(cfg.kineto_host_tracer_level),
+            "python_tracer": bool(cfg.kineto_python_tracer),
+            "delay_s": float(cfg.kineto_delay_s),
+            "duration_s": float(cfg.kineto_duration_s)}
+
+
 # One implementation: exec the tracer text for in-process callers.
 _ns: dict = {}
 exec(compile(_TRACER, "<sofa_torch_kineto>", "exec"), _ns)
@@ -497,7 +636,8 @@ class KinetoCollector(Collector):
     def child_env(self) -> Dict[str, str]:
         cfg = self.cfg
         opts = {"enable": bool(cfg.enable_kineto),
-                "logdir": os.path.abspath(cfg.logdir)}
+                "logdir": os.path.abspath(cfg.logdir),
+                **trace_opts(cfg)}
         existing = os.environ.get("PYTHONPATH", "")
         env = {
             "SOFA_TORCH_KINETO_OPTS": json.dumps(opts),

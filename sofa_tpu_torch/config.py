@@ -3,14 +3,18 @@
 The collector fields and their defaults are the JAX package's
 (``SofaConfig``'s "record: host" block), except that its TPU sampler
 (``tpu_mon_rate`` / ``enable_tpu_mon``) is the GPU memory sampler here
-(``gpu_mon_rate`` / ``enable_gpu_mon``), and its TPU timeline filters
-are the GPU ones below.
+(``gpu_mon_rate`` / ``enable_gpu_mon``), its trace knobs ``xprof_*`` are
+``kineto_*``, its device clock fix ``tpu_time_offset_ms`` is
+``gpu_time_offset_ms``, and its TPU timeline filters are the GPU ones
+below.  ``SofaConfig.from_toml`` / ``from_dict`` load a config file as the
+JAX package's do (``sofa_tpu/config.py:292-336``), keyed by these names.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import tomllib
 from typing import List, Optional
 
 
@@ -22,6 +26,16 @@ class Filter:
 
     keyword: str
     color: str
+
+    @classmethod
+    def parse(cls, spec: str) -> "Filter":
+        """``keyword:color``; a bare keyword is orange (the JAX package's
+        ``Filter.parse``)."""
+        if ":" in spec:
+            kw, _, color = spec.partition(":")
+        else:
+            kw, color = spec, "orange"
+        return cls(keyword=kw, color=color)
 
 
 # The JAX package highlights idle CPU and, on the device, infeed/outfeed,
@@ -82,6 +96,16 @@ class SofaConfig:
     gpu_mon_rate: int = 1            # its rate, Hz
     enable_mem_prof: bool = True     # allocation-site snapshot (pprof) at
                                      # the observed occupancy peak
+    # How much the trace records (collectors/kineto.py, ``start_trace``):
+    # 0 the device activity, its launches and the record_function ranges;
+    # 1 the aten ops too, without shapes; 2 with shapes and flops; 3 with
+    # Python stacks as well.  kineto_python_tracer adds the stacks at any
+    # level.  The window: start kineto_delay_s after torch is imported,
+    # stop kineto_duration_s after the start (0 = until exit).
+    kineto_host_tracer_level: int = 2
+    kineto_python_tracer: bool = False
+    kineto_delay_s: float = 0.0
+    kineto_duration_s: float = 0.0
     # Seconds past the child's at-exit breadcrumb (_inject/atexit_stop.json)
     # before record presumes it wedged and kills its process group; None
     # derives the allowance from the breadcrumb's own timeouts.
@@ -97,9 +121,17 @@ class SofaConfig:
                                      # collectors (0 = off)
     collector_disk_budget_mb: float = 0.0       # per collector (0 = off)
 
-    # --- analyze: region of interest ---------------------------------------
+    # --- preprocess: manual clock fixes, applied after the ingest cache ----
+    cpu_time_offset_ms: int = 0      # shifts the host frames
+    gpu_time_offset_ms: float = 0.0  # shifts the Kineto frames
+
+    # --- analyze -------------------------------------------------------------
     profile_region: str = ""         # "begin:end" manual ROI (seconds)
     spotlight: bool = False          # auto-ROI from the kernel utilization
+    # concurrency_breakdown: a window whose dominant activity is below this
+    # share (of 1) is idle
+    is_idle_threshold: float = 0.01
+    hint_server: Optional[str] = None  # gRPC advice service host:port
     # set by the spotlight pass (or --profile_region); 0/0 = the whole run
     roi_begin: float = 0.0
     roi_end: float = 0.0
@@ -107,6 +139,8 @@ class SofaConfig:
     # --- the board ----------------------------------------------------------
     viz_downsample_to: int = 10000   # points per series in report.js
     enable_tiles: bool = True        # the deep-zoom tile pyramid (--no_tiles)
+    tile_levels: int = 0             # cap on the pyramid's depth (0 = auto:
+                                     # until every leaf tile is exact)
     viz_port: int = 8000             # first port viz tries (up to +19)
     # loopback unless the user opts open: the board serves command lines
     # and host names; --viz_bind 0.0.0.0 opens it
@@ -115,6 +149,9 @@ class SofaConfig:
         default_factory=lambda: list(DEFAULT_CPU_FILTERS))
     gpu_filters: List[Filter] = dataclasses.field(
         default_factory=lambda: list(DEFAULT_GPU_FILTERS))
+
+    # --- plugins: module[:func] called with the config at CLI start ---------
+    plugins: List[str] = dataclasses.field(default_factory=list)
 
     def __post_init__(self) -> None:
         if not self.logdir.endswith("/"):
@@ -130,3 +167,46 @@ class SofaConfig:
     @property
     def inject_dir(self) -> str:
         return self.path("_inject")
+
+    @classmethod
+    def from_toml(cls, path: str) -> "SofaConfig":
+        """Load a config file; unknown keys are rejected loudly."""
+        with open(path, "rb") as f:
+            data = tomllib.load(f)
+        return cls.from_dict(data)
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "SofaConfig":
+        """A config from a mapping of field names, with the JAX package's
+        checks and messages: unknown keys and values of another type than
+        the field's default are a ValueError (an int is fine for a float;
+        Optional and list fields take what TOML produced), and the filters
+        are ``keyword:color`` strings or ``{keyword, color}`` tables."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(data) - known
+        if unknown:
+            raise ValueError(f"unknown config keys: {sorted(unknown)}")
+        kwargs = dict(data)
+        for key in ("cpu_filters", "gpu_filters"):
+            if key in kwargs:
+                kwargs[key] = [
+                    Filter.parse(v) if isinstance(v, str) else Filter(**v)
+                    for v in kwargs[key]
+                ]
+        defaults = cls()
+        for key, value in kwargs.items():
+            if key in ("cpu_filters", "gpu_filters"):
+                continue
+            default = getattr(defaults, key)
+            if default is None or isinstance(default, (list, dict)):
+                continue
+            want = type(default)
+            if want is float and isinstance(value, int) \
+                    and not isinstance(value, bool):
+                continue
+            if not isinstance(value, want) or (
+                    want is not bool and isinstance(value, bool)):
+                raise ValueError(
+                    f"config key {key!r}: expected {want.__name__}, "
+                    f"got {type(value).__name__} ({value!r})")
+        return cls(**kwargs)

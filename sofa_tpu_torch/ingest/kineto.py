@@ -61,6 +61,14 @@ their device time (equally when all took none), so each kernel of a
 several-kernel op (a cuDNN convolution with its layout transforms, say)
 runs at the op's own share of the roofline, and the op's totals stay whole.
 
+What the trace could see comes from its ``sofa_trace_detail`` (the
+collector's ``host_tracer_level``; 2 when absent).  Below level 2 no op
+carries its operand shapes: a kernel owned by no flash cost range gets
+NaN ``flops`` and ``bytes_accessed`` (absent, never 0), and ``gpuutil``
+leaves out ``tensor_util`` and ``hbm_gbps``.  At level 0 no aten op or
+autograd range is recorded: ``op_path`` holds the record_function ranges
+alone and ``phase`` is empty (absent).
+
 Clock: an event's time is ``baseTimeNanoseconds`` + ``ts`` (microseconds).
 The collector's ``sofa_timebase_marker:<unix_ns>`` range pins that clock to
 unix time (offset = marker's unix_ns - its trace time), and the schema's
@@ -276,6 +284,8 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
     """One parsed Chrome trace -> {"gputrace", "hosttrace", "gpusteps"}."""
     shift = clock_shift_s(doc, time_base)
     rank = (doc.get("distributedInfo") or {}).get("rank")
+    level = int((doc.get("sofa_trace_detail") or {}).get(
+        "host_tracer_level", 2))
     events = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
     host_pid = next((e.get("pid") for e in events
                      if e.get("cat") in HOST_CATS), -1)
@@ -319,6 +329,7 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
             owner_time[o] = owner_time.get(o, 0.0) + d
             owner_count[o] = owner_count.get(o, 0) + 1
     gpu_rows = []
+    no_cost = []        # kernels whose cost the trace cannot give
     for i, e in enumerate(dev_ev):
         args = e.get("args") or {}
         nbytes = int(args.get("bytes", 0) or 0)
@@ -339,8 +350,10 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
                      else 1.0 / owner_count[o])
             flops, cost_bytes = cost[0] * share, cost[1] * share
             category = oname.partition("[")[0]
+        elif e["cat"] == "kernel" and level < 2:
+            no_cost.append(i)
         phase = ""
-        if launches[i] is not None:
+        if launches[i] is not None and level > 0:
             phase = "bw" if (launches[i][1] in engine_tids or any(
                 n.startswith(ENGINE_PREFIX) for n in names)) else "fw"
         kind, groups = copy_kind(e["cat"], str(e["name"])), ""
@@ -364,6 +377,10 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
             "hlo_category": category, "module": module, "flops": flops,
             "bytes_accessed": cost_bytes, "phase": phase,
             "op_path": "/".join(names)})
+
+    gputrace = make_frame(gpu_rows)
+    if no_cost:
+        gputrace.loc[no_cost, ["flops", "bytes_accessed"]] = np.nan
 
     host_rows = [{
         "timestamp": float(e["ts"]) * 1e-6 + shift,
@@ -389,7 +406,7 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
                        duration=(end - start[first]) * 1e-6,
                        deviceId=int(dev[first]), device_kind="gpu")
         step_rows.append(row)
-    return {"gputrace": make_frame(gpu_rows),
+    return {"gputrace": gputrace,
             "hosttrace": make_frame(host_rows),
             "gpusteps": make_frame(step_rows)}
 
@@ -469,7 +486,9 @@ def gpu_utilization(gputrace: pd.DataFrame, window_s: float = 0.1,
       ==================  ================  =================================
 
     ``tensor_util`` needs the card's peak (``device_meta``, as
-    ``analysis.sol.device_peaks`` gives it); an unknown card has none."""
+    ``analysis.sol.device_peaks`` gives it); an unknown card has none.
+    Where a kernel's flops (bytes) are absent, so is ``tensor_util``
+    (``hbm_gbps``)."""
     if gputrace.empty:
         return empty_frame()
     frames = []
@@ -498,9 +517,11 @@ def gpu_utilization(gputrace: pd.DataFrame, window_s: float = 0.1,
         peaks = (device_meta or {}).get(str(device_id), {})
         peak_flops = peaks.get("peak_teraflops_per_second", 0.0) * 1e12
         ts = edges[1:n_win + 1]
-        series = [("kernel_util", 100.0 * busy / window_s, np.zeros(n_win)),
-                  ("hbm_gbps", wbytes / window_s / 1e9, wbytes / window_s)]
-        if peak_flops > 0:
+        series = [("kernel_util", 100.0 * busy / window_s, np.zeros(n_win))]
+        if not kern["bytes_accessed"].isna().any():
+            series.append(("hbm_gbps", wbytes / window_s / 1e9,
+                           wbytes / window_s))
+        if peak_flops > 0 and not kern["flops"].isna().any():
             series.append(
                 ("tensor_util", 100.0 * (wflops / window_s) / peak_flops,
                  np.zeros(n_win)))

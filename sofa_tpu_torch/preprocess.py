@@ -431,6 +431,11 @@ def _preprocess_body(cfg: SofaConfig, tel) -> Dict[str, pd.DataFrame]:
     tel.set_meta(pool={"jobs": jobs, "cpu_count": os.cpu_count() or 1})
     with tel.span("ingest", cat="stage"):
         tasks, results, cache = _run_ingest(cfg, time_base, jobs, tel)
+    # The manual clock fixes (--cpu_time_offset_ms, --gpu_time_offset_ms)
+    # shift the frames after the cache: the cache holds them unshifted, so
+    # a changed offset is applied to a warm run too.
+    cpu_off = cfg.cpu_time_offset_ms / 1e3
+    gpu_off = cfg.gpu_time_offset_ms / 1e3
     frames: Dict[str, pd.DataFrame] = {}
     for t in tasks:
         task_frames, err = results[t.name]
@@ -438,7 +443,11 @@ def _preprocess_body(cfg: SofaConfig, tel) -> Dict[str, pd.DataFrame]:
             # a quarantine has warned already, with the destination
             print_warning(f"preprocess: {t.name} failed ({err!r}); its "
                           "frames stay empty")
-        frames.update(task_frames)
+        shift = gpu_off if t.name == "kineto" else cpu_off
+        for name, df in task_frames.items():
+            if shift and not df.empty:
+                df = df.assign(timestamp=df["timestamp"] + shift)
+            frames[name] = df
     with derived_write_guard(cfg.logdir):
         t0, t0_unix = time.perf_counter(), time.time()
         pool.thread_map(lambda item: write_csv(item[1],

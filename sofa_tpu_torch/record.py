@@ -704,8 +704,8 @@ def _write_misc(cfg: SofaConfig, elapsed: float, pid: int, rc: int) -> None:
 # that cluster_record never resets a host to the defaults.  Not forwarded:
 # ``pid`` (an attach names a process of one host), ``cluster_hosts`` (each
 # host records alone), and ``py_stack_rate`` and ``enable_vmstat``, which
-# have no flag (as in the JAX package); the other fields are analyze's or
-# the board's.
+# have no flag (as in the JAX package); the other fields are preprocess's,
+# analyze's or the board's, and ``plugins`` are loaded by the verb itself.
 _VALUED_FLAGS = (
     ("perf_events", "--perf_events"),
     ("cpu_sample_rate", "--cpu_sample_rate"),
@@ -722,6 +722,9 @@ _VALUED_FLAGS = (
     ("collector_harvest_timeout_s", "--collector_harvest_timeout_s"),
     ("disk_budget_mb", "--disk_budget"),
     ("collector_disk_budget_mb", "--collector_disk_budget"),
+    ("kineto_host_tracer_level", "--kineto_host_tracer_level"),
+    ("kineto_delay_s", "--kineto_delay_s"),
+    ("kineto_duration_s", "--kineto_duration_s"),
 )
 # set when the field is True (its default is False)
 _ENABLE_FLAGS = (
@@ -730,6 +733,7 @@ _ENABLE_FLAGS = (
     ("enable_py_stacks", "--enable_py_stacks"),
     ("enable_tcpdump", "--enable_tcpdump"),
     ("verbose", "--verbose"),
+    ("kineto_python_tracer", "--kineto_python_tracer"),
 )
 # set when the field is False (its default is True)
 _DISABLE_FLAGS = (

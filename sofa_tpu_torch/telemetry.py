@@ -1,7 +1,7 @@
 """Self-telemetry: the profiler's own run, made legible (the JAX package's
-``sofa_tpu/telemetry.py``, without its ``digests`` and ``meta.passes``
-writers and the readers of the sections only its archive, fleet and live
-modules write).
+``sofa_tpu/telemetry.py``, without its ``digests`` writer and the readers
+of the sections only its durability, archive, fleet and live modules
+write).
 
 Every pipeline verb records spans and counters and lands two files in the
 logdir:
@@ -16,7 +16,11 @@ package writes (schema ``sofa_tpu/run_manifest``, version 5)::
     env                       python/platform/host/cpu snapshot and the
                               SOFA_* variables that shape a run
     config                    the SofaConfig of the writing verb
-    meta                      pool sizing, ingest-cache stats, disk budget
+    meta                      pool sizing, ingest-cache stats, disk budget,
+                              and ``passes``: the analysis-pass ledger
+                              (``analysis/registry.py``: schedule, order,
+                              jobs, per pass status in PASS_STATUSES,
+                              origin, wave, wall_s, error or skip_reason)
     collectors.<name>         status (COLLECTOR_STATUSES), degraded flag
                               and reason, died/deaths/restarts (the
                               supervisor), timed_out and phase, exit_code,
@@ -36,7 +40,7 @@ one manifest, and a verb run again replaces its own sections only.  A
 manifest of another schema or version is replaced whole, never merged.
 ``status`` renders the manifest as a health table and exits 1 when a
 collector ended failed, killed, died, timed out or truncated by the disk
-budget (2 when there is no manifest).
+budget, or an analysis pass failed (2 when there is no manifest).
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ COLLECTOR_STATUSES = ("probed", "started", "stopped", "failed", "skipped",
 SOURCE_STATUSES = ("parsed", "cached", "degraded", "empty", "quarantined",
                    "failed")
 CACHE_OUTCOMES = ("hit", "miss", "bypass")
+# An analysis pass's outcome in meta.passes (analysis/registry.py runs them).
+PASS_STATUSES = ("ok", "failed", "skipped")
 
 # Terminal bad outcomes: sticky over the started/stopped that the
 # epilogue still records afterwards.
@@ -454,6 +460,14 @@ def manifest_warnings(doc: Optional[dict]) -> List[str]:
             out.append(f"ingest source {name} had corrupt raw input — "
                        f"quarantined to {where}; its series are empty "
                        "this run")
+    passes = ((doc.get("meta") or {}).get("passes") or {}).get("passes")
+    if isinstance(passes, dict):
+        for name, ent in sorted(passes.items()):
+            if ent.get("status") == "failed":
+                why = ent.get("error") or "crashed"
+                out.append(f"analysis pass {name} failed ({why}) — its "
+                           "features and artifacts are missing this run; "
+                           "`sofa passes` shows its contract")
     for verb, run in sorted((doc.get("runs") or {}).items()):
         counters = run.get("counters") or {}
         if counters.get("errors"):
@@ -509,7 +523,7 @@ def _table(rows: List[List[str]]) -> List[str]:
 
 def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
     """(report lines, exit code): 1 when a collector ended in a terminal
-    bad status."""
+    bad status or an analysis pass failed."""
     lines: List[str] = []
     rc = 0
     runs = doc.get("runs") or {}
@@ -528,6 +542,27 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
             f"{counters.get('errors', 0)} error(s)")
     for verb in sorted(set(runs) - {"record", "preprocess", "analyze"}):
         lines.append(f"  {verb}: wall {runs[verb].get('wall_s', 0):.2f}s")
+    passes = (doc.get("meta") or {}).get("passes")
+    if isinstance(passes, dict) and isinstance(passes.get("passes"), dict):
+        ledger = passes["passes"]
+        n_failed = sum(1 for e in ledger.values()
+                       if e.get("status") == "failed")
+        n_clean = sum(1 for e in ledger.values()
+                      if e.get("status") == "skipped"
+                      and "unchanged" in str(e.get("skip_reason", "")))
+        n_skipped = sum(1 for e in ledger.values()
+                        if e.get("status") == "skipped") - n_clean
+        line = (f"  analysis passes: {len(ledger)} registered, "
+                f"{len(ledger) - n_failed - n_skipped - n_clean} ok")
+        if n_failed:
+            line += f", {n_failed} FAILED"
+            rc = 1
+        if n_clean:
+            line += f", {n_clean} clean (live incremental)"
+        if n_skipped:
+            line += f", {n_skipped} skipped (gated off)"
+        line += " (`sofa passes` shows the DAG)"
+        lines.append(line)
     budget = (doc.get("meta") or {}).get("disk_budget")
     if isinstance(budget, dict):
         lines.append(
@@ -588,7 +623,8 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
 
 def sofa_status(cfg) -> int:
     """The ``status`` verb: render the health ledger; exit 1 on a
-    collector in a terminal bad status, 2 when there is no manifest."""
+    collector in a terminal bad status or a failed analysis pass, 2 when
+    there is no manifest."""
     doc = load_manifest(cfg.logdir)
     if doc is None:
         print_error(f"no {MANIFEST_NAME} in {cfg.logdir} — run `record` / "
@@ -602,5 +638,6 @@ def sofa_status(cfg) -> int:
     print("\n".join(lines))
     if rc != 0:
         print_error("one or more collectors failed, died, timed out, or "
-                    "hit the disk budget — see the table above")
+                    "hit the disk budget, or an analysis pass failed — see "
+                    "the report above")
     return rc

@@ -269,7 +269,8 @@ def build_tiles(cfg, series, jobs: Optional[int] = None) -> Dict[str, object]:
     overview; returns the manifest report.js carries as ``meta.tiles``.
     Pyramids of series that no longer exist are removed."""
     jobs = jobs or default_jobs()
-    cap = MAX_LEVELS
+    # --tile_levels caps the depth; 0 deepens until every leaf is exact
+    cap = cfg.tile_levels if cfg.tile_levels > 0 else MAX_LEVELS
     params = _tile_params(cap)
     root = cfg.path(TILES_DIR_NAME)
     overview_max = int(cfg.viz_downsample_to)

@@ -1,7 +1,7 @@
 """Validate a ``run_manifest.json`` against its schema (the JAX package's
 ``tools/manifest_check.py``, for the sections this package writes: runs,
-env, collectors, sources, stages, ``meta.pool``, ``meta.ingest_cache`` and
-``meta.disk_budget``).
+env, collectors, sources, stages, ``meta.pool``, ``meta.ingest_cache``,
+``meta.disk_budget`` and ``meta.passes``).
 
     python -m sofa_tpu_torch.tools.manifest_check <logdir-or-manifest.json>
         [--require-healthy]
@@ -22,7 +22,8 @@ from typing import List
 
 from sofa_tpu_torch.telemetry import (CACHE_OUTCOMES, COLLECTOR_STATUSES,
                                       MANIFEST_NAME, MANIFEST_SCHEMA,
-                                      MANIFEST_VERSION, SOURCE_STATUSES)
+                                      MANIFEST_VERSION, PASS_STATUSES,
+                                      SOURCE_STATUSES)
 
 _UNHEALTHY = ("failed", "killed", "died", "timed_out", "truncated_by_budget")
 
@@ -101,6 +102,44 @@ def _check_sources(sources, probs: List[str]) -> None:
             probs.append(f"{where}.quarantined_file: not a string")
 
 
+def _check_passes(passes, probs: List[str]) -> None:
+    """meta.passes: in-vocabulary statuses, and a schedule that holds
+    every pass that ran (analysis/registry.py writes it)."""
+    if passes is None:
+        return
+    if not isinstance(passes, dict):
+        probs.append("meta.passes: not an object")
+        return
+    sched = passes.get("schedule")
+    if not isinstance(sched, list) or any(
+            not isinstance(w, list) or any(not isinstance(n, str) for n in w)
+            for w in sched):
+        probs.append("meta.passes.schedule: not a list of name-list waves")
+        sched = []
+    if not isinstance(passes.get("jobs"), int) \
+            or isinstance(passes.get("jobs"), bool):
+        probs.append("meta.passes.jobs: missing or not an int")
+    ledger = passes.get("passes")
+    if not isinstance(ledger, dict):
+        probs.append("meta.passes.passes: missing per-pass ledger")
+        return
+    scheduled = {n for w in sched for n in w}
+    for name, ent in sorted(ledger.items()):
+        if not isinstance(ent, dict):
+            probs.append(f"meta.passes.passes.{name}: not an object")
+            continue
+        if ent.get("status") not in PASS_STATUSES:
+            probs.append(f"meta.passes.passes.{name}.status: "
+                         f"{ent.get('status')!r} not in {PASS_STATUSES}")
+        if ent.get("status") != "skipped":
+            if not _is_num(ent.get("wall_s")):
+                probs.append(f"meta.passes.passes.{name}.wall_s: missing "
+                             "or not a number")
+            if name not in scheduled:
+                probs.append(f"meta.passes.passes.{name}: ran but absent "
+                             "from meta.passes.schedule")
+
+
 def _check_meta(meta, probs: List[str]) -> None:
     budget = meta.get("disk_budget")
     if budget is not None:
@@ -130,6 +169,7 @@ def _check_meta(meta, probs: List[str]) -> None:
                 if not _is_count(v) or v < 1:
                     probs.append(f"meta.pool.{key}: missing or not a "
                                  "positive int")
+    _check_passes(meta.get("passes"), probs)
     icache = meta.get("ingest_cache")
     if icache is not None:
         if not isinstance(icache, dict) or \
@@ -218,6 +258,13 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
             if isinstance(run, dict) and \
                     (run.get("counters") or {}).get("errors"):
                 probs.append(f"unhealthy: `{verb}` logged error lines")
+        ledger = ((meta.get("passes") or {}).get("passes")
+                  if isinstance(meta.get("passes"), dict) else None)
+        for name, ent in sorted((ledger or {}).items()):
+            if isinstance(ent, dict) and ent.get("status") == "failed":
+                probs.append(f"unhealthy: analysis pass {name} failed"
+                             + (f" ({ent['error']})"
+                                if ent.get("error") else ""))
     return probs
 
 

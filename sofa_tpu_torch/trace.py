@@ -120,11 +120,13 @@ def write_csv(df: pd.DataFrame, path: str) -> None:
 
 def read_csv(path: str) -> pd.DataFrame:
     """Read a schema CSV back with the schema's dtypes (text columns stay
-    text, so a numeric-looking name is never mangled)."""
+    text, so a numeric-looking name is never mangled; an empty numeric
+    cell is NaN: a cost the trace could not see)."""
     text = [c for c, d in _DEFAULTS.items() if isinstance(d, str)]
     df = pd.read_csv(path, dtype={c: str for c in text},
                      keep_default_na=False,
-                     na_values={c: [] for c in text})
+                     na_values={c: [] if c in text else [""]
+                                for c in _DEFAULTS})
     for col in COLUMNS:
         if col not in df.columns:
             df[col] = _DEFAULTS[col]

@@ -82,3 +82,40 @@ def test_profile_never_initializes_cuda(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "initialized False" in r.stdout
     assert not (tmp_path / "run" / "gpumon.txt").exists()
+
+
+def test_profile_elapsed_covers_the_stops(tmp_path, monkeypatch):
+    """elapsed_time is taken after the trace stop, the sampler join and
+    the collectors' stops, as the JAX package takes it: a stop made slow
+    on purpose lands in it."""
+    import time
+
+    from sofa_tpu_torch.collectors import kineto
+    from sofa_tpu_torch.collectors.procmon import ProcMonCollector
+
+    slow_s = 0.6
+    stop = ProcMonCollector.stop
+
+    def slow_stop(self, *a, **kw):
+        time.sleep(slow_s)
+        return stop(self, *a, **kw)
+
+    monkeypatch.setattr(ProcMonCollector, "stop", slow_stop)
+    stop_trace = kineto.stop_trace
+    trace_s = {}
+
+    def timed_stop_trace(*a, **kw):
+        t0 = time.perf_counter()
+        out = stop_trace(*a, **kw)
+        trace_s["s"] = time.perf_counter() - t0
+        return out
+
+    monkeypatch.setattr(kineto, "stop_trace", timed_stop_trace)
+    logdir = tmp_path / "run"
+    with api.profile(str(logdir)):
+        t0 = time.perf_counter()
+        torch.ones(8).sum()
+        body_s = time.perf_counter() - t0
+    misc = dict(line.split() for line in
+                (logdir / "misc.txt").read_text().splitlines())
+    assert float(misc["elapsed_time"]) >= body_s + slow_s + trace_s["s"]

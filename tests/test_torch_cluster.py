@@ -52,12 +52,16 @@ NOT_FORWARDED = {
     "viz_downsample_to": "the board", "enable_tiles": "the board",
     "viz_port": "the board", "viz_bind": "the board",
     "cpu_filters": "the board", "gpu_filters": "the board",
+    "tile_levels": "the board",
+    "cpu_time_offset_ms": "preprocess", "gpu_time_offset_ms": "preprocess",
+    "is_idle_threshold": "analyze", "hint_server": "analyze",
+    "plugins": "loaded by the verb itself, before it runs",
 }
 # Values the type alone does not give (a choice, a spec).
 VALUES = {"perf_call_graph": "fp", "inject_faults": "procmon:die@2s",
           "netstat_interface": "eth9", "blkdev": "/dev/sdz",
           "perf_events": "cycles,instructions",
-          "epilogue_deadline_s": 7.5}
+          "epilogue_deadline_s": 7.5, "kineto_host_tracer_level": 0}
 
 
 def _record_fields():

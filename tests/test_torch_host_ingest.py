@@ -305,7 +305,16 @@ def _host_frames():
     }
 
 
-@pytest.mark.parametrize("name", [p.__name__ for p in host.PASSES])
+def _host_passes():
+    """The host module's registered passes, in canonical order."""
+    from sofa_tpu_torch.analysis import registry
+
+    registry.load_builtin_passes()
+    return [s.fn.__name__ for s in registry.registered()
+            if s.fn.__module__ == host.__name__]
+
+
+@pytest.mark.parametrize("name", _host_passes())
 def test_host_pass_matches_jax(tmp_path, name):
     frames = _host_frames()
     got, ref = Features(), JaxFeatures()

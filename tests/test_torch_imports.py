@@ -79,7 +79,10 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/workloads/ring_attention.py",
             "sofa_tpu_torch/workloads/ring_flash.py",
             "sofa_tpu_torch/workloads/collectives.py",
-            "sofa_tpu_torch/workloads/transformer.py"} <= rel
+            "sofa_tpu_torch/workloads/transformer.py",
+            "sofa_tpu_torch/analysis/registry.py",
+            "sofa_tpu_torch/analysis/hint_service.py",
+            "sofa_tpu_torch/plugins.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -103,9 +106,14 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.workloads.ring_attention, "
             "sofa_tpu_torch.workloads.ring_flash, "
             "sofa_tpu_torch.workloads.collectives, "
-            "sofa_tpu_torch.workloads.transformer; "
+            "sofa_tpu_torch.workloads.transformer, "
+            "sofa_tpu_torch.analysis.registry, "
+            "sofa_tpu_torch.analysis.hint_service, sofa_tpu_torch.plugins; "
+            "registry = sofa_tpu_torch.analysis.registry; "
+            "registry.load_builtin_passes(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'sofa_tpu') or m.startswith('google.protobuf')]; "
+            "('jax', 'sofa_tpu', 'grpc') "
+            "or m.startswith('google.protobuf')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120,

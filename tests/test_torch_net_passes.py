@@ -304,6 +304,27 @@ def test_concurrency_breakdown_matches_jax(both, roi, rate):
     assert got.by_regex(r"corr_gpu_\w+")
 
 
+@pytest.mark.parametrize("threshold", [0.05, 0.3])
+def test_concurrency_breakdown_idle_threshold_matches_jax(both, threshold):
+    """--is_idle_threshold above the default: more windows are idle, and
+    performance.csv and the ratios stay the JAX package's."""
+    port, pcfg, jax, jcfg = both
+    pcfg.is_idle_threshold = jcfg.is_idle_threshold = threshold
+    got, ref = Features(), JaxFeatures()
+    concurrency.concurrency_breakdown(port, pcfg, got)
+    jax_conc.concurrency_breakdown(jax, jcfg, ref)
+    _same_features(got, ref)
+    mine = pd.read_csv(pcfg.path("performance.csv"))
+    theirs = pd.read_csv(jcfg.path("performance.csv")).rename(
+        columns={"tpu_util": "gpu_util"})
+    theirs["class"] = theirs["class"].replace("tpu", "gpu")
+    pd.testing.assert_frame_equal(mine, theirs, check_exact=True)
+    default = Features()
+    pcfg.is_idle_threshold = SofaConfig().is_idle_threshold
+    concurrency.concurrency_breakdown(port, pcfg, default)
+    assert got.get("elapsed_idl_ratio") > default.get("elapsed_idl_ratio")
+
+
 def test_concurrency_breakdown_without_device_frames_matches_jax(both):
     port, pcfg, jax, jcfg = both
     got, ref = Features(), JaxFeatures()

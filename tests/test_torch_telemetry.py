@@ -131,6 +131,19 @@ DOCS = {
         "record": {"rc": 3, "counters": {"warnings": 1, "errors": 2}},
         "analyze": {"rc": 1, "counters": {"warnings": 0, "errors": 1}}}),
     "unknown_status": _doc(collectors={"x": {"status": "?"}}),
+    "pass_failed": _doc(meta={"passes": {
+        "schedule": [["spotlight", "boom"], ["cpu_profile"]],
+        "order": ["spotlight", "cpu_profile", "boom"], "jobs": 4,
+        "passes": {
+            "spotlight": {"status": "ok", "origin": "builtin", "wave": 0,
+                          "wall_s": 0.01},
+            "cpu_profile": {"status": "ok", "origin": "builtin", "wave": 1,
+                            "wall_s": 0.02},
+            "boom": {"status": "failed", "origin": "plugin:boom",
+                     "wave": 0, "wall_s": 0.0,
+                     "error": "KeyError: 'gputrace'"},
+            "gated": {"status": "skipped", "origin": "builtin",
+                      "skip_reason": "enable_aisi off"}}}}),
 }
 
 
@@ -157,7 +170,7 @@ def test_readers_of_documents_without_sections():
 def test_vocabularies_match_the_jax_package():
     for name in ("MANIFEST_NAME", "SELF_TRACE_NAME", "MANIFEST_SCHEMA",
                  "MANIFEST_VERSION", "COLLECTOR_STATUSES", "SOURCE_STATUSES",
-                 "CACHE_OUTCOMES"):
+                 "CACHE_OUTCOMES", "PASS_STATUSES"):
         assert getattr(telemetry, name) == getattr(jax_telemetry, name)
 
 
@@ -345,11 +358,17 @@ def test_cpu_profile_clips_to_the_roi_as_the_jax_pass(tmp_path, roi):
 
 
 def test_analyze_runs_cpu_profile_after_the_roi():
-    from sofa_tpu_torch.analysis import device
-    from sofa_tpu_torch.analyze import PASSES
+    from sofa_tpu_torch.analysis import device, registry
 
-    names = [p.__name__ for p in PASSES]
-    assert names.index("spotlight_roi") < names.index("cpu_profile")
-    assert names[0] == "spotlight_roi" and PASSES[0] is device.spotlight_roi
-    # the other passes keep their order
-    assert names[1:1 + len(host.PASSES)] == [p.__name__ for p in host.PASSES]
+    registry.load_builtin_passes()
+    specs = registry.registered()
+    names = [s.name for s in specs]
+    assert names[0] == "spotlight" and specs[0].fn is device.spotlight_roi
+    assert "spotlight" in registry.get("cpu_profile").after
+    waves = [[s.name for s in w] for w in registry.resolve_schedule(
+        specs, strict=True)]
+    wave_of = {n: i for i, w in enumerate(waves) for n in w}
+    assert wave_of["spotlight"] < wave_of["cpu_profile"]
+    # the host passes keep their order, right after the region of interest
+    host_names = [s.name for s in specs if s.fn.__module__ == host.__name__]
+    assert names[1:1 + len(host_names)] == host_names
