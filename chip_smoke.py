@@ -44,8 +44,7 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            torch.profiler trace: device time of the flash kernels, the other
            kernels, memsets and copies, and the span's idle share
   profile  ``python -m sofa_tpu_torch stat`` over the flagship forward with
-           a short serving run (with and without allocation-stack
-           recording), over the training workload's ``main`` at its
+           a short serving run, over the training workload's ``main`` at its
            defaults, and over it at Llama-3-8B width cut to 4 layers with
            the Python stack sampler on, set by a ``--config`` TOML file;
            checks the device traces and steps (the backward kernels,
@@ -63,8 +62,9 @@ Phases, all of them, in order; any failure raises and exits non-zero:
   resnet   ResNet-50 at its published widths (batch 32, 224 x 224, 1000
            classes, bf16, channels_last): 20 train steps bare, then 20
            under ``sofa_tpu_torch.api.profile()`` with a sofa_step_N range
-           each, then 20 bare again, three such pairs each in a fresh
-           process; images/s, the overhead, the paired t-test, and the
+           each, then 20 bare again, two such pairs each in a fresh
+           process; images/s, the overhead (of the medians), the paired
+           t-test, and the
            bare pass after the profiled one against the first (what the
            profiler leaves behind);
            then preprocess and analyze of the last capture (coverage guard:
@@ -92,8 +92,7 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            on revalidation, a deep tile gzipped and plain, nothing outside
            the logdir (the report runs at ``--jobs 4``); ``report --jobs
            1`` over each, whose features.csv and hints.txt must be
-           byte-identical to the first report's; then ``clean`` on a copy
-           of the ResNet logdir and ``report`` over it again, whose
+           byte-identical to the first report's; the ResNet report's
            concurrency breakdown must give
            performance.csv and five elapsed ratios summing to 1; a
            ``--plugin`` whose pass raises, over a copy of the Llama-width
@@ -102,31 +101,44 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            built-in pass with its last run's time; prints the host times
            and sizes
   robust   the supervised, self-reporting record, one line a cell:
-           (1) ``stat`` over the Llama-width training with procmon killed
-           5 s in and the Kineto harvest wedged (5 s deadline): one
+           (1) ``stat`` over the training ``main`` at its defaults with
+           procmon killed 5 s in and the Kineto harvest wedged (5 s
+           deadline): one
            restart with mpstat rows after the death, kineto ``timed_out``
-           at harvest, all three kernels in gputrace, ``report`` complete,
+           at harvest, all three kernels in gputrace, ``analyze`` complete,
            ``status`` as ``render_status`` says; (2) ``stat`` over a
            3-second command with procmon killed at 1 s and no restarts:
            ``died``, ``status`` nonzero, the ``[self]`` hint; (3) a copy
            of the Llama-width capture with its Kineto JSON cut in half:
            ``preprocess`` quarantines it, ``analyze`` completes with the
            ``[self]`` hint, a second ``preprocess`` does not serve it
-           warm; (4) ``report`` over a copy of the last ResNet-50 capture
-           cold, warm and cold with ``--jobs
-           1`` (no card visible): wall times, per-source wall_s and stage
-           times, the cache's format, byte-identical report.js,
-           features.csv and tiles cold and warm, then ``clean``; (5) ``record --epilogue_deadline_s 5`` over a child
-           wedged at exit returns within 30 s and warns; (6) ``record
-           --pid`` of an entry-forward serving run in its own process,
-           then ``report``.  Cell (1)'s procmon is the native sysmon, and
-           its restart runs it again
+           warm; (4) ``report`` over the last ResNet-50 capture where the
+           board phase left it, in columnar and then csv, both warm (no
+           card visible): wall times, the frames' chunks (written, reused)
+           and stage times, the cache's format, byte-identical report.js,
+           features.csv, hints.txt and tiles; (5) the
+           durability cell over a copy of the Llama-width capture: the
+           resolved format and pyarrow's version, (a) ``report`` in csv
+           and columnar, cold and warm, byte-identical, with the four wall
+           times; (b) a preprocess SIGKILLed at each of the JAX chaos
+           matrix's kill points (a frame CSV write, a tile write, a chunk
+           hash), then ``resume``: rc 0, report.js byte-identical to (a)'s,
+           ``fsck`` 0, gputrace through ``read_frame`` with its rows and
+           all three kernels; (c) a tile removed, a derived CSV's and a
+           chunk's byte flipped, the raw capture rewritten and a ``.tmp``
+           left: ``fsck`` 1 naming each, ``status`` 1 with its integrity
+           line, ``fsck --repair`` 0, the manifest valid; then ``clean``
+           keeps the raw files and ``kineto/`` only; (6) ``record
+           --epilogue_deadline_s 5`` over a child wedged at exit returns
+           within 30 s and warns; (7) ``record --pid`` of an entry-forward
+           serving run in its own process, then ``report``.  Cell (1)'s
+           procmon is the native sysmon, and its restart runs it again
   cluster  ``record --cluster_hosts localhost,127.0.0.1`` of the
-           Llama-width training at batch 1 (two copies on the one card at
+           training ``main`` at its defaults (two copies on the one card at
            once), then ``report --cluster_hosts`` with no card visible: each
            host's misc.txt rc 0, a healthy manifest and ``status`` 0, its
            native sysmon running under its recorder, all three kernels
-           launched as often as in the profile phase's run; the merged
+           launched as often as in the profile phase's run of it; the merged
            report.js (meta.cluster_hosts, every host series under
            ``<host>_``, the second host's shifted by the difference of the
            time bases within 1e-6 s) and cluster_summary.csv; both hosts'
@@ -136,12 +148,17 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            the train phase's shape (--data 1 --seq_par 1) under ``stat``:
            the losses must equal the train phase's; logs what the capture
            holds for the gradient all-reduce; then two gloo
-           ranks sharing the card (--data 2, batch 1 each) under ``stat``:
+           ranks sharing the card (--data 2, batch 1 each, the ``main``'s
+           defaults otherwise) under ``stat``:
            two rank traces, device ids 0 and 1, one gpumon file per rank
            (named by its rank), gpu_step_skew.csv, equal losses, per-rank flash launches as in a one-rank run, the
            merged topology, mesh_advice.txt, and comm-report.html rendered
            by ``report`` and served by ``viz``; the collectives microbench
            at one rank prints its single-device line
+
+Every whole frame a check reads comes through the port's ``read_frame``
+(``frame``): in columnar mode ``<name>.csv`` is the board's downsampled
+copy.
 
 After each phase the script names any process the phase left running;
 once the phases end (or one fails) it stops every process still under it.
@@ -208,6 +225,18 @@ RING_RANKS = 4
 # same seed, so the losses are expected to be equal to the bit; the limit
 # leaves room only for a reduction that a one-rank collective reorders.
 MESH_LOSS_REL = 1e-5
+
+
+def frame(logdir: str, name: str, columns=None):
+    """A whole frame as preprocess wrote it (its chunk store, else its
+    parquet or CSV file), through the port's ``read_frame``: in columnar
+    mode ``<name>.csv`` is the board's downsampled copy."""
+    from sofa_tpu_torch.trace import read_frame
+
+    df = read_frame(os.path.join(logdir, name), columns)
+    if df is None:
+        raise AssertionError(f"{logdir} has no {name} frame")
+    return df
 
 
 def log(msg: str) -> None:
@@ -386,8 +415,9 @@ def mesh_losses(out: str) -> dict:
     import re
 
     found = {}
-    for m in re.finditer(r"^transformer: rank (\d+) losses \(warm-up "
-                         r"first\) (.*)$", out, re.M):
+    # not anchored at a line start: two ranks' prints may interleave
+    for m in re.finditer(r"transformer: rank (\d+) losses \(warm-up "
+                         r"first\) ([-+0-9.eE ]+)$", out, re.M):
         found[int(m.group(1))] = [float(x) for x in m.group(2).split()]
     return found
 
@@ -409,6 +439,11 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.smi = ""
         self.kernel_rows = {}
+        from sofa_tpu_torch.frames import columnar_available
+
+        # where pyarrow is missing, columnar falls back to csv
+        self.columnar = columnar_available()
+        self.jobs1 = {}     # board label -> (wall, outputs) of --jobs 1
 
     # -- helpers --------------------------------------------------------------
     def gen(self, seed: int):
@@ -1079,47 +1114,55 @@ class Smoke:
         feats = pd.read_csv(os.path.join(logdir, "features.csv"))
         return dict(zip(feats["name"], feats["value"])), logdir, out
 
-    def check_manifest(self, label, logdir, healthy=True):
-        """The run manifest: valid by the port's validate_manifest; for a
+    def check_manifest(self, label, logdir, healthy=True, cli=False):
+        """The run manifest: valid by the port's validate_manifest (with
+        every frame_index.json of the chunk store); for a
         ``healthy`` run every started collector ``stopped`` and ``status``
-        exiting 0.  Prints Kineto's source wall_s and events.  Returns
-        (manifest, status's exit code)."""
+        exiting 0 (``render_status``'s code, the ``status`` verb's own;
+        with ``cli`` the verb run in its own process).  Prints Kineto's
+        source wall_s and events.  Returns (manifest, status's exit
+        code)."""
         from sofa_tpu_torch import telemetry
-        from sofa_tpu_torch.tools.manifest_check import validate_manifest
+        from sofa_tpu_torch.tools.manifest_check import (check_frame_indexes,
+                                                         validate_manifest)
 
         doc = telemetry.load_manifest(logdir)
         probs = validate_manifest(doc) if doc is not None else ["missing"]
+        probs += check_frame_indexes(logdir)
         if probs:
             raise AssertionError(f"run_manifest.json invalid ({label}): "
                                  f"{probs}")
         ended = {n: e["status"] for n, e in doc.get("collectors", {}).items()
                  if "start_seq" in e}
-        r, _ = self.board_cli("status", "--logdir", logdir)
+        if cli:
+            r, _ = self.board_cli("status", "--logdir", logdir)
+            rc, report = r.returncode, r.stdout
+        else:
+            lines, rc = telemetry.render_status(doc, logdir)
+            report = "\n".join(lines)
         src = doc.get("sources", {}).get("kineto", {})
         log(f"manifest[{label}]: valid; started collectors {ended}; status "
-            f"rc {r.returncode}; kineto source {src.get('status')} "
+            f"rc {rc}; kineto source {src.get('status')} "
             f"{src.get('events')} events in {src.get('wall_s')} s "
             f"(cache {src.get('cache')})")
         if healthy and (any(st != "stopped" for st in ended.values())
-                        or r.returncode != 0):
+                        or rc != 0):
             raise AssertionError(f"the manifest is not healthy ({label}): "
-                                 f"{ended}, status rc {r.returncode}: "
-                                 f"{r.stdout[-2000:]}")
-        return doc, r.returncode
+                                 f"{ended}, status rc {rc}: "
+                                 f"{report[-2000:]}")
+        return doc, rc
 
     def stat(self, label: str, cmd: str, steps: int, names, flags=(),
              healthy=True):
         """``run_stat``, then checks that gputrace has rows of each kernel
         in ``names`` and gpusteps ``steps`` rows; logs where the ranged
         device time goes.  Returns (features, logdir, output, kernels)."""
-        import pandas as pd
-
         feats, logdir, out = self.run_stat(label, cmd, flags, healthy)
-        gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
+        gpu = frame(logdir, "gputrace")
         kern = gpu[gpu["copyKind"] == 0]
         kname = kern["name"].astype(str)
         found = {n: int(kname.str.contains(n).sum()) for n in names}
-        steps_df = pd.read_csv(os.path.join(logdir, "gpusteps.csv"))
+        steps_df = frame(logdir, "gpusteps")
         log(f"profile[{label}]: gputrace {len(gpu)} rows, {len(kern)} "
             f"kernels, {json.dumps(found)}; gpusteps {len(steps_df)} rows; "
             + ", ".join(f"{k} {feats.get(k)}" for k in (
@@ -1169,24 +1212,23 @@ class Smoke:
         serve = (f"{sys.executable} -m sofa_tpu_torch.entry --steps {steps} "
                  "--serve_requests 4 --serve_layers 2 --prompt 128 "
                  "--new_tokens 8")
-        lines = []
-        for state in ("on", "off"):
-            flags = ("--disable_memprof",) if state == "off" else ()
-            feats, _, out, _ = self.stat(f"serve_{state}", serve, steps,
-                                         ["sofa_flash_fwd"], flags)
-            for key in ("serving_prefill_time", "serving_decode_time"):
-                if key not in feats:
-                    raise AssertionError(f"features.csv lacks {key}")
-            lines.append((state, [ln for ln in out.splitlines()
-                                  if ln.startswith(("entry:", "serve:"))]))
-        for state, got in lines:
-            log(f"profile: allocation stacks {state} (small kernels): "
-                + " | ".join(got) + f" | {self.smi}")
+        feats, _, out, _ = self.stat("serve", serve, steps,
+                                     ["sofa_flash_fwd"])
+        for key in ("serving_prefill_time", "serving_decode_time"):
+            if key not in feats:
+                raise AssertionError(f"features.csv lacks {key}")
+        log("profile: serving (small kernels): " + " | ".join(
+            ln for ln in out.splitlines()
+            if ln.startswith(("entry:", "serve:"))) + f" | {self.smi}")
         # the training workload at the JAX package's main defaults (batch 8,
         # seq 512, d 512, 4 layers, 8/4 heads: D 64)
-        self.stat("train", f"{sys.executable} -m "
-                  f"sofa_tpu_torch.workloads.transformer --steps {steps}",
-                  steps, names)
+        _, _, _, kern = self.stat("train", f"{sys.executable} -m "
+                                  "sofa_tpu_torch.workloads.transformer "
+                                  f"--steps {steps}", steps, names)
+        # launches of each kernel in one 3-step run at these defaults (the
+        # cluster's hosts and the two gloo ranks must launch as many)
+        self.train_launches = {n: int(kern["name"].astype(str).str.contains(
+            n).sum()) for n in names}
         self.profile_llama(steps, names)
         self.profile_wrapped_ring()
         self.profile_killed()
@@ -1209,10 +1251,6 @@ class Smoke:
             f.write("enable_py_stacks = true\n")
         feats, logdir, out, kern = self.stat("llama", cmd, steps, names,
                                              ("--config", cfg_file))
-        # launches of each kernel in one 3-step run (the cluster phase's
-        # hosts must launch as many)
-        self.llama_launches = {n: int(kern["name"].astype(str).str.contains(
-            n).sum()) for n in names}
         rate = [("on", [ln for ln in out.splitlines()
                         if ln.startswith("transformer:")])]
         self.kernels_in_steps(kern, steps)
@@ -1270,9 +1308,8 @@ class Smoke:
             raise AssertionError(f"the top allocation site is not a line "
                                  f"of sofa_tpu_torch/: {top}")
         # the host frames
-        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
-        py = pd.read_csv(os.path.join(logdir, "pystacks.csv"),
-                         keep_default_na=False)
+        mp = frame(logdir, "mpstat")
+        py = frame(logdir, "pystacks")
         mine = py["module"].str.contains(
             "sofa_tpu_torch.workloads.transformer.", regex=False)
         agg = mp[mp["deviceId"] == -1]
@@ -1483,9 +1520,11 @@ class Smoke:
         """ResNet-50 train steps bare and under the in-process profile(),
         as the JAX package's benchmark times them, each pair in a fresh
         process (so that no bare pass follows a profiler in its process),
-        with a bare pass after the profiled one and processes that run
-        three bare passes beside them; then the device passes over the
-        last capture, and ``stat`` over the workload's ``main``."""
+        with a bare pass after the profiled one; then the device passes
+        over the last capture, and ``stat`` over the workload's
+        ``main``."""
+        import statistics
+
         import pandas as pd
         from scipy import stats
 
@@ -1495,7 +1534,7 @@ class Smoke:
 
         batch, steps = RESNET_BATCH, RESNET_STEPS
         runs = []
-        for i in range(3):
+        for i in range(RESNET_PAIRS):
             logdir = os.path.join(REPO, "build", f"chip_smoke_resnet_r{i}")
             shutil.rmtree(logdir, ignore_errors=True)
             r = subprocess.run(
@@ -1522,7 +1561,7 @@ class Smoke:
         prof = [d["profiled"] for d in pairs]
         repeats = len(pairs)
         p_value = float(stats.ttest_rel(prof, bare).pvalue)
-        t_bare, t_prof = sorted(bare)[repeats // 2], sorted(prof)[repeats // 2]
+        t_bare, t_prof = statistics.median(bare), statistics.median(prof)
         overhead = max(0.0, (t_prof - t_bare) / t_bare * 100.0)
 
         # what a profiler leaves behind once stopped: the bare pass after
@@ -1629,7 +1668,8 @@ class Smoke:
         coverage guard (CUDA-kernel rows in gputrace; the flops guard is the
         default level's)."""
         from sofa_tpu_torch.config import SofaConfig
-        from sofa_tpu_torch.preprocess import sofa_preprocess
+        from sofa_tpu_torch.ingest.kineto import ingest_kineto_dir
+        from sofa_tpu_torch.preprocess import read_time_base
 
         batch, steps = RESNET_BATCH, RESNET_STEPS
         logdir = os.path.join(REPO, "build", "chip_smoke_resnet_light")
@@ -1645,8 +1685,10 @@ class Smoke:
                                  f"{r.returncode}: {r.stderr[-3000:]}")
         d = json.loads(got[-1].split(" ", 1)[1])
         overhead = (d["profiled"] - d["bare"]) / d["bare"] * 100.0
-        frames = sofa_preprocess(SofaConfig(logdir=logdir))
-        kern = frames["gputrace"][frames["gputrace"]["copyKind"] == 0]
+        # the capture's ingest alone: the light run's frames go nowhere
+        gpu = ingest_kineto_dir(os.path.join(logdir, "kineto"), read_time_base(
+            SofaConfig(logdir=logdir)))["gputrace"]
+        kern = gpu[gpu["copyKind"] == 0]
         trace_mb = sum(os.path.getsize(p) for p in glob.glob(
             os.path.join(logdir, "kineto", "*.json"))) / 1e6
         log(f"resnet[light]: host tracer level 0: bare {d['bare']:.4f} s "
@@ -1673,8 +1715,6 @@ class Smoke:
         inside the window (a 0.5 s margin), its steps be fewer than the
         run's, and its kernels keep their launch context (op_path, fw and
         bw phases)."""
-        import pandas as pd
-
         doc = json.load(open(glob.glob(os.path.join(
             full_logdir, "kineto", "*.json"))[0]))
         marks = sorted(float(e["ts"]) for e in doc["traceEvents"]
@@ -1686,8 +1726,7 @@ class Smoke:
                        and str(e.get("name", "")).startswith("sofa_step_"))
         first = (steps[0][0] - marks[0]) / 1e6
         period = (steps[-1][0] - steps[0][0]) / 1e6 / (len(steps) - 1)
-        full = pd.read_csv(os.path.join(full_logdir, "gputrace.csv"),
-                           keep_default_na=False)
+        full = frame(full_logdir, "gputrace")
         in_steps = full[(full["copyKind"] == 0) & full["module"].astype(
             str).str.match(r"sofa_step_\d+$")]
         device_step = float(in_steps["duration"].sum()) / len(steps)
@@ -1705,10 +1744,9 @@ class Smoke:
         detail = wdoc["sofa_trace_detail"]
         t0 = detail["start_unix"] - time_base
         t1 = detail["stop_unix"] - time_base
-        gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"),
-                          keep_default_na=False)
+        gpu = frame(logdir, "gputrace")
         kern = gpu[gpu["copyKind"] == 0]
-        ksteps = pd.read_csv(os.path.join(logdir, "gpusteps.csv"))
+        ksteps = frame(logdir, "gpusteps")
         ends = kern["timestamp"] + kern["duration"]
         margin = 0.5
         outside = int(((kern["timestamp"] < t0 - margin)
@@ -1768,7 +1806,7 @@ class Smoke:
 
         logdirs = (
             ("llama", os.path.join(REPO, "build", "chip_smoke_profile_llama")),
-            ("resnet", os.path.join(REPO, "build", "chip_smoke_resnet_r2")))
+            ("resnet", os.path.join(REPO, "build", "chip_smoke_resnet_r1")))
         for label, logdir in logdirs:
             # measure the tile stage cold: the earlier phases built it
             shutil.rmtree(os.path.join(logdir, "_tiles"), ignore_errors=True)
@@ -1803,7 +1841,7 @@ class Smoke:
                     f"({e['bytes']} bytes)" for n, e in tiles.items())
                     or "none") + f"; gputrace rows in the deepest tiles "
                 f"{leaves} | {self.smi}")
-        self.board_clean(logdirs[1][1])
+        self.board_new_passes(logdirs[1][1])
         self.board_registry(logdirs[0][1])
 
     def board_jobs(self, label, logdir):
@@ -1829,6 +1867,8 @@ class Smoke:
             if outputs() != first:
                 raise AssertionError(f"report --jobs {jobs} wrote other "
                                      f"features.csv or hints.txt ({label})")
+            # robust cell 4 reports this logdir again in csv, warm
+            self.jobs1[label] = (wall, self.outputs(logdir))
         from sofa_tpu_torch import telemetry
 
         ledger = telemetry.load_manifest(logdir)["meta"]["passes"]
@@ -1946,11 +1986,9 @@ class Smoke:
     def board_leaf_rows(self, label, logdir, doc):
         """The gputrace rows the deepest level's tiles hold together; the
         series is the whole frame, so they must number its rows."""
-        import pandas as pd
         from sofa_tpu_torch.tiles import read_tile
 
-        rows = len(pd.read_csv(os.path.join(logdir, "gputrace.csv"),
-                               usecols=["timestamp"]))
+        rows = len(frame(logdir, "gputrace", ["timestamp"]))
         ent = doc["meta"].get("tiles", {}).get("series", {}).get("gputrace")
         if ent is None:
             return f"no pyramid ({rows} rows)"
@@ -2079,33 +2117,8 @@ class Smoke:
         if proc.poll() is None:
             raise AssertionError("the viz process is still running")
 
-    def board_clean(self, logdir):
-        """``clean`` on a copy of a logdir keeps the raw files and
-        kineto/, removes the derived ones; ``report`` works again."""
-        from sofa_tpu_torch.record import RAW_FILES
-
-        copy = os.path.join(REPO, "build", "chip_smoke_board_clean")
-        shutil.rmtree(copy, ignore_errors=True)
-        shutil.copytree(logdir, copy)
-        before = set(os.listdir(copy))
-        r, _ = self.board_cli("clean", "--logdir", copy)
-        after = set(os.listdir(copy))
-        traces = os.listdir(os.path.join(copy, "kineto"))
-        log(f"board[clean]: {len(before)} entries -> {len(after)}: "
-            f"{sorted(after)}; kineto/ {traces}")
-        if r.returncode != 0 or not after <= set(RAW_FILES) | {"kineto"} \
-                or not traces or not (before & set(RAW_FILES)) <= after:
-            raise AssertionError(f"clean removed the wrong files: {r.stderr}")
-        r, wall = self.board_cli("report", "--logdir", copy)
-        if r.returncode != 0 or "Complete!!" not in r.stdout:
-            raise AssertionError(f"report after clean failed: "
-                                 f"{r.stderr[-3000:]}")
-        log(f"board[clean]: report over the cleaned copy {wall:.3f} s")
-        self.board_new_passes(copy)
-        shutil.rmtree(copy, ignore_errors=True)
-
     def board_new_passes(self, logdir):
-        """The concurrency breakdown and the network passes over the copied
+        """The concurrency breakdown and the network passes over the
         ResNet-50 capture: performance.csv, five elapsed ratios that cover
         the windows, and netrank.csv beside any nettrace."""
         import pandas as pd
@@ -2128,9 +2141,7 @@ class Smoke:
             raise AssertionError("the concurrency breakdown is missing or "
                                  "its ratios do not sum to 1")
         self.board_recheck_windows(logdir, feats)
-        nettrace = os.path.join(logdir, "nettrace.csv")
-        rows = (len(pd.read_csv(nettrace, usecols=["timestamp"]))
-                if os.path.isfile(nettrace) else 0)
+        rows = len(frame(logdir, "nettrace", ["timestamp"]))
         log(f"board[passes]: nettrace {rows} rows, netrank.csv "
             f"{os.path.isfile(os.path.join(logdir, 'netrank.csv'))} (no "
             "tcpdump on this machine: the packet passes are held on the "
@@ -2147,10 +2158,12 @@ class Smoke:
         import numpy as np
         import pandas as pd
 
-        perf = pd.read_csv(os.path.join(logdir, "performance.csv"))
-        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
+        # parsed correctly rounded, as the frames come back exactly
+        perf = pd.read_csv(os.path.join(logdir, "performance.csv"),
+                           float_precision="round_trip")
+        mp = frame(logdir, "mpstat")
         mp = mp[mp["deviceId"] == -1]
-        util = pd.read_csv(os.path.join(logdir, "gpuutil.csv"))
+        util = frame(logdir, "gpuutil")
         edges = perf["timestamp"].to_numpy(dtype=float)
         n = len(edges)
         window = 1.0 / round(1.0 / (edges[1] - edges[0])) if n > 1 else 0.1
@@ -2195,41 +2208,41 @@ class Smoke:
 
     # -- robust -----------------------------------------------------------------
     def robust(self):
-        """The supervised, self-reporting record: six cells, one line each
-        (the module docstring lists them)."""
+        """The supervised, self-reporting record and the logdir's
+        durability: seven cells, one line each (the module docstring lists
+        them)."""
         for cell in (self.robust_faulted, self.robust_sticky,
                      self.robust_truncated, self.robust_cache,
-                     self.robust_epilogue, self.robust_attach):
+                     self.robust_durability, self.robust_epilogue,
+                     self.robust_attach):
             t0 = time.perf_counter()
             line = cell()
             log(f"robust[{cell.__name__[7:]}]: {line} "
                 f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
 
     def robust_faulted(self):
-        """stat over the Llama-width training with procmon killed 5 s in
-        and the Kineto harvest wedged past a 5 s deadline."""
-        import pandas as pd
+        """stat over the training workload's ``main`` (its defaults, as the
+        profile phase's) with procmon killed 5 s in and the Kineto harvest
+        wedged past a 5 s deadline."""
         from sofa_tpu_torch import kernels, telemetry
 
         steps = 3
         cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
-               f"--steps {steps} --batch 4 --seq 2048 --vocab 128256 "
-               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
-               "--d_ff 14336")
+               f"--steps {steps}")
         flags = ("--inject_faults", "procmon:die@5s,kineto:wedge@harvest",
                  "--collector_harvest_timeout_s", "5")
         _, logdir, out, kern = self.stat(
             "faulted", cmd, steps, [k.name for k in kernels.KERNELS], flags,
             healthy=False)
-        doc, status_rc = self.check_manifest("faulted", logdir, False)
+        doc, status_rc = self.check_manifest("faulted", logdir, False,
+                                             cli=True)
         pm, kt = doc["collectors"]["procmon"], doc["collectors"]["kineto"]
         start = next(st["t0_unix"] for st in doc["stages"]
                      if st["name"] == "procmon.start")
         with open(os.path.join(logdir, "sofa_time.txt")) as f:
             zero = float(f.read().split()[0])
-        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
+        mp = frame(logdir, "mpstat")
         after = int((mp["timestamp"] > start + 5 - zero + 0.5).sum())
-        r, _ = self.board_cli("report", "--logdir", logdir)
         want_rc = telemetry.render_status(doc, logdir)[1]
         launches = {k.name: int(kern["name"].astype(str).str.contains(
             k.name).sum()) for k in kernels.KERNELS}
@@ -2244,8 +2257,8 @@ class Smoke:
                                  f"twice (start, restart): {native}")
         if kt.get("status") != "timed_out" or kt.get("phase") != "harvest":
             raise AssertionError(f"kineto did not time out at harvest: {kt}")
-        if r.returncode != 0 or "Complete!!" not in r.stdout:
-            raise AssertionError(f"report failed: {r.stderr[-2000:]}")
+        if "Complete!!" not in out:     # stat's analyze over the capture
+            raise AssertionError(f"analyze failed: {out[-2000:]}")
         if status_rc != want_rc or want_rc != 1:
             raise AssertionError(f"status exited {status_rc}, render_status "
                                  f"says {want_rc}")
@@ -2253,7 +2266,7 @@ class Smoke:
                 f"{pm['restarts']}, "
                 f"{after} mpstat rows after the death; kineto "
                 f"{kt['status']} at {kt['phase']}; launches {launches}; "
-                f"report complete; status rc {status_rc} (render_status "
+                f"analyze complete; status rc {status_rc} (render_status "
                 f"{want_rc})")
 
     def robust_sticky(self):
@@ -2263,7 +2276,8 @@ class Smoke:
         _, logdir, _ = self.run_stat(
             "sticky", cmd, ("--collector_restarts", "0", "--inject_faults",
                             "procmon:die@1s"), healthy=False)
-        doc, status_rc = self.check_manifest("sticky", logdir, False)
+        doc, status_rc = self.check_manifest("sticky", logdir, False,
+                                             cli=True)
         pm = doc["collectors"]["procmon"]
         with open(os.path.join(logdir, "hints.txt")) as f:
             hint = [h for h in f.read().splitlines()
@@ -2304,10 +2318,8 @@ class Smoke:
         with open(os.path.join(copy, "hints.txt")) as f:
             hint = [h for h in f.read().splitlines()
                     if h.startswith("[self] ingest source kineto")]
-        r3, _ = self.board_cli("preprocess", "--logdir", copy)
-        again = telemetry.load_manifest(copy)["sources"]["kineto"]
         moved = os.path.join(copy, "_quarantine", trace)
-        if r.returncode or r1.returncode or r3.returncode \
+        if r.returncode or r1.returncode \
                 or ent.get("status") != "quarantined" \
                 or ent.get("quarantined_file") != moved \
                 or not os.path.isfile(moved):
@@ -2318,93 +2330,275 @@ class Smoke:
                                  f"cache entry: {warm} before, {left} after")
         if r2.returncode or "Complete!!" not in r2.stdout or not hint:
             raise AssertionError(f"analyze gave no [self] hint: {hint}")
-        if again.get("cache") == "hit":
-            raise AssertionError(f"the quarantined source came back warm: "
-                                 f"{again}")
         shutil.rmtree(copy, ignore_errors=True)
         return (f"{trace} cut from {size} to {size // 2} bytes: "
                 f"{ent['status']} by preprocess in {t1:.3f} s "
                 f"({ent['error'].rsplit(': ', 2)[-2][:60]}), its "
                 f"{len(warm)} cache files purged; analyze: "
-                f"{hint[0].split(' — ')[0]}; next preprocess "
-                f"{again['status']} (cache {again['cache']})")
+                f"{hint[0].split(' — ')[0]}")
 
     def robust_cache(self):
-        """report over a copy of the last ResNet-50 capture cold, warm and
-        cold with --jobs 1, no card visible, then clean."""
-        return self.cold_warm("resnet", os.path.join(
-            REPO, "build", "chip_smoke_resnet_r2"))
+        """report --jobs 1 in csv over the last ResNet-50 capture where the
+        board phase left it (warm: its cache and chunk store), against the
+        board's columnar report --jobs 1 of the same logdir."""
+        wall, want = self.jobs1["resnet"]
+        runs, _ = self.report_formats("resnet", os.path.join(
+            REPO, "build", "chip_smoke_resnet_r1"), (("csv", "warm"),),
+            in_place=True, args=("--jobs", "1"))
+        differ = sorted(k for k in set(want) | set(runs[0][1])
+                        if want.get(k) != runs[0][1].get(k))
+        if differ:
+            raise AssertionError(f"csv and columnar reports differ: "
+                                 f"{differ[:8]}")
+        fmt = runs[0][2]["meta"]["ingest_cache"]["formats"]["kineto"]
+        return (f"resnet: report --jobs 1 warm, columnar {wall:.3f} s (the "
+                f"board's), csv {runs[0][0]:.3f} s; cache format {fmt}; "
+                f"{len(want)} files byte-identical")
 
-    def cold_warm(self, label, src):
-        """``report`` over a cleaned copy of ``src``: cold, warm, cold with
-        --jobs 1; the warm outputs byte-identical to the cold ones; then
-        ``clean`` removes the cache, the manifest and the self trace and
-        keeps the raw files."""
-        import glob
-
+    def report_formats(self, label, src, sequence, in_place=False,
+                       args=()):
+        """``report`` over a cleaned copy of ``src`` (or over ``src``
+        itself) once per (format, cold|warm) of ``sequence`` (cold: no
+        ingest cache); every run's features.csv, hints.txt, report.js and
+        tiles byte-identical to the first's, every warm run a cache hit.
+        Returns ([(wall, outputs, manifest, stderr)], the logdir)."""
         from sofa_tpu_torch import telemetry
-        from sofa_tpu_torch.record import RAW_FILES
 
-        copy = os.path.join(REPO, "build", f"chip_smoke_robust_{label}")
-        shutil.rmtree(copy, ignore_errors=True)
-        shutil.copytree(src, copy)
-        self.board_cli("clean", "--logdir", copy)
-
-        def snapshot():
-            out = {}
-            for p in sorted([os.path.join(copy, "report.js"),
-                             os.path.join(copy, "features.csv")]
-                            + glob.glob(os.path.join(copy, "_tiles", "**",
-                                                     "*"), recursive=True)):
-                if os.path.isfile(p):
-                    with open(p, "rb") as f:
-                        out[os.path.relpath(p, copy)] = f.read()
-            return out
-
-        runs = {}
-        for kind, argv in (("cold", ()), ("warm", ()),
-                           ("cold_jobs1", ("--jobs", "1"))):
-            if kind.startswith("cold"):
+        copy = src
+        if not in_place:
+            copy = os.path.join(REPO, "build", f"chip_smoke_robust_{label}")
+            shutil.rmtree(copy, ignore_errors=True)
+            shutil.copytree(src, copy)
+            self.board_cli("clean", "--logdir", copy)
+        runs = []
+        for fmt, kind in sequence:
+            if kind == "cold":
                 shutil.rmtree(os.path.join(copy, "_ingest_cache"),
                               ignore_errors=True)
-            r, wall = self.board_cli("report", "--logdir", copy, *argv)
+            r, wall = self.board_cli("report", "--logdir", copy,
+                                     "--trace_format", fmt, *args)
             if r.returncode or "Complete!!" not in r.stdout:
-                raise AssertionError(f"report {label} {kind} failed: "
+                raise AssertionError(f"report {label} {fmt} {kind} failed: "
                                      f"{r.stderr[-2000:]}")
             doc = telemetry.load_manifest(copy)
-            walls = {n: e["wall_s"] for n, e in doc["sources"].items()
-                     if e.get("events")}
+            fm = doc["meta"]["frames"]
             stages = {st["name"]: st["dur_s"] for st in doc["stages"]
-                      if st["verb"] in ("preprocess", "analyze")}
-            icache = doc["meta"]["ingest_cache"]
-            runs[kind] = (wall, snapshot(), doc)
-            log(f"robust[cache]: {label} report {kind} {wall:.3f} s wall; "
-                f"preprocess {doc['runs']['preprocess']['wall_s']:.3f} s, "
-                f"analyze {doc['runs']['analyze']['wall_s']:.3f} s; stages "
-                f"{stages}; sources {walls}; kineto cache "
-                f"{doc['sources']['kineto']['cache']}, format "
-                f"{icache.get('formats', {}).get('kineto')}; jobs "
-                f"{doc['meta']['pool']['jobs']}")
-        cold, warm = runs["cold"][1], runs["warm"][1]
-        differ = sorted(k for k in set(cold) | set(warm)
-                        if cold.get(k) != warm.get(k))
-        if runs["warm"][2]["sources"]["kineto"]["cache"] != "hit" or differ:
-            raise AssertionError(f"the warm report missed the cache or "
-                                 f"differs from the cold one ({label}): "
-                                 f"{differ}")
+                      if st["verb"] == "preprocess"
+                      or st["name"] in ("load_frames", "passes")}
+            log(f"robust[formats]: {label} report {fmt} {kind} {wall:.3f} s "
+                f"wall; preprocess {doc['runs']['preprocess']['wall_s']:.3f}"
+                f" s, analyze {doc['runs']['analyze']['wall_s']:.3f} s; "
+                f"frames {fm['format']} ({fm['chunks']} chunks, "
+                f"{fm['reused']} reused, {fm['bytes']} bytes, fallback "
+                f"{fm.get('fallback')}); stages {stages}; kineto cache "
+                f"{doc['sources']['kineto']['cache']}")
+            if fm["format"] != (fmt if self.columnar else "csv"):
+                raise AssertionError(f"meta.frames.format {fm['format']} "
+                                     f"for --trace_format {fmt}")
+            if kind == "warm" and doc["sources"]["kineto"]["cache"] != "hit":
+                raise AssertionError(f"the warm report missed the cache "
+                                     f"({label})")
+            runs.append((wall, self.outputs(copy), doc, r.stderr))
+        first = runs[0][1]
+        for (fmt, kind), (_, got, _, _) in zip(sequence, runs):
+            differ = sorted(k for k in set(first) | set(got)
+                            if first.get(k) != got.get(k))
+            if differ:
+                raise AssertionError(f"report {label} {fmt} {kind} differs "
+                                     f"from {sequence[0]}: {differ[:8]}")
+        return runs, copy
+
+    @staticmethod
+    def outputs(logdir):
+        """features.csv, hints.txt, report.js and the tiles, by path."""
+        out = {}
+        for p in sorted([os.path.join(logdir, n) for n in (
+                "report.js", "features.csv", "hints.txt")]
+                + glob.glob(os.path.join(logdir, "_tiles", "**", "*"),
+                            recursive=True)):
+            if os.path.isfile(p):
+                with open(p, "rb") as f:
+                    out[os.path.relpath(p, logdir)] = f.read()
+        return out
+
+    def check_clean(self, copy):
+        """``clean`` removes the cache, the chunk store, the manifest, the
+        self trace, the journal and the digests, and keeps the raw files
+        and kineto/; returns what is left."""
+        from sofa_tpu_torch.record import RAW_FILES
+
         r, _ = self.board_cli("clean", "--logdir", copy)
         left = set(os.listdir(copy))
-        gone = {"_ingest_cache", "run_manifest.json", "sofa_self_trace.json"}
+        gone = {"_ingest_cache", "_frames", "run_manifest.json",
+                "sofa_self_trace.json", "_journal.jsonl", "_digests.json"}
         if r.returncode or left & gone or \
                 not (left & set(RAW_FILES)) or "kineto" not in left:
-            raise AssertionError(f"clean left {sorted(left)} ({label})")
-        fmt = runs["warm"][2]["meta"]["ingest_cache"]["formats"]["kineto"]
+            raise AssertionError(f"clean left {sorted(left)}")
+        return left
+
+    # The JAX chaos matrix's kill points (tools/chaos_matrix.py:73-103): a
+    # frame CSV write, a tile write, a chunk hash; the child SIGKILLs
+    # itself at the n-th call, inside preprocess's derived writes.
+    KILL_CHILD = (
+        "import os, signal, sys\n"
+        "logdir, point, n, viz = sys.argv[1], sys.argv[2], int(sys.argv[3]),"
+        " int(sys.argv[4])\n"
+        "from sofa_tpu_torch import frames, tiles, trace\n"
+        "count = [0]\n"
+        "def arm(orig):\n"
+        "    def hook(*a, **kw):\n"
+        "        count[0] += 1\n"
+        "        if count[0] >= n:\n"
+        "            os.kill(os.getpid(), signal.SIGKILL)\n"
+        "        return orig(*a, **kw)\n"
+        "    return hook\n"
+        "if point == 'tiles':\n"
+        "    tiles._write_tile = arm(tiles._write_tile)\n"
+        "elif point == 'frame_chunks':\n"
+        "    frames._chunk_sha = arm(frames._chunk_sha)\n"
+        "else:\n"
+        "    trace.write_csv = arm(trace.write_csv)\n"
+        "from sofa_tpu_torch.config import SofaConfig\n"
+        "from sofa_tpu_torch.preprocess import sofa_preprocess\n"
+        "sofa_preprocess(SofaConfig(logdir=logdir, viz_downsample_to=viz))\n")
+
+    def robust_durability(self):
+        """The run journal, the digests and the chunk store over a copy of
+        the Llama-width training capture (no card visible): (a) report in
+        csv and in columnar, cold and warm, byte-identical; (b) a
+        preprocess SIGKILLed at each kill point, then ``resume``; (c)
+        damage of each fsck verdict, ``fsck``, ``fsck --repair``,
+        ``status``; then ``clean``."""
+        import contextlib
+        import io
+
+        from sofa_tpu_torch import durability
+        from sofa_tpu_torch.config import SofaConfig
+        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.trace import WRITING_SENTINEL
+
+        src = os.path.join(REPO, "build", "chip_smoke_profile_llama")
+        try:
+            import pyarrow
+            arrow = f"pyarrow {pyarrow.__version__}"
+        except ImportError:
+            arrow = "no pyarrow"
+        # pyramids on the frames too (the tile kill point writes tiles)
+        rows = len(frame(src, "gputrace", ["timestamp"]))
+        viz = min(10000, max(100, rows // 4))
+        seq = (("csv", "cold"), ("csv", "warm"), ("columnar", "cold"),
+               ("columnar", "warm"))
+        runs, copy = self.report_formats(
+            "llama", src, seq, args=("--viz_downsample_to", str(viz)))
+        fmt = runs[2][2]["meta"]["frames"]["format"]
+        line = (f"{arrow}, columnar resolves to {fmt}; --viz_downsample_to "
+                f"{viz} ({rows} gputrace rows); (a) report " + ", ".join(
+                    f"{f} {c} {w:.3f} s" for (f, c), (w, _, _, _) in
+                    zip(seq, runs)) + f", {len(runs[0][1])} files "
+                "byte-identical")
+        if not self.columnar:
+            if "falling back to csv" not in runs[2][3]:
+                raise AssertionError("columnar without pyarrow gave no "
+                                     "fallback warning")
+            line += ("; without pyarrow the columnar runs warned and wrote "
+                     "csv (meta.frames.format csv): no chunk store to kill "
+                     "or damage")
+        want_js = runs[-1][1]["report.js"]
+        base = frame(copy, "gputrace")
+        kills = []
+        for point in ("frames", "tiles", "frame_chunks")[
+                :3 if self.columnar else 2]:
+            gone = {"tiles": "_tiles", "frame_chunks": "_frames"}.get(point)
+            if gone:        # a warm run reuses these: make it write them
+                shutil.rmtree(os.path.join(copy, gone))
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+            k = subprocess.run([sys.executable, "-c", self.KILL_CHILD, copy,
+                                point, "3", str(viz)], cwd=REPO, env=env,
+                               capture_output=True, text=True, timeout=600)
+            left = os.path.exists(os.path.join(copy, WRITING_SENTINEL))
+            # resume and fsck in this process (the verbs' functions; the
+            # CLI's own parsing is held on the CPU), their output kept
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(out):
+                res = durability.sofa_resume(
+                    SofaConfig(logdir=copy, viz_downsample_to=viz))
+                res_s = time.perf_counter() - t0
+                fsck = durability.sofa_fsck(SofaConfig(logdir=copy))
+            with open(os.path.join(copy, "report.js"), "rb") as f:
+                same = f.read() == want_js
+            gpu = frame(copy, "gputrace")
+            held = {kk.name: int(gpu["name"].astype(str).str.contains(
+                kk.name).sum()) for kk in KERNELS}
+            kills.append(f"{point}: rc {k.returncode}, sentinel left "
+                         f"{left}, resume rc {res} in {res_s:.1f} s, "
+                         f"report.js identical {same}, fsck rc {fsck}, "
+                         f"gputrace {len(gpu)} rows {held}")
+            if k.returncode != -9 or not left or res or not same or fsck \
+                    or len(gpu) != len(base) or not all(held.values()):
+                raise AssertionError(f"resume after a kill at {point}: "
+                                     f"{kills[-1]}; {k.stderr[-1500:]} "
+                                     f"{out.getvalue()[-3000:]}")
+        damage = self.damage(copy, self.columnar)
+        bad, _ = self.board_cli("fsck", copy)
+        st_bad, _ = self.board_cli("status", copy)
+        named = {v: [rel for rel in rels
+                     if f"{v:<9} {rel}" not in bad.stdout]
+                 for v, rels in damage.items()}
+        rep, rep_s = self.board_cli("fsck", copy, "--repair",
+                                    "--viz_downsample_to", str(viz))
+        doc, st_rc = self.check_manifest("durability", copy)
+        integrity = [ln.strip() for ln in st_bad.stdout.splitlines()
+                     if "integrity:" in ln]
+        if bad.returncode != 1 or any(named.values()) or rep.returncode \
+                or st_bad.returncode != 1 or not integrity \
+                or not doc["meta"]["fsck"]["ok"]:
+            raise AssertionError(f"fsck rc {bad.returncode}, unnamed "
+                                 f"{named}, repair rc {rep.returncode}, "
+                                 f"status rc {st_bad.returncode}: "
+                                 f"{bad.stdout[-2000:]} {rep.stderr[-2000:]}")
+        left = self.check_clean(copy)
         shutil.rmtree(copy, ignore_errors=True)
-        return (f"{label}: report cold {runs['cold'][0]:.3f} s, warm "
-                f"{runs['warm'][0]:.3f} s, cold --jobs 1 "
-                f"{runs['cold_jobs1'][0]:.3f} s; cache format {fmt}; "
-                f"{len(cold)} files byte-identical cold and warm; clean "
-                f"kept {len(left)} raw entries and kineto/")
+        return (line + "; (b) " + "; ".join(kills) + f"; (c) fsck rc 1 "
+                f"naming {damage}, status rc {st_bad.returncode} "
+                f"({integrity[0]}); --repair rc 0 in {rep_s:.1f} s, manifest"
+                f" valid, status rc {st_rc}; clean kept {len(left)} raw "
+                "entries and kineto/")
+
+    @staticmethod
+    def damage(logdir, chunk=True):
+        """One artifact of each fsck verdict: a tile removed, a byte of a
+        derived CSV and (``chunk``) of a chunk flipped under an unchanged
+        mtime, a raw capture rewritten, a .tmp left; returns {verdict:
+        [file]}."""
+        def flip(rel, at):
+            path = os.path.join(logdir, rel)
+            st = os.stat(path)
+            with open(path, "r+b") as f:
+                f.seek(at(st.st_size))
+                b = f.read(1)
+                f.seek(-1, 1)
+                f.write(bytes([b[0] ^ 1]))
+            os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns))
+
+        tile = sorted(glob.glob(os.path.join(logdir, "_tiles", "*", "*",
+                                             "*.json.gz")))[0]
+        os.unlink(tile)
+        flip("gpu_top_kernels.csv", lambda n: n // 2)
+        corrupt = ["gpu_top_kernels.csv"]
+        if chunk:
+            corrupt.append("_frames/gputrace/000000.arrow")
+            flip(corrupt[-1], lambda n: n // 3)
+        trace = "kineto/" + sorted(os.listdir(os.path.join(logdir,
+                                                           "kineto")))[0]
+        with open(os.path.join(logdir, trace), "a") as f:
+            f.write("\n")
+        with open(os.path.join(logdir, "report.js.tmp"), "w") as f:
+            f.write("torn")
+        return {"missing": [os.path.relpath(tile, logdir)],
+                "corrupt": corrupt,
+                "stale": [trace], "orphaned": ["report.js.tmp"]}
 
     def robust_epilogue(self):
         """record --epilogue_deadline_s 5 over a child that writes a done,
@@ -2436,8 +2630,6 @@ class Smoke:
     def robust_attach(self):
         """record --pid of an entry-forward serving run started in its own
         process; then report."""
-        import pandas as pd
-
         logdir = os.path.join(REPO, "build", "chip_smoke_robust_attach")
         shutil.rmtree(logdir, ignore_errors=True)
         target = subprocess.Popen(
@@ -2459,7 +2651,7 @@ class Smoke:
         with open(os.path.join(logdir, "misc.txt")) as f:
             misc = dict(ln.split(None, 1) for ln in f.read().splitlines())
         rep, _ = self.board_cli("report", "--logdir", logdir)
-        mp = pd.read_csv(os.path.join(logdir, "mpstat.csv"))
+        mp = frame(logdir, "mpstat")
         served = [ln for ln in out.splitlines() if ln.startswith("serve:")]
         if r.returncode or int(misc["pid"]) != target.pid or not served:
             raise AssertionError(f"attach failed: rc {r.returncode}, misc "
@@ -2473,8 +2665,8 @@ class Smoke:
 
     # -- cluster ----------------------------------------------------------------
     def cluster(self):
-        """Two ``localhost`` hosts record the Llama-width training at batch
-        1 on the one card at once (``record --cluster_hosts``), then
+        """Two ``localhost`` hosts record the training ``main`` at its
+        defaults on the one card at once (``record --cluster_hosts``), then
         ``report --cluster_hosts`` with no card visible merges them: each
         host's record healthy and its native sysmon running under its
         recorder, all three kernels launched as often as in the profile
@@ -2494,9 +2686,7 @@ class Smoke:
             shutil.rmtree(d, ignore_errors=True)
         steps = 3
         cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
-               f"--steps {steps} --batch 1 --seq 2048 --vocab 128256 "
-               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
-               "--d_ff 14336")
+               f"--steps {steps}")
         t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "sofa_tpu_torch", "record",
@@ -2556,7 +2746,7 @@ class Smoke:
         for h, d in host_dirs.items():
             # record's collectors and the report's sources, healthy
             self.check_manifest(f"cluster {h}", d)
-            gpu = pd.read_csv(os.path.join(d, "gputrace.csv"))
+            gpu = frame(d, "gputrace")
             kname = gpu[gpu["copyKind"] == 0]["name"].astype(str)
             got = {n: int(kname.str.contains(n).sum()) for n in names}
             feats = pd.read_csv(os.path.join(d, "features.csv"))
@@ -2566,13 +2756,13 @@ class Smoke:
                 bases[h] = float(f.read().split()[0])
             own[h] = read_report_js_doc(os.path.join(d, "report.js"))
             log(f"cluster[{h}]: launches {got} (profile phase "
-                f"{self.llama_launches}); gpu0_hbm_peak_gb {peaks[h]}; "
+                f"{self.train_launches}); gpu0_hbm_peak_gb {peaks[h]}; "
                 f"elapsed_time {feats.get('elapsed_time')} s; "
                 f"elapsed_gpu_ratio {feats.get('elapsed_gpu_ratio')}; "
                 f"gpu_step_busy_pct {feats.get('gpu_step_busy_pct')}")
-            if got != self.llama_launches:
+            if got != self.train_launches:
                 raise AssertionError(f"{h}: flash launches {got}, the "
-                                     f"profile phase's {self.llama_launches}")
+                                     f"profile phase's {self.train_launches}")
         # the merged timeline
         doc = read_report_js_doc(os.path.join(base, "report.js"))
         merged = {s["name"]: s for s in doc["series"]}
@@ -2586,11 +2776,10 @@ class Smoke:
                 raise AssertionError(f"report.js lacks {missing} of {h}")
             # each merged point against its frame's rows plus the shift
             # (the merged series may be a downsampled subset)
-            for frame in ("gputrace", "hosttrace"):
-                ts = pd.read_csv(os.path.join(host_dirs[h], f"{frame}.csv"),
-                                 usecols=["timestamp"])["timestamp"]
+            for name in ("gputrace", "hosttrace"):
+                ts = frame(host_dirs[h], name, ["timestamp"])["timestamp"]
                 expect = np.sort(ts.to_numpy() + shift)
-                x = np.asarray(merged[f"{h}_{frame}"]["data"]["x"])
+                x = np.asarray(merged[f"{h}_{name}"]["data"]["x"])
                 i = np.clip(np.searchsorted(expect, x), 1, len(expect) - 1)
                 err = np.minimum(np.abs(x - expect[i - 1]),
                                  np.abs(x - expect[i]))
@@ -2612,8 +2801,7 @@ class Smoke:
                     if c in summary.columns]
         # an interface that moved no bytes over the run is idle and gives
         # no netbandwidth rows (nor, as in the JAX package, net_* features)
-        nics = {h: len(pd.read_csv(os.path.join(d, "netbandwidth.csv"),
-                                   usecols=["timestamp"]))
+        nics = {h: len(frame(d, "netbandwidth", ["timestamp"]))
                 for h, d in host_dirs.items()}
         if list(summary["host"]) != hosts or "elapsed_time" not in summary \
                 or (any(nics.values()) and len(net_cols) != 2):
@@ -2883,8 +3071,8 @@ class Smoke:
         at the train phase's shape (--data 1 --seq_par 1) under ``stat``:
         its losses must equal the train phase's; logs what the capture
         holds for the gradient all-reduce.
-        (2) two gloo ranks sharing the card (--data 2, B 1 each) under
-        ``stat``: two rank traces, device ids 0 and 1, both ranks' steps,
+        (2) two gloo ranks sharing the card (--data 2, B 1 each, the
+        ``main``'s defaults otherwise) under ``stat``: two rank traces, device ids 0 and 1, both ranks' steps,
         gpu_step_skew.csv, the same loss on both ranks at every step, each
         flash kernel launched per rank as often as in a one-rank 3-step
         run, a merged topology of two ranks on one card, mesh_advice.txt,
@@ -2910,7 +3098,7 @@ class Smoke:
         if len(losses[0]) != 2 + steps or rel > MESH_LOSS_REL:
             raise AssertionError("the NCCL world of one does not train as "
                                  "the unsharded step does")
-        self.mesh_two_ranks(width, steps)
+        self.mesh_two_ranks(steps)
         r = subprocess.run([sys.executable, "-m",
                             "sofa_tpu_torch.workloads.collectives"],
                            cwd=REPO, capture_output=True, text=True,
@@ -2929,12 +3117,9 @@ class Smoke:
         it.  Returns the run's output."""
         import glob
 
-        import pandas as pd
-
         feats, logdir, out = self.run_stat("mesh_nccl1", cmd)
-        gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
-        host = pd.read_csv(os.path.join(logdir, "hosttrace.csv"),
-                           usecols=["name"])
+        gpu = frame(logdir, "gputrace")
+        host = frame(logdir, "hosttrace", ["name"])
         comms = int((host["name"] == "record_param_comms").sum())
         nccl = gpu[gpu["name"].astype(str).str.startswith("nccl")]
         kinds = gpu.groupby("copyKind").size().to_dict()
@@ -2976,8 +3161,10 @@ class Smoke:
             raise AssertionError("the NCCL capture lacks the flash kernels")
         return out
 
-    def mesh_two_ranks(self, width, steps):
-        """Two gloo ranks sharing the card under ``stat`` (--data 2)."""
+    def mesh_two_ranks(self, steps):
+        """Two gloo ranks sharing the card under ``stat`` (--data 2), the
+        training ``main`` at its defaults but B 1 a rank (gloo's host
+        all-reduce of Llama-width gradients takes 4-12 s a step)."""
         import pandas as pd
 
         from sofa_tpu_torch.kernels import KERNELS
@@ -2985,7 +3172,7 @@ class Smoke:
         cmd = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
                f"2 --master_port {free_port()} -m "
                f"sofa_tpu_torch.workloads.transformer --steps {steps} "
-               f"--batch 2 {width} --data 2 --backend gloo --share_device")
+               "--batch 2 --data 2 --backend gloo --share_device")
         t0 = time.perf_counter()
         feats, logdir, out = self.run_stat("mesh_gloo2", cmd)
         stat_s = time.perf_counter() - t0
@@ -2999,14 +3186,14 @@ class Smoke:
                 info = json.load(f).get("distributedInfo")
             traces.append((name, info))
         ranked = sorted(i["rank"] for _, i in traces if i)
-        gpu = pd.read_csv(os.path.join(logdir, "gputrace.csv"))
-        steps_df = pd.read_csv(os.path.join(logdir, "gpusteps.csv"))
+        gpu = frame(logdir, "gputrace")
+        steps_df = frame(logdir, "gpusteps")
         names = [k.name for k in KERNELS]
         kern = gpu[gpu["copyKind"] == 0]
         per_rank = {int(dev): {n: int(rows["name"].astype(str).str.contains(
             n).sum()) for n in names} for dev, rows in kern.groupby(
             "deviceId")}
-        want = self.llama_launches      # measured by the profile phase
+        want = self.train_launches      # measured by the profile phase
         skew_path = os.path.join(logdir, "gpu_step_skew.csv")
         skew = pd.read_csv(skew_path) if os.path.isfile(skew_path) else None
         with open(os.path.join(logdir, "gpu_topo.json")) as f:
@@ -3017,7 +3204,7 @@ class Smoke:
         # each rank's sampler names its files by its rank in the group
         mon = sorted(f for f in os.listdir(logdir)
                      if f.startswith(("gpumon", "memprof")))
-        gpumon = pd.read_csv(os.path.join(logdir, "gpumon.csv"))
+        gpumon = frame(logdir, "gpumon")
         mon_devs = sorted(gpumon[gpumon["deviceId"] >= 0]["deviceId"]
                           .unique().tolist())
         log(f"mesh[gloo2]: sampler files {mon}; gpumon device ids "
@@ -3076,6 +3263,7 @@ class Smoke:
 PHASES = ("device", "kernel", "model", "train", "ring", "profile", "resnet",
           "board", "robust", "cluster", "mesh")
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
+RESNET_PAIRS = 2        # bare/profiled pairs, each in a fresh process
 
 
 def resnet_pass(logdir: str, level: int = 2) -> None:

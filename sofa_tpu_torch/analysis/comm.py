@@ -429,7 +429,7 @@ def _busy_bins(ops: pd.DataFrame, edges: np.ndarray) -> np.ndarray:
 @analysis_pass(
     name="net_profile", order=100,
     reads_frames=("nettrace", "gputrace"),
-    reads_columns=("timestamp", "duration", "category", "payload",
+    reads_columns=("timestamp", "duration", "copyKind", "payload",
                    "pkt_src", "pkt_dst"),
     provides_features=("net_packets", "net_total_bytes", "net_total_time",
                        "dcn_top_peer_corr", "dcn_top_peer"),

@@ -197,7 +197,7 @@ def op_tree_profile(frames, cfg, features: Features) -> None:
 @analysis_pass(
     name="overlap_profile", order=130,
     reads_frames=("gputrace",),
-    reads_columns=("timestamp", "duration", "deviceId", "category"),
+    reads_columns=("timestamp", "duration", "deviceId", "copyKind"),
     provides_features=("gpu*_async_time", "gpu*_async_hidden_pct"),
     after=("spotlight",),
 )

@@ -158,8 +158,8 @@ def gpu_profile(frames, cfg, features: Features) -> None:
 @analysis_pass(
     name="serving_profile", order=170,
     reads_frames=("gputrace", "hosttrace"),
-    reads_columns=("timestamp", "duration", "category", "module", "name",
-                   "flops", "bytes_accessed"),
+    reads_columns=("timestamp", "duration", "module", "name",
+                   "hlo_category"),
     provides_features=("serving_prefill_time", "serving_decode_time",
                        "serving_decode_calls", "serving_ttft"),
     after=("spotlight",),

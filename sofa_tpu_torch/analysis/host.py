@@ -46,7 +46,7 @@ def cpu_profile(frames, cfg, features: Features) -> None:
 @analysis_pass(
     name="mpstat_profile", order=30,
     reads_frames=("mpstat",),
-    reads_columns=("duration", "deviceId", "name", "event"),
+    reads_columns=("duration", "deviceId", "name", "event", "payload"),
     provides_features=("num_cores", "mpstat_*_pct", "mpstat_*_time",
                        "cpu_util"),
 )

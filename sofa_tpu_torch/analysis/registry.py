@@ -1,7 +1,7 @@
 """The analysis-pass registry: every pass declares its contract, and
 ``run_passes`` schedules, isolates and records them (the JAX package's
 ``sofa_tpu/analysis/registry.py``, without ``select_for_dirty``, which
-belongs to ``live``, and without the frame store's projection).
+belongs to ``live``).
 
 A pass is a function ``fn(frames, cfg, features)`` registered with
 ``@analysis_pass(...)`` (or ``register_pass``) under a contract:
@@ -25,6 +25,13 @@ began with and every completed wave's buffers, in canonical order
 (``order``, then registration); the buffers merge in that order.  So
 ``--jobs 1`` and ``--jobs 4`` write byte-identical ``features.csv`` and
 ``hints.txt``.
+
+The frames may be lazy ``frames.FrameHandle``s (analyze over a chunk
+store): each pass then receives its declared ``reads_frames`` read to its
+declared ``reads_columns`` on entry and dropped on exit
+(``frames.ProjectionPool``), and every other frame as its handle, so that
+a pass reading a frame it did not declare fails inside its own fault
+isolation.  Eager frames pass through as they are.
 
 A pass that raises is a warning (``print_warning``, which the run's
 telemetry counts) and a ``failed`` entry in the run manifest's
@@ -339,7 +346,9 @@ def run_passes(frames, cfg, features: Features, tel=None,
     pass that raises is warned about and marked ``failed``; the rest
     run."""
     from sofa_tpu_torch import pool, telemetry
+    from sofa_tpu_torch.frames import ProjectionPool
 
+    proj = ProjectionPool(frames)
     specs = registered()
     jobs = pool.cfg_jobs(cfg) if jobs is None else max(1, int(jobs))
     enabled = [s for s in specs if s.enabled(cfg)]
@@ -367,7 +376,8 @@ def run_passes(frames, cfg, features: Features, tel=None,
                 else telemetry.maybe_span(spec.name, cat="analyze"))
         try:
             with span:
-                out = spec.fn(frames, cfg, view)
+                out = spec.fn(proj.for_pass(spec.reads_frames,
+                                            spec.reads_columns), cfg, view)
             if spec.provides_series and out:
                 series_by_pass[spec.name] = list(out)
             entry["status"] = "ok"

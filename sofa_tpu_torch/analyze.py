@@ -15,7 +15,10 @@ hints are printed and written to ``hints.txt``, the board's pages are
 staged beside the data, and the run ends with the ``Complete!!`` line.
 The run lands in the run manifest (``telemetry.py``; the JAX package's
 ``analyze.py:192-212``), and the manifest's health warnings ride the hints
-as ``[self]`` lines.
+as ``[self]`` lines.  The run journal's ``begin`` and ``commit`` bracket
+it, and the digests are refreshed before the commit (``durability.py``).
+Frames come from ``open_frames``: lazy handles over the chunk store, so
+that each pass reads only its declared columns.
 
 ``cluster_analyze`` (``report --cluster_hosts``) analyzes each host's
 ``<logdir>-<host>/`` and writes one merged, clock-aligned timeline and
@@ -32,14 +35,17 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import pandas as pd
 
-from sofa_tpu_torch import pool, telemetry
+from sofa_tpu_torch import durability, pool, telemetry
+from sofa_tpu_torch import frames as framestore
 from sofa_tpu_torch.analysis import advice, comm, registry
 from sofa_tpu_torch.analysis.features import Features
 from sofa_tpu_torch.config import SofaConfig
-from sofa_tpu_torch.preprocess import (build_series, load_frames, read_misc,
+from sofa_tpu_torch.preprocess import (build_series, frame_names,
+                                       load_frames, read_misc,
                                        read_time_base)
 from sofa_tpu_torch.printing import print_hint, print_progress, print_warning
-from sofa_tpu_torch.trace import derived_write_guard, reap_stale_sentinel
+from sofa_tpu_torch.trace import (derived_write_guard, read_frame,
+                                  reap_stale_sentinel)
 
 BOARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "board")
 
@@ -56,11 +62,26 @@ def stage_board(cfg: SofaConfig) -> None:
         shutil.copy2(os.path.join(BOARD_DIR, name), cfg.path(name))
 
 
+def open_frames(cfg: SofaConfig) -> Dict[str, object]:
+    """The frames for the passes: one with a chunk store as a lazy
+    ``frames.FrameHandle`` (each pass reads only its declared columns,
+    ``registry.run_passes``), any other read whole (``load_frames``)."""
+    out: Dict[str, object] = {}
+    for name in frame_names():
+        handle = framestore.open_frame(cfg.logdir, name)
+        df = handle if handle is not None else read_frame(cfg.path(name))
+        if df is not None:
+            out[name] = df
+    return out
+
+
 def sofa_analyze(cfg: SofaConfig,
                  frames: Optional[Dict[str, pd.DataFrame]] = None
                  ) -> Features:
     reap_stale_sentinel(cfg.logdir)
     tel = telemetry.begin("analyze")
+    journal = durability.Journal(cfg.logdir)
+    journal.begin("analyze", key=durability.logdir_raw_key(cfg.logdir))
     ok = False
     try:
         features = _analyze_body(cfg, frames, tel)
@@ -68,13 +89,18 @@ def sofa_analyze(cfg: SofaConfig,
         return features
     finally:
         tel.write(cfg.logdir, rc=0 if ok else 1, cfg=cfg)
+        if ok:
+            # analyze added its artifacts: refresh the digests, then commit
+            durability.write_digests(cfg.logdir)
+            journal.commit("analyze",
+                           key=durability.logdir_raw_key(cfg.logdir))
         telemetry.end(tel)
 
 
 def _analyze_body(cfg: SofaConfig, frames, tel) -> Features:
     if frames is None:
         with tel.span("load_frames", cat="stage"):
-            frames = load_frames(cfg)
+            frames = open_frames(cfg)
     misc = read_misc(cfg)
     features = Features()
     features.add("elapsed_time", float(misc.get("elapsed_time", 0) or 0))

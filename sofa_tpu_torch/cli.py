@@ -15,10 +15,23 @@
   passes      print the analysis passes' schedule (waves), contracts and
               the last run's statuses and times; exits 2 when the
               declared graph cannot be scheduled
+  resume      replay what the run journal (_journal.jsonl) says did not
+              commit: a preprocess or analyze killed mid-run, or a
+              preprocess whose raw files changed since
+  fsck        check --logdir against its digests (_digests.json): prints
+              each missing, corrupt, stale or orphaned file; exits 0
+              healthy, 1 on damage, 2 without digests; --repair
+              invalidates the damaged cache, tile and chunk entries,
+              removes the orphans and re-derives
   clean       remove the derived files, keep the raw ones
 
-report, analyze, viz, status, passes and clean run on the host only: they
-never touch a GPU.
+report, analyze, viz, status, passes, resume, fsck and clean run on the
+host only: they never touch a GPU.
+
+--trace_format csv|parquet|columnar (or SOFA_TRACE_FORMAT) picks how
+preprocess writes the frames; the default, columnar, is the chunked Arrow
+store _frames/ (CSV where pyarrow is missing), beside which each frame's
+<name>.csv is the board's downsampled copy.
 
 --config FILE loads a TOML file of SofaConfig fields; flags given on the
 command line override it.  --plugin mod[:func] (repeatable) imports mod
@@ -43,7 +56,9 @@ from sofa_tpu_torch import __version__
 from sofa_tpu_torch.config import Filter, SofaConfig
 
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
-         "status", "passes", "clean")
+         "status", "passes", "resume", "fsck", "clean")
+# Verbs whose positional argument is the logdir.
+LOGDIR_VERBS = ("status", "passes", "resume", "fsck")
 
 # Flags that map 1:1 onto SofaConfig fields.
 _FIELDS = (
@@ -58,6 +73,7 @@ _FIELDS = (
     "kineto_python_tracer", "kineto_delay_s", "kineto_duration_s",
     "cpu_time_offset_ms", "gpu_time_offset_ms", "viz_downsample_to",
     "tile_levels", "is_idle_threshold", "hint_server", "plugins",
+    "trace_format",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
@@ -77,7 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("verb", choices=VERBS)
     p.add_argument("command", nargs="?", default=None,
                    help="shell command to profile (record, stat); the "
-                   "logdir for status and passes")
+                   "logdir for status, passes, resume and fsck")
     p.add_argument("--logdir")
     p.add_argument("--config",
                    help="TOML file of config fields; flags override it")
@@ -170,6 +186,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-joined keyword:color timeline filters")
     g.add_argument("--gpu_filters",
                    help="comma-joined keyword:color timeline filters")
+    g.add_argument("--trace_format", choices=["csv", "parquet", "columnar"],
+                   help="how the frames are written (default columnar: the "
+                   "chunked _frames/ store; SOFA_TRACE_FORMAT alike)")
 
     g = p.add_argument_group("analyze")
     g.add_argument("--profile_region", help='manual ROI "begin:end" seconds')
@@ -181,6 +200,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--hint_server",
                    help="gRPC advice service host[:port] (also "
                    "SOFA_HINT_SERVER)")
+
+    g = p.add_argument_group("fsck")
+    g.add_argument("--repair", action="store_true",
+                   help="fsck: invalidate the damaged cache, tile and chunk "
+                   "entries, remove the orphans and re-derive")
 
     g = p.add_argument_group("board")
     g.add_argument("--no_tiles", action="store_true",
@@ -231,7 +255,7 @@ def main(argv: Optional[list] = None) -> int:
     if args.verb in ("record", "stat") and not args.command \
             and "pid" not in vars(args):
         p.error(f"{args.verb} needs a command (or --pid)")
-    if args.verb in ("status", "passes") and args.command \
+    if args.verb in LOGDIR_VERBS and args.command \
             and "logdir" not in vars(args):
         args.logdir = args.command      # `status <logdir>` reads naturally
     try:
@@ -263,6 +287,14 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
         from sofa_tpu_torch.analysis.registry import sofa_passes
 
         return sofa_passes(cfg)
+    if verb == "resume":
+        from sofa_tpu_torch.durability import sofa_resume
+
+        return sofa_resume(cfg)
+    if verb == "fsck":
+        from sofa_tpu_torch.durability import sofa_fsck
+
+        return sofa_fsck(cfg, repair=getattr(args, "repair", False))
     if verb == "clean":
         sofa_clean(cfg)
         return 0

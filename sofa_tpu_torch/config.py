@@ -124,6 +124,9 @@ class SofaConfig:
     # --- preprocess: manual clock fixes, applied after the ingest cache ----
     cpu_time_offset_ms: int = 0      # shifts the host frames
     gpu_time_offset_ms: float = 0.0  # shifts the Kineto frames
+    # csv | parquet | columnar; "" = SOFA_TRACE_FORMAT, else columnar (the
+    # chunk store, frames.py): trace.resolve_trace_format decides
+    trace_format: str = ""
 
     # --- analyze -------------------------------------------------------------
     profile_region: str = ""         # "begin:end" manual ROI (seconds)

@@ -25,14 +25,20 @@ The task dispatch is the JAX package's (``sofa_tpu/preprocess.py:223-433``):
     outcome, wall_s, events).
 
 The frames come back in the table's order whatever the pool, so ``--jobs
-1`` and ``--jobs N`` write the same bytes.  Each frame is written as
-``<name>.csv``; then the frames become the board's timeline series
-(``build_series``), their deep-zoom tile pyramid (``tiles.py``) and
-``report.js``, all under the derived-write guard.
+1`` and ``--jobs N`` write the same bytes.  Each frame is written in the
+run's format (``--trace_format``, ``trace.resolve_trace_format``): by
+default into the chunk store ``_frames/<name>/`` (``frames.py``), with the
+board's downsampled ``<name>.csv`` beside it; then the frames become the
+board's timeline series (``build_series``), their deep-zoom tile pyramid
+(``tiles.py``) and ``report.js``, all under the derived-write guard.  The
+run journal's ``begin`` and ``commit`` bracket the verb, and the digests
+are refreshed once the guard is released (``durability.py``; the JAX
+package's ``preprocess.py:474-650``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -40,7 +46,9 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import pandas as pd
 
-from sofa_tpu_torch import faults, pool, telemetry
+from sofa_tpu_torch import durability, faults, pool, telemetry
+from sofa_tpu_torch import frames as framestore
+from sofa_tpu_torch import trace
 from sofa_tpu_torch.analysis.sol import device_peaks
 from sofa_tpu_torch.config import SofaConfig
 from sofa_tpu_torch.ingest import CorruptRawError, IngestToolError, procfs
@@ -55,11 +63,17 @@ from sofa_tpu_torch.ingest.perf_script import ingest_perf
 from sofa_tpu_torch.ingest.timebase_align import converter
 from sofa_tpu_torch.printing import print_info, print_progress, print_warning
 from sofa_tpu_torch.trace import (SofaSeries, derived_write_guard,
-                                  empty_frame, read_csv, reap_stale_sentinel,
-                                  series_to_report_js, write_csv)
+                                  downsample, empty_frame, read_frame,
+                                  reap_stale_sentinel, resolve_trace_format,
+                                  series_to_report_js)
 
 KINETO_FRAMES = ("gputrace", "gpusteps", "hosttrace", "gpuutil")
 UTIL_WINDOW_S = 0.1         # gpuutil's window, as the JAX tpuutil's
+
+# The columns the board reads (build_series and the tile pyramid): what a
+# columnar frame materializes for the viz path.
+VIZ_COLUMNS = ("timestamp", "event", "duration", "deviceId", "name",
+               "hlo_category", "phase")
 
 # Corrupt raw inputs are moved here (never deleted: the bytes are
 # evidence); clean removes it.
@@ -414,15 +428,66 @@ def _quarantine_source(cfg: SofaConfig, name: str, err: CorruptRawError,
 def sofa_preprocess(cfg: SofaConfig) -> Dict[str, pd.DataFrame]:
     reap_stale_sentinel(cfg.logdir)
     tel = telemetry.begin("preprocess")
+    fmt = resolve_trace_format(cfg)     # inside the run: its warning counts
+    journal = durability.Journal(cfg.logdir)
+    journal.begin("preprocess", key=durability.logdir_raw_key(cfg.logdir),
+                  trace_format=fmt)
     try:
-        faults.install_from(cfg)    # inside the run: its warning counts
-        return _preprocess_body(cfg, tel)
+        faults.install_from(cfg)
+        frames = _preprocess_body(cfg, tel, fmt)
+        # only once every artifact and the digests are on disk: `resume`
+        # replays anything short of this line
+        journal.commit("preprocess",
+                       key=durability.logdir_raw_key(cfg.logdir))
+        return frames
     finally:
         telemetry.end(tel)
         faults.clear()
 
 
-def _preprocess_body(cfg: SofaConfig, tel) -> Dict[str, pd.DataFrame]:
+def write_frames(cfg: SofaConfig, frames: Dict[str, pd.DataFrame],
+                 fmt: str, jobs: int) -> dict:
+    """Write every frame in ``fmt`` on the thread pool; returns
+    ``meta.frames``.  Beside a columnar or parquet frame lands the board's
+    ``<name>.csv``, downsampled to ``viz_downsample_to`` rows.  A frame
+    the chunk store refuses is written as CSV (``fallback`` names it)."""
+
+    def write_one(item) -> tuple:
+        name, df = item
+        base = cfg.path(name)
+        if fmt == "columnar":
+            try:
+                stats = framestore.write_frame_chunks(df, cfg.logdir,
+                                                      name)["_stats"]
+            except Exception as e:  # noqa: BLE001 - this frame goes csv
+                print_warning(f"preprocess: columnar store of {name} "
+                              f"failed ({e}); writing {name}.csv")
+                trace.write_frame(df, base, "csv")
+                return name, None
+            with contextlib.suppress(OSError):
+                os.unlink(base + ".parquet")
+        else:
+            trace.write_frame(df, base, fmt)
+            stats = None
+        if fmt != "csv":
+            # not write_frame's csv mode: that would delete the store
+            trace.write_csv(downsample(df, cfg.viz_downsample_to),
+                            base + ".csv")
+        return name, stats
+
+    wrote = pool.thread_map(write_one, list(frames.items()), jobs)
+    stats = [s for _n, s in wrote if s]
+    return {"format": fmt, "dir": "_frames" if fmt == "columnar" else "",
+            "frames": len(wrote),
+            "chunks": int(sum(s["wrote"] + s["reused"] for s in stats)),
+            "reused": int(sum(s["reused"] for s in stats)),
+            "bytes": int(sum(s["bytes"] for s in stats)),
+            "fallback": sorted(n for n, s in wrote
+                               if s is None and fmt == "columnar")}
+
+
+def _preprocess_body(cfg: SofaConfig, tel, fmt: str
+                     ) -> Dict[str, pd.DataFrame]:
     from sofa_tpu_torch.collectors.kineto import merge_rank_topology
 
     time_base = read_time_base(cfg)
@@ -450,18 +515,22 @@ def _preprocess_body(cfg: SofaConfig, tel) -> Dict[str, pd.DataFrame]:
             frames[name] = df
     with derived_write_guard(cfg.logdir):
         t0, t0_unix = time.perf_counter(), time.time()
-        pool.thread_map(lambda item: write_csv(item[1],
-                                               cfg.path(f"{item[0]}.csv")),
-                        list(frames.items()), jobs)
+        tel.set_meta(frames=write_frames(cfg, frames, fmt, jobs))
         tel.add_span("write_frames", "stage", t0_unix,
                      time.perf_counter() - t0, frames=len(frames),
-                     format="csv")
+                     format=fmt)
         for name, df in frames.items():
             if not df.empty:
-                print_info(f"{name}.csv: {len(df)} rows")
+                print_info(f"{name}: {len(df)} rows ({fmt})")
         write_board_data(cfg, frames, time_base, tel)
+    # the digests hash the final bytes: after the guard is released
+    with tel.span("digests", cat="stage"):
+        digest_doc = durability.write_digests(cfg.logdir)
     tel.set_meta(ingest_cache=cache.stats())
     manifest = tel.write(cfg.logdir, rc=0, cfg=cfg)
+    if digest_doc is not None and "digests" not in (manifest or {}):
+        # the write above made this logdir's first manifest
+        durability.attach_digests(cfg.logdir, digest_doc)
     summary = telemetry.preprocess_summary(manifest)
     if summary:
         print_progress(summary)
@@ -564,6 +633,12 @@ def write_board_data(cfg: SofaConfig, frames: Dict[str, pd.DataFrame],
 
 
 def load_frames(cfg: SofaConfig) -> Dict[str, pd.DataFrame]:
-    """The frames a previous preprocess wrote (missing ones are skipped)."""
-    return {name: read_csv(cfg.path(f"{name}.csv")) for name in frame_names()
-            if os.path.isfile(cfg.path(f"{name}.csv"))}
+    """The frames a previous preprocess wrote, each from its chunk store,
+    parquet file or CSV (``trace.read_frame``); missing ones are
+    skipped."""
+    out = {}
+    for name in frame_names():
+        df = read_frame(cfg.path(name))
+        if df is not None:
+            out[name] = df
+    return out

@@ -110,8 +110,23 @@ ANALYSIS_FILES = (
     "_derived.writing", "run_manifest.json", "sofa_self_trace.json",
     # the container id docker publishes for perf's scoping: scratch
     "docker.cid",
+    # the run journal and the digests (durability.py)
+    "_journal.jsonl", "_digests.json",
 )
-DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine", "sofa_hints")
+# ... and the directories (_frames: the chunk store, frames.py).
+DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine", "sofa_hints",
+                "_frames")
+# Never digested: the ledgers themselves (they change on every write,
+# fsck's own included), the live sentinel and scratch; the ingest cache,
+# the quarantine and the injection directory; and the chunk store, whose
+# chunks its own index hashes (fsck re-hashes them, frames.py).
+DIGEST_SKIP_FILES = frozenset({
+    "_digests.json", "_journal.jsonl", "run_manifest.json",
+    "sofa_self_trace.json", "_derived.writing", "docker.cid",
+})
+DIGEST_SKIP_DIRS = frozenset({
+    "_ingest_cache", "_quarantine", "_inject", "__pycache__", "_frames",
+})
 # The at-exit breadcrumb of the injected stops, in the injection directory.
 MARKER_NAME = "atexit_stop.json"
 
@@ -122,8 +137,9 @@ def derived_names():
     from sofa_tpu_torch.analyze import board_pages
     from sofa_tpu_torch.preprocess import frame_names
 
-    return ([f"{n}.csv" for n in frame_names()] + list(ANALYSIS_FILES)
-            + board_pages())
+    return ([f"{n}.{ext}" for n in frame_names() for ext in ("csv",
+                                                             "parquet")]
+            + list(ANALYSIS_FILES) + board_pages())
 
 
 def _remove(path: str) -> bool:
@@ -156,8 +172,9 @@ def _clean_stale(cfg: SofaConfig) -> None:
 
 def sofa_clean(cfg: SofaConfig) -> int:
     """Remove the derived files (frame and analysis CSVs, report.js, the
-    tile pyramid, the staged pages, hints.txt, features.csv, the run
-    manifest and self trace, the ingest cache, the quarantine) and every
+    tile pyramid, the chunk store, the staged pages, hints.txt,
+    features.csv, the run manifest and self trace, the journal and the
+    digests, the ingest cache, the quarantine) and every
     stray ``*.tmp`` under the logdir (an interrupted atomic write); keep
     the raw collector output and ``kineto/``.  Returns how many entries
     went."""
@@ -492,9 +509,15 @@ def sofa_record(command: Optional[str], cfg: SofaConfig) -> int:
     """Record ``command`` (or, with ``cfg.pid``, the running process) under
     the collectors; returns the command's exit code.  The run manifest is
     written on every exit, an aborted one included."""
+    from sofa_tpu_torch import durability
+
     ensure_logdir(cfg.logdir)
     _clean_stale(cfg)
     tel = telemetry.begin("record")
+    # a fresh journal (the clean took the old one): a crash from here on
+    # leaves a begun, uncommitted record that `resume` reports
+    journal = durability.Journal(cfg.logdir)
+    journal.begin("record")
     try:
         # inside the run, so that its warning counts; a bad spec aborts
         # before any collector starts
@@ -509,6 +532,12 @@ def sofa_record(command: Optional[str], cfg: SofaConfig) -> int:
         return rc
     finally:
         tel.write(cfg.logdir, rc=rc, cfg=cfg)
+        if rc is not None:
+            # the epilogue ran: digest the harvest and commit (an aborted
+            # record stays uncommitted)
+            durability.write_digests(cfg.logdir)
+            journal.commit("record", rc=rc,
+                           key=durability.logdir_raw_key(cfg.logdir))
         telemetry.end(tel)
         faults.clear()
 

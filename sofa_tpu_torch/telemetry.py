@@ -1,7 +1,6 @@
 """Self-telemetry: the profiler's own run, made legible (the JAX package's
-``sofa_tpu/telemetry.py``, without its ``digests`` writer and the readers
-of the sections only its durability, archive, fleet and live modules
-write).
+``sofa_tpu/telemetry.py``, without the readers of the sections only its
+archive, fleet and live modules write).
 
 Every pipeline verb records spans and counters and lands two files in the
 logdir:
@@ -16,11 +15,19 @@ package writes (schema ``sofa_tpu/run_manifest``, version 5)::
     env                       python/platform/host/cpu snapshot and the
                               SOFA_* variables that shape a run
     config                    the SofaConfig of the writing verb
+    digests                   sha256, bytes, mtime_ns and kind (raw or
+                              derived) of every artifact, refreshed by each
+                              verb (``durability.py``; ``_digests.json`` is
+                              the fsync'd copy ``fsck`` reads first)
     meta                      pool sizing, ingest-cache stats, disk budget,
-                              and ``passes``: the analysis-pass ledger
-                              (``analysis/registry.py``: schedule, order,
-                              jobs, per pass status in PASS_STATUSES,
-                              origin, wave, wall_s, error or skip_reason)
+                              ``frames`` (the frames' format, chunks
+                              written and reused, bytes, CSV fallbacks),
+                              ``fsck`` (the last fsck: ok, checked, counts
+                              by verdict, repaired), and ``passes``: the
+                              analysis-pass ledger (``analysis/
+                              registry.py``: schedule, order, jobs, per
+                              pass status in PASS_STATUSES, origin, wave,
+                              wall_s, error or skip_reason)
     collectors.<name>         status (COLLECTOR_STATUSES), degraded flag
                               and reason, died/deaths/restarts (the
                               supervisor), timed_out and phase, exit_code,
@@ -40,7 +47,8 @@ one manifest, and a verb run again replaces its own sections only.  A
 manifest of another schema or version is replaced whole, never merged.
 ``status`` renders the manifest as a health table and exits 1 when a
 collector ended failed, killed, died, timed out or truncated by the disk
-budget, or an analysis pass failed (2 when there is no manifest).
+budget, an analysis pass failed, or the last ``fsck`` found damage (2 when
+there is no manifest).
 """
 
 from __future__ import annotations
@@ -468,6 +476,14 @@ def manifest_warnings(doc: Optional[dict]) -> List[str]:
                 out.append(f"analysis pass {name} failed ({why}) — its "
                            "features and artifacts are missing this run; "
                            "`sofa passes` shows its contract")
+    fsck = (doc.get("meta") or {}).get("fsck")
+    if isinstance(fsck, dict) and fsck.get("ok") is False:
+        problems = fsck.get("problems") or {}
+        detail = ", ".join(f"{v} {k}" for k, v in sorted(problems.items())
+                           if isinstance(v, int) and v)
+        out.append("the last `sofa fsck` found damaged artifacts"
+                   + (f" ({detail})" if detail else "")
+                   + " — run `sofa fsck --repair`")
     for verb, run in sorted((doc.get("runs") or {}).items()):
         counters = run.get("counters") or {}
         if counters.get("errors"):
@@ -523,7 +539,7 @@ def _table(rows: List[List[str]]) -> List[str]:
 
 def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
     """(report lines, exit code): 1 when a collector ended in a terminal
-    bad status or an analysis pass failed."""
+    bad status, an analysis pass failed or the last fsck found damage."""
     lines: List[str] = []
     rc = 0
     runs = doc.get("runs") or {}
@@ -542,6 +558,21 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
             f"{counters.get('errors', 0)} error(s)")
     for verb in sorted(set(runs) - {"record", "preprocess", "analyze"}):
         lines.append(f"  {verb}: wall {runs[verb].get('wall_s', 0):.2f}s")
+    digests = doc.get("digests")
+    if isinstance(digests, dict) and isinstance(digests.get("files"), dict):
+        line = (f"  integrity: {len(digests['files'])} artifact(s) "
+                f"digested ({digests.get('algo', 'sha256')}; "
+                "`sofa fsck` verifies)")
+        fsck = (doc.get("meta") or {}).get("fsck")
+        if isinstance(fsck, dict):
+            if fsck.get("ok"):
+                line += " — last fsck: healthy"
+            else:
+                probs = fsck.get("problems") or {}
+                n = sum(v for v in probs.values() if isinstance(v, int))
+                line += f" — last fsck: {n} problem(s)"
+                rc = 1
+        lines.append(line)
     passes = (doc.get("meta") or {}).get("passes")
     if isinstance(passes, dict) and isinstance(passes.get("passes"), dict):
         ledger = passes["passes"]
@@ -623,8 +654,8 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
 
 def sofa_status(cfg) -> int:
     """The ``status`` verb: render the health ledger; exit 1 on a
-    collector in a terminal bad status or a failed analysis pass, 2 when
-    there is no manifest."""
+    collector in a terminal bad status, a failed analysis pass or damage
+    the last fsck found, 2 when there is no manifest."""
     doc = load_manifest(cfg.logdir)
     if doc is None:
         print_error(f"no {MANIFEST_NAME} in {cfg.logdir} — run `record` / "
@@ -638,6 +669,6 @@ def sofa_status(cfg) -> int:
     print("\n".join(lines))
     if rc != 0:
         print_error("one or more collectors failed, died, timed out, or "
-                    "hit the disk budget, or an analysis pass failed — see "
-                    "the report above")
+                    "hit the disk budget, an analysis pass failed, or the "
+                    "last fsck found damage — see the report above")
     return rc

@@ -340,8 +340,13 @@ def ensure_tiles(cfg, frames) -> Optional[dict]:
     report = cfg.path("report.js")
     if not os.path.isfile(report):
         return None
-    from sofa_tpu_torch.preprocess import build_series
+    from sofa_tpu_torch.frames import materialize
+    from sofa_tpu_torch.preprocess import VIZ_COLUMNS, build_series
 
+    # a columnar frame reads the viz columns only (the JAX package's
+    # tiles.py:426-452); an eager frame passes as it is
+    frames = {name: materialize(v, list(VIZ_COLUMNS))
+              for name, v in frames.items()}
     manifest = build_tiles(cfg, build_series(cfg, frames))
     try:
         patch_report_meta(report, manifest)

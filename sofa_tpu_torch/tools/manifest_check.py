@@ -1,7 +1,9 @@
 """Validate a ``run_manifest.json`` against its schema (the JAX package's
 ``tools/manifest_check.py``, for the sections this package writes: runs,
-env, collectors, sources, stages, ``meta.pool``, ``meta.ingest_cache``,
-``meta.disk_budget`` and ``meta.passes``).
+env, collectors, sources, stages, ``digests``, ``meta.pool``,
+``meta.ingest_cache``, ``meta.disk_budget``, ``meta.passes``,
+``meta.fsck`` and ``meta.frames``).  Given a logdir, it also validates
+every ``_frames/<name>/frame_index.json``.
 
     python -m sofa_tpu_torch.tools.manifest_check <logdir-or-manifest.json>
         [--require-healthy]
@@ -20,10 +22,13 @@ import os
 import sys
 from typing import List
 
+from sofa_tpu_torch.frames import (FRAME_INDEX_NAME, FRAME_INDEX_SCHEMA,
+                                   FRAME_INDEX_VERSION, FRAMES_DIR_NAME)
 from sofa_tpu_torch.telemetry import (CACHE_OUTCOMES, COLLECTOR_STATUSES,
                                       MANIFEST_NAME, MANIFEST_SCHEMA,
                                       MANIFEST_VERSION, PASS_STATUSES,
                                       SOURCE_STATUSES)
+from sofa_tpu_torch.trace import TRACE_FORMATS
 
 _UNHEALTHY = ("failed", "killed", "died", "timed_out", "truncated_by_budget")
 
@@ -140,6 +145,131 @@ def _check_passes(passes, probs: List[str]) -> None:
                              "from meta.passes.schedule")
 
 
+def _check_digests(digests, probs: List[str]) -> None:
+    """``digests``: the sha256 ledger ``fsck`` verifies."""
+    if digests is None:
+        return
+    if not isinstance(digests, dict) or \
+            not isinstance(digests.get("files"), dict):
+        probs.append("digests: not an object with a files map")
+        return
+    if not isinstance(digests.get("algo"), str):
+        probs.append("digests.algo: missing or not a string")
+    for rel, ent in digests["files"].items():
+        where = f"digests.files[{rel!r}]"
+        if not isinstance(ent, dict):
+            probs.append(f"{where}: not an object")
+            continue
+        sha = ent.get("sha256")
+        if not (isinstance(sha, str) and len(sha) == 64):
+            probs.append(f"{where}.sha256: not a 64-hex digest")
+        for key in ("bytes", "mtime_ns"):
+            if not _is_count(ent.get(key)):
+                probs.append(f"{where}.{key}: missing or not a "
+                             "non-negative int")
+        if ent.get("kind") not in ("raw", "derived"):
+            probs.append(f"{where}.kind: {ent.get('kind')!r} not "
+                         "raw/derived")
+
+
+def _check_frames_meta(fmeta, probs: List[str]) -> None:
+    """``meta.frames``: the frames' format and the chunk store's
+    accounting."""
+    if fmeta is None:
+        return
+    if not isinstance(fmeta, dict):
+        probs.append("meta.frames: not an object")
+        return
+    if fmeta.get("format") not in TRACE_FORMATS:
+        probs.append(f"meta.frames.format: {fmeta.get('format')!r} not in "
+                     f"{TRACE_FORMATS}")
+    for key in ("frames", "chunks", "reused", "bytes"):
+        if not _is_count(fmeta.get(key)):
+            probs.append(f"meta.frames.{key}: missing or not a "
+                         "non-negative int")
+    if _is_count(fmeta.get("chunks")) and _is_count(fmeta.get("reused")) \
+            and fmeta["reused"] > fmeta["chunks"]:
+        probs.append("meta.frames: reused exceeds chunks")
+
+
+def validate_frame_index(doc) -> List[str]:
+    """Schema problems of one ``_frames/<name>/frame_index.json``, the
+    commit point of a frame's chunk store."""
+    if not isinstance(doc, dict):
+        return ["frame index is not a JSON object"]
+    probs: List[str] = []
+    if doc.get("schema") != FRAME_INDEX_SCHEMA:
+        probs.append(f"schema: expected {FRAME_INDEX_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != FRAME_INDEX_VERSION:
+        probs.append(f"version: expected {FRAME_INDEX_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not isinstance(doc.get("name"), str) or not doc.get("name"):
+        probs.append("name: missing or empty")
+    cols = doc.get("columns")
+    if not isinstance(cols, list) or not cols \
+            or not all(isinstance(c, str) for c in cols):
+        probs.append("columns: missing or not a list of column names")
+    rows = doc.get("rows")
+    if not _is_count(rows):
+        probs.append("rows: missing or not a non-negative int")
+    step = doc.get("chunk_rows")
+    if not _is_count(step) or step < 1:
+        probs.append("chunk_rows: missing or not a positive int")
+    if doc.get("format") != "arrow":
+        probs.append(f"format: expected 'arrow', got {doc.get('format')!r}")
+    chunks = doc.get("chunks")
+    if not isinstance(chunks, list):
+        probs.append("chunks: not a list")
+        chunks = []
+    total = 0
+    for i, c in enumerate(chunks):
+        # t_min and t_max are null together where every timestamp is NaN
+        t_ok = isinstance(c, dict) and (
+            (_is_num(c.get("t_min")) and _is_num(c.get("t_max")))
+            or (c.get("t_min") is None and c.get("t_max") is None))
+        if not t_ok or not isinstance(c.get("file"), str) \
+                or not isinstance(c.get("sha"), str) \
+                or not _is_count(c.get("rows")) or c["rows"] < 1:
+            probs.append(f"chunks[{i}]: needs file, sha, positive rows, "
+                         "and numeric (or paired-null) t_min/t_max")
+            continue
+        total += c["rows"]
+        if _is_count(step) and step >= 1 and i < len(chunks) - 1 \
+                and c["rows"] != step:
+            probs.append(f"chunks[{i}].rows: {c['rows']} — every "
+                         f"non-final chunk must hold exactly chunk_rows "
+                         f"({step}) rows")
+    if chunks and _is_count(rows) and total != rows:
+        probs.append(f"rows: {rows} disagrees with the chunk-table sum "
+                     f"{total}")
+    return probs
+
+
+def check_frame_indexes(logdir: str) -> List[str]:
+    """``validate_frame_index`` over every committed index under the
+    logdir's ``_frames/`` (no store: nothing to check)."""
+    root = os.path.join(logdir, FRAMES_DIR_NAME)
+    try:
+        names = sorted(os.listdir(root))
+    except OSError:
+        return []
+    probs: List[str] = []
+    for name in names:
+        path = os.path.join(root, name, FRAME_INDEX_NAME)
+        if not os.path.isfile(path):
+            continue
+        where = f"{FRAMES_DIR_NAME}/{name}/{FRAME_INDEX_NAME}"
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError) as e:
+            probs.append(f"{where}: unreadable ({e})")
+            continue
+        probs.extend(f"{where}: {p}" for p in validate_frame_index(doc))
+    return probs
+
+
 def _check_meta(meta, probs: List[str]) -> None:
     budget = meta.get("disk_budget")
     if budget is not None:
@@ -170,6 +300,14 @@ def _check_meta(meta, probs: List[str]) -> None:
                     probs.append(f"meta.pool.{key}: missing or not a "
                                  "positive int")
     _check_passes(meta.get("passes"), probs)
+    _check_frames_meta(meta.get("frames"), probs)
+    fsck = meta.get("fsck")
+    if fsck is not None:
+        if not isinstance(fsck, dict) or \
+                not isinstance(fsck.get("ok"), bool):
+            probs.append("meta.fsck: not an object with a bool ok")
+        elif not isinstance(fsck.get("problems"), dict):
+            probs.append("meta.fsck.problems: missing verdict counts")
     icache = meta.get("ingest_cache")
     if icache is not None:
         if not isinstance(icache, dict) or \
@@ -227,6 +365,7 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
         probs.append("meta: not an object")
         meta = {}
     _check_meta(meta, probs)
+    _check_digests(doc.get("digests"), probs)
     stages = doc.get("stages", [])
     if not isinstance(stages, list):
         probs.append("stages: not a list")
@@ -274,7 +413,9 @@ def main(argv=None) -> int:
     p.add_argument("--require-healthy", action="store_true")
     args = p.parse_args(argv)
     path = args.path
+    probs: List[str] = []
     if os.path.isdir(path):
+        probs += check_frame_indexes(path)
         path = os.path.join(path, MANIFEST_NAME)
     try:
         with open(path) as f:
@@ -282,7 +423,7 @@ def main(argv=None) -> int:
     except (OSError, ValueError) as e:
         print(f"cannot read {path}: {e}", file=sys.stderr)
         return 2
-    probs = validate_manifest(doc, args.require_healthy)
+    probs = validate_manifest(doc, args.require_healthy) + probs
     for prob in probs:
         print(prob)
     if not probs:

@@ -6,6 +6,10 @@ the reference's 13 base columns plus the extension columns.  On the GPU path
 data-movement kind below, ``module`` the innermost profiler range
 (``record_function``) open on the host when a device event was launched, and ``timestamp`` seconds
 since the run's time base (``sofa_time.txt``).
+
+A frame travels between the verbs in one of ``TRACE_FORMATS``
+(``write_frame`` / ``read_frame``; the JAX package's ``trace.py:354-470``):
+the chunked Arrow store of ``frames.py`` by default, else parquet or CSV.
 """
 
 from __future__ import annotations
@@ -121,16 +125,136 @@ def write_csv(df: pd.DataFrame, path: str) -> None:
 def read_csv(path: str) -> pd.DataFrame:
     """Read a schema CSV back with the schema's dtypes (text columns stay
     text, so a numeric-looking name is never mangled; an empty numeric
-    cell is NaN: a cost the trace could not see)."""
+    cell is NaN: a cost the trace could not see).  Floats parse correctly
+    rounded, so a frame reads back exactly as the chunk store gives it."""
     text = [c for c, d in _DEFAULTS.items() if isinstance(d, str)]
     df = pd.read_csv(path, dtype={c: str for c in text},
-                     keep_default_na=False,
+                     keep_default_na=False, float_precision="round_trip",
                      na_values={c: [] if c in text else [""]
                                 for c in _DEFAULTS})
     for col in COLUMNS:
         if col not in df.columns:
             df[col] = _DEFAULTS[col]
     return df[COLUMNS]
+
+
+def _conform(df: pd.DataFrame) -> pd.DataFrame:
+    """Coerce a frame to the schema in place: missing columns get their
+    defaults, text columns are str, float columns float64 (the JAX
+    package's ``_conform``, so that both packages hash a frame alike)."""
+    for col in COLUMNS:
+        if col not in df.columns:
+            df[col] = _DEFAULTS[col]
+    for col, default in _DEFAULTS.items():
+        if isinstance(default, str):
+            df[col] = df[col].fillna("").astype(str)
+        elif isinstance(default, float) and df[col].dtype.kind != "f":
+            df[col] = df[col].astype("float64")
+    return df[COLUMNS]
+
+
+# --- the frame formats --------------------------------------------------------
+
+#: What ``--trace_format`` selects: one CSV a frame, one parquet file a
+#: frame, or the chunked Arrow store under ``_frames/`` (``frames.py``).
+TRACE_FORMATS = ("csv", "parquet", "columnar")
+
+
+def resolve_trace_format(cfg) -> str:
+    """The format this run writes: ``cfg.trace_format``, else
+    ``SOFA_TRACE_FORMAT``, else ``columnar``; columnar and parquet fall
+    back to csv, with a warning, where pyarrow is missing."""
+    from sofa_tpu_torch.frames import columnar_available
+    from sofa_tpu_torch.printing import print_warning
+
+    fmt = getattr(cfg, "trace_format", "") \
+        or os.environ.get("SOFA_TRACE_FORMAT", "") or "columnar"
+    if fmt not in TRACE_FORMATS:
+        print_warning(f"trace_format {fmt!r} is not one of "
+                      f"{'/'.join(TRACE_FORMATS)}; using columnar")
+        fmt = "columnar"
+    if fmt in ("columnar", "parquet") and not columnar_available():
+        print_warning(f"trace_format={fmt} needs pyarrow; falling back to "
+                      "csv")
+        fmt = "csv"
+    return fmt
+
+
+def write_frame_chunks(df: pd.DataFrame, base_path: str) -> dict:
+    """Write ``df`` into the chunk store of ``<logdir>/_frames/<name>/``
+    (``base_path`` is ``<logdir>/<name>``); returns its committed index."""
+    from sofa_tpu_torch import frames as framestore
+
+    logdir, name = os.path.split(base_path)
+    return framestore.write_frame_chunks(df, logdir or ".", name)
+
+
+def open_frame(base_path: str):
+    """A lazy ``frames.FrameHandle`` over ``base_path``'s chunk store, or
+    None when it has none."""
+    from sofa_tpu_torch import frames as framestore
+
+    logdir, name = os.path.split(base_path)
+    return framestore.open_frame(logdir or ".", name)
+
+
+def _unlink(path: str) -> None:
+    with contextlib.suppress(OSError):
+        os.unlink(path)
+
+
+def write_frame(df: pd.DataFrame, base_path: str, fmt: str = "csv") -> str:
+    """Write a schema frame in ``fmt``; returns the path written.  Each
+    mode deletes the others' artifacts, since a reader takes the chunk
+    store before ``<name>.parquet`` before ``<name>.csv``.  A frame the
+    chunk store refuses is written as CSV instead, with a warning."""
+    from sofa_tpu_torch import frames as framestore
+
+    logdir, name = os.path.split(base_path)
+    logdir = logdir or "."
+    if fmt == "columnar":
+        try:
+            framestore.write_frame_chunks(df, logdir, name)
+        except Exception as e:  # noqa: BLE001 - one frame falls back to csv
+            from sofa_tpu_torch.printing import print_warning
+
+            print_warning(f"frames: columnar store of {name} failed ({e}); "
+                          f"writing {name}.csv instead")
+            framestore.delete_frame_store(logdir, name)
+            return write_frame(df, base_path, "csv")
+        _unlink(base_path + ".parquet")
+        return os.path.join(framestore.frame_dir(logdir, name),
+                            framestore.FRAME_INDEX_NAME)
+    if fmt == "parquet":
+        path = base_path + ".parquet"
+        with atomic_replace(path) as tmp:
+            df.to_parquet(tmp, index=False)
+    else:
+        path = base_path + ".csv"
+        write_csv(df, path)
+        _unlink(base_path + ".parquet")
+    framestore.delete_frame_store(logdir, name)
+    return path
+
+
+def read_frame(base_path: str,
+               columns: Optional[List[str]] = None
+               ) -> Optional[pd.DataFrame]:
+    """A frame from its chunk store, else ``<base_path>.parquet``, else
+    ``<base_path>.csv``, else None.  ``columns`` is pushed down into the
+    chunk reader; the other two read every column and project after."""
+    handle = open_frame(base_path)
+    if handle is not None:
+        return handle.read(columns=columns)
+    if os.path.isfile(base_path + ".parquet"):
+        df = _conform(pd.read_parquet(base_path + ".parquet"))
+    elif os.path.isfile(base_path + ".csv"):
+        df = read_csv(base_path + ".csv")
+    else:
+        return None
+    if columns is not None:
+        return narrow(df, [c for c in columns if c in df.columns])
+    return df
 
 
 def roi_bounds(cfg) -> "Optional[tuple]":
@@ -290,6 +414,32 @@ def atomic_write(path: str, mode: str = "w", fsync: bool = False):
             with contextlib.suppress(OSError):
                 os.unlink(tmp)
         raise
+
+
+@contextlib.contextmanager
+def atomic_replace(path: str):
+    """Yield ``<path>.tmp`` for a writer that opens the file itself
+    (pyarrow, pandas ``to_*``); rename it over ``path`` on a clean exit,
+    remove it on failure."""
+    tmp = path + ".tmp"
+    try:
+        yield tmp
+        os.replace(tmp, path)
+    except BaseException:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+        raise
+
+
+def fsync_append(path: str, text: str) -> None:
+    """Append ``text`` in one write, flushed and fsync'd before returning:
+    a crash mid-append leaves at worst one torn last line, which the
+    JSONL readers skip (the run journal's write)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "a") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
 
 
 # Frame CSVs stream and the tile pyramid lands file by file, so a board

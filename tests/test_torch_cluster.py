@@ -54,6 +54,7 @@ NOT_FORWARDED = {
     "cpu_filters": "the board", "gpu_filters": "the board",
     "tile_levels": "the board",
     "cpu_time_offset_ms": "preprocess", "gpu_time_offset_ms": "preprocess",
+    "trace_format": "preprocess",
     "is_idle_threshold": "analyze", "hint_server": "analyze",
     "plugins": "loaded by the verb itself, before it runs",
 }

@@ -82,7 +82,8 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/workloads/transformer.py",
             "sofa_tpu_torch/analysis/registry.py",
             "sofa_tpu_torch/analysis/hint_service.py",
-            "sofa_tpu_torch/plugins.py"} <= rel
+            "sofa_tpu_torch/plugins.py", "sofa_tpu_torch/frames.py",
+            "sofa_tpu_torch/durability.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -108,7 +109,8 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.workloads.collectives, "
             "sofa_tpu_torch.workloads.transformer, "
             "sofa_tpu_torch.analysis.registry, "
-            "sofa_tpu_torch.analysis.hint_service, sofa_tpu_torch.plugins; "
+            "sofa_tpu_torch.analysis.hint_service, sofa_tpu_torch.plugins, "
+            "sofa_tpu_torch.frames, sofa_tpu_torch.durability; "
             "registry = sofa_tpu_torch.analysis.registry; "
             "registry.load_builtin_passes(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -397,13 +397,19 @@ def to_port(name: str) -> str:
 # (field, the port's value).  gpu_profile counts kernels, copies and busy
 # shares where tpu_profile counts XLA ops, collectives and custom calls
 # (and also reads gpusteps for the in-step busy share); op_tree_profile
-# picks kernels by copyKind (the TPU pass by category); the port's
-# serving_profile derives no intensities or HBM rate.
+# and overlap_profile pick kernels and copies by copyKind (the TPU passes
+# by category); the port's serving_profile derives no intensities or HBM
+# rate, and finds the host's annotations by hlo_category; mpstat_profile
+# reads payload to tell a frozen /proc/stat (no cpu_util) from an idle
+# one; net_profile finds the device's kernels by copyKind.
 PORT_DIFFERENCES = {
     "gpu_profile": {"reads_frames", "reads_columns", "provides_features",
                     "provides_artifacts"},
+    "mpstat_profile": {"reads_columns"},
+    "net_profile": {"reads_columns"},
     "op_tree_profile": {"reads_columns"},
-    "serving_profile": {"provides_features"},
+    "overlap_profile": {"reads_columns"},
+    "serving_profile": {"provides_features", "reads_columns"},
 }
 JAX_ONLY = {"aisi", "hsg", "whatif_model"}      # their modules are not ported
 
