@@ -63,8 +63,8 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            classes, bf16, channels_last): 20 train steps bare, then 20
            under ``sofa_tpu_torch.api.profile()`` with a sofa_step_N range
            each, then 20 bare again, two such pairs each in a fresh
-           process; images/s, the overhead (of the medians), the paired
-           t-test, and the
+           process; images/s, the overhead (of the medians, with two their
+           means), the paired t-test (one degree of freedom), and the
            bare pass after the profiled one against the first (what the
            profiler leaves behind);
            then preprocess and analyze of the last capture (coverage guard:
@@ -101,7 +101,7 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            built-in pass with its last run's time; prints the host times
            and sizes
   robust   the supervised, self-reporting record, one line a cell:
-           (1) ``stat`` over the training ``main`` at its defaults with
+           (1) ``stat`` over the Llama-width training at batch 1 with
            procmon killed 5 s in and the Kineto harvest wedged (5 s
            deadline): one
            restart with mpstat rows after the death, kineto ``timed_out``
@@ -112,15 +112,17 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            of the Llama-width capture with its Kineto JSON cut in half:
            ``preprocess`` quarantines it, ``analyze`` completes with the
            ``[self]`` hint, a second ``preprocess`` does not serve it
-           warm; (4) ``report`` over the last ResNet-50 capture where the
-           board phase left it, in columnar and then csv, both warm (no
-           card visible): wall times, the frames' chunks (written, reused)
-           and stage times, the cache's format, byte-identical report.js,
-           features.csv, hints.txt and tiles; (5) the
+           warm; (4) over the last ResNet-50 capture where the board phase
+           left it (columnar, warm; no card visible), ``analyze`` alone
+           over its chunk stores, then ``report`` in csv: wall times, the
+           frames' chunks (written, reused) and stage times, the cache's
+           format, report.js, features.csv, hints.txt and tiles
+           byte-identical to the board's columnar report; (5) the
            durability cell over a copy of the Llama-width capture: the
            resolved format and pyarrow's version, (a) ``report`` in csv
-           and columnar, cold and warm, byte-identical, with the four wall
-           times; (b) a preprocess SIGKILLed at each of the JAX chaos
+           and columnar, cold and warm, with the four wall times, then
+           ``analyze`` alone over the chunk stores, all byte-identical;
+           (b) a preprocess SIGKILLed at each of the JAX chaos
            matrix's kill points (a frame CSV write, a tile write, a chunk
            hash), then ``resume``: rc 0, report.js byte-identical to (a)'s,
            ``fsck`` 0, gputrace through ``read_frame`` with its rows and
@@ -134,11 +136,11 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            serving run in its own process, then ``report``.  Cell (1)'s
            procmon is the native sysmon, and its restart runs it again
   cluster  ``record --cluster_hosts localhost,127.0.0.1`` of the
-           training ``main`` at its defaults (two copies on the one card at
+           Llama-width training at batch 1 (two copies on the one card at
            once), then ``report --cluster_hosts`` with no card visible: each
            host's misc.txt rc 0, a healthy manifest and ``status`` 0, its
            native sysmon running under its recorder, all three kernels
-           launched as often as in the profile phase's run of it; the merged
+           launched as often as in the profile phase's run; the merged
            report.js (meta.cluster_hosts, every host series under
            ``<host>_``, the second host's shifted by the difference of the
            time bases within 1e-6 s) and cluster_summary.csv; both hosts'
@@ -147,13 +149,14 @@ Phases, all of them, in order; any failure raises and exits non-zero:
   mesh     torchrun with NCCL and one rank over the training ``main`` at
            the train phase's shape (--data 1 --seq_par 1) under ``stat``:
            the losses must equal the train phase's; logs what the capture
-           holds for the gradient all-reduce; then two gloo
-           ranks sharing the card (--data 2, batch 1 each, the ``main``'s
-           defaults otherwise) under ``stat``:
-           two rank traces, device ids 0 and 1, one gpumon file per rank
-           (named by its rank), gpu_step_skew.csv, equal losses, per-rank flash launches as in a one-rank run, the
-           merged topology, mesh_advice.txt, and comm-report.html rendered
-           by ``report`` and served by ``viz``; the collectives microbench
+           holds for the gradient all-reduce; then two gloo ranks sharing
+           the card at Llama width (--data 2, batch 1 each, one step after
+           the two warm-up steps) under ``stat``: two rank traces, device
+           ids 0 and 1, one gpumon file per rank (named by its rank),
+           gpu_step_skew.csv, equal losses, per-rank flash launches as in a
+           one-rank run of as many steps, the merged topology,
+           mesh_advice.txt, and comm-report.html rendered by ``report``
+           and served by ``viz``; the collectives microbench
            at one rank prints its single-device line
 
 Every whole frame a check reads comes through the port's ``read_frame``
@@ -225,6 +228,12 @@ RING_RANKS = 4
 # same seed, so the losses are expected to be equal to the bit; the limit
 # leaves room only for a reduction that a one-rank collective reorders.
 MESH_LOSS_REL = 1e-5
+# The training main's flags for Llama-3-8B's widths (d_model 4096, 32/8
+# heads of 128, d_ff 14336, vocab 128256) at T 2048, depth cut to 4 layers:
+# the shape of the train phase and of every Llama-width run under the
+# profiler (batch apart).
+LLAMA_WIDTH = ("--seq 2048 --vocab 128256 --d_model 4096 --n_layers 4 "
+               "--n_heads 32 --n_kv_heads 8 --d_ff 14336")
 
 
 def frame(logdir: str, name: str, columns=None):
@@ -1222,13 +1231,9 @@ class Smoke:
             if ln.startswith(("entry:", "serve:"))) + f" | {self.smi}")
         # the training workload at the JAX package's main defaults (batch 8,
         # seq 512, d 512, 4 layers, 8/4 heads: D 64)
-        _, _, _, kern = self.stat("train", f"{sys.executable} -m "
-                                  "sofa_tpu_torch.workloads.transformer "
-                                  f"--steps {steps}", steps, names)
-        # launches of each kernel in one 3-step run at these defaults (the
-        # cluster's hosts and the two gloo ranks must launch as many)
-        self.train_launches = {n: int(kern["name"].astype(str).str.contains(
-            n).sum()) for n in names}
+        self.stat("train", f"{sys.executable} -m "
+                  f"sofa_tpu_torch.workloads.transformer --steps {steps}",
+                  steps, names)
         self.profile_llama(steps, names)
         self.profile_wrapped_ring()
         self.profile_killed()
@@ -1241,9 +1246,7 @@ class Smoke:
         import pandas as pd
 
         cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
-               f"--steps {steps} --batch 4 --seq 2048 --vocab 128256 "
-               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
-               "--d_ff 14336")
+               f"--steps {steps} --batch 4 {LLAMA_WIDTH}")
         # the whole swarm's settings from a config file (the flags of the
         # other runs): the pystacks check below shows the file took effect
         cfg_file = os.path.join(REPO, "build", "chip_smoke_llama.toml")
@@ -1251,6 +1254,11 @@ class Smoke:
             f.write("enable_py_stacks = true\n")
         feats, logdir, out, kern = self.stat("llama", cmd, steps, names,
                                              ("--config", cfg_file))
+        # launches of each kernel in one run of 2 warm-up and ``steps``
+        # steps (the cluster's hosts and the two gloo ranks are held to it)
+        self.llama_launches = {n: int(kern["name"].astype(str).str.contains(
+            n).sum()) for n in names}
+        self.llama_passes = 2 + steps
         rate = [("on", [ln for ln in out.splitlines()
                         if ln.startswith("transformer:")])]
         self.kernels_in_steps(kern, steps)
@@ -1393,8 +1401,7 @@ class Smoke:
         state = 8 * self.train_params
         cmd = (f"{sys.executable} -X importtime -m "
                "sofa_tpu_torch.workloads.transformer --steps 400 --batch 4 "
-               "--seq 2048 --vocab 128256 --d_model 4096 --n_layers 4 "
-               "--n_heads 32 --n_kv_heads 8 --d_ff 14336")
+               f"{LLAMA_WIDTH}")
         os.makedirs(logdir)
         # to a file: the import trace fills a pipe and would block the run
         err_path = os.path.join(logdir, "..", "chip_smoke_killed.err")
@@ -1481,9 +1488,7 @@ class Smoke:
 
         steps = math.ceil(1.25 * MAX_ENTRIES / self.trace_per_step)
         cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
-               f"--steps {steps} --batch 4 --seq 2048 --vocab 128256 "
-               "--d_model 4096 --n_layers 4 --n_heads 32 --n_kv_heads 8 "
-               "--d_ff 14336")
+               f"--steps {steps} --batch 4 {LLAMA_WIDTH}")
         feats, logdir, out = self.run_stat("ring", cmd, ("--disable_kineto",))
         with open(os.path.join(logdir, "memprof.pb.gz.meta.json")) as f:
             meta = json.load(f)
@@ -1590,7 +1595,8 @@ class Smoke:
             ("aten::cudnn_convolution", "aten::convolution_backward"))]
         log(f"resnet: images/s bare {steps * batch / t_bare:.1f}, profiled "
             f"{steps * batch / t_prof:.1f} (medians of {repeats}); overhead "
-            f"{overhead:.2f} % (target 5 %), paired t-test p {p_value:.4g}; "
+            f"{overhead:.2f} % (target 5 %), paired t-test p {p_value:.4g} "
+            f"({repeats - 1} degree(s) of freedom); "
             f"gputrace {len(kern)} kernel rows, {len(conv)} convolution "
             f"kernels ({(conv['flops'] > 0).sum()} with flops); preprocess "
             f"and analyze {time.perf_counter() - t0:.1f} s | {self.smi}")
@@ -2221,14 +2227,13 @@ class Smoke:
                 f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
 
     def robust_faulted(self):
-        """stat over the training workload's ``main`` (its defaults, as the
-        profile phase's) with procmon killed 5 s in and the Kineto harvest
-        wedged past a 5 s deadline."""
+        """stat over the Llama-width training at batch 1 with procmon killed
+        5 s in and the Kineto harvest wedged past a 5 s deadline."""
         from sofa_tpu_torch import kernels, telemetry
 
         steps = 3
         cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
-               f"--steps {steps}")
+               f"--steps {steps} --batch 1 {LLAMA_WIDTH}")
         flags = ("--inject_faults", "procmon:die@5s,kineto:wedge@harvest",
                  "--collector_harvest_timeout_s", "5")
         _, logdir, out, kern = self.stat(
@@ -2318,8 +2323,10 @@ class Smoke:
         with open(os.path.join(copy, "hints.txt")) as f:
             hint = [h for h in f.read().splitlines()
                     if h.startswith("[self] ingest source kineto")]
+        r3, _ = self.board_cli("preprocess", "--logdir", copy)
+        again = telemetry.load_manifest(copy)["sources"]["kineto"]
         moved = os.path.join(copy, "_quarantine", trace)
-        if r.returncode or r1.returncode \
+        if r.returncode or r1.returncode or r3.returncode \
                 or ent.get("status") != "quarantined" \
                 or ent.get("quarantined_file") != moved \
                 or not os.path.isfile(moved):
@@ -2330,30 +2337,62 @@ class Smoke:
                                  f"cache entry: {warm} before, {left} after")
         if r2.returncode or "Complete!!" not in r2.stdout or not hint:
             raise AssertionError(f"analyze gave no [self] hint: {hint}")
+        if again.get("cache") == "hit":
+            raise AssertionError(f"the quarantined source came back warm: "
+                                 f"{again}")
         shutil.rmtree(copy, ignore_errors=True)
         return (f"{trace} cut from {size} to {size // 2} bytes: "
                 f"{ent['status']} by preprocess in {t1:.3f} s "
                 f"({ent['error'].rsplit(': ', 2)[-2][:60]}), its "
                 f"{len(warm)} cache files purged; analyze: "
-                f"{hint[0].split(' — ')[0]}")
+                f"{hint[0].split(' — ')[0]}; next preprocess "
+                f"{again['status']} (cache {again['cache']})")
 
     def robust_cache(self):
-        """report --jobs 1 in csv over the last ResNet-50 capture where the
-        board phase left it (warm: its cache and chunk store), against the
+        """Over the last ResNet-50 capture where the board phase left it
+        (warm: its cache and chunk store): ``analyze --jobs 1`` alone over
+        the store, then ``report --jobs 1`` in csv, each against the
         board's columnar report --jobs 1 of the same logdir."""
         wall, want = self.jobs1["resnet"]
-        runs, _ = self.report_formats("resnet", os.path.join(
-            REPO, "build", "chip_smoke_resnet_r1"), (("csv", "warm"),),
-            in_place=True, args=("--jobs", "1"))
+        logdir = os.path.join(REPO, "build", "chip_smoke_resnet_r1")
+        alone, stores = self.analyze_alone("resnet", logdir, want,
+                                           ("--jobs", "1"))
+        runs, _ = self.report_formats("resnet", logdir, (("csv", "warm"),),
+                                      in_place=True, args=("--jobs", "1"))
         differ = sorted(k for k in set(want) | set(runs[0][1])
                         if want.get(k) != runs[0][1].get(k))
         if differ:
             raise AssertionError(f"csv and columnar reports differ: "
                                  f"{differ[:8]}")
         fmt = runs[0][2]["meta"]["ingest_cache"]["formats"]["kineto"]
-        return (f"resnet: report --jobs 1 warm, columnar {wall:.3f} s (the "
-                f"board's), csv {runs[0][0]:.3f} s; cache format {fmt}; "
+        return (f"resnet: analyze --jobs 1 alone over {stores} chunk stores "
+                f"{alone:.3f} s; report --jobs 1 warm, columnar {wall:.3f} s "
+                f"(the board's), csv {runs[0][0]:.3f} s; cache format {fmt}; "
                 f"{len(want)} files byte-identical")
+
+    def analyze_alone(self, label, logdir, want, args=()):
+        """``analyze`` in its own process over the frames preprocess left
+        in ``logdir`` (each chunk store a lazy handle: every pass reads its
+        declared columns only): features.csv, hints.txt, report.js and
+        the tiles byte-identical to ``want``, a report's.  Returns (wall,
+        the number of chunk stores)."""
+        from sofa_tpu_torch.frames import frame_store_names
+
+        stores = len(frame_store_names(logdir))
+        r, wall = self.board_cli("analyze", "--logdir", logdir, *args)
+        if r.returncode or "Complete!!" not in r.stdout:
+            raise AssertionError(f"analyze alone over {label} failed: "
+                                 f"{r.stderr[-2000:]}")
+        got = self.outputs(logdir)
+        differ = sorted(k for k in set(want) | set(got)
+                        if want.get(k) != got.get(k))
+        log(f"robust[formats]: {label} analyze alone {wall:.3f} s wall over "
+            f"{stores} chunk stores; {len(got)} files, differing {differ}")
+        if differ or (self.columnar and not stores):
+            raise AssertionError(f"analyze alone over {label}'s chunk "
+                                 f"stores ({stores}) differs from the "
+                                 f"report: {differ[:8]}")
+        return wall, stores
 
     def report_formats(self, label, src, sequence, in_place=False,
                        args=()):
@@ -2465,7 +2504,8 @@ class Smoke:
     def robust_durability(self):
         """The run journal, the digests and the chunk store over a copy of
         the Llama-width training capture (no card visible): (a) report in
-        csv and in columnar, cold and warm, byte-identical; (b) a
+        csv and in columnar, cold and warm, then analyze alone over the
+        chunk stores, byte-identical; (b) a
         preprocess SIGKILLed at each kill point, then ``resume``; (c)
         damage of each fsck verdict, ``fsck``, ``fsck --repair``,
         ``status``; then ``clean``."""
@@ -2491,10 +2531,13 @@ class Smoke:
         runs, copy = self.report_formats(
             "llama", src, seq, args=("--viz_downsample_to", str(viz)))
         fmt = runs[2][2]["meta"]["frames"]["format"]
+        alone, stores = self.analyze_alone(
+            "llama", copy, runs[0][1], ("--viz_downsample_to", str(viz)))
         line = (f"{arrow}, columnar resolves to {fmt}; --viz_downsample_to "
                 f"{viz} ({rows} gputrace rows); (a) report " + ", ".join(
                     f"{f} {c} {w:.3f} s" for (f, c), (w, _, _, _) in
-                    zip(seq, runs)) + f", {len(runs[0][1])} files "
+                    zip(seq, runs)) + f", then analyze alone over {stores} "
+                f"chunk stores {alone:.3f} s, {len(runs[0][1])} files "
                 "byte-identical")
         if not self.columnar:
             if "falling back to csv" not in runs[2][3]:
@@ -2665,8 +2708,8 @@ class Smoke:
 
     # -- cluster ----------------------------------------------------------------
     def cluster(self):
-        """Two ``localhost`` hosts record the training ``main`` at its
-        defaults on the one card at once (``record --cluster_hosts``), then
+        """Two ``localhost`` hosts record the Llama-width training at batch
+        1 on the one card at once (``record --cluster_hosts``), then
         ``report --cluster_hosts`` with no card visible merges them: each
         host's record healthy and its native sysmon running under its
         recorder, all three kernels launched as often as in the profile
@@ -2686,7 +2729,7 @@ class Smoke:
             shutil.rmtree(d, ignore_errors=True)
         steps = 3
         cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
-               f"--steps {steps}")
+               f"--steps {steps} --batch 1 {LLAMA_WIDTH}")
         t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "sofa_tpu_torch", "record",
@@ -2756,13 +2799,13 @@ class Smoke:
                 bases[h] = float(f.read().split()[0])
             own[h] = read_report_js_doc(os.path.join(d, "report.js"))
             log(f"cluster[{h}]: launches {got} (profile phase "
-                f"{self.train_launches}); gpu0_hbm_peak_gb {peaks[h]}; "
+                f"{self.llama_launches}); gpu0_hbm_peak_gb {peaks[h]}; "
                 f"elapsed_time {feats.get('elapsed_time')} s; "
                 f"elapsed_gpu_ratio {feats.get('elapsed_gpu_ratio')}; "
                 f"gpu_step_busy_pct {feats.get('gpu_step_busy_pct')}")
-            if got != self.train_launches:
+            if got != self.llama_launches:
                 raise AssertionError(f"{h}: flash launches {got}, the "
-                                     f"profile phase's {self.train_launches}")
+                                     f"profile phase's {self.llama_launches}")
         # the merged timeline
         doc = read_report_js_doc(os.path.join(base, "report.js"))
         merged = {s["name"]: s for s in doc["series"]}
@@ -3071,20 +3114,19 @@ class Smoke:
         at the train phase's shape (--data 1 --seq_par 1) under ``stat``:
         its losses must equal the train phase's; logs what the capture
         holds for the gradient all-reduce.
-        (2) two gloo ranks sharing the card (--data 2, B 1 each, the
-        ``main``'s defaults otherwise) under ``stat``: two rank traces, device ids 0 and 1, both ranks' steps,
-        gpu_step_skew.csv, the same loss on both ranks at every step, each
-        flash kernel launched per rank as often as in a one-rank 3-step
-        run, a merged topology of two ranks on one card, mesh_advice.txt,
+        (2) two gloo ranks sharing the card at Llama width (--data 2, B 1
+        each, one step after the warm-up) under ``stat``: two rank traces,
+        device ids 0 and 1, both ranks' steps, gpu_step_skew.csv, the same
+        loss on both ranks at every step, each flash kernel launched per
+        rank as often as a one-rank run of as many steps, a merged topology
+        of two ranks on one card, mesh_advice.txt,
         and comm-report.html rendered and served.  (3) the collectives
         microbench at one rank prints its single-device line."""
-        width = ("--seq 2048 --vocab 128256 --d_model 4096 --n_layers 4 "
-                 "--n_heads 32 --n_kv_heads 8 --d_ff 14336")
         steps = 3
         one = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
                f"1 --master_port {free_port()} -m "
                f"sofa_tpu_torch.workloads.transformer --steps {steps} "
-               f"--batch 4 {width} --data 1 --seq_par 1")
+               f"--batch 4 {LLAMA_WIDTH} --data 1 --seq_par 1")
         out = self.mesh_nccl_capture(one, steps)
         losses = mesh_losses(out)
         if 0 not in losses:
@@ -3098,7 +3140,7 @@ class Smoke:
         if len(losses[0]) != 2 + steps or rel > MESH_LOSS_REL:
             raise AssertionError("the NCCL world of one does not train as "
                                  "the unsharded step does")
-        self.mesh_two_ranks(steps)
+        self.mesh_two_ranks(1)
         r = subprocess.run([sys.executable, "-m",
                             "sofa_tpu_torch.workloads.collectives"],
                            cwd=REPO, capture_output=True, text=True,
@@ -3162,9 +3204,9 @@ class Smoke:
         return out
 
     def mesh_two_ranks(self, steps):
-        """Two gloo ranks sharing the card under ``stat`` (--data 2), the
-        training ``main`` at its defaults but B 1 a rank (gloo's host
-        all-reduce of Llama-width gradients takes 4-12 s a step)."""
+        """Two gloo ranks sharing the card under ``stat`` (--data 2) at
+        Llama width, B 1 a rank, ``steps`` after the 2 warm-up steps (gloo's
+        host all-reduce of these gradients takes 4-12 s a step)."""
         import pandas as pd
 
         from sofa_tpu_torch.kernels import KERNELS
@@ -3172,7 +3214,8 @@ class Smoke:
         cmd = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
                f"2 --master_port {free_port()} -m "
                f"sofa_tpu_torch.workloads.transformer --steps {steps} "
-               "--batch 2 --data 2 --backend gloo --share_device")
+               f"--batch 2 {LLAMA_WIDTH} --data 2 --backend gloo "
+               "--share_device")
         t0 = time.perf_counter()
         feats, logdir, out = self.run_stat("mesh_gloo2", cmd)
         stat_s = time.perf_counter() - t0
@@ -3193,7 +3236,14 @@ class Smoke:
         per_rank = {int(dev): {n: int(rows["name"].astype(str).str.contains(
             n).sum()) for n in names} for dev, rows in kern.groupby(
             "deviceId")}
-        want = self.train_launches      # measured by the profile phase
+        # each kernel launches as often in every pass (warm-up or step):
+        # the profile phase's measured counts, scaled to this run's passes
+        want = {n: v * (2 + steps) // self.llama_passes
+                for n, v in self.llama_launches.items()}
+        if any(v % self.llama_passes for v in self.llama_launches.values()):
+            raise AssertionError(f"the profile phase's launches "
+                                 f"{self.llama_launches} are not the same "
+                                 f"in each of its {self.llama_passes} passes")
         skew_path = os.path.join(logdir, "gpu_step_skew.csv")
         skew = pd.read_csv(skew_path) if os.path.isfile(skew_path) else None
         with open(os.path.join(logdir, "gpu_topo.json")) as f:
@@ -3214,8 +3264,8 @@ class Smoke:
             f"device ids {sorted(gpu['deviceId'].unique().tolist())}; "
             f"gpusteps per device "
             f"{steps_df.groupby('deviceId').size().to_dict()}; flash "
-            f"launches per rank {per_rank} (a one-rank {steps}-step run: "
-            f"{want}); losses per rank {losses}")
+            f"launches per rank {per_rank} (a one-rank run of 2 + {steps} "
+            f"passes: {want}); losses per rank {losses}")
         log(f"mesh[gloo2]: gpu_step_skew.csv "
             + (skew.to_string(index=False).replace("\n", " | ")
                if skew is not None else "absent")
@@ -3263,7 +3313,10 @@ class Smoke:
 PHASES = ("device", "kernel", "model", "train", "ring", "profile", "resnet",
           "board", "robust", "cluster", "mesh")
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
-RESNET_PAIRS = 2        # bare/profiled pairs, each in a fresh process
+# bare/profiled pairs, each in a fresh process: with two, the median is
+# their mean and the paired t-test has one degree of freedom (its p-value
+# is printed, not relied on; the overhead is 40 times the 5 % target)
+RESNET_PAIRS = 2
 
 
 def resnet_pass(logdir: str, level: int = 2) -> None:

@@ -38,7 +38,6 @@ package's ``preprocess.py:474-650``).
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import time
@@ -47,7 +46,6 @@ from typing import Dict, List, NamedTuple, Tuple
 import pandas as pd
 
 from sofa_tpu_torch import durability, faults, pool, telemetry
-from sofa_tpu_torch import frames as framestore
 from sofa_tpu_torch import trace
 from sofa_tpu_torch.analysis.sol import device_peaks
 from sofa_tpu_torch.config import SofaConfig
@@ -455,21 +453,8 @@ def write_frames(cfg: SofaConfig, frames: Dict[str, pd.DataFrame],
     def write_one(item) -> tuple:
         name, df = item
         base = cfg.path(name)
-        if fmt == "columnar":
-            try:
-                stats = framestore.write_frame_chunks(df, cfg.logdir,
-                                                      name)["_stats"]
-            except Exception as e:  # noqa: BLE001 - this frame goes csv
-                print_warning(f"preprocess: columnar store of {name} "
-                              f"failed ({e}); writing {name}.csv")
-                trace.write_frame(df, base, "csv")
-                return name, None
-            with contextlib.suppress(OSError):
-                os.unlink(base + ".parquet")
-        else:
-            trace.write_frame(df, base, fmt)
-            stats = None
-        if fmt != "csv":
+        path, stats = trace.write_frame(df, base, fmt)
+        if path != base + ".csv":
             # not write_frame's csv mode: that would delete the store
             trace.write_csv(downsample(df, cfg.viz_downsample_to),
                             base + ".csv")

@@ -20,7 +20,7 @@ import os
 import time
 from dataclasses import dataclass, field
 from enum import IntEnum
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -180,15 +180,6 @@ def resolve_trace_format(cfg) -> str:
     return fmt
 
 
-def write_frame_chunks(df: pd.DataFrame, base_path: str) -> dict:
-    """Write ``df`` into the chunk store of ``<logdir>/_frames/<name>/``
-    (``base_path`` is ``<logdir>/<name>``); returns its committed index."""
-    from sofa_tpu_torch import frames as framestore
-
-    logdir, name = os.path.split(base_path)
-    return framestore.write_frame_chunks(df, logdir or ".", name)
-
-
 def open_frame(base_path: str):
     """A lazy ``frames.FrameHandle`` over ``base_path``'s chunk store, or
     None when it has none."""
@@ -203,18 +194,21 @@ def _unlink(path: str) -> None:
         os.unlink(path)
 
 
-def write_frame(df: pd.DataFrame, base_path: str, fmt: str = "csv") -> str:
-    """Write a schema frame in ``fmt``; returns the path written.  Each
-    mode deletes the others' artifacts, since a reader takes the chunk
-    store before ``<name>.parquet`` before ``<name>.csv``.  A frame the
-    chunk store refuses is written as CSV instead, with a warning."""
+def write_frame(df: pd.DataFrame, base_path: str, fmt: str = "csv"
+                ) -> Tuple[str, Optional[dict]]:
+    """Write a schema frame in ``fmt``; returns the path written and, for
+    a chunk store, its write stats (chunks written and reused, bytes).
+    Each mode deletes the others' artifacts, since a reader takes the
+    chunk store before ``<name>.parquet`` before ``<name>.csv``.  A frame
+    the chunk store refuses is written as CSV instead, with a warning
+    (and no stats)."""
     from sofa_tpu_torch import frames as framestore
 
     logdir, name = os.path.split(base_path)
     logdir = logdir or "."
     if fmt == "columnar":
         try:
-            framestore.write_frame_chunks(df, logdir, name)
+            doc = framestore.write_frame_chunks(df, logdir, name)
         except Exception as e:  # noqa: BLE001 - one frame falls back to csv
             from sofa_tpu_torch.printing import print_warning
 
@@ -224,7 +218,7 @@ def write_frame(df: pd.DataFrame, base_path: str, fmt: str = "csv") -> str:
             return write_frame(df, base_path, "csv")
         _unlink(base_path + ".parquet")
         return os.path.join(framestore.frame_dir(logdir, name),
-                            framestore.FRAME_INDEX_NAME)
+                            framestore.FRAME_INDEX_NAME), doc["_stats"]
     if fmt == "parquet":
         path = base_path + ".parquet"
         with atomic_replace(path) as tmp:
@@ -234,7 +228,7 @@ def write_frame(df: pd.DataFrame, base_path: str, fmt: str = "csv") -> str:
         write_csv(df, path)
         _unlink(base_path + ".parquet")
     framestore.delete_frame_store(logdir, name)
-    return path
+    return path, None
 
 
 def read_frame(base_path: str,

@@ -238,9 +238,11 @@ def test_verify_flags_a_flipped_chunk_byte_like_jax(tmp_path):
 def test_write_frame_modes_delete_each_other(tmp_path):
     base = str(tmp_path / "gputrace")
     df = _frame(n=50)
-    trace.write_frame(df, base, "columnar")
+    _, stats = trace.write_frame(df, base, "columnar")
     assert frames.frame_store_names(str(tmp_path)) == ["gputrace"]
-    trace.write_frame(df, base, "parquet")
+    assert stats["wrote"] == 1 and stats["reused"] == 0
+    assert trace.write_frame(df, base, "parquet") == (base + ".parquet",
+                                                      None)
     assert frames.frame_store_names(str(tmp_path)) == []
     trace.write_frame(df, base, "csv")
     assert not os.path.exists(base + ".parquet")
@@ -255,8 +257,9 @@ def test_write_frame_modes_delete_each_other(tmp_path):
 def test_a_frame_arrow_refuses_falls_back_to_csv(tmp_path, capsys):
     df = _frame(n=20)
     df["name"] = [object()] * 20            # no Arrow type for this
-    path = trace.write_frame(df, str(tmp_path / "odd"), "columnar")
+    path, stats = trace.write_frame(df, str(tmp_path / "odd"), "columnar")
     assert path.endswith("odd.csv") and os.path.isfile(path)
+    assert stats is None
     assert frames.frame_store_names(str(tmp_path)) == []
     assert "writing odd.csv instead" in capsys.readouterr().err
 
