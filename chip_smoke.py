@@ -3,12 +3,20 @@
 
     python3 chip_smoke.py          # one H100, no arguments
 
-Phases, all of them, in order; any failure raises and exits non-zero:
+The timed phases run alone, in this order (device, kernel, model, train,
+ring, resnet); then three lanes run side by side, each a thread that runs
+its phases in order: (1) profile, cluster, mesh: the card's Llama-width
+runs at batch 4 and the multi-rank ones, up to 43 GB of the card at a
+time; (2) serve, window, faults: its runs of at most 21 GB; (3) robust,
+board, cache, verbs: host only, over the captures the card made, each
+waiting for the phase of another lane whose capture it reads.  A failure
+anywhere raises and exits non-zero; a lane's failure stops every lane
+before its next phase.  The phases:
 
   device   the card's name and power limit; builds the three CUDA kernels
            from the sources in the checkout (one nvcc each, all at once),
-           and the native sysmon /proc sampler with the machine's C++
-           compiler, printing it and the build seconds
+           and the native sysmon /proc sampler and Perfetto writer with the
+           machine's C++ compiler, printing it and the build seconds
   kernel   holds each kernel against its plain PyTorch version at the
            shapes the main paths give it and at the mask and tiling edge
            cases, checks that every kernel is deterministic (two launches
@@ -43,9 +51,8 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            and, at B 4, one more forward and backward each under a
            torch.profiler trace: device time of the flash kernels, the other
            kernels, memsets and copies, and the span's idle share
-  profile  ``python -m sofa_tpu_torch stat`` over the flagship forward with
-           a short serving run, over the training workload's ``main`` at its
-           defaults, and over it at Llama-3-8B width cut to 4 layers with
+  profile  ``python -m sofa_tpu_torch stat`` over the training workload's
+           ``main`` at Llama-3-8B width cut to 4 layers with
            the Python stack sampler on, set by a ``--config`` TOML file;
            checks the device traces and steps (the backward kernels,
            launched from autograd's device thread, inside the steps), the
@@ -56,9 +63,12 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            and its allocation sites against the traced run's; an eager
            Llama-width run without the trace killed
            mid-run, which must leave a gate snapshot; logs each collector's
-           probe; checks that a profiled torch program that never uses the
-           card stays CUDA-uninitialized; prints the flash kernels'
+           probe; prints the flash kernels'
            roofline rows of the traced Llama-width run
+  serve    ``stat`` over the flagship forward with a short serving run and
+           over the training workload's ``main`` at its defaults; checks
+           that a profiled torch program that never uses the card stays
+           CUDA-uninitialized
   resnet   ResNet-50 at its published widths (batch 32, 224 x 224, 1000
            classes, bf16, channels_last): 20 train steps bare, then 20
            under ``sofa_tpu_torch.api.profile()`` with a sofa_step_N range
@@ -71,15 +81,15 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            CUDA kernels, convolution kernels carrying flops, a roofline no
            row of which runs faster than its bound); one more pair at
            ``--kineto_host_tracer_level 0`` (no aten op recorded): its
-           overhead beside the default's median, its kernel rows (> 0);
-           then ``stat`` over ``python -m sofa_tpu_torch.workloads.resnet
+           overhead beside the default's median, its kernel rows (> 0)
+  window   ``stat`` over ``python -m sofa_tpu_torch.workloads.resnet
            --train --batch 128`` at trace level 0, and once more (level 2)
            with ``--kineto_delay_s`` and
            ``--kineto_duration_s`` set from that run's capture: kernels
            only inside the window, fewer step ranges than the run made,
            every kernel with its launch context
-  (every ``stat`` run of ``profile`` and ``resnet`` writes the run
-  manifest: each is held to the port's validate_manifest, every started
+  (every ``stat`` run of ``profile``, ``serve`` and ``window`` writes the
+  run manifest: each is held to the port's validate_manifest, every started
   collector must end ``stopped``, ``status`` must exit 0, and Kineto's
   source wall_s and events are printed)
   board    ``report`` with no card visible (CUDA_VISIBLE_DEVICES="") over
@@ -100,7 +110,9 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            ``status`` 1 naming it; ``passes`` over the capture, every
            built-in pass with its last run's time; prints the host times
            and sizes
-  robust   the supervised, self-reporting record, one line a cell:
+  robust   the supervised, self-reporting record, one line a cell; the
+           ``robust`` phase runs cells (2), (6), (3) and (5), ``faults``
+           (1) and (7), on the card, and ``cache`` (4), after the board:
            (1) ``stat`` over the Llama-width training at batch 1 with
            procmon killed 5 s in and the Kineto harvest wedged (5 s
            deadline): one
@@ -147,8 +159,9 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            peaks
 
   mesh     torchrun with NCCL and one rank over the training ``main`` at
-           the train phase's shape (--data 1 --seq_par 1) under ``stat``:
-           the losses must equal the train phase's; logs what the capture
+           the train phase's shape (--data 1 --seq_par 1; one step after
+           the two warm-up steps) under ``stat``: the losses must equal the
+           train phase's; logs what the capture
            holds for the gradient all-reduce; then two gloo ranks sharing
            the card at Llama width (--data 2, batch 1 each, one step after
            the two warm-up steps) under ``stat``: two rank traces, device
@@ -158,12 +171,39 @@ Phases, all of them, in order; any failure raises and exits non-zero:
            mesh_advice.txt, and comm-report.html rendered by ``report``
            and served by ``viz``; the collectives microbench
            at one rank prints its single-device line
+  verbs    the single-run analysis verbs with no card visible, over the
+           captures above, a line a cell: (a) ``analyze --enable_aisi``
+           over the last ResNet-50 capture from its step spans (its 20
+           sofa_step ranges) and by kernel-name mining (20 +- 2), and (b)
+           ``analyze --enable_aisi --enable_hsg`` over the Llama-width
+           capture (an iteration per gpusteps row, the flash kernels inside
+           them; at most --num_swarms swarms, auto_caption.csv); (c)
+           ``diff`` of the Llama-width capture (batch 4) against a cluster
+           host's (batch 1): the three flash kernels longer in the base,
+           swarm_diff.csv and mem_diff.csv, ``fsck`` 0 over the three
+           logdirs, ``viz`` serving diff-report.html and its CSVs; then the
+           other host's capture against a byte copy of itself: every delta
+           0; (d) ``whatif --apply overlap:*,scale:*=sol`` over ResNet-50:
+           calibrated, a speed-of-light table, no step predicted longer than
+           measured, meta.whatif valid, whatif.html served, ``fsck`` 0; over
+           the Llama width (3 steps): exit 1 uncalibrated, the flash kernels
+           among whatif_model.csv's compute classes; (e) ``export --perfetto
+           --folded`` over the Llama width: a PDF of 2 pages or more,
+           overview.png, a sofa_flash_* slice per gputrace row, written by
+           the native writer and byte-identical (decompressed) to the
+           Python path's, the folded stacks; ``export --cluster_hosts``:
+           both hosts' tracks on one clock (1e-6 s); (f) ``top --once``
+           while the profile phase's Llama-width ``stat`` ran (the card's
+           name, the sampler's memory, a sample under 5 s old) and over
+           the finished capture; (g) no unattributed-kernel hint on the
+           level-2 Llama-width capture
 
 Every whole frame a check reads comes through the port's ``read_frame``
 (``frame``): in columnar mode ``<name>.csv`` is the board's downsampled
 copy.
 
-After each phase the script names any process the phase left running;
+After each timed phase, and after the lanes, the script names any
+process left running;
 once the phases end (or one fails) it stops every process still under it.
 It is its tree's child subreaper, so orphans of a killed recorder or
 workload are stopped too.
@@ -175,6 +215,7 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -185,7 +226,9 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
+import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -248,8 +291,16 @@ def frame(logdir: str, name: str, columns=None):
     return df
 
 
+# the lanes log from threads of their own: a line (or a block) at a time,
+# and to the stdout this process started with, which a cell's in-process
+# capture of a verb's output (contextlib.redirect_stdout) does not take
+_LOG_LOCK = threading.Lock()
+_STDOUT = sys.stdout
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    with _LOG_LOCK:
+        print(msg, file=_STDOUT, flush=True)
 
 
 def nvidia_smi() -> str:
@@ -367,7 +418,6 @@ def stop_mp_helpers(timeout: float = 10.0) -> None:
     in-process parser pool of the ``resnet`` phase started here, as the
     standard library's own tests stop them (closing each one's "alive" pipe
     and waiting), forkserver first: it holds the tracker's pipe too."""
-    import threading
     from multiprocessing import forkserver, resource_tracker
 
     def run():
@@ -440,6 +490,54 @@ def _leaf_names(tree, prefix=()):
             yield prefix + (key,)
 
 
+@contextlib.contextmanager
+def viz_served(logdir: str, port: int, label: str):
+    """``viz`` over ``logdir`` in its own process (no card visible), from
+    ``port`` up: yields (its port, ``get(path, headers)`` -> (status,
+    headers, body)); the server is stopped on exit and must be gone."""
+    import http.client
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "sofa_tpu_torch", "viz", "--logdir",
+         logdir, "--viz_port", str(port)], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        served = None
+        t0 = time.perf_counter()
+        while served is None and time.perf_counter() - t0 < 60:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            m = re.search(r"serving .* at http://[^:]+:(\d+)/", line)
+            if m:
+                served = int(m.group(1))
+        if served is None:
+            raise AssertionError(f"viz did not start ({label})")
+
+        def get(path, headers=None):
+            conn = http.client.HTTPConnection("127.0.0.1", served,
+                                              timeout=30)
+            try:
+                conn.request("GET", path, headers=headers or {})
+                resp = conn.getresponse()
+                return resp.status, dict(resp.getheaders()), resp.read()
+            finally:
+                conn.close()
+
+        yield served, get
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    if proc.poll() is None:
+        raise AssertionError("the viz process is still running")
+
+
 class Smoke:
     def __init__(self):
         import torch
@@ -453,6 +551,11 @@ class Smoke:
         # where pyarrow is missing, columnar falls back to csv
         self.columnar = columnar_available()
         self.jobs1 = {}     # board label -> (wall, outputs) of --jobs 1
+        # what the lanes have done (their phases, and "llama"), and whether
+        # a lane has failed
+        self.done = {name: threading.Event()
+                     for name in sum(LANES, ()) + ("llama",)}
+        self.failed = threading.Event()
 
     # -- helpers --------------------------------------------------------------
     def gen(self, seed: int):
@@ -492,25 +595,27 @@ class Smoke:
         self.native_helpers()
 
     def native_helpers(self):
-        """Builds the native /proc sampler daemon from the checkout's source
-        with the machine's C++ compiler: the Python sampler thread, meant for
-        hosts without a compiler, must not be what runs here."""
+        """Builds the native helpers from the checkout's sources with the
+        machine's C++ compiler: the /proc sampler daemon and the Perfetto
+        export's writer (linked with zlib).  Their Python fallbacks, meant
+        for hosts without a compiler, must not be what runs here."""
         from sofa_tpu_torch.collectors import native_build
 
         cxx = native_build.find_compiler()
         if cxx is None:
-            raise AssertionError("no C++ compiler: the native sysmon "
+            raise AssertionError("no C++ compiler: the native helpers "
                                  "cannot be built")
-        path = native_build.binary_path("sysmon")
-        if os.path.exists(path):
-            os.unlink(path)        # time the build itself
-        got = native_build.ensure_built("sysmon")
-        built = native_build.BUILDS.get("sysmon")
-        if got != path or built is None or not os.access(got, os.X_OK):
-            raise AssertionError("native sysmon was not built: the Python "
-                                 "fallback would run")
-        log(f"device: native sysmon built by {built['compiler']} in "
-            f"{built['seconds']:.2f} s -> {os.path.relpath(got, REPO)}")
+        for tool in ("sysmon", "perfetto_write"):
+            path = native_build.binary_path(tool)
+            if os.path.exists(path):
+                os.unlink(path)        # time the build itself
+            got = native_build.ensure_built(tool)
+            built = native_build.BUILDS.get(tool)
+            if got != path or built is None or not os.access(got, os.X_OK):
+                raise AssertionError(f"native {tool} was not built: the "
+                                     "Python fallback would run")
+            log(f"device: native {tool} built by {built['compiler']} in "
+                f"{built['seconds']:.2f} s -> {os.path.relpath(got, REPO)}")
 
     def kernel(self):
         torch = self.torch
@@ -1088,10 +1193,12 @@ class Smoke:
             f" entries in two steps: the {MAX_ENTRIES}-entry ring wraps "
             f"after {MAX_ENTRIES / self.trace_per_step:.1f} steps")
 
-    def run_stat(self, label: str, cmd: str, flags=(), healthy=True):
+    def run_stat(self, label: str, cmd: str, flags=(), healthy=True,
+                 probe=None):
         """``python -m sofa_tpu_torch stat [flags]`` over ``cmd``; checks that
         it completes and, for a ``healthy`` run, its manifest
-        (``check_manifest``).  Returns (features, logdir, output)."""
+        (``check_manifest``); ``probe(logdir)`` runs on a thread of its own
+        while the run goes on.  Returns (features, logdir, output)."""
         import pandas as pd
 
         logdir = os.path.join(REPO, "build", f"chip_smoke_profile_{label}")
@@ -1101,8 +1208,15 @@ class Smoke:
             [sys.executable, "-m", "sofa_tpu_torch", "stat", "--logdir",
              logdir, *flags, cmd], cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
+        prober = None
+        if probe is not None:
+            prober = threading.Thread(target=probe, args=(logdir,),
+                                      daemon=True)
+            prober.start()
         try:
             out, _ = proc.communicate(timeout=600)
+            if prober is not None:
+                prober.join(timeout=60)
         except subprocess.TimeoutExpired:
             proc.terminate()            # record takes the profiled tree down
             try:
@@ -1111,9 +1225,8 @@ class Smoke:
                 proc.kill()
                 proc.communicate()
             raise
-        for line in out.splitlines():
-            if not line.startswith(("USDT", "STAGE:")):
-                log(f"  | {line}")
+        log("\n".join(f"  | {line}" for line in out.splitlines()
+                      if not line.startswith(("USDT", "STAGE:"))))
         log(f"profile[{label}]: stat rc {proc.returncode} in "
             f"{time.perf_counter() - t0:.1f} s")
         if proc.returncode != 0 or "Complete!!" not in out:
@@ -1162,11 +1275,12 @@ class Smoke:
         return doc, rc
 
     def stat(self, label: str, cmd: str, steps: int, names, flags=(),
-             healthy=True):
+             healthy=True, probe=None):
         """``run_stat``, then checks that gputrace has rows of each kernel
         in ``names`` and gpusteps ``steps`` rows; logs where the ranged
         device time goes.  Returns (features, logdir, output, kernels)."""
-        feats, logdir, out = self.run_stat(label, cmd, flags, healthy)
+        feats, logdir, out = self.run_stat(label, cmd, flags, healthy,
+                                           probe)
         gpu = frame(logdir, "gputrace")
         kern = gpu[gpu["copyKind"] == 0]
         kname = kern["name"].astype(str)
@@ -1203,6 +1317,11 @@ class Smoke:
         return feats, logdir, out, kern
 
     def profile(self):
+        """The Llama-width runs at batch 4 (up to 43 GB of the card each):
+        ``stat`` over the training ``main`` under the whole swarm, then over
+        a run that wraps the allocation trace's ring, then an eager run
+        killed mid-run.  Marks "llama" done as soon as the first capture is
+        checked (the host lane reads it)."""
         from sofa_tpu_torch import kernels
         from sofa_tpu_torch.config import SofaConfig
         from sofa_tpu_torch.record import build_collectors
@@ -1215,6 +1334,17 @@ class Smoke:
         log(f"profile: collector probes {json.dumps(probes)}")
         if probes["procmon"] != "ok":
             raise AssertionError("no /proc: procmon cannot sample")
+        self.profile_llama(3, [k.name for k in kernels.KERNELS])
+        self.done["llama"].set()
+        self.profile_wrapped_ring()
+        self.profile_killed()
+
+    def serve(self):
+        """The profile runs that take at most 21 GB of the card, beside the
+        Llama-width ones: ``stat`` over the flagship forward with a short
+        serving run and over the training ``main`` at the JAX package's
+        defaults; a torch program that never uses the card."""
+        from sofa_tpu_torch import kernels
 
         steps = 3
         names = [k.name for k in kernels.KERNELS]
@@ -1234,9 +1364,6 @@ class Smoke:
         self.stat("train", f"{sys.executable} -m "
                   f"sofa_tpu_torch.workloads.transformer --steps {steps}",
                   steps, names)
-        self.profile_llama(steps, names)
-        self.profile_wrapped_ring()
-        self.profile_killed()
         self.profile_untouched_card()
 
     def profile_llama(self, steps, names):
@@ -1253,7 +1380,8 @@ class Smoke:
         with open(cfg_file, "w") as f:
             f.write("enable_py_stacks = true\n")
         feats, logdir, out, kern = self.stat("llama", cmd, steps, names,
-                                             ("--config", cfg_file))
+                                             ("--config", cfg_file),
+                                             probe=self.top_probe)
         # launches of each kernel in one run of 2 warm-up and ``steps``
         # steps (the cluster's hosts and the two gloo ranks are held to it)
         self.llama_launches = {n: int(kern["name"].astype(str).str.contains(
@@ -1480,13 +1608,14 @@ class Smoke:
 
     def profile_wrapped_ring(self):
         """The Llama-width training run, long enough that the allocator
-        trace's ring wraps (1.25 x its length), without the Kineto trace:
+        trace's ring wraps (1.1 x its length), without the Kineto trace:
         the at-exit replay then walks the ring's last entries only.  Logs
         what the replay and the last gate snapshot hold."""
         import pandas as pd
         from sofa_tpu_torch.collectors.gpumon import MAX_ENTRIES
 
-        steps = math.ceil(1.25 * MAX_ENTRIES / self.trace_per_step)
+        # 1.1 x the ring (1.25 to PR 12): past the wrap, a shorter run
+        steps = math.ceil(1.1 * MAX_ENTRIES / self.trace_per_step)
         cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
                f"--steps {steps} --batch 4 {LLAMA_WIDTH}")
         feats, logdir, out = self.run_stat("ring", cmd, ("--disable_kineto",))
@@ -1656,6 +1785,11 @@ class Smoke:
         if feats.get("gpu0_step_gap_pct") is None:
             raise AssertionError("no step gap was measured")
         self.resnet_light(overhead)
+
+    def window(self):
+        """``stat`` over the ResNet-50 workload's ``main`` (batch 128, 6.5
+        GB of the card) at trace level 0, then once more with the trace's
+        window set from that run's capture (``resnet_window``)."""
         # at batch 128 a step is bound by the card, not the host: the
         # windowed run's steps are then as long as its kernels (below); at
         # trace level 0 (under record) its warm-up is close to an untraced
@@ -1893,9 +2027,11 @@ class Smoke:
         capture: ``report --skip_preprocess --plugin`` still completes, the
         manifest marks the pass ``failed`` (valid by the validator) and
         ``status`` names it and exits 1; then ``passes`` over the capture
-        lists every built-in pass with its last run's time."""
+        lists every enabled built-in pass with its last run's time and
+        the gated ones skipped."""
         from sofa_tpu_torch import telemetry
         from sofa_tpu_torch.analysis import registry
+        from sofa_tpu_torch.config import SofaConfig
         from sofa_tpu_torch.tools.manifest_check import validate_manifest
 
         plugdir = os.path.join(REPO, "build", "chip_smoke_plugin")
@@ -1937,17 +2073,27 @@ class Smoke:
         shutil.rmtree(copy)
         r, wall = self.board_cli("passes", "--logdir", logdir)
         registry.load_builtin_passes()
-        names = [sp.name for sp in registry.registered()]
+        # the mining passes are gated off by default: skipped, and said so
+        names = [sp.name for sp in registry.registered()
+                 if sp.enabled(SofaConfig())]
+        gated = [sp.name for sp in registry.registered()
+                 if not sp.enabled(SofaConfig())]
         timed = [n for n in names if re.search(
             rf"^{n}  \[builtin\]  \[last run: ok [\d.]+s\]", r.stdout,
             re.M)]
+        skipped = [n for n in gated if re.search(
+            rf"^{n}  \[builtin\] \(gated by [\w/]+; off\)  \[last run: "
+            r"skipped\]", r.stdout, re.M)]
         waves = [ln for ln in r.stdout.splitlines() if ln.startswith("wave ")]
         log(f"board[passes]: rc {r.returncode} in {wall:.2f} s; "
             f"{len(timed)} of {len(names)} built-in passes with their last "
-            f"run's time; " + "; ".join(w[:100] for w in waves))
-        if r.returncode != 0 or timed != names:
-            raise AssertionError(f"passes lacks the last run of "
-                                 f"{sorted(set(names) - set(timed))}")
+            f"run's time, {len(skipped)} of {len(gated)} gated ones "
+            f"skipped; " + "; ".join(w[:100] for w in waves))
+        if r.returncode != 0 or timed != names or skipped != gated:
+            raise AssertionError(
+                f"passes lacks the last run of "
+                f"{sorted(set(names) - set(timed))} or the skip of "
+                f"{sorted(set(gated) - set(skipped))}")
 
     def board_cli(self, *argv):
         """``python -m sofa_tpu_torch <argv>`` with no card visible."""
@@ -2023,46 +2169,18 @@ class Smoke:
             log(f"board[{label}]: no hint fired")
         return hints
 
-    def board_viz(self, label, logdir):
-        """``viz`` in its own process: every staged page and what the pages
-        fetch, 304, gzip and plain tiles, nothing outside the logdir; then
-        the server is stopped and must be gone."""
+    def board_viz(self, label, logdir, first_port=8700):
+        """``viz`` in its own process (on the first free port from
+        ``first_port``): every staged page and what the pages fetch, 304,
+        gzip and plain tiles, nothing outside the logdir; then the server is
+        stopped and must be gone."""
         import glob
         import gzip
-        import http.client
         import re
-        import signal
 
         from sofa_tpu_torch.analyze import board_pages
 
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-        proc = subprocess.Popen(
-            [sys.executable, "-u", "-m", "sofa_tpu_torch", "viz", "--logdir",
-             logdir, "--viz_port", "8700"], cwd=REPO, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        try:
-            port = None
-            t0 = time.perf_counter()
-            while port is None and time.perf_counter() - t0 < 60:
-                line = proc.stdout.readline()
-                if not line:
-                    break
-                m = re.search(r"serving .* at http://[^:]+:(\d+)/", line)
-                if m:
-                    port = int(m.group(1))
-            if port is None:
-                raise AssertionError(f"viz did not start ({label})")
-
-            def get(path, headers=None):
-                conn = http.client.HTTPConnection("127.0.0.1", port,
-                                                  timeout=30)
-                try:
-                    conn.request("GET", path, headers=headers or {})
-                    resp = conn.getresponse()
-                    return resp.status, dict(resp.getheaders()), resp.read()
-                finally:
-                    conn.close()
-
+        with viz_served(logdir, first_port, label) as (port, get):
             bad = []
             for name in board_pages() + ["report.js"]:
                 status = get("/" + name)[0]
@@ -2112,16 +2230,6 @@ class Smoke:
                 " gzip and plain, ../ 404")
             if bad:
                 raise AssertionError(f"viz answered wrongly ({label}): {bad}")
-        finally:
-            proc.send_signal(signal.SIGINT)
-            try:
-                proc.wait(timeout=15)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            proc.stdout.close()
-        if proc.poll() is None:
-            raise AssertionError("the viz process is still running")
 
     def board_new_passes(self, logdir):
         """The concurrency breakdown and the network passes over the
@@ -2215,16 +2323,42 @@ class Smoke:
     # -- robust -----------------------------------------------------------------
     def robust(self):
         """The supervised, self-reporting record and the logdir's
-        durability: seven cells, one line each (the module docstring lists
-        them)."""
-        for cell in (self.robust_faulted, self.robust_sticky,
-                     self.robust_truncated, self.robust_cache,
-                     self.robust_durability, self.robust_epilogue,
-                     self.robust_attach):
+        durability, the cells that need no card (the module docstring
+        lists all seven): (2) and (6), then (3) and (5) over the
+        Llama-width capture once the profile phase has checked it."""
+        self.cells(self.robust_sticky, self.robust_epilogue)
+        self.need("llama")
+        self.cells(self.robust_truncated, self.robust_durability)
+
+    def faults(self):
+        """The robust cells that run a program on the card: (1) and (7)."""
+        self.cells(self.robust_faulted, self.robust_attach)
+
+    def cache(self):
+        """Robust cell (4), over the ResNet-50 capture where the board phase
+        left it."""
+        self.cells(self.robust_cache)
+
+    def cells(self, *cells):
+        """Runs each robust cell and logs its line."""
+        for cell in cells:
             t0 = time.perf_counter()
             line = cell()
             log(f"robust[{cell.__name__[7:]}]: {line} "
                 f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
+
+    def need(self, what, timeout=1200.0):
+        """Waits for ``what`` of another lane (a phase, or "llama": the
+        profile phase's checked Llama-width capture); raises when a lane
+        has failed meanwhile, or after ``timeout`` s."""
+        t0 = time.perf_counter()
+        while not self.done[what].wait(1.0):
+            if self.failed.is_set():
+                raise AssertionError(f"gave up waiting for {what}: another "
+                                     f"lane failed")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"{what} was not done after "
+                                     f"{timeout:.0f} s")
 
     def robust_faulted(self):
         """stat over the Llama-width training at batch 1 with procmon killed
@@ -2715,8 +2849,6 @@ class Smoke:
         recorder, all three kernels launched as often as in the profile
         phase's run, one report.js with both hosts' series shifted by the
         difference of their time bases, and cluster_summary.csv."""
-        import threading
-
         import numpy as np
         import pandas as pd
         from sofa_tpu_torch.kernels import KERNELS
@@ -2759,9 +2891,9 @@ class Smoke:
             reader.join(timeout=60)
         record_s = time.perf_counter() - t0
         out = "".join(lines)
-        for line in out.splitlines():
-            if line.startswith(("[WARNING]", "[PROGRESS]", "transformer:")):
-                log(f"  | {line}")
+        log("\n".join(f"  | {line}" for line in out.splitlines()
+                      if line.startswith(("[WARNING]", "[PROGRESS]",
+                                          "transformer:"))))
         log(f"cluster: record rc {proc.returncode} in {record_s:.1f} s; "
             f"sysmon pids seen under each host's recorder "
             f"{ {h: sorted(p) for h, p in sysmons.items()} }")
@@ -2884,6 +3016,478 @@ class Smoke:
                 except OSError:
                     continue
             yield host, found
+
+    # -- the single-run analysis verbs over the card's captures ---------------
+    def top_probe(self, logdir):
+        """While the Llama-width ``stat`` runs: once the memory sampler has
+        written a device row and its card's name, ``top --once`` over the
+        live logdir (no card visible); its output, rc and wall clock are
+        kept for the ``verbs`` phase's cell (f)."""
+        path = os.path.join(logdir, "gpumon.txt")
+        t0 = time.time()
+        self.live_top = None
+        while time.time() - t0 < 180:
+            try:
+                with open(path) as f:
+                    rows = [ln.split() for ln in f]
+            except OSError:
+                rows = []
+            if os.path.isfile(path + ".meta.json") and any(
+                    len(r) == 5 and r[1] == "0" for r in rows):
+                break
+            time.sleep(0.5)
+        else:
+            return
+        r, wall = self.board_cli("top", "--once", "--logdir", logdir)
+        self.live_top = (r.returncode, r.stdout + r.stderr, wall)
+
+    def verbs(self):
+        """The single-run analysis verbs (``diff``, ``whatif``, ``export``,
+        ``top``) and the mining passes over the captures the card made,
+        host only (no card visible), a line a cell: (a) AISI over the last
+        ResNet-50 capture (step spans, kernel-name mining) and the
+        Llama-width one; (b) HSG over the Llama-width capture; (c) ``diff``
+        of the Llama-width capture (batch 4) against a cluster host's
+        (batch 1), then of the serving capture against a byte copy of
+        itself; (d) ``whatif`` over the ResNet-50 and the Llama-width
+        captures; (e) ``export --perfetto --folded`` over the Llama-width
+        capture, the native writer's file against the Python path's, and
+        ``export --cluster_hosts``; (f) ``top --once`` during the
+        Llama-width ``stat`` and over the finished capture; (g) no
+        unattributed-kernel hint on the Llama-width capture."""
+        build = os.path.join(REPO, "build")
+        caps = {"llama": os.path.join(build, "chip_smoke_profile_llama"),
+                "resnet": os.path.join(build, "chip_smoke_resnet_r1"),
+                "self": os.path.join(build, "chip_smoke_cluster-localhost"),
+                "cluster": os.path.join(build, "chip_smoke_cluster"),
+                "host": os.path.join(build, "chip_smoke_cluster-127.0.0.1")}
+        self.need("cluster")
+        self.verb_times = {}
+        for cell in (self.verbs_aisi, self.verbs_hsg, self.verbs_diff,
+                     self.verbs_whatif, self.verbs_export, self.verbs_top,
+                     self.verbs_hint):
+            t0 = time.perf_counter()
+            line = cell(caps)
+            dt = time.perf_counter() - t0
+            self.verb_times[cell.__name__[6:]] = dt
+            log(f"verbs[{cell.__name__[6:]}]: {line} ({dt:.1f} s) | "
+                f"{self.smi}")
+
+    @staticmethod
+    def viz_get(logdir, names):
+        """``viz`` over ``logdir`` in its own process: the status of a GET of
+        each name."""
+        with viz_served(logdir, 8760, logdir) as (_port, get):
+            return {name: get("/" + name)[0] for name in names}
+
+    def verb_cli(self, label, *argv, want=0):
+        """A verb with no card visible; raises unless it exits ``want``."""
+        r, wall = self.board_cli(*argv)
+        if r.returncode != want:
+            raise AssertionError(f"{label}: `{' '.join(argv[:2])}` exited "
+                                 f"{r.returncode}, expected {want}: "
+                                 f"{(r.stdout + r.stderr)[-3000:]}")
+        return r.stdout + r.stderr, wall
+
+    def verbs_aisi(self, caps):
+        """(a) ``analyze --enable_aisi --iterations_from steps`` over the
+        ResNet-50 capture (exactly its 20 sofa_step ranges, through the
+        registry), then the pass's kernel-name mining over the same frames
+        in this process (20 +- 2, ``detect_iterations``' tolerance)."""
+        import pandas as pd
+        from sofa_tpu_torch.analysis.features import Features
+        from sofa_tpu_torch.config import SofaConfig
+        from sofa_tpu_torch.ml.aisi import sofa_aisi
+        from sofa_tpu_torch.preprocess import load_frames
+
+        logdir = caps["resnet"]
+        _, wall = self.verb_cli("aisi steps", "analyze", "--logdir", logdir,
+                                "--enable_aisi", "--iterations_from", "steps")
+        steps_it = pd.read_csv(os.path.join(logdir, "iterations.csv"))
+        t0 = time.perf_counter()
+        # the frames the pass reads that this capture has (no strace here)
+        frames = load_frames(SofaConfig(logdir=logdir), only=(
+            "gputrace", "gpusteps", "hosttrace", "strace", "pystacks"))
+        mined = sofa_aisi(frames, SofaConfig(logdir=logdir,
+                                             iterations_from="op"),
+                          Features())
+        mine_s = time.perf_counter() - t0
+        n_steps = len(frames["gpusteps"])
+        mean_steps = float(frames["gpusteps"]["duration"].mean())
+        n_s, m_s = len(steps_it), float(steps_it["step_time"].mean())
+        n_o = 0 if mined is None else len(mined)
+        if n_s != n_steps or n_steps != RESNET_STEPS:
+            raise AssertionError(f"aisi from the steps: {n_s} iterations, "
+                                 f"gpusteps {n_steps} rows")
+        if abs(n_o - RESNET_STEPS) > 2:
+            raise AssertionError(f"aisi by kernel-name mining: {n_o} "
+                                 f"iterations, not {RESNET_STEPS} +- 2")
+        return (f"ResNet-50: from the steps {n_s} iterations, mean "
+                f"{m_s * 1e3:.3f} ms (analyze {wall:.1f} s); by kernel-name "
+                f"mining over {len(frames['gputrace'])} device rows {n_o}, "
+                f"mean {float(mined['step_time'].mean()) * 1e3:.3f} ms "
+                f"({mine_s:.1f} s in process); the sofa_step ranges' mean "
+                f"{mean_steps * 1e3:.3f} ms")
+
+    def verbs_hsg(self, caps):
+        """(a) and (b) over the Llama-width capture: ``analyze
+        --enable_aisi --enable_hsg`` (both passes through the registry):
+        iterations.csv a row per gpusteps row, every flash kernel launched
+        inside a step starting inside an iteration; swarms_report.csv at
+        most --num_swarms swarms; auto_caption.csv written; the
+        iterations and swarms series merged into report.js."""
+        import pandas as pd
+        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.trace import read_report_js_doc
+
+        logdir = caps["llama"]
+        swarms = 10
+        out, wall = self.verb_cli("aisi+hsg", "analyze", "--logdir", logdir,
+                                  "--enable_aisi", "--enable_hsg",
+                                  "--num_swarms", str(swarms))
+        it = pd.read_csv(os.path.join(logdir, "iterations.csv"))
+        steps = frame(logdir, "gpusteps")
+        gpu = frame(logdir, "gputrace")
+        flash = gpu[gpu["name"].astype(str).str.contains("sofa_flash_")
+                    & gpu["module"].astype(str).str.match(
+                        r"sofa_step_\d+$")]
+        ts = flash["timestamp"].to_numpy()
+        inside = ((ts[:, None] >= it["begin"].to_numpy()[None, :])
+                  & (ts[:, None] < it["end"].to_numpy()[None, :])).any(1)
+        rep = pd.read_csv(os.path.join(logdir, "swarms_report.csv"))
+        caption = os.path.join(logdir, "auto_caption.csv")
+        doc = read_report_js_doc(os.path.join(logdir, "report.js"))
+        names = {s["name"] for s in doc["series"]}
+        per_kernel = {k.name: int(flash["name"].astype(str).str.contains(
+            k.name).sum()) for k in KERNELS}
+        if len(it) != len(steps) or not len(flash) or not inside.all():
+            raise AssertionError(f"iterations.csv {len(it)} rows against "
+                                 f"gpusteps {len(steps)}; flash kernels in "
+                                 f"steps {len(flash)}, {int((~inside).sum())}"
+                                 " outside every iteration")
+        if not 0 < len(rep) <= swarms or not os.path.isfile(caption) \
+                or "iterations" not in names \
+                or not any(n.startswith("swarm_") for n in names):
+            raise AssertionError(f"hsg: {len(rep)} swarms (at most "
+                                 f"{swarms}), auto_caption.csv "
+                                 f"{os.path.isfile(caption)}, series "
+                                 f"{sorted(names)}")
+        return (f"Llama width: {len(it)} iterations = gpusteps rows, "
+                f"{len(flash)} flash launches in steps {per_kernel} all "
+                f"inside an iteration, kernel time in the iterations "
+                f"{float(it['kernel_time'].sum()) * 1e3:.1f} ms; "
+                f"{len(rep)} swarms (at most {swarms}) over "
+                f"{int(rep['samples'].sum())} samples, top "
+                f"{str(rep['caption'].iloc[0])[:60]!r}; analyze {wall:.1f} s")
+
+    def verbs_diff(self, caps):
+        """(c) ``diff`` of the Llama-width capture at batch 4 (base) against
+        a cluster host's at batch 1 (match): gpu_diff.csv holds the three
+        flash kernels, each longer in the base; swarm_diff.csv and
+        mem_diff.csv written; ``fsck`` 0 over the three logdirs; ``viz``
+        serves diff-report.html and every CSV it names.  Then the other
+        cluster host's capture against a byte copy of itself: every delta
+        0."""
+        import pandas as pd
+        from sofa_tpu_torch.kernels import KERNELS
+
+        out_dir = os.path.join(REPO, "build", "chip_smoke_diff")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        _, wall = self.verb_cli("diff", "diff", "--base_logdir",
+                                caps["llama"], "--match_logdir",
+                                caps["host"], "--logdir", out_dir)
+        gd = pd.read_csv(os.path.join(out_dir, "gpu_diff.csv"))
+        rows = {}
+        for k in KERNELS:
+            sel = gd[gd["name"].astype(str).str.contains(k.name)]
+            rows[k.name] = (float(sel["time_base"].sum()),
+                            float(sel["time_match"].sum()))
+        missing = [f for f in ("swarm_diff.csv", "mem_diff.csv")
+                   if not os.path.isfile(os.path.join(out_dir, f))]
+        if missing or not all(b > m > 0 for b, m in rows.values()):
+            raise AssertionError(f"diff: flash kernel times (base, match) "
+                                 f"{rows}; missing {missing}")
+        fsck = {}
+        for d in (caps["llama"], caps["host"], out_dir):
+            r, _ = self.board_cli("fsck", d)
+            fsck[os.path.basename(d)] = r.returncode
+        if any(fsck.values()):
+            raise AssertionError(f"fsck after diff: {fsck}")
+        with open(os.path.join(out_dir, "diff-report.html")) as f:
+            named = sorted(set(re.findall(r'"([\w.]+\.csv)"', f.read())))
+        served = self.viz_get(out_dir, ["diff-report.html"] + named)
+        if any(v != 200 for v in served.values()):
+            raise AssertionError(f"viz over the diff: {served}")
+        # a capture against a byte copy of itself
+        copy = os.path.join(REPO, "build", "chip_smoke_diff_copy")
+        self_dir = os.path.join(REPO, "build", "chip_smoke_diff_self")
+        for d in (copy, self_dir):
+            shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(caps["self"], copy)
+        _, wall2 = self.verb_cli("diff self", "diff", "--base_logdir",
+                                 caps["self"], "--match_logdir", copy,
+                                 "--logdir", self_dir)
+        deltas = {}
+        for name, col in (("gpu_diff.csv", "delta"),
+                          ("mem_diff.csv", "delta"),
+                          ("swarm_diff.csv", "duration_delta")):
+            t = pd.read_csv(os.path.join(self_dir, name))
+            deltas[name] = (len(t), float(t[col].abs().max()))
+        if any(n == 0 or d != 0 for n, d in deltas.values()):
+            raise AssertionError(f"a capture against its copy: (rows, "
+                                 f"max |delta|) {deltas}")
+        return ("Llama width B 4 vs B 1, flash kernel ms (base, match) "
+                + ", ".join(f"{n} ({b * 1e3:.2f}, {m * 1e3:.2f})"
+                            for n, (b, m) in rows.items())
+                + f", {len(gd)} kernels; diff {wall:.1f} s; fsck {fsck}; "
+                f"viz {served}; a cluster host's capture against its copy: "
+                f"(rows, max |delta|) {deltas}, diff {wall2:.1f} s")
+
+    def verbs_whatif(self, caps):
+        """(d) ``whatif --apply overlap:*,scale:*=sol`` over the ResNet-50
+        capture: exit 0 calibrated (the zero-scenario identity inside the
+        gate), a non-empty speed-of-light table, no predicted step longer
+        than its measured one, meta.whatif and the report valid, whatif.html
+        and the report served, ``fsck`` 0; over the Llama-width capture
+        (3 steps): exit 1, uncalibrated for too few steps, and
+        whatif_model.csv's compute classes holding the flash kernels."""
+        import pandas as pd
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.config import SofaConfig
+        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.tools.manifest_check import (validate_manifest,
+                                                         validate_whatif)
+        from sofa_tpu_torch.whatif.calibrate import MIN_CI_SAMPLES
+        from sofa_tpu_torch.whatif.replay import load_sol_table
+
+        logdir = caps["resnet"]
+        out, wall = self.verb_cli("whatif", "whatif", logdir, "--apply",
+                                  "overlap:*,scale:*=sol")
+        with open(os.path.join(logdir, "whatif_report.json")) as f:
+            doc = json.load(f)
+        calib, pred = doc["calibration"], doc["predicted"]
+        sol = load_sol_table(SofaConfig(logdir=logdir))
+        longer = [s for s in doc["steps"]
+                  if s["predicted_s"] > s["measured_s"]]
+        probs = validate_manifest(telemetry.load_manifest(logdir)) \
+            + validate_whatif(doc)
+        meta = (telemetry.load_manifest(logdir).get("meta") or {}) \
+            .get("whatif") or {}
+        if calib["verdict"] != "calibrated" or calib["n_steps"] < \
+                MIN_CI_SAMPLES or not sol or longer or probs \
+                or meta.get("verdict") != "calibrated":
+            raise AssertionError(f"whatif over ResNet-50: {calib}, sol "
+                                 f"table {len(sol)} classes, {len(longer)} "
+                                 f"steps predicted longer, problems {probs}")
+        served = self.viz_get(logdir, ["whatif.html", "whatif_report.json"])
+        if any(v != 200 for v in served.values()):
+            raise AssertionError(f"viz over the whatif report: {served}")
+        r, _ = self.board_cli("fsck", logdir)
+        if r.returncode:
+            raise AssertionError(f"fsck after whatif: {r.stdout[-2000:]}")
+        att = ", ".join(f"{a['scenario']} {a['status']} "
+                        f"{a['delta_pct']:.2f} %" for a in pred["attribution"])
+        # the Llama-width capture: 3 steps, too few for the interval
+        out2, wall2 = self.verb_cli("whatif llama", "whatif", caps["llama"],
+                                    want=1)
+        with open(os.path.join(caps["llama"], "whatif_report.json")) as f:
+            reason = json.load(f)["calibration"]["reason"]
+        model = pd.read_csv(os.path.join(caps["llama"], "whatif_model.csv"))
+        compute = set(model.loc[model["kind"] == "compute", "cls"])
+        flash = sorted(c for c in compute if c.startswith("sofa_flash_"))
+        if "step sample(s)" not in reason or \
+                flash != sorted(k.name for k in KERNELS):
+            raise AssertionError(f"whatif over the Llama width: {reason!r}; "
+                                 f"compute classes {sorted(compute)}")
+        return (f"ResNet-50: {calib['verdict']}, {calib['n_steps']} steps, "
+                f"identity error {calib['identity_error_pct']:.6f} %, "
+                f"measured {calib['measured_mean_s'] * 1e3:.3f} ms, "
+                f"predicted {pred['step_time_mean_s'] * 1e3:.3f} ms "
+                f"(speedup {pred['speedup']}x; {att}; sol table {len(sol)} "
+                f"classes); whatif {wall:.1f} s; viz {served}; Llama "
+                f"width: exit 1, "
+                f"{reason!r}; compute classes {flash} of {len(compute)}; "
+                f"whatif {wall2:.1f} s")
+
+    def verbs_export(self, caps):
+        """(e) ``export --perfetto --folded`` over the Llama-width capture:
+        a PDF of at least 2 pages and overview.png; trace.json.gz written
+        by the native writer, with a sofa_flash_* slice per gputrace row of
+        them, and byte-identical (decompressed) to the Python path's over
+        the same frames; pystacks.folded and memprof.folded not empty.  Then
+        ``export --cluster_hosts --perfetto``: both hosts' tracks, the
+        second host's kernels shifted by the time bases' difference within
+        1e-6 s."""
+        import gzip
+
+        import numpy as np
+        from sofa_tpu_torch.config import SofaConfig
+        from sofa_tpu_torch.export_perfetto import (PERFETTO_FRAMES,
+                                                    export_perfetto)
+        from sofa_tpu_torch.preprocess import load_frames
+
+        logdir = caps["llama"]
+        out, wall = self.verb_cli("export", "export", "--logdir", logdir,
+                                  "--perfetto", "--folded")
+        with open(os.path.join(logdir, "sofa_report.pdf"), "rb") as f:
+            pages = max(int(m) for m in re.findall(rb"/Count (\d+)",
+                                                   f.read()))
+        png = os.path.getsize(os.path.join(logdir, "overview.png"))
+        native = os.path.join(logdir, "trace.json.gz")
+        with gzip.open(native, "rb") as f:
+            text = f.read()
+        events = json.loads(text)["traceEvents"]
+        slices = sum(1 for e in events if e.get("cat") == "gpu_op"
+                     and "sofa_flash_" in str(e.get("name", "")))
+        gpu = frame(logdir, "gputrace", ["name"])
+        rows = int(gpu["name"].astype(str).str.contains(
+            "sofa_flash_").sum())
+        folded = {n: os.path.getsize(os.path.join(logdir, n))
+                  if os.path.isfile(os.path.join(logdir, n)) else 0
+                  for n in ("pystacks.folded", "memprof.folded")}
+        # the Python path over the same frames, in this process
+        os.environ["SOFA_NATIVE_PERFETTO"] = "0"
+        try:
+            t0 = time.perf_counter()
+            cfg = SofaConfig(logdir=logdir)
+            export_perfetto(cfg, load_frames(cfg, only=PERFETTO_FRAMES),
+                            out_name="trace.python.json.gz")
+            py_s = time.perf_counter() - t0
+        finally:
+            del os.environ["SOFA_NATIVE_PERFETTO"]
+        with gzip.open(os.path.join(logdir, "trace.python.json.gz"),
+                       "rb") as f:
+            same = f.read() == text
+        os.unlink(os.path.join(logdir, "trace.python.json.gz"))
+        if "(native writer;" not in out or not same:
+            raise AssertionError(f"the native Perfetto writer did not write "
+                                 f"the export, or its file differs from the "
+                                 f"Python path's (same: {same}): "
+                                 f"{out[-2000:]}")
+        if pages < 2 or png <= 0 or slices != rows or not rows \
+                or not all(folded.values()):
+            raise AssertionError(f"export: {pages} PDF pages, overview.png "
+                                 f"{png} bytes, {slices} sofa_flash_ slices "
+                                 f"against {rows} gputrace rows, folded "
+                                 f"{folded}")
+        # every host on one clock
+        hosts = ["localhost", "127.0.0.1"]
+        base = caps["cluster"]
+        _, wall_c = self.verb_cli("export cluster", "export",
+                                  "--cluster_hosts", ",".join(hosts),
+                                  "--logdir", base, "--perfetto")
+        with gzip.open(os.path.join(base, "trace.json.gz"), "rb") as f:
+            cev = json.loads(f.read())["traceEvents"]
+        procs = sorted(e["args"]["name"] for e in cev
+                       if e.get("name") == "process_name")
+        bases = {}
+        for h in hosts:
+            with open(os.path.join(f"{base}-{h}", "sofa_time.txt")) as f:
+                bases[h] = float(f.read().split()[0])
+        shift = bases[hosts[1]] - min(bases.values())
+        want = np.sort(frame(f"{base}-{hosts[1]}", "gputrace",
+                             ["timestamp"])["timestamp"].to_numpy() + shift)
+        got = np.sort([e["ts"] / 1e6 for e in cev
+                       if e.get("cat") == "gpu_op" and e.get("pid") == 256])
+        worst = float(np.abs(got - want).max()) if len(got) == len(want) \
+            else float("inf")
+        if not {"gpu0", "gpu256", "host0", "host1"} <= set(procs) \
+                or worst > 1e-6:
+            raise AssertionError(f"cluster export: processes {procs}, "
+                                 f"{len(got)} kernels of the second host "
+                                 f"against {len(want)}, off by {worst}")
+        return (f"Llama width: {pages} PDF pages, overview.png {png} bytes, "
+                f"trace.json.gz {len(events)} events ({slices} sofa_flash_ "
+                f"slices = gputrace's {rows}) by the native writer, "
+                f"decompressed byte-identical to the Python path's "
+                f"({py_s:.2f} s in process), folded {folded}; export "
+                f"{wall:.1f} s; cluster: processes {procs}, second host "
+                f"shifted {shift:.6f} s, off by {worst:.3g} s; export "
+                f"{wall_c:.1f} s")
+
+    def verbs_top(self, caps):
+        """(f) ``top --once`` during the Llama-width ``stat`` (the profile
+        phase's probe): the device line names the card, its memory is the
+        sampler's, the sample under 5 s old; then over the finished
+        capture: the same device line from the files."""
+        from sofa_tpu_torch.top import LIVE_S
+
+        name = self.torch.cuda.get_device_name(0)
+        total = self.torch.cuda.get_device_properties(0).total_memory
+        if self.live_top is None:
+            raise AssertionError("top never saw the Llama-width run's "
+                                 "sampler while it ran")
+        rc, live, live_wall = self.live_top
+        out, wall = self.verb_cli("top", "top", "--once", "--logdir",
+                                  caps["llama"])
+
+        def gpu_line(text):
+            return next((ln for ln in text.splitlines()
+                         if ln.startswith("gpu0 ")), "")
+
+        age = re.search(r"sample\s+([\d.]+)s ago", live)
+        limit = f"/{total / 1e9:.2f} GB"
+        with open(os.path.join(caps["llama"], "gpumon.txt")) as f:
+            last = [ln.split() for ln in f if ln.split()[1:2] == ["0"]][-1]
+        used = f"{int(last[2]) / 1e9:6.2f}{limit}"
+        for label, text in (("live", live), ("finished", out)):
+            ln = gpu_line(text)
+            if name not in ln or limit not in ln:
+                raise AssertionError(f"top ({label}): no device line naming "
+                                     f"{name} with the sampler's memory: "
+                                     f"{text[-2000:]}")
+        if rc or age is None or float(age.group(1)) >= LIVE_S \
+                or used not in gpu_line(out):
+            raise AssertionError(f"top: live rc {rc}, sample age "
+                                 f"{age and age.group(1)} s (limit {LIVE_S}); "
+                                 f"finished line {gpu_line(out)!r}, the last "
+                                 f"sample {used!r}")
+        return (f"live: {gpu_line(live)!r}, sample {age.group(1)} s old "
+                f"(top {live_wall:.1f} s); finished: {gpu_line(out)!r} "
+                f"(top {wall:.1f} s)")
+
+    def verbs_hint(self, caps):
+        """(g) The unattributed-kernel rule over the Llama-width capture
+        (trace level 2, every flash launch inside its cost range): no
+        hint.  Logs the kernels no cost reaches by the aten op around them
+        (ops costs.py does not model), which the rule leaves out."""
+        import pandas as pd
+
+        logdir = caps["llama"]
+        feats = pd.read_csv(os.path.join(logdir, "features.csv"))
+        feats = dict(zip(feats["name"], feats["value"]))
+        hints = []
+        if os.path.isfile(os.path.join(logdir, "hints.txt")):
+            with open(os.path.join(logdir, "hints.txt")) as f:
+                hints = f.read().splitlines()
+        fired = [h for h in hints if h.startswith("unattributed kernel")]
+        unattr = feats.get("gpu_unattributed_kernel_time")
+        total = sum(float(v) for k, v in feats.items()
+                    if re.fullmatch(r"gpu\d+_kernel_time", k))
+        gpu = frame(logdir, "gputrace", ["name", "hlo_category", "flops",
+                                         "duration", "copyKind", "op_path"])
+        kern = gpu[gpu["copyKind"] == 0]
+        flash = kern[kern["name"].astype(str).str.contains("sofa_flash_")]
+        costed = bool((flash["hlo_category"].astype(str).str.startswith(
+            "sofa_flash_") & (flash["flops"] > 0)).all())
+        bare = kern[(kern["hlo_category"] == "kernel")
+                    & (kern["flops"] <= 0)]
+        op = bare["op_path"].astype(str).str.extract(
+            r".*(aten::[^/]+)")[0].fillna("(no aten op)")
+        by_op = bare["duration"].groupby(op).sum().sort_values(
+            ascending=False)
+        if fired or not costed or kern["flops"].isna().any():
+            raise AssertionError(f"the unattributed-kernel hint fired "
+                                 f"({fired}), a flash launch lacks its cost "
+                                 f"range ({not costed}), or the trace is "
+                                 "below level 2")
+        return (f"gpu_unattributed_kernel_time {unattr} s of {total:.4f} s "
+                f"kernel time; every one of {len(flash)} flash launches "
+                f"owned by its cost range; no hint; kernels no cost reaches "
+                f"inside aten ops costs.py does not model: "
+                f"{float(bare['duration'].sum()) * 1e3:.1f} ms, "
+                + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                            by_op.head(5).items()))
 
     # -- the ring: four ranks' hops in lockstep on the one card -------------
     def ring(self):
@@ -3111,8 +3715,9 @@ class Smoke:
     # -- the mesh: the NCCL world of one, two gloo ranks on the card --------
     def mesh(self):
         """(1) torchrun with NCCL and one rank runs the transformer's main
-        at the train phase's shape (--data 1 --seq_par 1) under ``stat``:
-        its losses must equal the train phase's; logs what the capture
+        at the train phase's shape (--data 1 --seq_par 1, one step after
+        the two warm-up steps) under ``stat``: its losses must equal the
+        train phase's; logs what the capture
         holds for the gradient all-reduce.
         (2) two gloo ranks sharing the card at Llama width (--data 2, B 1
         each, one step after the warm-up) under ``stat``: two rank traces,
@@ -3122,7 +3727,9 @@ class Smoke:
         of two ranks on one card, mesh_advice.txt,
         and comm-report.html rendered and served.  (3) the collectives
         microbench at one rank prints its single-device line."""
-        steps = 3
+        # one step after the two warm-up steps (three to PR 12): the
+        # losses of three passes are held to the train phase's
+        steps = 1
         one = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
                f"1 --master_port {free_port()} -m "
                f"sofa_tpu_torch.workloads.transformer --steps {steps} "
@@ -3219,9 +3826,8 @@ class Smoke:
         t0 = time.perf_counter()
         feats, logdir, out = self.run_stat("mesh_gloo2", cmd)
         stat_s = time.perf_counter() - t0
-        for line in out.splitlines():
-            if line.startswith(("transformer:", "rank ")):
-                log(f"  | {line}")
+        log("\n".join(f"  | {line}" for line in out.splitlines()
+                      if line.startswith(("transformer:", "rank "))))
         losses = mesh_losses(out)
         traces = []
         for name in sorted(os.listdir(os.path.join(logdir, "kineto"))):
@@ -3307,11 +3913,18 @@ class Smoke:
         self.board_report("mesh_gloo2", logdir)
         if not os.path.isfile(os.path.join(logdir, "comm-report.html")):
             raise AssertionError("report did not stage comm-report.html")
-        self.board_viz("mesh_gloo2", logdir)
+        self.board_viz("mesh_gloo2", logdir, 8730)   # beside the board's
 
 
-PHASES = ("device", "kernel", "model", "train", "ring", "profile", "resnet",
-          "board", "robust", "cluster", "mesh")
+# The timed phases run alone, in order; then three lanes side by side, each
+# a thread that runs its phases in order: the card's Llama-width runs at
+# batch 4 and the multi-rank ones (up to 43 GB of the card at a time), its
+# runs of at most 21 GB, and the host-only phases over the captures
+# (``Smoke.need`` waits for what a phase reads from another lane).
+PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
+LANES = (("profile", "cluster", "mesh"),
+         ("serve", "window", "faults"),
+         ("robust", "board", "cache", "verbs"))
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 # bare/profiled pairs, each in a fresh process: with two, the median is
 # their mean and the paired t-test has one degree of freedom (its p-value
@@ -3362,6 +3975,27 @@ def resnet_pass(logdir: str, level: int = 2) -> None:
     print("RESNET_PASS " + json.dumps(out), flush=True)
 
 
+def run_lane(smoke, phases, errors):
+    """Runs ``phases`` in order on this thread.  The first failure is kept
+    in ``errors`` (with its traceback logged) and stops every lane before
+    its next phase."""
+    for phase in phases:
+        if smoke.failed.is_set():
+            return
+        t0 = time.perf_counter()
+        log(f"=== {phase}")
+        try:
+            getattr(smoke, phase)()
+        except BaseException as exc:
+            errors.append(exc)
+            smoke.failed.set()
+            log(f"=== {phase} FAILED after {time.perf_counter() - t0:.1f} s\n"
+                + "".join(traceback.format_exception(exc)).rstrip())
+            return
+        smoke.done[phase].set()
+        log(f"=== {phase} ok in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3375,19 +4009,41 @@ def main() -> int:
     smoke = Smoke()
     t_all = time.perf_counter()
     seen = {}
+
+    def left_running(after):
+        # what a phase leaves running outlives it by name here
+        reap_children()
+        new = {p: d for p, d in wait_descendants(2.0).items()
+               if seen.get(p) != d}
+        seen.update(new)
+        for pid, desc in new.items():
+            log(f"  still running after {after}: pid {pid} {desc}")
+
     try:
         for phase in PHASES:
             t0 = time.perf_counter()
             log(f"=== {phase}")
             getattr(smoke, phase)()
             log(f"=== {phase} ok in {time.perf_counter() - t0:.1f} s")
-            # what a phase leaves running outlives it by name here
-            reap_children()
-            new = {p: d for p, d in wait_descendants(2.0).items()
-                   if seen.get(p) != d}
-            seen.update(new)
-            for pid, desc in new.items():
-                log(f"  still running after {phase}: pid {pid} {desc}")
+            left_running(phase)
+        # the lanes' programs share the card with what this process holds
+        torch.cuda.empty_cache()
+        log(f"=== lanes: this process holds "
+            f"{torch.cuda.memory_reserved() / 1e9:.3f} GB of the card")
+        t0 = time.perf_counter()
+        errors = []
+        lanes = [threading.Thread(target=run_lane, args=(smoke, lane, errors),
+                                  name=f"lane {i}")
+                 for i, lane in enumerate(LANES, 1)]
+        for lane in lanes:
+            lane.start()
+        for lane in lanes:
+            lane.join()
+        if errors:
+            raise errors[0]
+        log(f"=== lanes {' | '.join(' '.join(lane) for lane in LANES)} ok "
+            f"in {time.perf_counter() - t0:.1f} s")
+        left_running("the lanes")
     finally:
         left = stop_descendants()
         log(f"chip_smoke: {len(left)} processes still running when the "

@@ -12,8 +12,11 @@ coordinates, and suggests (data, seq) meshes; it writes
 Per-device rules scan ``gpu<N>_`` features, and the worst device drives
 each hint.  ``tpu_ops`` is ``gpu_kernels`` (the compute-bound verdict
 needs a kernel: ``gpu_profile`` writes 0 for an empty trace, where the
-JAX pass writes nothing) and ``tpu0_op_time`` ``gpu0_kernel_time``.  The what-if payoffs and the custom-call rule wait
-for their subsystems.
+JAX pass writes nothing) and ``tpu0_op_time`` ``gpu0_kernel_time``.  The
+custom-call rule reads ``gpu_unattributed_kernel_time`` (hand-written
+kernels launched outside any aten op and cost range, measured at trace
+detail level 2 only) and names the port's fix, a cost range; the ``[whatif]`` lines rank the
+``whatif_model`` pass's payoffs, the largest first.
 """
 
 from __future__ import annotations
@@ -182,8 +185,22 @@ def generate_hints(features: Features, cfg) -> List[str]:
                 f" {100.0 - gap:.0f}% of step time — {cause}"
                 " (see gpu_input_pipeline.csv)")
 
+    unattr = get("gpu_unattributed_kernel_time")
+    if unattr:
+        total = sum(v for _, v in features.by_regex(r"gpu\d+_kernel_time"))
+        if total and unattr > 0.05 * total:
+            hints.append(
+                f"unattributed kernel time: kernels launched outside any aten"
+                f" op and cost range take {unattr / total:.0%} of device time"
+                " and carry no flops or bytes, so the roofline and the top"
+                " kernels' flops undercount exactly them; open a"
+                " torch.profiler.record_function range named by"
+                " sofa_tpu_torch.costs.cost_range_name(...) around each"
+                " launch (workloads/flash_cuda.py does so for the flash"
+                " kernels)")
+
     skew = get("step_skew_mean")
-    step_mean = get("step_time_mean")
+    step_mean = get("step_time_mean") or get("aisi_step_time_mean")
     if skew is not None and step_mean and skew > 0.05 * step_mean:
         hints.append(
             f"straggler skew: devices start the same step {skew * 1e3:.2f} ms"
@@ -220,6 +237,25 @@ def generate_hints(features: Features, cfg) -> List[str]:
         hints.append(
             "host CPU is saturated — data pipeline or Python overhead may be"
             " gating the GPU")
+
+    # the what-if payoffs the whatif_model pass priced over this run's own
+    # step timeline, the largest first
+    payoffs = []
+    for name, scenario, story in (
+        ("whatif_overlap_payoff_pct", "overlap:*",
+         "hiding exposed collectives behind step compute"),
+        ("whatif_sol_payoff_pct", "scale:*=sol",
+         "running every kernel class at its speed-of-light time"),
+    ):
+        pct = get(name)
+        if pct is not None and pct >= 2.0:
+            payoffs.append((pct, scenario, story))
+    for pct, scenario, story in sorted(payoffs, reverse=True):
+        hints.append(
+            f"[whatif] {story} is predicted to cut mean step time by "
+            f"{pct:.1f}% — preview with `python -m sofa_tpu_torch whatif "
+            f"<logdir> --apply {scenario}` (error bars in "
+            "whatif_report.json)")
     return hints
 
 

@@ -51,6 +51,11 @@ def _overlap_s(a, b) -> float:
     return total
 
 
+#: The ``hlo_category`` of a kernel no op or cost range owns: its Kineto
+#: category (``ingest/kineto.py``).
+UNOWNED = "kernel"
+
+
 def _slug(name: str) -> str:
     return name.strip().lower().replace(" ", "_").replace("-", "_")
 
@@ -60,12 +65,13 @@ def _slug(name: str) -> str:
     reads_frames=("gputrace", "gpusteps", "hosttrace"),
     reads_columns=("timestamp", "duration", "deviceId", "copyKind", "name",
                    "hlo_category", "module", "phase", "flops",
-                   "bytes_accessed"),
+                   "bytes_accessed", "op_path"),
     provides_features=("gpu_devices", "gpu_kernels", "gpu*_kernel_time",
                        "gpu*_memcpy_time", "gpu*_busy_pct", "gpu_busy_pct",
                        "gpu_step_busy_pct", "gpu_total_flops",
                        "gpu_total_bytes_accessed", "gpu_fw_time",
-                       "gpu_bw_time", "gpu_bw_fw_ratio", "gpu_op_time_*"),
+                       "gpu_bw_time", "gpu_bw_fw_ratio", "gpu_op_time_*",
+                       "gpu_unattributed_kernel_time"),
     provides_artifacts=("gpu_top_kernels.csv", "gpu_categories.csv",
                         "gpu_modules_summary.csv"),
     after=("spotlight",),
@@ -123,6 +129,25 @@ def gpu_profile(frames, cfg, features: Features) -> None:
     if not kern["bytes_accessed"].isna().any():
         features.add("gpu_total_bytes_accessed",
                      float(kern["bytes_accessed"].sum()))
+    # Hand-written kernels launched outside any aten op and outside a cost
+    # range (a ctypes or Triton launch) carry neither flops nor bytes, and
+    # drop out of the roofline and the top kernels' flops: the JAX
+    # package's tpu_customcall_unattributed_time, its Pallas kernels
+    # without a CostEstimate.  A kernel inside an aten op that costs.py
+    # does not model is not one of them (its fix is a cost formula, not a
+    # range).  Only where the trace recorded the operand shapes
+    # (--kineto_host_tracer_level 2 or more): below it every unowned
+    # kernel's cost is absent (NaN), not 0, and proves nothing.
+    if not kern["flops"].isna().any() \
+            and not kern["bytes_accessed"].isna().any():
+        outside = ~kern["op_path"].astype(str).str.contains(
+            r"(?:^|/)aten::", regex=True)
+        unowned = kern[(kern["hlo_category"] == UNOWNED) & outside
+                       & (kern["flops"] <= 0)
+                       & (kern["bytes_accessed"] <= 0)]
+        if len(unowned):
+            features.add("gpu_unattributed_kernel_time",
+                         float(unowned["duration"].sum()))
     fw = float(kern.loc[kern["phase"] == "fw", "duration"].sum())
     bw = float(kern.loc[kern["phase"] == "bw", "duration"].sum())
     if fw > 0 or bw > 0:

@@ -222,7 +222,9 @@ def load_builtin_passes() -> None:
     import sofa_tpu_torch.analysis.device  # noqa: F401
     import sofa_tpu_torch.analysis.gpu  # noqa: F401
     import sofa_tpu_torch.analysis.host  # noqa: F401
+    import sofa_tpu_torch.analysis.mlpass  # noqa: F401
     import sofa_tpu_torch.analysis.sol  # noqa: F401
+    import sofa_tpu_torch.whatif.model  # noqa: F401
     with _lock:
         for name, spec in _declared_builtins.items():
             _registry.setdefault(name, spec)

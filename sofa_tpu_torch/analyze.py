@@ -20,10 +20,14 @@ it, and the digests are refreshed before the commit (``durability.py``).
 Frames come from ``open_frames``: lazy handles over the chunk store, so
 that each pass reads only its declared columns.
 
+The board series the passes return (AISI's iterations, HSG's swarms) are
+merged into the report.js preprocess wrote.
+
 ``cluster_analyze`` (``report --cluster_hosts``) analyzes each host's
 ``<logdir>-<host>/`` and writes one merged, clock-aligned timeline and
 ``cluster_summary.csv`` into the logdir (the JAX package's
-``analyze.py:102-132, 334-446``).
+``analyze.py:102-132, 334-446``); ``load_cluster_frames`` gives the
+exporters every host's frames on the same clock.
 """
 
 from __future__ import annotations
@@ -109,8 +113,11 @@ def _analyze_body(cfg: SofaConfig, frames, tel) -> Features:
         ledger, series = registry.run_passes(frames, cfg, features, tel=tel)
     tel.set_meta(passes=ledger)
     if series:
-        print_warning(f"analyze: {len(series)} board series from passes are "
-                      "not merged into report.js")
+        try:
+            _append_report_series(cfg, series)
+        except Exception as e:  # noqa: BLE001 - the passes' output stands
+            print_warning(f"cannot merge analysis series into report.js: "
+                          f"{e}")
     # without the mpstat sampler (api.profile()), the cores record wrote
     if not features.get("num_cores") and misc.get("cores"):
         features.add("num_cores", int(misc["cores"]))
@@ -136,6 +143,30 @@ def _analyze_body(cfg: SofaConfig, frames, tel) -> Features:
         stage_board(cfg)
     print("Complete!!")
     return features
+
+
+def _append_report_series(cfg: SofaConfig, series) -> None:
+    """Merge the series the passes returned (aisi's iterations, hsg's
+    swarms) into the report.js preprocess wrote, replacing same-named
+    ones; a report.js that cannot be read is left untouched."""
+    from sofa_tpu_torch.trace import read_report_js_doc, write_report_js_doc
+
+    path = cfg.path("report.js")
+    doc = {"series": [], "meta": {}}
+    if os.path.isfile(path):
+        try:
+            doc = read_report_js_doc(path)
+        except (ValueError, OSError) as e:
+            print_warning(f"cannot merge into report.js (left untouched): "
+                          f"{e}")
+            return
+    replace = {s.name for s in series}
+    doc["series"] = [s for s in doc["series"] if s["name"] not in replace]
+    doc["series"] += [{"name": s.name, "title": s.title, "color": s.color,
+                       "kind": s.kind,
+                       "data": s.to_columnar(cfg.viz_downsample_to)}
+                      for s in series]
+    write_report_js_doc(doc, path)
 
 
 # --- the cluster report ------------------------------------------------------
@@ -182,6 +213,58 @@ def cluster_clock_shifts(time_bases: Dict[str, float]
                 "not clock-aligned on the merged timeline")
             shifts[hostname] = 0.0
     return tb0, shifts
+
+
+#: Frames whose deviceId is a device: a cluster merge moves host i's onto
+#: i * 256 (its ordinal base, as the JAX package's ingest numbers hosts).
+_DEVICE_ID_FRAMES = frozenset({"gputrace", "gpusteps", "gpuutil", "gpumon"})
+#: Host samplers whose deviceId is a core or lane and whose pid is unused:
+#: a cluster merge writes the host's ordinal into pid.
+_HOST_SAMPLER_FRAMES = frozenset({"mpstat", "vmstat", "diskstat",
+                                  "netbandwidth", "nettrace"})
+
+
+def load_cluster_frames(cfg: SofaConfig, only=None
+                        ) -> Dict[str, pd.DataFrame]:
+    """Every host's frames (``only`` these names, else all) on the cluster
+    clock, for the exporters: the alignment of ``cluster_analyze``'s
+    merged report (the earliest time base is zero, each host shifted by
+    its base's difference, ``cluster_clock_shifts``), and each host's
+    identity kept: device rows move onto the host's ordinal base (i *
+    256; the heartbeat rows, -1, stay), the host trace's rows (deviceId -1
+    in a CUDA trace) take the base itself, the host samplers' pid the
+    ordinal; every row gets ``host`` = i."""
+    import numpy as np
+
+    present = []
+    for i, hostname, host_cfg in cluster_host_cfgs(cfg):
+        if not os.path.isdir(host_cfg.logdir):
+            print_warning(f"cluster: missing logdir {host_cfg.logdir}")
+            continue
+        present.append((i, hostname, host_cfg))
+    host_frames = pool.thread_map(
+        lambda item: (item[0], item[1], load_frames(item[2], only=only)),
+        present, pool.cfg_jobs(cfg))
+    _, shifts = cluster_clock_shifts(
+        {hostname: read_time_base(host_cfg)
+         for _i, hostname, host_cfg in present})
+    merged: Dict[str, list] = {}
+    for i, hostname, frames in host_frames:
+        for key, df in frames.items():
+            if df.empty:
+                continue
+            df = df.copy()
+            df["timestamp"] = df["timestamp"] + shifts[hostname]
+            if key in _DEVICE_ID_FRAMES and i:
+                dev = df["deviceId"].to_numpy()
+                df["deviceId"] = np.where(dev >= 0, dev + i * 256, dev)
+            elif key == "hosttrace":
+                df["deviceId"] = i * 256
+            elif key in _HOST_SAMPLER_FRAMES:
+                df["pid"] = i
+            df["host"] = i
+            merged.setdefault(key, []).append(df)
+    return {k: pd.concat(v, ignore_index=True) for k, v in merged.items()}
 
 
 def cluster_analyze(cfg: SofaConfig,

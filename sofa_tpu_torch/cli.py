@@ -23,10 +23,34 @@
               healthy, 1 on damage, 2 without digests; --repair
               invalidates the damaged cache, tile and chunk entries,
               removes the orphans and re-derives
+  diff        --base_logdir A --match_logdir B: preprocess and cluster
+              both runs, write gpu_diff.csv (device time per kernel),
+              mem_diff.csv (bytes per allocation site) and swarm_diff.csv
+              into --logdir with the board's diff-report.html; exits 1
+              when none of the three could be written
+  whatif      replay --logdir's step timeline under --apply scenarios
+              (overlap:<class>, scale:<class>=<factor>|sol, link:<f>,
+              batch:<f>) and predict the step time with error bars from
+              the run's own spread: whatif_report.json, meta.whatif and
+              the board's whatif.html; exits 0 calibrated, 1
+              uncalibrated (the zero-scenario identity gate failed, or
+              fewer than 6 steps), 2 without a logdir
+  export      sofa_report.pdf and overview.png; with --perfetto
+              trace.json.gz (ui.perfetto.dev), with --folded the
+              *.folded collapsed stacks (speedscope, flamegraph.pl); with
+              --cluster_hosts every host's frames on one clock
+  top         a live dashboard over a recording's samplers (each
+              process's cards and memory, the host's CPU, network and
+              disk), redrawn every --interval s; --once draws one frame
   clean       remove the derived files, keep the raw ones
 
-report, analyze, viz, status, passes, resume, fsck and clean run on the
-host only: they never touch a GPU.
+analyze --enable_aisi finds the iterations (--iterations_from
+auto|steps|marker|op, --num_iterations) and writes iterations.csv;
+--enable_hsg (or --enable_swarms) clusters the host samples into
+--num_swarms swarms (auto_caption.csv, swarms_report.csv).
+
+report, analyze, viz, status, passes, resume, fsck, diff, whatif, export,
+top and clean run on the host only: they never touch a GPU.
 
 --trace_format csv|parquet|columnar (or SOFA_TRACE_FORMAT) picks how
 preprocess writes the frames; the default, columnar, is the chunked Arrow
@@ -56,9 +80,10 @@ from sofa_tpu_torch import __version__
 from sofa_tpu_torch.config import Filter, SofaConfig
 
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
-         "status", "passes", "resume", "fsck", "clean")
+         "status", "passes", "resume", "fsck", "diff", "whatif", "export",
+         "top", "clean")
 # Verbs whose positional argument is the logdir.
-LOGDIR_VERBS = ("status", "passes", "resume", "fsck")
+LOGDIR_VERBS = ("status", "passes", "resume", "fsck", "whatif")
 
 # Flags that map 1:1 onto SofaConfig fields.
 _FIELDS = (
@@ -73,7 +98,9 @@ _FIELDS = (
     "kineto_python_tracer", "kineto_delay_s", "kineto_duration_s",
     "cpu_time_offset_ms", "gpu_time_offset_ms", "viz_downsample_to",
     "tile_levels", "is_idle_threshold", "hint_server", "plugins",
-    "trace_format",
+    "trace_format", "num_iterations", "num_swarms", "enable_aisi",
+    "enable_hsg", "enable_swarms", "iterations_from", "base_logdir",
+    "match_logdir", "whatif_apply",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
@@ -93,7 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("verb", choices=VERBS)
     p.add_argument("command", nargs="?", default=None,
                    help="shell command to profile (record, stat); the "
-                   "logdir for status, passes, resume and fsck")
+                   "logdir for status, passes, resume, fsck and whatif")
     p.add_argument("--logdir")
     p.add_argument("--config",
                    help="TOML file of config fields; flags override it")
@@ -201,6 +228,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gRPC advice service host[:port] (also "
                    "SOFA_HINT_SERVER)")
 
+    g.add_argument("--enable_aisi", action="store_true",
+                   help="find the iterations and profile each "
+                   "(iterations.csv)")
+    g.add_argument("--iterations_from",
+                   choices=["auto", "steps", "marker", "module", "op"],
+                   help="AISI's boundaries: the device step spans, the "
+                   "sofa_step markers, or kernel-name mining (op); module "
+                   "is the JAX package's and a usage error here")
+    g.add_argument("--num_iterations", type=int,
+                   help="the iteration count kernel-name mining looks for "
+                   "(default 20)")
+    g.add_argument("--enable_hsg", action="store_true",
+                   help="cluster the host samples into swarms "
+                   "(auto_caption.csv)")
+    g.add_argument("--enable_swarms", action="store_true",
+                   help="the same as --enable_hsg")
+    g.add_argument("--num_swarms", type=int,
+                   help="the most swarms (default 10)")
+
+    g = p.add_argument_group("diff, whatif, export, top")
+    g.add_argument("--base_logdir", help="diff: the base run")
+    g.add_argument("--match_logdir", help="diff: the run compared to it")
+    g.add_argument("--apply", dest="whatif_apply", metavar="SCENARIOS",
+                   help="whatif: comma-joined scenarios, e.g. "
+                   "'overlap:*,scale:aten::mm=0.5,scale:*=sol,link:2'")
+    g.add_argument("--perfetto", action="store_true",
+                   help="export: also trace.json.gz (Trace Event Format)")
+    g.add_argument("--folded", action="store_true",
+                   help="export: also the *.folded collapsed stacks")
+    g.add_argument("--interval", type=float,
+                   help="top: seconds between frames (default 2)")
+    g.add_argument("--once", action="store_true",
+                   help="top: draw one frame and exit")
+
     g = p.add_argument_group("fsck")
     g.add_argument("--repair", action="store_true",
                    help="fsck: invalidate the damaged cache, tile and chunk "
@@ -271,6 +332,11 @@ def main(argv: Optional[list] = None) -> int:
     except SofaUserError as e:
         print_error(str(e))
         return 1
+    except BrokenPipeError:
+        # `top --once | head` closing the pipe: the streaming verbs have
+        # done their work; the others' files may be unwritten
+        sys.stdout = open(os.devnull, "w")
+        return 0 if args.verb in ("top", "viz") else 1
 
 
 def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
@@ -298,6 +364,26 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     if verb == "clean":
         sofa_clean(cfg)
         return 0
+    if verb == "diff":
+        if not (cfg.base_logdir and cfg.match_logdir):
+            from sofa_tpu_torch.printing import print_error
+
+            print_error("diff needs --base_logdir and --match_logdir")
+            return 2
+        from sofa_tpu_torch.ml.diff import sofa_diff
+
+        return sofa_diff(cfg)
+    if verb == "whatif":
+        from sofa_tpu_torch.whatif import sofa_whatif
+
+        return sofa_whatif(cfg)
+    if verb == "export":
+        return _export(args, cfg)
+    if verb == "top":
+        from sofa_tpu_torch.top import sofa_top
+
+        return sofa_top(cfg, interval=getattr(args, "interval", 2.0),
+                        once=getattr(args, "once", False))
     if verb == "viz":
         return 0 if sofa_viz(cfg) is not None else 1
     if cfg.cluster_hosts and verb == "record":
@@ -319,6 +405,47 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     if verb == "report" and getattr(args, "with_gui", False):
         sofa_viz(cfg)
     return rc
+
+
+def _export(args: argparse.Namespace, cfg: SofaConfig) -> int:
+    """The charts, and with --perfetto / --folded the trace and the
+    stacks, from frames read once (every host's on one clock with
+    --cluster_hosts); then the logdir's digests are refreshed.  Exits 1
+    when nothing was written or a flagged export failed (folded stacks
+    count as written or absent: no sampler may have run)."""
+    from sofa_tpu_torch import durability
+    from sofa_tpu_torch.export_static import STATIC_FRAMES, export_static
+    from sofa_tpu_torch.preprocess import load_frames
+
+    perfetto = getattr(args, "perfetto", False)
+    folded = getattr(args, "folded", False)
+    wanted = set(STATIC_FRAMES)
+    if perfetto:
+        from sofa_tpu_torch.export_perfetto import (PERFETTO_FRAMES,
+                                                    export_perfetto)
+
+        wanted |= set(PERFETTO_FRAMES)
+    if folded:
+        from sofa_tpu_torch.export_folded import FOLDED_FRAMES, export_folded
+
+        wanted |= set(FOLDED_FRAMES)
+    if cfg.cluster_hosts:
+        from sofa_tpu_torch.analyze import load_cluster_frames
+
+        frames = load_cluster_frames(cfg, only=sorted(wanted))
+    else:
+        frames = load_frames(cfg, only=sorted(wanted))
+    wrote_any = bool(export_static(cfg, frames))
+    failed = False
+    if perfetto:
+        ok = export_perfetto(cfg, frames) is not None
+        wrote_any |= ok
+        failed |= not ok
+    if folded:
+        wrote_any |= bool(export_folded(cfg, frames))
+    if os.path.isdir(cfg.logdir):
+        durability.write_digests(cfg.logdir)
+    return 0 if wrote_any and not failed else 1
 
 
 def _cluster_report(args: argparse.Namespace, cfg: SofaConfig) -> None:

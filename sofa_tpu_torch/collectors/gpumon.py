@@ -19,7 +19,10 @@ heartbeat (device -1), byte-compatible with tpumon.txt:
 
     <unix_ns> <device_id> <bytes_in_use> <bytes_limit> <peak_bytes_in_use>
 
-Parsed by ingest/gpumon_parse.py.
+Parsed by ingest/gpumon_parse.py.  Beside it, ``gpumon.txt.meta.json``
+names each sampled device (``{"devices": {"0": "NVIDIA H100 80GB
+HBM3"}}``), written when the device is first sampled: ``top`` reads it
+while the run is still going.
 
 The files are per process (``_Names``).  A rank of a process group of two
 or more, the rank its Kineto trace names (the group's, noted while the
@@ -604,6 +607,20 @@ class _Names:
             self.now[key] = new
 
 
+def _write_devices(out_path, names_of):
+    """The sampled devices' names beside the samples
+    (``<out>.meta.json``, which moves with its file to the rank's name):
+    what ``top`` labels a live run's devices with."""
+    import json
+
+    try:
+        with open(out_path + ".meta.json.tmp", "w") as f:
+            json.dump({"devices": names_of}, f)
+        os.replace(out_path + ".meta.json.tmp", out_path + ".meta.json")
+    except OSError:
+        pass
+
+
 def _loop(rate_hz, names, stop):
     torch = None
     while torch is None:
@@ -614,6 +631,7 @@ def _loop(rate_hz, names, stop):
             time.sleep(0.1)
     interval = 1.0 / max(rate_hz, 1e-3)
     limits = {}
+    names_of = {}
     try:
         names.update()
         out = open(names.get("out"), "a", buffering=1)
@@ -634,8 +652,10 @@ def _loop(rate_hz, names, stop):
                     if not ms:
                         continue
                     if d not in limits:
-                        limits[d] = int(
-                            torch.cuda.get_device_properties(d).total_memory)
+                        props = torch.cuda.get_device_properties(d)
+                        limits[d] = int(props.total_memory)
+                        names_of[str(d)] = str(getattr(props, "name", ""))
+                        _write_devices(names.get("out"), names_of)
                     used = int(ms.get("allocated_bytes.all.current", 0))
                     total_used += used
                     out.write("%d %d %d %d %d\\n" % (

@@ -1,8 +1,10 @@
 """Build the native helpers at first use (the JAX package's
 ``collectors/native_build.py``).
 
-``native/sysmon.cc`` (the /proc sampler daemon) is compiled with the
-first of ``g++``, ``c++`` and ``clang++`` into ``build/torch_native/``,
+``native/sysmon.cc`` (the /proc sampler daemon) and
+``native/perfetto_write.cc`` (the Perfetto export's writer, linked with
+zlib) are compiled with the first of ``g++``, ``c++`` and ``clang++`` into
+``build/torch_native/``,
 the binary named by a hash of its source (as ``kernels.py`` names the
 flash libraries), so that an edited source is rebuilt and the source
 directory is never written into.  The clock samples stay in Python
@@ -33,6 +35,8 @@ NATIVE_DIR = os.path.join(_PKG, "native")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_native")
 BUILD_TIMEOUT_S = 120
 COMPILERS = ("g++", "c++", "clang++")
+#: Libraries a tool links with.
+LINK_FLAGS = {"perfetto_write": ("-lz",)}
 
 # Tools whose build already failed in this process: retrying the compiler
 # on every call would cost up to the build timeout each time.  Collectors
@@ -88,11 +92,15 @@ def ensure_built(tool: str) -> Optional[str]:
     t0 = time.perf_counter()
     try:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        subprocess.run([cxx, "-O2", "-o", tmp, source], check=True,
+        subprocess.run([cxx, "-O2", "-o", tmp, source,
+                        *LINK_FLAGS.get(tool, ())], check=True,
                        capture_output=True, timeout=BUILD_TIMEOUT_S)
         os.replace(tmp, binary)
     except (subprocess.SubprocessError, OSError) as e:
-        _give_up(tool, f"build failed ({e})")
+        err = getattr(e, "stderr", None) or b""
+        _give_up(tool, f"build failed ({e}"
+                 + (f": {err.decode(errors='replace')[-300:]}" if err
+                    else "") + ")")
         return None
     finally:
         try:

@@ -56,6 +56,15 @@ DEFAULT_GPU_FILTERS = [
 ]
 
 
+#: What ``--iterations_from`` may name.  The JAX package's ``module``
+#: (XLA module launches) has no counterpart in a CUDA trace.
+ITERATION_SOURCES = ("auto", "steps", "marker", "op")
+MODULE_REFUSAL = (
+    "--iterations_from module mines XLA module launches, which a CUDA "
+    "trace does not have; use steps (the sofa_step_N ranges on the "
+    "device), marker (the same ranges on the host) or op (kernel names)")
+
+
 @dataclasses.dataclass
 class SofaConfig:
     logdir: str = "sofalog/"
@@ -138,6 +147,21 @@ class SofaConfig:
     # set by the spotlight pass (or --profile_region); 0/0 = the whole run
     roi_begin: float = 0.0
     roi_end: float = 0.0
+    # The mining passes (ml/, analysis/mlpass.py): AISI's expected
+    # iteration count and boundary source (ITERATION_SOURCES: auto = the
+    # device step spans, else the sofa_step markers, else kernel-name
+    # mining), HSG's swarm count.
+    num_iterations: int = 20
+    num_swarms: int = 10
+    enable_aisi: bool = False
+    enable_hsg: bool = False
+    enable_swarms: bool = False
+    iterations_from: str = "auto"
+
+    # --- diff and whatif ------------------------------------------------------
+    base_logdir: Optional[str] = None
+    match_logdir: Optional[str] = None
+    whatif_apply: str = ""           # --apply: comma-joined scenario specs
 
     # --- the board ----------------------------------------------------------
     viz_downsample_to: int = 10000   # points per series in report.js
@@ -159,6 +183,11 @@ class SofaConfig:
     def __post_init__(self) -> None:
         if not self.logdir.endswith("/"):
             self.logdir += "/"
+        if self.iterations_from not in ITERATION_SOURCES:
+            raise ValueError(MODULE_REFUSAL if self.iterations_from
+                             == "module" else
+                             f"iterations_from {self.iterations_from!r} is "
+                             f"not one of {ITERATION_SOURCES}")
 
     def path(self, *parts: str) -> str:
         return os.path.join(self.logdir, *parts)

@@ -33,8 +33,9 @@ store), removes the orphans, re-derives and re-digests.  Exit codes:
 root this package cannot check yet); ``resume`` 0 replayed or nothing to
 do.
 
-The archive, ``whatif`` and ``live`` stages, and ``fsck`` over an archive
-or fleet root, come with those modules.
+``resume`` replays the ``whatif`` stage too (with the ``--apply`` its
+begin entry names).  The archive and ``live`` stages, and ``fsck`` over an
+archive or fleet root, come with those modules.
 """
 
 from __future__ import annotations
@@ -71,8 +72,9 @@ UNPORTED_ROOTS = {ARCHIVE_MARKER_NAME: "archive",
 
 # Raw files whose names the collectors number (ranks, pids, blktrace's
 # per-cpu files) and the raw directories: everything under them is raw.
-RAW_PATTERNS = ("gpumon.rank*.txt", "gpumon.pid*.txt", "memprof.rank*",
-                "memprof.pid*", "blktrace.blktrace.*")
+RAW_PATTERNS = ("gpumon.rank*.txt", "gpumon.pid*.txt",
+                "gpumon.*.txt.meta.json", "memprof.rank*", "memprof.pid*",
+                "blktrace.blktrace.*")
 RAW_DIRS = ("kineto", "gpu_topo")
 
 
@@ -527,7 +529,7 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
 
 # Journal stages that the JAX package's modules of the same names write;
 # this package has none of them yet.
-UNPORTED_STAGES = ("archive", "whatif", "live")
+UNPORTED_STAGES = ("archive", "live")
 
 
 def sofa_resume(cfg) -> int:
@@ -569,7 +571,10 @@ def sofa_resume(cfg) -> int:
                       "preprocess — replaying it")
     an = state.get("analyze")
     need_an = an is not None and (not an["committed"] or need_pre)
-    if not (need_pre or need_an):
+    wi = state.get("whatif")
+    need_wi = wi is not None and (not wi["committed"] or need_pre
+                                  or need_an)
+    if not (need_pre or need_an or need_wi):
         print_progress("resume: every journaled stage is committed and "
                        "matches the raw files — nothing to replay")
         return 0
@@ -590,5 +595,18 @@ def sofa_resume(cfg) -> int:
 
         print_progress("resume: replaying analyze")
         sofa_analyze(cfg, frames=frames)
+    if need_wi:
+        # the scenarios ride the begin entry: the replay answers the
+        # question the killed run was asked
+        spec = next((e.get("apply") for e in reversed(entries)
+                     if e.get("stage") == "whatif" and e.get("ev") == "begin"
+                     and isinstance(e.get("apply"), str)), None)
+        if spec is not None:
+            cfg.whatif_apply = spec
+        from sofa_tpu_torch.whatif import sofa_whatif
+
+        print_progress("resume: replaying whatif "
+                       f"(--apply {cfg.whatif_apply or '<identity>'})")
+        sofa_whatif(cfg)
     print_progress("resume: journal replay complete")
     return 0

@@ -617,12 +617,12 @@ def write_board_data(cfg: SofaConfig, frames: Dict[str, pd.DataFrame],
         f"{t3 - t2:.3f} s")
 
 
-def load_frames(cfg: SofaConfig) -> Dict[str, pd.DataFrame]:
-    """The frames a previous preprocess wrote, each from its chunk store,
-    parquet file or CSV (``trace.read_frame``); missing ones are
-    skipped."""
+def load_frames(cfg: SofaConfig, only=None) -> Dict[str, pd.DataFrame]:
+    """The frames a previous preprocess wrote (``only`` these names, else
+    all), each from its chunk store, parquet file or CSV
+    (``trace.read_frame``); missing ones are skipped."""
     out = {}
-    for name in frame_names():
+    for name in frame_names() if only is None else only:
         df = read_frame(cfg.path(name))
         if df is not None:
             out[name] = df

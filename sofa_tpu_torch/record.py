@@ -94,8 +94,8 @@ RAW_FILES = (
     "sofa_time.txt", "timebase.txt", "misc.txt", "gpu_topo.json",
     "mpstat.txt", "diskstat.txt", "netstat.txt", "cpuinfo.txt", "vmstat.txt",
     "sofa.pcap", "blktrace.txt", "strace.txt", "perf.data", "perf.script",
-    "time.txt", "kallsyms", "gpumon.txt", "pystacks.txt", "memprof.pb.gz",
-    "memprof.pb.gz.meta.json",
+    "time.txt", "kallsyms", "gpumon.txt", "gpumon.txt.meta.json",
+    "pystacks.txt", "memprof.pb.gz", "memprof.pb.gz.meta.json",
 )
 # What preprocess and analyze derive from it, beside the frame CSVs and the
 # staged board pages: removed by clean.
@@ -112,6 +112,16 @@ ANALYSIS_FILES = (
     "docker.cid",
     # the run journal and the digests (durability.py)
     "_journal.jsonl", "_digests.json",
+)
+# What the mining passes and the verbs beyond the report write (ml/,
+# whatif/, export): derived too, removed by clean; status names the ones
+# a logdir holds.
+VERB_FILES = (
+    "iterations.csv", "auto_caption.csv", "swarms_report.csv",
+    "swarms_report.txt", "gpu_diff.csv", "mem_diff.csv", "swarm_diff.csv",
+    "whatif_model.csv", "whatif_report.json", "sofa_report.pdf",
+    "overview.png", "trace.json.gz", "pystacks.folded", "cputrace.folded",
+    "memprof.folded",
 )
 # ... and the directories (_frames: the chunk store, frames.py).
 DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine", "sofa_hints",
@@ -139,7 +149,7 @@ def derived_names():
 
     return ([f"{n}.{ext}" for n in frame_names() for ext in ("csv",
                                                              "parquet")]
-            + list(ANALYSIS_FILES) + board_pages())
+            + list(ANALYSIS_FILES) + list(VERB_FILES) + board_pages())
 
 
 def _remove(path: str) -> bool:

@@ -594,6 +594,21 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
             line += f", {n_skipped} skipped (gated off)"
         line += " (`sofa passes` shows the DAG)"
         lines.append(line)
+    whatif = (doc.get("meta") or {}).get("whatif")
+    if isinstance(whatif, dict):
+        pred = whatif.get("predicted_step_time_s")
+        lines.append(
+            f"  what-if: {whatif.get('verdict', '?')} over "
+            f"{whatif.get('n_steps', 0)} step(s), "
+            f"{whatif.get('scenarios', 0)} scenario(s)"
+            + (f", predicted step {pred * 1e3:.3f} ms"
+               if isinstance(pred, (int, float)) else "")
+            + f" ({whatif.get('report', '?')})")
+    from sofa_tpu_torch.record import VERB_FILES
+
+    held = [n for n in VERB_FILES if os.path.isfile(os.path.join(logdir, n))]
+    if held:
+        lines.append(f"  analysis outputs: {', '.join(held)}")
     budget = (doc.get("meta") or {}).get("disk_budget")
     if isinstance(budget, dict):
         lines.append(

@@ -2,8 +2,9 @@
 ``tools/manifest_check.py``, for the sections this package writes: runs,
 env, collectors, sources, stages, ``digests``, ``meta.pool``,
 ``meta.ingest_cache``, ``meta.disk_budget``, ``meta.passes``,
-``meta.fsck`` and ``meta.frames``).  Given a logdir, it also validates
-every ``_frames/<name>/frame_index.json``.
+``meta.fsck``, ``meta.frames`` and ``meta.whatif``).  Given a logdir, it
+also validates every ``_frames/<name>/frame_index.json`` and the
+``whatif_report.json`` (``validate_whatif``) when there is one.
 
     python -m sofa_tpu_torch.tools.manifest_check <logdir-or-manifest.json>
         [--require-healthy]
@@ -31,6 +32,12 @@ from sofa_tpu_torch.telemetry import (CACHE_OUTCOMES, COLLECTOR_STATUSES,
 from sofa_tpu_torch.trace import TRACE_FORMATS
 
 _UNHEALTHY = ("failed", "killed", "died", "timed_out", "truncated_by_budget")
+_WHATIF_SCHEMA = "sofa_tpu/whatif_report"
+_WHATIF_VERSION = 1
+_WHATIF_REPORT = "whatif_report.json"
+_WHATIF_CALIBRATION = ("calibrated", "uncalibrated")
+_WHATIF_SCENARIO_STATUSES = ("parsed", "unknown")
+_WHATIF_ATTRIBUTION_STATUSES = ("applied", "no_match", "unknown")
 
 
 def _is_num(v) -> bool:
@@ -270,6 +277,114 @@ def check_frame_indexes(logdir: str) -> List[str]:
     return probs
 
 
+def _check_whatif_meta(whatif, probs: List[str]) -> None:
+    """meta.whatif (the ``whatif`` verb): the verdict and identity error
+    its report carries in full."""
+    if whatif is None:
+        return
+    if not isinstance(whatif, dict):
+        probs.append("meta.whatif: not an object")
+        return
+    if whatif.get("verdict") not in _WHATIF_CALIBRATION:
+        probs.append(f"meta.whatif.verdict: {whatif.get('verdict')!r} not "
+                     f"in {_WHATIF_CALIBRATION}")
+    v = whatif.get("identity_error_pct")
+    if not _is_num(v) or v < 0:
+        probs.append("meta.whatif.identity_error_pct: missing or not a "
+                     "non-negative number")
+    for key in ("n_steps", "scenarios"):
+        if not _is_count(whatif.get(key)):
+            probs.append(f"meta.whatif.{key}: missing or not a "
+                         "non-negative int")
+    if not isinstance(whatif.get("report"), str):
+        probs.append("meta.whatif.report: missing report filename")
+
+
+def validate_whatif(doc, require_healthy: bool = False) -> List[str]:
+    """Schema problems in a ``whatif_report.json``; with
+    ``require_healthy`` an ``uncalibrated`` identity gate is one too."""
+    if not isinstance(doc, dict):
+        return ["whatif report is not a JSON object"]
+    probs: List[str] = []
+    if doc.get("schema") != _WHATIF_SCHEMA:
+        probs.append(f"schema: expected {_WHATIF_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != _WHATIF_VERSION:
+        probs.append(f"version: expected {_WHATIF_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not _is_num(doc.get("generated_unix")):
+        probs.append("generated_unix: missing or not a number")
+    calib = doc.get("calibration")
+    if not isinstance(calib, dict):
+        probs.append("calibration: missing")
+        calib = {}
+    verdict = calib.get("verdict")
+    if verdict not in _WHATIF_CALIBRATION:
+        probs.append(f"calibration.verdict: {verdict!r} not in "
+                     f"{_WHATIF_CALIBRATION}")
+    if not isinstance(calib.get("reason"), str):
+        probs.append("calibration.reason: a verdict must state its reason")
+    n = calib.get("n_steps")
+    if not _is_count(n):
+        probs.append("calibration.n_steps: missing or not a "
+                     "non-negative int")
+    elif n > 0:
+        for key in ("measured_mean_s", "measured_median_s",
+                    "identity_mean_s", "identity_error_pct"):
+            if not _is_num(calib.get(key)):
+                probs.append(f"calibration.{key}: missing or not a number")
+        ci = calib.get("ci")
+        if ci is not None and not (isinstance(ci, list) and len(ci) == 2
+                                   and all(_is_num(v) for v in ci)):
+            probs.append("calibration.ci: not null or a [lo, hi] pair")
+    scenarios = doc.get("scenarios")
+    if not isinstance(scenarios, list):
+        probs.append("scenarios: not a list")
+        scenarios = []
+    for i, sc in enumerate(scenarios):
+        if not isinstance(sc, dict) or not isinstance(sc.get("spec"), str) \
+                or sc.get("status") not in _WHATIF_SCENARIO_STATUSES:
+            probs.append(f"scenarios[{i}]: needs a spec and a status in "
+                         f"{_WHATIF_SCENARIO_STATUSES}")
+    pred = doc.get("predicted")
+    if not isinstance(pred, dict):
+        probs.append("predicted: missing")
+        pred = {}
+    if not _is_num(pred.get("step_time_mean_s")):
+        probs.append("predicted.step_time_mean_s: missing or not a number")
+    bars = pred.get("error_bars")
+    if bars is not None and not (isinstance(bars, list) and len(bars) == 2
+                                 and all(_is_num(v) for v in bars)):
+        probs.append("predicted.error_bars: not null or a [lo, hi] pair")
+    att = pred.get("attribution")
+    if not isinstance(att, list):
+        probs.append("predicted.attribution: not a list")
+        att = []
+    for i, a in enumerate(att):
+        if not isinstance(a, dict) \
+                or not isinstance(a.get("scenario"), str) \
+                or a.get("status") not in _WHATIF_ATTRIBUTION_STATUSES \
+                or not _is_num(a.get("delta_s")):
+            probs.append(f"predicted.attribution[{i}]: needs scenario, a "
+                         f"status in {_WHATIF_ATTRIBUTION_STATUSES}, and "
+                         "a numeric delta_s")
+    steps = doc.get("steps")
+    if not isinstance(steps, list):
+        probs.append("steps: not a list")
+        steps = []
+    for i, st in enumerate(steps):
+        if not isinstance(st, dict) or not all(
+                _is_num(st.get(k)) for k in ("deviceId", "step",
+                                             "measured_s", "predicted_s")):
+            probs.append(f"steps[{i}]: needs numeric deviceId/step/"
+                         "measured_s/predicted_s")
+            break  # one line for a malformed overlay, not one a step
+    if require_healthy and verdict == "uncalibrated":
+        probs.append("gate: the identity replay is uncalibrated ("
+                     + str(calib.get("reason", "?")) + ")")
+    return probs
+
+
 def _check_meta(meta, probs: List[str]) -> None:
     budget = meta.get("disk_budget")
     if budget is not None:
@@ -308,6 +423,7 @@ def _check_meta(meta, probs: List[str]) -> None:
             probs.append("meta.fsck: not an object with a bool ok")
         elif not isinstance(fsck.get("problems"), dict):
             probs.append("meta.fsck.problems: missing verdict counts")
+    _check_whatif_meta(meta.get("whatif"), probs)
     icache = meta.get("ingest_cache")
     if icache is not None:
         if not isinstance(icache, dict) or \
@@ -404,6 +520,12 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
                 probs.append(f"unhealthy: analysis pass {name} failed"
                              + (f" ({ent['error']})"
                                 if ent.get("error") else ""))
+        whatif = meta.get("whatif")
+        if isinstance(whatif, dict) and \
+                whatif.get("verdict") == "uncalibrated":
+            probs.append("unhealthy: the what-if identity gate is "
+                         "uncalibrated — the replay model does not "
+                         "reproduce this run's measured step times")
     return probs
 
 
@@ -416,6 +538,17 @@ def main(argv=None) -> int:
     probs: List[str] = []
     if os.path.isdir(path):
         probs += check_frame_indexes(path)
+        report = os.path.join(path, _WHATIF_REPORT)
+        if os.path.isfile(report):
+            try:
+                with open(report) as f:
+                    wdoc = json.load(f)
+            except (OSError, ValueError) as e:
+                wdoc = None
+                probs.append(f"{_WHATIF_REPORT}: unreadable ({e})")
+            if wdoc is not None:
+                probs += [f"{_WHATIF_REPORT}: {p}" for p in
+                          validate_whatif(wdoc, args.require_healthy)]
         path = os.path.join(path, MANIFEST_NAME)
     try:
         with open(path) as f:

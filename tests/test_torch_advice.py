@@ -28,10 +28,14 @@ RULES = {
     "iowait": (r"I/O-wait dominates", r"I/O-wait dominates"),
     "idle_wall": (r"\d+% of wall time is idle", r"\d+% of wall time is idle"),
     "cpu": (r"host CPU is saturated", r"host CPU is saturated"),
+    "unattributed": (r"unattributed kernel time", r"unattributed kernel time"),
+    "whatif": (r"\[whatif\]", r"\[whatif\]"),
 }
 
 # port feature name -> JAX feature name
-_JAX_NAME = [(r"^gpu(\d+)_kernel_time$", r"tpu\1_op_time"),
+_JAX_NAME = [(r"^gpu_unattributed_kernel_time$",
+              "tpu_customcall_unattributed_time"),
+             (r"^gpu(\d+)_kernel_time$", r"tpu\1_op_time"),
              (r"^gpu(\d+)_", r"tpu\1_"),
              (r"^tensor_util_mean$", "mxu_util_mean")]
 
@@ -64,6 +68,15 @@ CASES = {
     "idle_wall": ({"elapsed_idl_ratio": 0.77}, {"elapsed_idl_ratio": 0.5}),
     "cpu": ({"cpu_util": 0.93, "num_cores": 8},
             {"cpu_util": 0.93, "num_cores": 0}),
+    "unattributed": (
+        {"gpu_unattributed_kernel_time": 0.3, "gpu0_kernel_time": 1.0,
+         "gpu1_kernel_time": 0.5},
+        {"gpu_unattributed_kernel_time": 0.07, "gpu0_kernel_time": 1.0,
+         "gpu1_kernel_time": 0.5}),
+    "whatif": ({"whatif_sol_payoff_pct": 12.5,
+                "whatif_overlap_payoff_pct": 1.0},
+               {"whatif_sol_payoff_pct": 1.9,
+                "whatif_overlap_payoff_pct": 0.5}),
 }
 
 
@@ -119,7 +132,7 @@ def test_rule_stays_quiet_like_jax(case):
 def test_every_rule_at_once_worst_device_drives():
     feats = {}
     for case in ("roofline", "exposed", "idle", "tensor", "iowait",
-                 "idle_wall", "cpu"):
+                 "idle_wall", "cpu", "unattributed", "whatif"):
         feats.update(CASES[case][0])
     got, want = _both(feats)
     assert got == want
@@ -160,3 +173,57 @@ def test_by_regex_matches_jax():
     want = ref.by_regex(r"tpu\d+_step_gap_pct")
     assert [(n.replace("gpu", "tpu"), v) for n, v in got] == want
     assert got == [("gpu10_step_gap_pct", 1.0), ("gpu2_step_gap_pct", 4.0)]
+
+
+# --- the unattributed-kernel rule over gpu_profile's feature -----------------
+
+def _kernels(flops_of_unowned):
+    """Four costed kernels (aten ops', a cost range's), one inside an aten
+    op that costs.py does not model, and a hand-written one launched
+    outside any aten op or cost range, each a sixth of the device time;
+    the last two's flops as the trace gave them (0 at level 2, absent
+    below)."""
+    from sofa_tpu_torch.trace import make_frame
+
+    rows = [{"timestamp": 0.01 * i, "duration": 0.002, "deviceId": 0,
+             "copyKind": 0, "category": 0, "name": f"k{i}",
+             "hlo_category": cat, "flops": 1e9, "bytes_accessed": 1e6,
+             "device_kind": "gpu"}
+            for i, cat in enumerate(("aten::mm", "sofa_flash_fwd",
+                                     "aten::add", "aten::mm"))]
+    for t, name, path in ((0.05, "custom_kernel", "sofa_step_0"),
+                          (0.06, "multi_tensor_apply_kernel",
+                           "sofa_step_0/Optimizer.step/aten::_fused_adamw_")):
+        rows.append({"timestamp": t, "duration": 0.002, "deviceId": 0,
+                     "copyKind": 0, "category": 0, "name": name,
+                     "hlo_category": "kernel", "flops": 0.0,
+                     "bytes_accessed": 0.0, "op_path": path,
+                     "device_kind": "gpu"})
+    df = make_frame(rows)
+    if flops_of_unowned is None:       # below level 2: absent, not 0
+        df.loc[df["hlo_category"] == "kernel",
+               ["flops", "bytes_accessed"]] = float("nan")
+    return {"gputrace": df}
+
+
+def test_unattributed_kernel_hint_fires_at_level_2(tmp_path):
+    from sofa_tpu_torch.analysis.gpu import gpu_profile
+
+    f = Features()
+    gpu_profile(_kernels(0.0), SofaConfig(logdir=str(tmp_path)), f)
+    # the hand-written kernel only: the optimizer's sits inside an aten op
+    assert f.get("gpu_unattributed_kernel_time") == pytest.approx(0.002)
+    hints = [h for h in generate_hints(f, SofaConfig())
+             if h.startswith("unattributed kernel time")]
+    assert len(hints) == 1 and "17%" in hints[0]
+    assert "cost_range_name" in hints[0] and "record_function" in hints[0]
+
+
+def test_unattributed_kernel_rule_is_silent_below_level_2(tmp_path):
+    from sofa_tpu_torch.analysis.gpu import gpu_profile
+
+    f = Features()
+    gpu_profile(_kernels(None), SofaConfig(logdir=str(tmp_path)), f)
+    assert f.get("gpu_unattributed_kernel_time") is None
+    assert not [h for h in generate_hints(f, SofaConfig())
+                if h.startswith("unattributed kernel time")]

@@ -325,6 +325,11 @@ def sink(tmp_path_factory):
     # a small overview, so the capture's device series get a pyramid
     cfg = SofaConfig(logdir=d, viz_downsample_to=20)
     sofa_analyze(cfg, sofa_preprocess(cfg))
+    # the diff page's tables: the run against itself, into its own logdir
+    from sofa_tpu_torch.ml.diff import sofa_diff
+
+    assert sofa_diff(SofaConfig(logdir=d, base_logdir=d, match_logdir=d,
+                                viz_downsample_to=20)) == 0
     return cfg
 
 
@@ -349,12 +354,14 @@ CONTRACT = {
     "features.csv": ["name", "value"],
     "commtrace.csv": ["timestamp", "duration", "payload", "peer", "dst",
                       "kind", "cls"],
+    "gpu_diff.csv": ["name", "delta"],
+    "mem_diff.csv": ["site", "delta"],
 }
 # fetched but only shown whole by renderTable (any header will do)
 TABLE_ONLY = {"cpu_top.csv", "pystacks_top.csv", "strace_top.csv",
               "disk_summary.csv", "gpu_top_kernels.csv",
               "gpu_modules_summary.csv", "performance.csv", "comm.csv",
-              "link_matrix.csv", "netrank.csv"}
+              "link_matrix.csv", "netrank.csv", "swarm_diff.csv"}
 
 
 def _board_sources():
@@ -400,7 +407,8 @@ def test_board_static_references_covered():
 
 STAGED = ["index.html", "gpu-report.html", "op-tree.html", "flame.html",
           "cpu-report.html", "comm-report.html", "disk.html", "net.html",
-          "serving.html", "run-report.html"]
+          "serving.html", "diff-report.html", "whatif.html",
+          "run-report.html"]
 
 
 @pytest.mark.parametrize("page", STAGED)

@@ -57,6 +57,10 @@ NOT_FORWARDED = {
     "trace_format": "preprocess",
     "is_idle_threshold": "analyze", "hint_server": "analyze",
     "plugins": "loaded by the verb itself, before it runs",
+    "num_iterations": "analyze", "num_swarms": "analyze",
+    "enable_aisi": "analyze", "enable_hsg": "analyze",
+    "enable_swarms": "analyze", "iterations_from": "analyze",
+    "base_logdir": "diff", "match_logdir": "diff", "whatif_apply": "whatif",
 }
 # Values the type alone does not give (a choice, a spec).
 VALUES = {"perf_call_graph": "fp", "inject_faults": "procmon:die@2s",

@@ -320,8 +320,10 @@ def test_rank_files_do_not_collide(tmp_path):
     logdir.mkdir()
     spawn_ranks(2, _sampled_rank, str(tmp_path / "store"), str(logdir),
                 timeout=120.0)
-    assert sorted(os.listdir(logdir)) == ["gpumon.rank0.txt",
-                                          "gpumon.rank1.txt"]
+    # each with its cards' names beside it, moved to the rank's name too
+    assert sorted(os.listdir(logdir)) == [
+        "gpumon.rank0.txt", "gpumon.rank0.txt.meta.json",
+        "gpumon.rank1.txt", "gpumon.rank1.txt.meta.json"]
     df = ingest_gpumon(str(logdir))
     used = df[df["name"] == "hbm_used_gb"].groupby("deviceId")["event"]
     assert used.unique().apply(list).to_dict() == {0: [1.0], 1: [2.0]}

@@ -83,7 +83,19 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/analysis/registry.py",
             "sofa_tpu_torch/analysis/hint_service.py",
             "sofa_tpu_torch/plugins.py", "sofa_tpu_torch/frames.py",
-            "sofa_tpu_torch/durability.py"} <= rel
+            "sofa_tpu_torch/durability.py",
+            "sofa_tpu_torch/ml/suffix.py", "sofa_tpu_torch/ml/aisi.py",
+            "sofa_tpu_torch/ml/hsg.py", "sofa_tpu_torch/ml/diff.py",
+            "sofa_tpu_torch/analysis/mlpass.py",
+            "sofa_tpu_torch/whatif/__init__.py",
+            "sofa_tpu_torch/whatif/scenarios.py",
+            "sofa_tpu_torch/whatif/model.py",
+            "sofa_tpu_torch/whatif/replay.py",
+            "sofa_tpu_torch/whatif/calibrate.py",
+            "sofa_tpu_torch/export_static.py",
+            "sofa_tpu_torch/export_folded.py",
+            "sofa_tpu_torch/export_perfetto.py", "sofa_tpu_torch/charts.py",
+            "sofa_tpu_torch/top.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -110,7 +122,15 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.workloads.transformer, "
             "sofa_tpu_torch.analysis.registry, "
             "sofa_tpu_torch.analysis.hint_service, sofa_tpu_torch.plugins, "
-            "sofa_tpu_torch.frames, sofa_tpu_torch.durability; "
+            "sofa_tpu_torch.frames, sofa_tpu_torch.durability, "
+            "sofa_tpu_torch.ml.suffix, sofa_tpu_torch.ml.aisi, "
+            "sofa_tpu_torch.ml.hsg, sofa_tpu_torch.ml.diff, "
+            "sofa_tpu_torch.analysis.mlpass, sofa_tpu_torch.whatif, "
+            "sofa_tpu_torch.whatif.scenarios, sofa_tpu_torch.whatif.model, "
+            "sofa_tpu_torch.whatif.replay, sofa_tpu_torch.whatif.calibrate, "
+            "sofa_tpu_torch.export_static, sofa_tpu_torch.export_folded, "
+            "sofa_tpu_torch.export_perfetto, sofa_tpu_torch.charts, "
+            "sofa_tpu_torch.top; "
             "registry = sofa_tpu_torch.analysis.registry; "
             "registry.load_builtin_passes(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
