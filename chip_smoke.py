@@ -5,11 +5,12 @@
 
 The timed phases run alone, in this order (device, kernel, model, train,
 ring, resnet); then three lanes run side by side, each a thread that runs
-its phases in order: (1) profile, cluster, mesh: the card's Llama-width
-runs at batch 4 and the multi-rank ones, up to 43 GB of the card at a
-time; (2) serve, window, faults: its runs of at most 21 GB; (3) robust,
-board, cache, verbs: host only, over the captures the card made, each
-waiting for the phase of another lane whose capture it reads.  A failure
+its phases in order: (1) profile, cluster, mesh, tp, tp_serve: the card's
+Llama-width runs at batch 4 and the multi-rank ones, up to 43 GB of the
+card at a time; (2) serve, window, faults, ep_pp: its runs of at most 21
+GB; (3) robust, board, cache, verbs: host only, over the captures the
+card made, each waiting for the phase of another lane whose capture it
+reads.  A failure
 anywhere raises and exits non-zero; a lane's failure stops every lane
 before its next phase.  The phases:
 
@@ -18,8 +19,9 @@ before its next phase.  The phases:
            and the native sysmon /proc sampler and Perfetto writer with the
            machine's C++ compiler, printing it and the build seconds
   kernel   holds each kernel against its plain PyTorch version at the
-           shapes the main paths give it and at the mask and tiling edge
-           cases, checks that every kernel is deterministic (two launches
+           shapes the main paths give it (a tensor-parallel rank's heads,
+           H 16 / KVH 4, too) and at the mask and tiling edge cases,
+           checks that every kernel is deterministic (two launches
            bit-identical), and times kernel and one library call in turns
            (kernel, library, library, kernel), the plain version and the
            bound; logs the backward pair's sum against SDPA's backward
@@ -29,7 +31,8 @@ before its next phase.  The phases:
            Then checks the logits against the plain-attention forward,
            the prefill's last-position logits against the forward's, and
            the first served token against the forward's argmax (exactly:
-           its forward logit must be the maximum; bf16 logits may tie)
+           its forward logit must be the maximum; bf16 logits may tie);
+           keeps the forward's last logits of the tp_serve phase's prompts
   train    the training path: Llama-3-8B width cut to 4 layers, 5 AdamW
            steps on B 4 x T 2048 after one warm-up; launch counts are
            zeroed just before the 5 steps and read just after, and the loss
@@ -171,6 +174,28 @@ before its next phase.  The phases:
            mesh_advice.txt, and comm-report.html rendered by ``report``
            and served by ``viz``; the collectives microbench
            at one rank prints its single-device line
+  tp       (a) four gloo ranks sharing the card under ``stat``: the
+           training main at Llama width, tensor-parallel 2 x FSDP over data
+           2 (--data 2 --model 2 --fsdp, B 2, one step after the warm-up):
+           every rank's losses equal and within TP_LOSS_REL of the mesh
+           phase's data-parallel pair's, each rank's flash launches as a
+           one-rank run's, four rank traces on device ids 0-3, the model
+           and data groups apart in gputrace's collectives, comm.csv and
+           link_matrix.csv, mesh_advice.txt, comm-report.html
+  tp_serve (b) two gloo ranks sharing the card serve the model phase's 4
+           requests (prompt 1024, 32 new) at Llama-3-8B width and depth,
+           tensor-parallel 2: both ranks' tokens identical, the first token
+           the model phase's one-device argmax or within SERVE_TP_LOGIT_TOL
+           of its maximum
+  ep_pp    (c) the MoE main (vocab 8192, d 256, 8 experts, B 8, T 256) on
+           two gloo ranks (--data 1 --expert 2) under ``stat``: losses that
+           descend, equal on both ranks, the all-to-all in the capture;
+           float32 expert-parallel logits against moe_ffn_dense's (atol
+           1e-5, rtol 1e-4); (d) the pipeline at its main's widths over four
+           stages in lockstep on the card (gloo has no P2P for CUDA
+           tensors), float32: loss and gradients against
+           _reference_forward's, remat against no remat; (e)
+           dryrun_multigpu over the machine's cards
   verbs    the single-run analysis verbs with no card visible, over the
            captures above, a line a cell: (a) ``analyze --enable_aisi``
            over the last ResNet-50 capture from its step spans (its 20
@@ -271,6 +296,29 @@ RING_RANKS = 4
 # same seed, so the losses are expected to be equal to the bit; the limit
 # leaves room only for a reduction that a one-rank collective reorders.
 MESH_LOSS_REL = 1e-5
+# Llama-3-8B attention at tensor-parallel 2: the heads each rank's flash
+# kernels see in the ``tp`` phase's training (B 1 a rank, T 2048).
+TP_HEADS = (16, 4)
+# The tensor-parallel x FSDP ranks against the two data-parallel gloo
+# ranks of the ``mesh`` phase (the same global batch, seed and steps; bf16
+# partial sums reduced over the model group in another order): the largest
+# relative difference of their three losses.  The reading on an H100 was
+# 1.71e-4 (after the step), so the limit leaves a margin of 5.8x.
+TP_LOSS_REL = 1e-3
+# The sharded serving's first token against the one-device forward of the
+# ``model`` phase: its one-device logit at most this far below the maximum
+# (two bf16 ulps of a logit in [4, 8); the model group sums bf16
+# partials).  The reading on an H100 was 0 for all four requests, one of
+# them a tie at the maximum.
+SERVE_TP_LOGIT_TOL = 1 / 16
+# The expert-parallel MoE against ``moe_ffn_dense`` on the card in float32
+# with no token dropped: the JAX test's limits
+# (``tests/test_workloads.py:610-637``).
+MOE_ATOL, MOE_RTOL = 1e-5, 1e-4
+# The lockstep pipeline against ``_reference_forward`` on the card in
+# float32 (``tests/test_workloads.py:668-704``): loss, gradients (max
+# |err|), remat against no remat.
+PIPE_LOSS_TOL, PIPE_GRAD_TOL, PIPE_REMAT_TOL = 1e-4, 1e-5, 1e-6
 # The training main's flags for Llama-3-8B's widths (d_model 4096, 32/8
 # heads of 128, d_ff 14336, vocab 128256) at T 2048, depth cut to 4 layers:
 # the shape of the train phase and of every Llama-width run under the
@@ -468,15 +516,16 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mesh_losses(out: str) -> dict:
-    """{rank: [loss, ...]} from the transformer main's ``transformer: rank
-    R losses (warm-up first) ...`` lines."""
+def mesh_losses(out: str, workload: str = "transformer") -> dict:
+    """{rank: [loss, ...]} from a training main's ``<workload>: rank R
+    losses (warm-up first) ...`` lines."""
     import re
 
     found = {}
-    # not anchored at a line start: two ranks' prints may interleave
-    for m in re.finditer(r"transformer: rank (\d+) losses \(warm-up "
-                         r"first\) ([-+0-9.eE ]+)$", out, re.M):
+    # anchored at neither end: two ranks' prints may interleave (a print
+    # writes its text and its newline apart)
+    for m in re.finditer(workload + r": rank (\d+) losses \(warm-up "
+                         r"first\) ([-+0-9.eE ]+)", out):
         found[int(m.group(1))] = [float(x) for x in m.group(2).split()]
     return found
 
@@ -654,6 +703,9 @@ class Smoke:
         del out, lse, again
         entry = self.flash_inputs(4, 512, 8, 4, 64, seed=2)
         compare("entry B4 T512 H8/4 D64", *entry, 0)
+        # a rank's heads in the tensor-parallel training (the tp phase)
+        compare("tp 2 llama3_8b B1 T2048 H16/4 D128",
+                *self.flash_inputs(1, 2048, *TP_HEADS, 128, seed=9), 0)
         # mask edges: full (shift >= T), nothing visible (shift <= -T)
         compare("full shift=T B2 T256 H8/2 D128",
                 *self.flash_inputs(2, 256, 8, 2, 128, seed=3), 256)
@@ -807,6 +859,8 @@ class Smoke:
         llama_errs, _ = compare("llama3_8b B4 T2048 H32/8 D128", llama)
         deterministic("llama3_8b B4 T2048 H32/8 D128", llama)
         compare("entry B8 T512 H8/4 D64", inputs(8, 512, 8, 4, 64, seed=12))
+        compare("tp 2 llama3_8b B1 T2048 H16/4 D128",
+                inputs(1, 2048, *TP_HEADS, 128, seed=20))
         compare("full shift=T B2 T256 H8/2 D128",
                 inputs(2, 256, 8, 2, 128, seed=13, shift=256))
         _, masked = compare("masked shift=-T B2 T256 H8/2 D64",
@@ -999,6 +1053,13 @@ class Smoke:
         log(f"model: serving 4 requests (prompt {prompt_len}, {new} new): "
             f"prefill {pre_tps:,.1f} tokens/s, decode {dec_tps:,.1f} "
             f"tokens/s | {self.smi}")
+        # the prompts of the sharded serving (tp_serve), drawn as
+        # inference.main draws them, and their last-position logits here
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(0)
+        main_prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                     generator=gen, device=self.dev)
+        self.serve_ref = forward(params, main_prompts, cfg)[:, -1].cpu()
         del params, logits
         torch.cuda.empty_cache()
 
@@ -3896,6 +3957,7 @@ class Smoke:
         if sorted(losses) != [0, 1] or losses[0] != losses[1] \
                 or len(losses[0]) != 2 + steps:
             raise AssertionError(f"the ranks' losses differ: {losses}")
+        self.gloo2_losses = losses[0]       # the tp phase's reference
         if any(per_rank.get(r) != want for r in (0, 1)):
             raise AssertionError(f"flash launches per rank {per_rank}, "
                                  f"expected {want}")
@@ -3916,14 +3978,393 @@ class Smoke:
         self.board_viz("mesh_gloo2", logdir, 8730)   # beside the board's
 
 
+    # -- the rest of the multi-GPU work -------------------------------------
+    def comm_capture(self, label, logdir):
+        """What a gloo ranks' capture holds for its collectives: the
+        ``record_param_comms`` ops (NCCL's; gloo records none) and the
+        tracer's ``sofa_comms:<collective>:<ranks>`` ranges of every rank
+        trace, and the gputrace rows launched under them (copyKind, name,
+        groups, count, bytes), the rows the comm passes read.  Returns
+        {collective: set of the groups its device rows carry}."""
+        ops = {}
+        for name in sorted(os.listdir(os.path.join(logdir, "kineto"))):
+            with open(os.path.join(logdir, "kineto", name)) as f:
+                doc = json.load(f)
+            for e in doc.get("traceEvents", []):
+                nm = str(e.get("name", ""))
+                if nm == "record_param_comms":
+                    args = e.get("args") or {}
+                    nm = (f"record_param_comms:{args.get('Collective name')}"
+                          f":{args.get('Process Group Ranks')}")
+                elif not nm.startswith("sofa_comms:"):
+                    continue
+                ops[nm] = ops.get(nm, 0) + 1
+        gpu = frame(logdir, "gputrace")
+        path = gpu["op_path"].fillna("").astype(str)
+        under = gpu[path.str.contains("record_param_comms|sofa_comms:")]
+        launched = under.assign(collective=path[under.index].str.extract(
+            r"sofa_comms:([a-z_]+):")[0].fillna("record_param_comms")
+        ).groupby(["collective", "copyKind", "groups", "name"])[
+            "payload"].agg(["count", "sum"]).reset_index()
+        log(f"{label}: collectives in the rank traces (range: count) "
+            f"{json.dumps(ops)}")
+        log(f"{label}: gputrace rows launched under them (collective, "
+            f"copyKind, groups, name, count, bytes): "
+            f"{launched.to_dict('records')}; gputrace rows by copyKind "
+            f"{gpu.groupby('copyKind').size().to_dict()}")
+        for name in ("comm.csv", "link_matrix.csv"):
+            path = os.path.join(logdir, name)
+            log(f"{label}: {name} " + (open(path).read().strip().replace(
+                "\n", " | ") if os.path.isfile(path) else "absent"))
+        out = {}
+        for row in launched.itertuples():
+            if row.groups:
+                out.setdefault(row.collective, set()).add(row.groups)
+        return out
+
+    def comm_links(self, label, logdir, pairs):
+        """The comm passes over the capture's collectives: comm.csv counts
+        them by kind, and link_matrix.csv books traffic both ways between
+        the ranks of each of ``pairs`` (each pair within a group)."""
+        import pandas as pd
+
+        kinds = set(pd.read_csv(os.path.join(logdir, "comm.csv"))["kind"])
+        mat = pd.read_csv(os.path.join(logdir, "link_matrix.csv"),
+                          index_col=0)
+        missing = [(a, b) for a, b in sorted(pairs)
+                   if not (mat.loc[f"gpu{a}", f"gpu{b}"] > 0
+                           or mat.loc[f"gpu{b}", f"gpu{a}"] > 0)]
+        log(f"{label}: the comm passes' collective kinds "
+            f"{sorted(k for k in kinds if k not in ('H2D', 'D2H', 'D2D'))}; "
+            f"link_matrix.csv pairs without traffic {missing}")
+        if missing or not kinds - {"H2D", "D2H", "D2D"}:
+            raise AssertionError(f"the comm passes do not see the groups' "
+                                 f"collectives: kinds {kinds}, pairs "
+                                 f"{missing}")
+
+    def tp(self):
+        """(a) Four gloo ranks sharing the card under ``stat``: the
+        training main at Llama-3-8B width (4 layers), tensor-parallel 2 x
+        FSDP over data 2, B 2 (the mesh phase's global batch), one step
+        after the two warm-up steps.  Every rank's losses equal, and
+        within TP_LOSS_REL of the mesh phase's two data-parallel ranks;
+        each rank launches each flash kernel as a one-rank run of as many
+        passes does; four rank traces on device ids 0-3; the model and
+        data groups apart in gputrace (the copies gloo launches inside the
+        collectives carry their groups); mesh_advice.txt and
+        comm-report.html."""
+        from sofa_tpu_torch.kernels import KERNELS
+
+        steps = 1
+        cmd = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
+               f"4 --master_port {free_port()} -m "
+               f"sofa_tpu_torch.workloads.transformer --steps {steps} "
+               f"--batch 2 {LLAMA_WIDTH} --data 2 --model 2 --fsdp "
+               "--backend gloo --share_device")
+        t0 = time.perf_counter()
+        feats, logdir, out = self.run_stat("tp_fsdp4", cmd)
+        stat_s = time.perf_counter() - t0
+        losses = mesh_losses(out)
+        gpu = frame(logdir, "gputrace")
+        kern = gpu[gpu["copyKind"] == 0]
+        names = [k.name for k in KERNELS]
+        per_rank = {int(dev): {n: int(rows["name"].astype(str).str.contains(
+            n).sum()) for n in names} for dev, rows in kern.groupby(
+            "deviceId")}
+        want = {n: v * (2 + steps) // self.llama_passes
+                for n, v in self.llama_launches.items()}
+        ranked = []
+        for name in sorted(os.listdir(os.path.join(logdir, "kineto"))):
+            with open(os.path.join(logdir, "kineto", name)) as f:
+                info = json.load(f).get("distributedInfo") or {}
+            ranked.append(info.get("rank"))
+        peaks = {k: v for k, v in feats.items()
+                 if str(k).endswith("_hbm_peak_gb")}
+        ref = self.gloo2_losses
+        rel = max((abs(a - b) / abs(b) for a, b in zip(losses.get(0, []),
+                                                       ref)), default=None)
+        log("\n".join(f"  | {line}" for line in out.splitlines()
+                      if line.startswith(("transformer:", "rank "))))
+        log(f"parallel[a]: TP 2 x FSDP 2 at Llama width, 4 gloo ranks on "
+            f"the card: stat {stat_s:.1f} s; losses per rank {losses}; "
+            f"the mesh phase's data-parallel pair {ref}: max relative "
+            f"difference {rel} (limit {TP_LOSS_REL}); flash launches per "
+            f"rank {per_rank} (a one-rank run of 2 + {steps} passes: "
+            f"{want}); traces of ranks "
+            f"{sorted(r for r in ranked if r is not None)}; gputrace device "
+            f"ids {sorted(gpu['deviceId'].unique().tolist())}; "
+            f"per-rank peaks {peaks} | {self.smi}")
+        groups = self.comm_capture("parallel[a]", logdir)
+        seen = set().union(*groups.values()) if groups else set()
+        model_groups = {"[[0, 1]]", "[[2, 3]]"}
+        data_groups = {"[[0, 2]]", "[[1, 3]]"}
+        advice = os.path.join(logdir, "sofa_hints", "mesh_advice.txt")
+        if os.path.isfile(advice):
+            with open(advice) as f:
+                log("parallel[a]: mesh_advice.txt: "
+                    + f.read().strip().replace("\n", " | "))
+        if sorted(losses) != [0, 1, 2, 3] or any(
+                v != losses[0] for v in losses.values()) \
+                or len(losses[0]) != 2 + steps:
+            raise AssertionError(f"the TP ranks' losses differ: {losses}")
+        if rel is None or rel > TP_LOSS_REL:
+            raise AssertionError(f"the TP x FSDP losses {losses[0]} are not "
+                                 f"within {TP_LOSS_REL} of the data-parallel "
+                                 f"pair's {ref}")
+        if any(per_rank.get(r) != want for r in range(4)):
+            raise AssertionError(f"flash launches per rank {per_rank}, "
+                                 f"expected {want}")
+        for name, row in self.kernel_rows.items():
+            row["tp_launches"] = {r: per_rank[r][name] for r in range(4)}
+        if sorted(r for r in ranked if r is not None) != [0, 1, 2, 3] or \
+                sorted(gpu["deviceId"].unique()) != [0, 1, 2, 3]:
+            raise AssertionError("the TP capture is not four ranks' traces "
+                                 "on device ids 0-3")
+        if not (seen >= model_groups and seen >= data_groups):
+            raise AssertionError(f"gputrace does not hold the model and "
+                                 f"the data groups apart: {groups}")
+        self.comm_links("parallel[a]", logdir, {(0, 1), (2, 3), (0, 2),
+                                                (1, 3)})
+        if not os.path.isfile(advice):
+            raise AssertionError("no mesh_advice.txt")
+        # the stat's analyze staged the board; the page reads these files
+        missing = [f for f in ("comm-report.html", "comm.csv",
+                               "link_matrix.csv", "commtrace.csv")
+                   if not os.path.isfile(os.path.join(logdir, f))]
+        if missing:
+            raise AssertionError(f"the capture lacks {missing} for "
+                                 f"comm-report.html")
+
+    def tp_serve(self):
+        """(b) Two gloo ranks sharing the card serve the model phase's 4
+        requests (prompt 1024, 32 new) at Llama-3-8B width and depth,
+        tensor-parallel 2 (``inference.main --data 1 --model 2``): both
+        ranks' tokens identical, the first served token the model phase's
+        one-device argmax or within SERVE_TP_LOGIT_TOL of its maximum.
+        Its ranks peak at ~15 GB each while they draw the init."""
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_port", str(free_port()),
+               "-m", "sofa_tpu_torch.workloads.inference", "--data", "1",
+               "--model", "2", "--backend", "gloo", "--share_device",
+               "--batch", "4", "--prompt", "1024", "--new_tokens", "32",
+               "--n_layers", "32", "--d_model", "4096", "--n_heads", "32",
+               "--n_kv_heads", "8", "--d_ff", "14336", "--vocab", "128256"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=900)
+        secs = time.perf_counter() - t0
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("inference:")]
+        log("\n".join(f"  | {ln}" for ln in lines
+                      if " tokens [" not in ln))
+        if r.returncode:
+            raise AssertionError(f"the sharded serving failed (rc "
+                                 f"{r.returncode}): {r.stderr[-3000:]}")
+        import re
+
+        # not per line: the two ranks' prints may interleave
+        tokens = {int(m.group(1)): json.loads(m.group(2)) for m in
+                  re.finditer(r"inference: rank (\d+) tokens "
+                              r"(\[\[[\d,\s\[\]]*?\]\])", r.stdout)}
+        ref = self.serve_ref
+        first = [row[0] for row in tokens.get(0, [])]
+        best = ref.max(-1).values
+        gaps = [float(best[i] - ref[i, t]) for i, t in enumerate(first)]
+        argmax = ref.argmax(-1).tolist()
+        log(f"parallel[b]: sharded serving, TP 2 at Llama-3-8B width, 32 "
+            f"layers, 2 gloo ranks on the card: {secs:.1f} s; tokens equal "
+            f"on both ranks: {tokens.get(0) == tokens.get(1)}; first tokens "
+            f"{first}, the one-device argmax {argmax}, their one-device "
+            f"logits below its maximum by {gaps} (limit "
+            f"{SERVE_TP_LOGIT_TOL}) | {self.smi}")
+        if sorted(tokens) != [0, 1] or tokens[0] != tokens[1]:
+            raise AssertionError("the serving ranks' tokens differ")
+        if len(first) != 4 or any(g > SERVE_TP_LOGIT_TOL for g in gaps):
+            raise AssertionError("the sharded serving's first tokens are "
+                                 "not the one-device forward's argmax")
+
+    def ep_pp(self):
+        """(c) the expert-parallel MoE, (d) the lockstep pipeline, (e)
+        ``dryrun_multigpu``: the small multi-rank workloads."""
+        self.experts()
+        self.pipeline()
+        self.dryrun()
+
+    def experts(self):
+        """(c) The MoE ``main`` at its widths (vocab 8192, d 256, 2
+        layers, 8 experts, B 8, T 256) on two gloo ranks sharing the card
+        (--data 1 --expert 2) under ``stat``: losses that descend, equal on
+        both ranks; what the capture holds for the all-to-all.  Then, in
+        float32 with capacity factor 4.0 (no token dropped), each rank's
+        expert-parallel logits against ``moe_ffn_dense``'s forward."""
+        steps = 3
+        cmd = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
+               f"2 --master_port {free_port()} -m "
+               "sofa_tpu_torch.workloads.moe "
+               f"--steps {steps} --data 1 --expert 2 --backend gloo "
+               "--share_device")
+        t0 = time.perf_counter()
+        feats, logdir, out = self.run_stat("moe_ep2", cmd)
+        stat_s = time.perf_counter() - t0
+        losses = mesh_losses(out, "moe")
+        peaks = {k: v for k, v in feats.items()
+                 if str(k).endswith("_hbm_peak_gb")}
+        log(f"parallel[c]: MoE expert-parallel on 2 gloo ranks: stat "
+            f"{stat_s:.1f} s; losses per rank {losses}; per-rank peaks "
+            f"{peaks} | {self.smi}")
+        groups = self.comm_capture("parallel[c]", logdir)
+        if sorted(losses) != [0, 1] or losses[0] != losses[1] \
+                or len(losses[0]) != 2 + steps \
+                or not losses[0][-1] < losses[0][0]:
+            raise AssertionError(f"the MoE losses do not descend alike: "
+                                 f"{losses}")
+        if groups.get("all_to_all_single") != {"[[0, 1]]"}:
+            raise AssertionError(f"gputrace holds no all-to-all of the "
+                                 f"expert group: {groups}")
+        self.comm_links("parallel[c]", logdir, {(0, 1)})
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_port", str(free_port()),
+               os.path.join(REPO, "chip_smoke.py"), "--moe-rank"]
+        r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=600)
+        rows = [json.loads(ln.split(" ", 1)[1]) for ln in
+                r.stdout.splitlines() if ln.startswith("MOE_RANK ")]
+        log(f"parallel[c]: float32, capacity factor 4.0: expert-parallel "
+            f"logits against moe_ffn_dense's, per rank {rows} (limits atol "
+            f"{MOE_ATOL}, rtol {MOE_RTOL})")
+        if r.returncode or len(rows) != 2 or not all(x["ok"] for x in rows):
+            raise AssertionError(f"the expert-parallel logits disagree with "
+                                 f"the dense path's: {rows} "
+                                 f"{r.stderr[-2000:]}")
+
+    def pipeline(self):
+        """(d) The pipeline at its main's widths (vocab 8192, d 256, 4
+        heads, d_ff 512, 2 layers a stage, 4 microbatches, B 8, T 256) over
+        four stages in float32, every stage's ticks in lockstep on the
+        card (gloo sends no CUDA tensor, so the distributed ticks run on
+        the CPU, in the tests): loss and gradients against
+        ``_reference_forward``'s, remat against no remat."""
+        torch = self.torch
+        from sofa_tpu_torch.workloads import pipeline as pp
+        from sofa_tpu_torch.workloads.transformer import param_leaves
+
+        stages, batch, seq = 4, 8, 256
+        cfg = pp.PipelineConfig(dtype=torch.float32, max_seq=seq)
+        tokens = torch.randint(0, cfg.vocab, (batch, seq),
+                               generator=self.gen(0), device=self.dev)
+
+        def grads(tree):
+            return {k: v.grad for k, v in zip(_leaf_names(tree),
+                                              param_leaves(tree))}
+
+        full = pp.init_params(cfg, stages * cfg.layers_per_stage, 0,
+                              self.dev)
+        for p in param_leaves(full):
+            p.requires_grad_(True)
+        logits = pp._reference_forward(full, tokens, cfg)[:, :-1]
+        gold = logits.gather(-1, tokens[:, 1:, None])[..., 0]
+        ref_loss = (torch.logsumexp(logits, -1) - gold).mean()
+        ref_loss.backward()
+        ref = grads(full)
+        got = {}
+        t0 = time.perf_counter()
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat=remat)
+            parts = [pp.stage_params(pp.init_params(
+                c, stages * c.layers_per_stage, 0, self.dev), s, stages)
+                for s in range(stages)]
+            for part in parts:
+                for p in param_leaves(part):
+                    p.requires_grad_(True)
+            loss = torch.stack(pp.lockstep_loss(parts, tokens, c)).sum()
+            loss.backward()
+            g = {}
+            for name in ref:
+                per = [grads(part)[name] for part in parts]
+                g[name] = (torch.cat(per) if name[0] == "layers"
+                           else sum(per))
+            got[remat] = (loss.item(), g)
+        secs = time.perf_counter() - t0
+        loss, g = got[False]
+        errs = {".".join(n): (g[n] - ref[n]).abs().max().item() for n in ref}
+        remat_errs = {".".join(n): (got[True][1][n] - g[n]).abs().max()
+                      .item() for n in ref}
+        log(f"parallel[d]: lockstep GPipe, {stages} stages x "
+            f"{cfg.layers_per_stage} layers, {cfg.n_microbatches} "
+            f"microbatches, B {batch} T {seq}, float32, on the card: "
+            f"{secs:.1f} s for both runs; loss {loss!r} against the "
+            f"reference's {ref_loss.item()!r} (limit {PIPE_LOSS_TOL}); "
+            f"gradients max|err| {errs} (limit {PIPE_GRAD_TOL}); remat "
+            f"against no remat: loss {got[True][0]!r}, gradients "
+            f"{remat_errs} (limit {PIPE_REMAT_TOL}); the distributed ticks "
+            f"need P2P, which gloo refuses for CUDA tensors: held bit-equal "
+            f"to the lockstep on CPU ranks by tests/test_torch_pipeline.py")
+        if abs(loss - ref_loss.item()) > PIPE_LOSS_TOL or any(
+                e > PIPE_GRAD_TOL for e in errs.values()):
+            raise AssertionError("the lockstep pipeline disagrees with the "
+                                 "reference forward")
+        if abs(got[True][0] - loss) > PIPE_REMAT_TOL or any(
+                e > PIPE_REMAT_TOL for e in remat_errs.values()):
+            raise AssertionError("remat changes the pipeline's math")
+
+    def dryrun(self):
+        """(e) ``dryrun_multigpu`` over every card of the machine."""
+        from sofa_tpu_torch.entry import dryrun_multigpu
+
+        n = self.torch.cuda.device_count()
+        t0 = time.perf_counter()
+        lines = dryrun_multigpu(n)
+        log(f"parallel[e]: dryrun_multigpu({n}) in "
+            f"{time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+        if len(lines) != 3 or not all(ln.endswith(" ok") or "skipped" in ln
+                                      for ln in lines):
+            raise AssertionError("dryrun_multigpu did not print its lines")
+
+
+def moe_rank() -> None:
+    """One torchrun rank of the ``experts`` phase's float32 check: the MoE
+    at its main's widths with capacity factor 4.0, the expert-parallel
+    forward over (data 1, expert 2) on this rank's rows against the dense
+    forward of the whole batch on the same global init; prints one JSON
+    line."""
+    import torch
+
+    from sofa_tpu_torch.workloads import moe
+    from sofa_tpu_torch.workloads.common import init_distributed, make_mesh
+
+    info = init_distributed("gloo", share_device=True)
+    mesh = make_mesh(("data", "expert"), (1, 2))
+    cfg = moe.MoEConfig(dtype=torch.float32, capacity_factor=4.0,
+                        max_seq=256)
+    gen = torch.Generator(device=info.device)
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (8, 256), generator=gen,
+                           device=info.device)
+    with torch.no_grad():
+        dense, _ = moe.forward(moe.init_params(cfg, 0, info.device), tokens,
+                               cfg)
+        ep, aux = moe.forward(moe.init_params(cfg, 0, info.device, mesh),
+                              tokens, cfg, mesh)
+    rows = moe._layout(cfg, 8, mesh).rows
+    ref = dense[rows]
+    err = (ep - ref).abs()
+    ok = bool((err <= MOE_ATOL + MOE_RTOL * ref.abs()).all())
+    print("MOE_RANK " + json.dumps({
+        "rank": info.rank, "max_abs_err": err.max().item(),
+        "max_rel_err": (err / ref.abs().clamp_min(1e-30)).max().item(),
+        "aux": aux.item(), "ok": ok}), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
 # The timed phases run alone, in order; then three lanes side by side, each
 # a thread that runs its phases in order: the card's Llama-width runs at
 # batch 4 and the multi-rank ones (up to 43 GB of the card at a time), its
 # runs of at most 21 GB, and the host-only phases over the captures
 # (``Smoke.need`` waits for what a phase reads from another lane).
 PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
-LANES = (("profile", "cluster", "mesh"),
-         ("serve", "window", "faults"),
+LANES = (("profile", "cluster", "mesh", "tp", "tp_serve"),
+         ("serve", "window", "faults", "ep_pp"),
          ("robust", "board", "cache", "verbs"))
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 # bare/profiled pairs, each in a fresh process: with two, the median is
@@ -4004,6 +4445,9 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--resnet-pass"]:
         resnet_pass(sys.argv[2], *map(int, sys.argv[3:4]))
+        return 0
+    if sys.argv[1:2] == ["--moe-rank"]:
+        moe_rank()
         return 0
     adopted = adopt_orphans()
     smoke = Smoke()

@@ -155,10 +155,11 @@ def comm_profile(frames, cfg, features: Features) -> None:
     if df.empty:
         return
     # kernels (collectives among them) are category 0, the copy engines'
-    # memcpys and memsets category 2; copies among the kernels count only
-    # where no copy engine ran
+    # memcpys and memsets category 2 (a gloo collective's device side is
+    # a copy: ingest gives it the collective's kind); copies among the
+    # kernels count only where no copy engine ran
     sync = df[df["category"] == 0]
-    coll_rows = sync[sync["copyKind"] >= 20]
+    coll_rows = df[df["copyKind"] >= 20]
     copies = df[_copy_mask(df)]
     if copies.empty:
         copies = sync[(sync["copyKind"] > 0) & (sync["copyKind"] < 20)]
@@ -308,7 +309,7 @@ def comm_scatter(frames, cfg, features: Features) -> None:
     if df is not None and not df.empty:
         ck = df["copyKind"].to_numpy()
         cat = df["category"].to_numpy()
-        coll_m = (cat == 0) & (ck >= 20)
+        coll_m = ck >= 20
         async_m = _copy_mask(df).to_numpy()
         if not async_m.any():
             async_m = (cat == 0) & (ck > 0) & (ck < 20)

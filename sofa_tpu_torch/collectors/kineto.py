@@ -271,10 +271,42 @@ def _dist_info(torch):
         return None
 
 
+#: the collectives whose process group a gloo trace would not name
+GLOO_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "all_gather",
+                    "reduce_scatter_tensor", "reduce_scatter",
+                    "all_to_all_single", "broadcast")
+#: the range a named collective runs in: ``sofa_comms:<name>:<ranks>``
+COMMS_RANGE = "sofa_comms:%s:%s"
+
+
+def _group_range(torch, dist, name, fn):
+    """``fn`` inside a ``sofa_comms:<name>:<ranks>`` range naming its
+    process group's global ranks, where the group's backend is not NCCL
+    (whose collectives record ``record_param_comms`` with their ranks
+    themselves; gloo's record neither)."""
+    def collective(*args, **kwargs):
+        group = kwargs.get("group")
+        try:
+            if dist.get_backend(group) == "nccl":
+                return fn(*args, **kwargs)
+            ranks = dist.get_process_group_ranks(
+                group or dist.group.WORLD)
+        except Exception:  # noqa: BLE001 - the collective raises itself
+            return fn(*args, **kwargs)
+        label = COMMS_RANGE % (name, ",".join(map(str, ranks)))
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    collective.__wrapped__ = fn
+    return collective
+
+
 def _watch_process_group(torch, state):
     """Note the rank when the program joins a process group: the profiler
     started before it did, so its trace names no rank, and a program may
-    leave the group before exit.  Undone by stop_trace."""
+    leave the group before exit.  Name each gloo collective's process
+    group in a range around it (``_group_range``).  Undone by
+    stop_trace."""
     try:
         import torch.distributed as dist
 
@@ -290,9 +322,17 @@ def _watch_process_group(torch, state):
 
         c10d.init_process_group = dist.init_process_group = \
             init_process_group
+        colls = {n: getattr(c10d, n) for n in GLOO_COLLECTIVES
+                 if hasattr(c10d, n)}
+        for n, fn in colls.items():
+            setattr(c10d, n, _group_range(torch, dist, n, fn))
+            setattr(dist, n, getattr(c10d, n))
 
         def unwatch():
             c10d.init_process_group = dist.init_process_group = orig
+            for n, fn in colls.items():
+                setattr(c10d, n, fn)
+                setattr(dist, n, fn)
 
         state["unwatch"] = unwatch
     except Exception as e:  # noqa: BLE001 - never break the program

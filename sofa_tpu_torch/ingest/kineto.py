@@ -43,7 +43,11 @@ package writes replica groups).  Without that op the kernel's name
 decides (``ncclDevKernel_AllReduce_Sum_bf16_RING_LL``,
 ``ncclKernel_AllReduce_RING_LL_Sum_float``, ``ncclDevKernel_SendRecv``):
 only a context tells a grouped SendRecv that serves ``all_to_all`` from a
-ring's P2P hop.
+ring's P2P hop.  A gloo collective records no such op and launches no
+kernel: the tracer wraps it in a ``sofa_comms:<collective>:<ranks>``
+range, and the device work launched inside it on its thread (gloo's copy
+of a CUDA tensor to the host, its device side) takes the collective's
+copyKind and its ranks as ``groups``, its payload the bytes it copied.
 
 An event's launch is the ``cuda_runtime`` / ``cuda_driver`` call with the
 same ``args.correlation``, on whichever thread of the process made it: the
@@ -110,6 +114,8 @@ _COMM_KINDS = (("allreduce", CopyKind.ALL_REDUCE),
                ("alltoall", CopyKind.ALL_TO_ALL),
                ("broadcast", CopyKind.COLLECTIVE_BROADCAST),
                ("send", CopyKind.P2P), ("recv", CopyKind.P2P))
+#: the tracer's range around a gloo collective: its name and global ranks
+COMMS_RANGE_RE = re.compile(r"^sofa_comms:([a-z_]+):([0-9,]+)$")
 #: an NCCL kernel's collective, from its symbol
 NCCL_KERNEL_RE = re.compile(r"^nccl(?:Dev)?Kernel_([A-Za-z]+)")
 _NCCL_KERNELS = {"AllReduce": CopyKind.ALL_REDUCE,
@@ -366,6 +372,14 @@ def ingest_trace(doc: dict, time_base: float) -> Dict[str, pd.DataFrame]:
                                         comm["groups"])
             else:
                 kind = nccl_kernel_kind(str(e["name"])) or kind
+        elif launches[i] is not None:
+            coll = next((c for c in reversed(ctx)
+                         if c.get("tid") == launches[i][1]
+                         and COMMS_RANGE_RE.match(str(c["name"]))), None)
+            if coll is not None:
+                name, ranks = COMMS_RANGE_RE.match(str(coll["name"])).groups()
+                kind = comm_kind(name) or kind
+                groups = json.dumps([[int(r) for r in ranks.split(",")]])
         gpu_rows.append({
             "timestamp": start[i] * 1e-6 + shift, "event": float(dev[i]),
             "duration": d, "deviceId": int(dev[i]), "copyKind": kind,

@@ -3,8 +3,11 @@
 Device choice, timing loops, the ``sofa_step_N`` step annotation, and the
 ranks: ``init_distributed`` (torchrun's environment, or a FileStore for
 ``spawn_ranks``), ``make_mesh`` (a DeviceMesh with the JAX package's
-sizing rules) and ``Ring``, the rank's neighbours along one mesh axis,
-which rotates tensors around it by P2P.  The
+sizing rules), ``Ring``, the rank's neighbours along one mesh axis,
+which rotates tensors around it by P2P, and ``AxisGroup`` with the
+differentiable collectives over one axis that the tensor-, fully-sharded-
+and expert-parallel workloads call (``copy_to``, ``sum_from``, ``gather``,
+``all_to_all``).  The
 annotation is a ``torch.profiler.record_function`` range, which the Kineto
 trace carries on the host (``user_annotation``); the port's ingest turns it
 into one ``gpusteps`` row per step, spanning the device work launched while
@@ -17,7 +20,7 @@ import dataclasses
 import math
 import time
 from contextlib import nullcontext
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -98,7 +101,7 @@ def parse_workload_args(argv, defaults: Dict[str, object]):
     return p.parse_args(argv)
 
 
-# --- the mesh and the ranks ---------------------------------------------------
+# --- the mesh and the ranks --------------------------------------------------
 
 def balanced_factorization(n: int, num_axes: int) -> Tuple[int, ...]:
     """Factor ``n`` into ``num_axes`` factors, largest first, as balanced as
@@ -322,9 +325,160 @@ def mesh_ring(mesh, axis: str) -> Ring:
     """This rank's ring along ``axis`` of ``mesh``."""
     import torch.distributed as dist
 
+    ax = mesh_axis(mesh, axis)
+    if ax.size == 1:
+        return Ring(0, 1)
+    return Ring(ax.index, ax.size, ax.group,
+                dist.get_process_group_ranks(ax.group))
+
+
+# --- collectives over one mesh axis ------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """This rank's place along one mesh axis: position ``index`` of
+    ``size`` over the process group ``group`` (None for an axis of 1,
+    where every collective below is the identity)."""
+
+    name: str
+    index: int = 0
+    size: int = 1
+    group: Any = None
+
+
+def mesh_axis(mesh, axis: str) -> AxisGroup:
+    """This rank's ``AxisGroup`` along ``axis`` of ``mesh``."""
     n = axis_size(mesh, axis)
     if n == 1:
-        return Ring(0, 1)
-    group = mesh.get_group(axis)
-    return Ring(mesh.get_local_rank(axis), n, group,
-                dist.get_process_group_ranks(group))
+        return AxisGroup(axis)
+    return AxisGroup(axis, mesh.get_local_rank(axis), n, mesh.get_group(axis))
+
+
+def all_reduce_axes(x: torch.Tensor, mesh, axes: Sequence[str],
+                    op: str = "sum") -> torch.Tensor:
+    """All-reduce ``x`` in place over every axis of ``axes`` (one
+    collective per axis of size above 1: over all of them together, the
+    reduction over their product).  Not differentiable: for gradients and
+    printed losses."""
+    import torch.distributed as dist
+
+    for name in axes:
+        ax = mesh_axis(mesh, name)
+        if ax.size > 1:
+            dist.all_reduce(x, op=getattr(dist.ReduceOp, op.upper()),
+                            group=ax.group)
+    return x
+
+
+def _all_reduce(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    import torch.distributed as dist
+
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=ax.group)
+    return x
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.ax), None
+
+
+class _SumFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """The input of a column-parallel product: the identity forward, the
+    gradient summed over ``ax`` backward (Megatron's f)."""
+    return x if ax.size == 1 else _CopyTo.apply(x, ax)
+
+
+def sum_from(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """The output of a row-parallel product: summed over ``ax`` forward,
+    the identity backward (Megatron's g).  Every rank of ``ax`` then
+    holds the same sum, and the gradient that reaches it is the whole
+    one on every rank."""
+    return x if ax.size == 1 else _SumFrom.apply(x, ax)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, ax: AxisGroup) -> torch.Tensor:
+    import torch.distributed as dist
+
+    lead = x.movedim(dim, 0).contiguous()
+    out = torch.empty((ax.size * lead.shape[0], *lead.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, lead, group=ax.group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter_dim(g: torch.Tensor, dim: int,
+                        ax: AxisGroup) -> torch.Tensor:
+    import torch.distributed as dist
+
+    lead = g.movedim(dim, 0).contiguous()
+    out = torch.empty((lead.shape[0] // ax.size, *lead.shape[1:]),
+                      dtype=g.dtype, device=g.device)
+    dist.reduce_scatter_tensor(out, lead, group=ax.group)
+    return out.movedim(0, dim)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _gather_dim(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_dim(g, ctx.dim, ctx.ax), None, None
+
+
+def gather(x: torch.Tensor, dim: int, ax: AxisGroup) -> torch.Tensor:
+    """The shards of ``ax`` concatenated along ``dim``, in axis order
+    (``all_gather_into_tensor``); backward, the gradient's shard of this
+    rank summed over ``ax`` (``reduce_scatter_tensor``): the fully
+    sharded leaf's gather and its gradient's reduction."""
+    return x if ax.size == 1 else _Gather.apply(x, dim, ax)
+
+
+def _exchange(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    import torch.distributed as dist
+
+    # a gradient may come strided, and so would empty_like's result of a
+    # strided tensor, which gloo fills as if it were flat
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=ax.group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _exchange(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.ax), None
+
+
+def all_to_all(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """Block i of ``x``'s leading dimension (its size a multiple of
+    ``ax.size``) goes to rank i of ``ax``; block i of the result came from
+    rank i (``all_to_all_single``, JAX's ``all_to_all`` with
+    ``split_axis=concat_axis=0``, untiled).  Its own transpose, so the
+    gradient takes the same exchange."""
+    return x if ax.size == 1 else _AllToAll.apply(x, ax)

@@ -635,3 +635,80 @@ def test_traced_ranks_name_their_rank_and_topology(tmp_path):
     topo = comm.load_topology(SofaConfig(logdir=logdir))
     assert [d["id"] for d in topo["devices"]] == [0, 1]
     assert topo["backend"] == "gloo" and topo["world_size"] == 2
+
+
+def test_copies_under_a_gloo_collective_range_take_its_group():
+    """gloo records no ``record_param_comms``: the tracer's
+    ``sofa_comms:<collective>:<ranks>`` range names the group, and the
+    device work launched inside it (gloo's copy of a CUDA tensor to the
+    host) takes the collective's copyKind and the ranks as ``groups``; a
+    copy outside any such range (the copy back, from gloo's thread) keeps
+    its own kind and has none.  link_matrix.csv then books each
+    collective within its own group."""
+    from sofa_tpu_torch.ingest.kineto import ingest_trace
+
+    def copy(t, corr, name):
+        return [{"ph": "X", "cat": "cuda_runtime", "pid": 100, "tid": MAIN,
+                 "ts": t, "dur": 2.0, "name": "cudaMemcpyAsync",
+                 "args": {"correlation": corr}},
+                {"ph": "X", "cat": "gpu_memcpy", "pid": 0, "tid": 7,
+                 "ts": t + 5, "dur": 20.0, "name": name,
+                 "args": {"device": 0, "stream": 7, "correlation": corr,
+                          "bytes": 4096}}]
+
+    ev = [{"ph": "X", "cat": "user_annotation", "pid": 100, "tid": MAIN,
+           "ts": 100.0, "dur": 50.0, "name": "sofa_comms:all_reduce:0,2"},
+          *copy(110.0, 1, "Memcpy DtoH (Device -> Pinned)"),
+          {"ph": "X", "cat": "user_annotation", "pid": 100, "tid": MAIN,
+           "ts": 200.0, "dur": 50.0,
+           "name": "sofa_comms:all_to_all_single:0,1,2,3"},
+          *copy(210.0, 2, "Memcpy DtoH (Device -> Pinned)"),
+          *copy(300.0, 3, "Memcpy HtoD (Pinned -> Device)")]
+    gpu = ingest_trace({"traceEvents": ev}, 0.0)["gputrace"]
+    assert list(gpu["groups"]) == ["[[0, 2]]", "[[0, 1, 2, 3]]", ""]
+    assert list(gpu["copyKind"]) == [int(CopyKind.ALL_REDUCE),
+                                     int(CopyKind.ALL_TO_ALL),
+                                     int(CopyKind.H2D)]
+    assert list(gpu["payload"]) == [4096] * 3
+    matrix = comm.link_traffic_matrix(gpu[gpu["copyKind"] >= 20], {
+        "devices": [{"id": i} for i in range(4)]})
+    assert matrix.loc["gpu0", "gpu2"] > 0 and matrix.loc["gpu0", "gpu1"] > 0
+    assert matrix.loc["gpu0", "gpu3"] > 0       # the all-to-all's fourth
+
+
+def _grouped_rank(rank, store, logdir):
+    """One of four ranks, traced: all-reduces in its "model" pair
+    ([0, 1] or [2, 3]) and in its "data" pair ([0, 2] or [1, 3])."""
+    import torch
+    import torch.distributed as dist
+
+    from sofa_tpu_torch import api
+    from sofa_tpu_torch.workloads.common import init_distributed
+
+    orig = dist.all_reduce
+    with api.profile(logdir):
+        init_distributed(device="cpu", store_path=store, rank=rank,
+                         world_size=4)
+        pairs = [dist.new_group(r) for r in ([0, 1], [2, 3], [0, 2],
+                                             [1, 3])]
+        x = torch.ones(8)
+        dist.all_reduce(x, group=pairs[rank // 2])
+        dist.all_reduce(x, group=pairs[2 + rank % 2])
+        dist.destroy_process_group()
+    assert dist.all_reduce is orig          # unwrapped with the trace
+
+
+def test_traced_gloo_collectives_name_their_process_groups(tmp_path):
+    logdir = str(tmp_path / "run") + "/"
+    spawn_ranks(4, _grouped_rank, str(tmp_path / "store"), logdir,
+                timeout=240.0)
+    for name in os.listdir(logdir + "kineto"):
+        with open(logdir + "kineto/" + name) as f:
+            doc = json.load(f)
+        rank = doc["distributedInfo"]["rank"]
+        ranges = sorted(e["name"] for e in doc["traceEvents"]
+                        if str(e.get("name", "")).startswith("sofa_comms:"))
+        model = "0,1" if rank < 2 else "2,3"
+        data = "0,2" if rank % 2 == 0 else "1,3"
+        assert ranges == sorted([f"sofa_comms:all_reduce:{model}",
+                                 f"sofa_comms:all_reduce:{data}"])

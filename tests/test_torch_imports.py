@@ -95,7 +95,9 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/export_static.py",
             "sofa_tpu_torch/export_folded.py",
             "sofa_tpu_torch/export_perfetto.py", "sofa_tpu_torch/charts.py",
-            "sofa_tpu_torch/top.py"} <= rel
+            "sofa_tpu_torch/top.py",
+            "sofa_tpu_torch/workloads/moe.py",
+            "sofa_tpu_torch/workloads/pipeline.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -120,6 +122,7 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.workloads.ring_flash, "
             "sofa_tpu_torch.workloads.collectives, "
             "sofa_tpu_torch.workloads.transformer, "
+            "sofa_tpu_torch.workloads.moe, sofa_tpu_torch.workloads.pipeline, "
             "sofa_tpu_torch.analysis.registry, "
             "sofa_tpu_torch.analysis.hint_service, sofa_tpu_torch.plugins, "
             "sofa_tpu_torch.frames, sofa_tpu_torch.durability, "

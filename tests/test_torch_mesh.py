@@ -248,16 +248,29 @@ def test_one_rank_mesh_loss_is_the_unsharded_loss():
     assert got.item() == want.item()
 
 
-def test_model_axis_raises_naming_the_roadmap():
+@pytest.mark.parametrize("field,value", [
+    ("n_heads", 6), ("vocab", 250), ("d_ff", 130)])
+def test_model_axis_that_does_not_divide_raises_naming_it(field, value):
+    """A "model" size must divide the heads, the vocab and d_ff (the
+    column and row shards, the vocab slices); the refusal names which."""
     class _TpMesh:
         mesh_dim_names = ("data", "seq", "model")
 
         def size(self, dim):
-            return 2 if dim == 2 else 1
+            return 4 if dim == 2 else 1
 
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        ttr._layout(_tcfg(False, False), BATCH, T, _TpMesh(),
-                    torch.device("cpu"))
+        def get_local_rank(self, axis):
+            return 0
+
+        def get_group(self, axis):
+            return None
+
+    cfg = dataclasses.replace(_tcfg(False, False), **{field: value})
+    if field == "n_heads":
+        cfg = dataclasses.replace(cfg, d_model=96)
+    with pytest.raises(ValueError, match=f"'model' mesh axis \\(4\\) must "
+                                         f"divide {field} \\({value}\\)"):
+        ttr._layout(cfg, BATCH, T, _TpMesh(), torch.device("cpu"))
 
 
 # --- the collectives microbench --------------------------------------------
