@@ -7,10 +7,10 @@ The timed phases run alone, in this order (device, kernel, model, train,
 ring, resnet); then three lanes run side by side, each a thread that runs
 its phases in order: (1) profile, cluster, mesh, tp, tp_serve: the card's
 Llama-width runs at batch 4 and the multi-rank ones, up to 43 GB of the
-card at a time; (2) serve, window, faults, ep_pp: its runs of at most 21
-GB; (3) robust, board, cache, verbs: host only, over the captures the
-card made, each waiting for the phase of another lane whose capture it
-reads.  A failure
+card at a time; (2) live, serve, window, faults, ep_pp: its runs of at most
+21 GB; (3) robust, board, cache, verbs, live_drain: host only, over the
+captures the card made, each waiting for the phase of another lane whose
+capture it reads.  A failure
 anywhere raises and exits non-zero; a lane's failure stops every lane
 before its next phase.  The phases:
 
@@ -223,6 +223,31 @@ before its next phase.  The phases:
            the finished capture; (g) no unattributed-kernel hint on the
            level-2 Llama-width capture
 
+  live     (a) ``record`` of the training ``main`` at Llama-3-8B width cut
+           to 2 layers, batch 1 (LIVE_STEPS steps; its Kineto window
+           closes while it runs) with ``live --live_interval_s 2`` beside it (no
+           card visible) until the job has exited and one more epoch has
+           committed; each epoch's ``meta.live`` and ledger are read at
+           its journal commit: at least 3 epochs while the job ran, gpumon
+           streaming in 2 or more, the chunks parsed over all epochs equal
+           to the chunks the ledger committed, chunks_loaded growing, the
+           watermark never going back and ending within LIVE_WATERMARK_S of
+           the job's last gpumon sample, the first epoch after the capture
+           landed marking the Kineto frames dirty, each whole traced step
+           of its kernel frame holding 2 launches of each flash kernel,
+           and an epoch with gpumon dirty and the Kineto frames clean
+           skipping passes clean with fewer tiles rebuilt than kept;
+           (b) ``viz`` over the logdir meanwhile: every fetch of report.js
+           from epoch 1 on 200, never 503; prints each epoch's wall
+           (median, max) and the job's peak
+  live_drain (c) over that logdir cleaned back to its raw files (no
+           card visible): one epoch with ``gpumon:tail_torn``
+           SIGKILLed at its third tile write, ``resume`` (meta.live.epoch
+           up by one), ``live --drain`` (active false), its report.js,
+           features.csv, hints.txt and _tiles/ byte-identical to a batch
+           ``preprocess`` + ``analyze`` after ``clean``; ``status`` prints
+           the live line, ``manifest_check --require-healthy`` passes
+
 Every whole frame a check reads comes through the port's ``read_frame``
 (``frame``): in columnar mode ``<name>.csv`` is the board's downsampled
 copy.
@@ -325,6 +350,22 @@ PIPE_LOSS_TOL, PIPE_GRAD_TOL, PIPE_REMAT_TOL = 1e-4, 1e-5, 1e-6
 # profiler (batch apart).
 LLAMA_WIDTH = ("--seq 2048 --vocab 128256 --d_model 4096 --n_layers 4 "
                "--n_heads 32 --n_kv_heads 8 --d_ff 14336")
+# The job the ``live`` phase tails: the training main at Llama-3-8B width
+# cut to 2 layers, batch 1, on an H100.  Its Kineto window opens
+# LIVE_KINETO[0] s after torch is imported and closes LIVE_KINETO[1] s
+# later, while it runs.  The start-up (import to the first step) is slower
+# beside the other lanes than alone: the window opens late enough for both,
+# and the steps outlast it.
+LIVE_LAYERS, LIVE_STEPS = 2, 260
+LIVE_KINETO = (20.0, 2.0)
+LIVE_INTERVAL_S = 2.0
+# The pools of the epochs and of the drain cell's verbs: the lanes beside
+# them hold the host's 8 cores.
+LIVE_JOBS = 2
+# The last epoch's watermark against the job's last gpumon sample (s).
+LIVE_WATERMARK_S = 3.0
+# The drain cell's --viz_downsample_to: a pyramid on every large frame.
+LIVE_VIZ = 2000
 
 
 def frame(logdir: str, name: str, columns=None):
@@ -3551,6 +3592,341 @@ class Smoke:
                             by_op.head(5).items()))
 
     # -- the ring: four ranks' hops in lockstep on the one card -------------
+    # -- live ------------------------------------------------------------------
+    def live(self):
+        """(a) ``record`` of the training main at Llama-3-8B width cut to
+        2 layers, batch 1, its Kineto window closing while it runs, with
+        ``live --live_interval_s 2`` beside it until the job has exited
+        and one more epoch has committed; each committed epoch's
+        ``meta.live`` and the ledger are read as it lands (the run
+        journal's ``commit``).  (b) ``viz`` over the logdir from the first
+        commit on: every fetch of report.js 200, never 503."""
+        import statistics
+
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.live import OFFSETS_NAME
+
+        width = LLAMA_WIDTH.replace("--n_layers 4",
+                                    f"--n_layers {LIVE_LAYERS}")
+        cmd = (f"{sys.executable} -m sofa_tpu_torch.workloads.transformer "
+               f"--steps {LIVE_STEPS} --batch 1 {width}")
+        logdir = os.path.join(REPO, "build", "chip_smoke_live")
+        shutil.rmtree(logdir, ignore_errors=True)
+        t0 = time.perf_counter()
+        rec = subprocess.Popen(
+            [sys.executable, "-m", "sofa_tpu_torch", "record", "--logdir",
+             logdir, "--kineto_host_tracer_level", "0", "--kineto_delay_s",
+             str(LIVE_KINETO[0]), "--kineto_duration_s", str(LIVE_KINETO[1]),
+             cmd], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        rec_out = []
+        reader = threading.Thread(target=lambda: rec_out.extend(rec.stdout),
+                                  daemon=True)
+        reader.start()
+        # live starts once record has laid down its time base
+        while not os.path.isfile(os.path.join(logdir, "sofa_time.txt")):
+            if rec.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError("record wrote no sofa_time.txt: "
+                                     + "".join(rec_out)[-3000:])
+            time.sleep(0.1)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        lv = subprocess.Popen(
+            [sys.executable, "-u", "-m", "sofa_tpu_torch", "live", logdir,
+             "--live_interval_s", str(LIVE_INTERVAL_S), "--jobs",
+             str(LIVE_JOBS)], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lv_out = []
+        lreader = threading.Thread(target=lambda: lv_out.extend(lv.stdout),
+                                   daemon=True)
+        lreader.start()
+        epochs, fetches, t_exit, begun = [], [], None, {}
+        stop_fetch = threading.Event()
+        journal = os.path.join(logdir, "_journal.jsonl")
+
+        def fetch_loop(get):
+            while not stop_fetch.is_set():
+                try:
+                    status = get("/report.js")[0]
+                except OSError as e:
+                    status = repr(e)
+                fetches.append((time.time(), status))
+                time.sleep(1.0)
+
+        def epoch_doc(e):
+            # record merges its own sections into the manifest too: a
+            # read racing its write may see the epoch before; read again
+            for _ in range(40):
+                doc = telemetry.load_manifest(logdir) or {}
+                meta = (doc.get("meta") or {}).get("live") or {}
+                if meta.get("epoch") == e["epoch"]:
+                    with open(os.path.join(logdir, OFFSETS_NAME)) as f:
+                        ledger = json.load(f)
+                    return {"epoch": e["epoch"], "begun": begun[e["epoch"]],
+                            "committed": e["t"], "meta": meta,
+                            "wall_s": doc["runs"]["live"]["wall_s"],
+                            "ledger_chunks": sum(
+                                len(v["chunks"])
+                                for v in ledger["sources"].values())}
+                time.sleep(0.05)
+            raise AssertionError(f"the manifest holds epoch "
+                                 f"{meta.get('epoch')} at epoch "
+                                 f"{e['epoch']}'s commit")
+
+        try:
+            with viz_served(logdir, 8790, "live") as (_port, get):
+                fetcher = threading.Thread(target=fetch_loop, args=(get,),
+                                           daemon=True)
+                fetcher.start()
+                deadline = time.perf_counter() + 300
+                while True:
+                    if time.perf_counter() > deadline:
+                        raise AssertionError("no live epoch committed after "
+                                             "the job exited")
+                    if lv.poll() is not None:
+                        raise AssertionError("live exited early: "
+                                             + "".join(lv_out)[-3000:])
+                    if t_exit is None and rec.poll() is not None:
+                        t_exit = time.time()
+                    entries = []
+                    if os.path.isfile(journal):
+                        with open(journal) as f:
+                            entries = [json.loads(ln) for ln in f
+                                       if '"live"' in ln
+                                       and ln.endswith("\n")]
+                    for e in entries:
+                        if e["ev"] == "begin":
+                            begun[e["epoch"]] = e["t"]
+                        elif e["epoch"] > len(epochs):
+                            epochs.append(epoch_doc(e))
+                    if t_exit is not None and any(
+                            x["begun"] > t_exit for x in epochs):
+                        break
+                    time.sleep(0.1)
+                stop_fetch.set()
+                fetcher.join(timeout=60)
+        finally:
+            stop_fetch.set()
+            for proc in (lv, rec):
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGINT)
+            for proc in (lv, rec):
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            reader.join(timeout=10)
+            lreader.join(timeout=10)
+        # (b) counts the fetches once report.js exists: after epoch 1
+        fetches = [(t, st) for t, st in fetches if t > epochs[0]["committed"]]
+        log("\n".join(f"  | {ln.rstrip()}" for ln in lv_out
+                      if ln.startswith(("[PROGRESS] live", "[WARNING]"))))
+        rec_text = "".join(rec_out)
+        log("\n".join(f"  | {ln[:300]}" for ln in rec_text.splitlines()
+                      if ln.startswith("transformer:")))
+        if rec.returncode != 0 or lv.returncode != 0:
+            raise AssertionError(f"record rc {rec.returncode}, live rc "
+                                 f"{lv.returncode}: {rec_text[-3000:]} "
+                                 + "".join(lv_out)[-3000:])
+        self.live_logdir = logdir
+        line = self.live_checks(logdir, epochs, t_exit, fetches)
+        walls = [e["wall_s"] for e in epochs]
+        with open(os.path.join(logdir, "gpumon.txt")) as f:
+            peak = max(int(ln.split()[4]) for ln in f if ln.strip())
+        log(f"live[a]: {line}; epoch wall median "
+            f"{statistics.median(walls):.3f} s, max {max(walls):.3f} s over "
+            f"{len(walls)} epochs; the job's peak {peak / 1e9:.3f} GB "
+            f"(gpumon); phase {time.perf_counter() - t0:.1f} s | {self.smi}")
+
+    def live_checks(self, logdir, epochs, t_exit, fetches):
+        """The checks of cells (a) and (b) over the committed epochs."""
+        from sofa_tpu_torch.preprocess import KINETO_FRAMES
+
+        during = [e for e in epochs if e["committed"] < t_exit]
+        streaming = [e["epoch"] for e in during
+                     if e["meta"]["sources"].get("gpumon", {}).get("status")
+                     == "streaming"]
+        parsed = sum(e["meta"]["chunks_parsed"] for e in epochs)
+        loaded = [e["meta"]["chunks_loaded"] for e in epochs]
+        marks = [e["meta"]["watermark_s"] for e in epochs
+                 if e["meta"]["watermark_s"] is not None]
+        with open(os.path.join(logdir, "sofa_time.txt")) as f:
+            tb = float(f.read().split()[0])
+        with open(os.path.join(logdir, "gpumon.txt")) as f:
+            last_sample = max(int(ln.split()[0]) for ln in f
+                              if ln.strip()) / 1e9 - tb
+        problems = []
+        if [e["epoch"] for e in epochs] != list(range(1, len(epochs) + 1)):
+            problems.append(f"epochs seen {[e['epoch'] for e in epochs]}")
+        if len(during) < 3 or len(streaming) < 2:
+            problems.append(f"{len(during)} epochs while the job ran, "
+                            f"gpumon streaming in {streaming}")
+        if parsed != epochs[-1]["ledger_chunks"]:
+            problems.append(f"{parsed} chunks parsed, the ledger committed "
+                            f"{epochs[-1]['ledger_chunks']}")
+        if loaded != sorted(loaded) or loaded[-1] <= loaded[0]:
+            problems.append(f"chunks_loaded {loaded}")
+        if marks != sorted(marks) or not marks \
+                or abs(marks[-1] - last_sample) > LIVE_WATERMARK_S:
+            problems.append(f"watermarks {marks}, last gpumon sample "
+                            f"{last_sample:.3f} s")
+        # the capture landing: the first epoch after epoch 1 whose dirty
+        # frames hold the Kineto ones, and that epoch's kernel frame
+        captures = sorted(glob.glob(os.path.join(logdir, "kineto", "*.json")))
+        landed = min(os.path.getmtime(p) for p in captures) if captures \
+            else None
+        marked = [e for e in epochs[1:]
+                  if set(KINETO_FRAMES) <= set(e["meta"]["dirty"])]
+        first_after = next((e for e in epochs if landed is not None
+                            and e["begun"] > landed), None)
+        if not marked or first_after is None \
+                or marked[0]["epoch"] != first_after["epoch"]:
+            problems.append(f"the capture landed at {landed}; epochs "
+                            f"marking the Kineto frames "
+                            f"{[e['epoch'] for e in marked]}, first after "
+                            f"the landing {first_after and first_after['epoch']}")
+        gpu = frame(logdir, "gputrace")
+        kern = gpu[gpu["copyKind"] == 0]
+        module = kern["module"].fillna("").astype(str)
+        steps = sorted({m for m in module if re.fullmatch(r"sofa_step_\d+",
+                                                          m)},
+                       key=lambda m: int(m.rsplit("_", 1)[1]))
+        names = ("sofa_flash_fwd", "sofa_flash_bwd_kv", "sofa_flash_bwd_dq")
+        per_step = {m: tuple(int(kern.loc[module == m, "name"].astype(str)
+                                 .str.contains(n).sum()) for n in names)
+                    for m in steps[1:-1]}
+        bad_steps = {m: c for m, c in per_step.items()
+                     if c != (LIVE_LAYERS,) * 3}
+        totals = {n: int(kern["name"].astype(str).str.contains(n).sum())
+                  for n in names}
+        if len(per_step) < 3 or bad_steps:
+            problems.append(f"{len(per_step)} whole steps in the window, "
+                            f"steps off the 2-layer rule {bad_steps}")
+        clean = [e for e in epochs if marked and e["epoch"] > marked[0][
+            "epoch"] and "gpumon" in e["meta"]["dirty"]
+            and not set(KINETO_FRAMES) & set(e["meta"]["dirty"])
+            and e["meta"]["passes"]["skipped_clean"] > 0
+            and e["meta"]["tiles"]["rebuilt"] < e["meta"]["tiles"]["kept"]]
+        statuses = sorted({st for _t, st in fetches})
+        if not fetches or statuses != [200]:
+            problems.append(f"report.js fetched {len(fetches)} times, "
+                            f"statuses {statuses}")
+        if not clean:
+            problems.append("no epoch with gpumon dirty and the Kineto "
+                            "frames clean skipped a pass clean with fewer "
+                            "tiles rebuilt than kept")
+        line = (f"{len(epochs)} epochs ({len(during)} while the job ran, "
+                f"gpumon streaming in {len(streaming)}); chunks parsed "
+                f"{parsed} = committed {epochs[-1]['ledger_chunks']}, loaded "
+                f"{loaded[0]} -> {loaded[-1]}; watermark {marks[0]:.3f} -> "
+                f"{marks[-1]:.3f} s (last gpumon sample {last_sample:.3f} s);"
+                f" capture landed in epoch "
+                f"{marked[0]['epoch'] if marked else None}, "
+                f"{len(per_step)} whole steps of {LIVE_LAYERS} launches of "
+                f"each kernel ({len(kern)} kernels, the flash ones "
+                f"{json.dumps(totals)}); epoch "
+                f"{clean[0]['epoch'] if clean else None}: passes "
+                + (f"{clean[0]['meta']['passes']}, tiles "
+                   f"{clean[0]['meta']['tiles']}" if clean else "-")
+                + f"; (b) report.js fetched {len(fetches)} times, statuses "
+                f"{statuses}")
+        if problems:
+            raise AssertionError(f"live: {problems}; {line}")
+        return line
+
+    def live_drain(self):
+        """(c) over the live logdir cleaned back to its raw files (no card
+        visible): one epoch with ``gpumon:tail_torn`` SIGKILLed
+        inside its tile refresh, ``resume`` (meta.live.epoch up by one),
+        ``live --drain`` (rc 0, active false); its report.js,
+        features.csv, hints.txt and _tiles/ byte-identical to a batch
+        ``preprocess`` + ``analyze`` after ``clean``; ``status`` prints the
+        live line and the port's ``manifest_check --require-healthy``
+        passes."""
+        from sofa_tpu_torch import telemetry
+
+        self.need("live")
+        t0 = time.perf_counter()
+        copy = self.live_logdir       # the live phase's checks are done
+        self.check_clean(copy)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        # pyramids on every large frame (the kill point writes tiles); the
+        # lanes beside it hold the host's cores
+        viz = ("--viz_downsample_to", str(LIVE_VIZ), "--jobs",
+               str(LIVE_JOBS))
+        k = subprocess.run([sys.executable, "-c", self.LIVE_KILL_CHILD, copy,
+                            "3", "gpumon:tail_torn@1", viz[1], viz[3]],
+                           cwd=REPO,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        before = (telemetry.load_manifest(copy) or {}).get("meta", {}) \
+            .get("live", {}).get("epoch", 0)
+        res, res_s = self.board_cli("resume", copy, *viz)
+        after = telemetry.load_manifest(copy)["meta"]["live"]
+        drain, drain_s = self.board_cli("live", copy, "--drain", *viz)
+        status, _ = self.board_cli("status", copy)
+        check, _ = self.board_cli_module(
+            "sofa_tpu_torch.tools.manifest_check", copy, "--require-healthy")
+        drained = telemetry.load_manifest(copy)["meta"]["live"]
+        got = self.outputs(copy)
+        self.check_clean(copy)
+        batch = []
+        for verb in ("preprocess", "analyze"):
+            r, wall = self.board_cli(verb, "--logdir", copy, *viz)
+            batch.append((verb, r.returncode, wall))
+        want = self.outputs(copy)
+        differ = sorted(set(got) ^ set(want)) + sorted(
+            n for n in set(got) & set(want) if got[n] != want[n])
+        live_line = [ln.strip() for ln in status.stdout.splitlines()
+                     if ln.strip().startswith("live: epoch")]
+        line = (f"(c) the killed epoch rc {k.returncode}, resume rc "
+                f"{res.returncode} in {res_s:.1f} s (epoch {before} -> "
+                f"{after['epoch']}), drain rc {drain.returncode} in "
+                f"{drain_s:.1f} s (active {drained['active']}), status rc "
+                f"{status.returncode} '{live_line[0] if live_line else ''}',"
+                f" manifest_check --require-healthy rc {check.returncode}; "
+                f"batch {batch}: {len(got)} files, differing {differ[:8]}")
+        log(f"live[c]: {line}; phase {time.perf_counter() - t0:.1f} s | "
+            f"{self.smi}")
+        if k.returncode != -9 or res.returncode or after["epoch"] != \
+                before + 1 or drain.returncode or drained["active"] \
+                or status.returncode or not live_line or check.returncode \
+                or any(rc for _v, rc, _w in batch) or differ or not got:
+            raise AssertionError(f"live drain: {line}; {k.stderr[-1500:]} "
+                                 f"{res.stdout[-1500:]} {drain.stdout[-1500:]}"
+                                 f" {check.stdout[-1500:]}")
+
+    # The JAX chaos matrix's live kill (tools/chaos_matrix.py:106-129): one
+    # epoch with a stream fault, SIGKILLed at the n-th tile write.
+    LIVE_KILL_CHILD = (
+        "import os, signal, sys\n"
+        "logdir, n, spec = sys.argv[1], int(sys.argv[2]), sys.argv[3]\n"
+        "viz, jobs = int(sys.argv[4]), int(sys.argv[5])\n"
+        "from sofa_tpu_torch import tiles\n"
+        "count = [0]\n"
+        "orig = tiles._write_tile\n"
+        "def hook(*a, **kw):\n"
+        "    count[0] += 1\n"
+        "    if count[0] >= n:\n"
+        "        os.kill(os.getpid(), signal.SIGKILL)\n"
+        "    return orig(*a, **kw)\n"
+        "tiles._write_tile = hook\n"
+        "from sofa_tpu_torch.config import SofaConfig\n"
+        "from sofa_tpu_torch.live import sofa_live\n"
+        "sofa_live(SofaConfig(logdir=logdir, live_interval_s=0.0,\n"
+        "                     inject_faults=spec, viz_downsample_to=viz,\n"
+        "                     jobs=jobs),\n"
+        "          epochs=1)\n")
+
+    def board_cli_module(self, module, *argv):
+        """``python -m <module> <argv>`` with no card visible."""
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        return r, time.perf_counter() - t0
+
     def ring(self):
         """Ring and zig-zag flash attention at Llama-3-8B attention width
         (H 32, KVH 8, D 128, bf16) over four ranks, T = 4 x 2048 at B 4,
@@ -4364,8 +4740,8 @@ def moe_rank() -> None:
 # (``Smoke.need`` waits for what a phase reads from another lane).
 PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
 LANES = (("profile", "cluster", "mesh", "tp", "tp_serve"),
-         ("serve", "window", "faults", "ep_pp"),
-         ("robust", "board", "cache", "verbs"))
+         ("live", "serve", "window", "faults", "ep_pp"),
+         ("robust", "board", "cache", "verbs", "live_drain"))
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 # bare/profiled pairs, each in a fresh process: with two, the median is
 # their mean and the paired t-test has one degree of freedom (its p-value

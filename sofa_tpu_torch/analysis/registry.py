@@ -1,7 +1,6 @@
 """The analysis-pass registry: every pass declares its contract, and
 ``run_passes`` schedules, isolates and records them (the JAX package's
-``sofa_tpu/analysis/registry.py``, without ``select_for_dirty``, which
-belongs to ``live``).
+``sofa_tpu/analysis/registry.py``).
 
 A pass is a function ``fn(frames, cfg, features)`` registered with
 ``@analysis_pass(...)`` (or ``register_pass``) under a contract:
@@ -36,6 +35,11 @@ isolation.  Eager frames pass through as they are.
 A pass that raises is a warning (``print_warning``, which the run's
 telemetry counts) and a ``failed`` entry in the run manifest's
 ``meta.passes`` ledger; the other passes and analyze go on.
+A ``live`` epoch re-runs only the passes ``select_for_dirty`` picks from
+the same declarations: those reading a frame that changed, and every pass
+consuming their features, transitively.  The rest are ``skipped`` as
+"inputs unchanged (live incremental)".
+
 ``sofa_passes`` (the ``passes`` verb) prints the schedule, the contracts
 and the last run's statuses and timings.
 """
@@ -293,6 +297,27 @@ def resolve_schedule(specs: List[PassSpec], strict: bool = False,
     return waves
 
 
+def select_for_dirty(cfg, dirty_frames) -> set:
+    """The passes a ``live`` epoch re-runs: every enabled pass whose
+    ``reads_frames`` names a dirty frame, closed over the dependency graph
+    the scheduler uses (feature reads and ``after`` edges), so that a pass
+    consuming a re-run pass's features re-runs too."""
+    dirty = set(dirty_frames)
+    specs = [s for s in registered() if s.enabled(cfg)]
+    consumers: Dict[str, set] = {s.name: set() for s in specs}
+    for name, producers in pass_dependencies(specs).items():
+        for p in producers:
+            consumers[p].add(name)
+    selected = {s.name for s in specs if set(s.reads_frames) & dirty}
+    frontier = list(selected)
+    while frontier:
+        for c in consumers[frontier.pop()]:
+            if c not in selected:
+                selected.add(c)
+                frontier.append(c)
+    return selected
+
+
 # --- deterministic feature views --------------------------------------------
 
 class _PassFeatures:
@@ -338,7 +363,7 @@ class _PassFeatures:
 # --- execution --------------------------------------------------------------
 
 def run_passes(frames, cfg, features: Features, tel=None,
-               jobs: Optional[int] = None):
+               jobs: Optional[int] = None, select=None):
     """Run every registered, enabled pass on the declared schedule, wave
     by wave on the ``--jobs`` pool, and merge their features into
     ``features`` in canonical order.  Returns ``(ledger, series)``: the
@@ -346,7 +371,9 @@ def run_passes(frames, cfg, features: Features, tel=None,
     status, origin, wave, wall_s, error or skip_reason) and the board
     series that series-providing passes returned, in canonical order.  A
     pass that raises is warned about and marked ``failed``; the rest
-    run."""
+    run.  ``select`` (pass names, None for all) is a ``live`` epoch's
+    window: an enabled pass outside it is ``skipped``, its inputs
+    unchanged, and its previous features are the caller's to carry."""
     from sofa_tpu_torch import pool, telemetry
     from sofa_tpu_torch.frames import ProjectionPool
 
@@ -361,6 +388,13 @@ def run_passes(frames, cfg, features: Features, tel=None,
                 "status": "skipped", "origin": s.origin,
                 "skip_reason": "/".join(s.enabled_when) + " off",
             }
+    if select is not None:
+        for s in enabled:
+            if s.name not in select:
+                report[s.name] = {
+                    "status": "skipped", "origin": s.origin,
+                    "skip_reason": "inputs unchanged (live incremental)"}
+        enabled = [s for s in enabled if s.name in select]
     waves = resolve_schedule(enabled)
     rank = {s.name: (s.order, s.seq) for s in enabled}
     wave_of = {s.name: i for i, wave in enumerate(waves) for s in wave}

@@ -636,3 +636,62 @@ function drawBars(canvas, labels, values, color) {
     ctx.fillText(fmt(values[i]), left + (W - left - 60) * (values[i] / max) + 4, y + barH * 0.7);
   });
 }
+
+/* ---------- live polling (`live`) ---------- */
+/* Polls run_manifest.json's meta.live (rewritten by tmp+rename every live
+ * epoch) and fetches report.js again when the epoch moves, so that the
+ * timeline grows while the job runs.  A read during an epoch sees the last
+ * committed generation.  Polling stops once the stream is drained (active
+ * false) or when the logdir has no live section. */
+function initLivePoll(onUpdate, intervalMs) {
+  let epoch = null;
+  let stopped = false;
+  const refetch = async (live) => {
+    const rep = await fetch("report.js", { cache: "no-cache" });
+    if (!rep.ok) return;
+    const text = await rep.text();
+    const payload = JSON.parse(
+      text.slice(text.indexOf("=") + 1).trim().replace(/;+$/, ""));
+    epoch = live.epoch;
+    onUpdate(payload, live);
+  };
+  const tick = async () => {
+    if (stopped) return;
+    try {
+      const resp = await fetch("run_manifest.json", { cache: "no-cache" });
+      if (!resp.ok) return;
+      const doc = await resp.json();
+      const live = (doc.meta || {}).live;
+      if (!live) { stopped = epoch !== null; return; }
+      if (!live.active) {
+        if (epoch !== null && live.epoch !== epoch) await refetch(live);
+        stopped = true;
+        return;
+      }
+      if (live.epoch !== epoch) await refetch(live);
+    } catch (e) {
+      /* a poll racing an epoch tries again on the next tick */
+    }
+  };
+  const timer = setInterval(() => {
+    if (stopped) { clearInterval(timer); return; }
+    tick();
+  }, intervalMs || 3000);
+  tick();
+  return timer;
+}
+
+function liveStatusText(live) {
+  if (!live) return "";
+  const srcs = live.sources || {};
+  let streaming = 0, stalled = 0;
+  for (const k in srcs) {
+    if (srcs[k].status === "streaming") streaming++;
+    if (srcs[k].status === "stalled") stalled++;
+  }
+  let txt = "LIVE epoch " + live.epoch + " · " + streaming + " streaming";
+  if (stalled) txt += " · " + stalled + " STALLED";
+  if (typeof live.watermark_s === "number")
+    txt += " · watermark " + fmt(live.watermark_s) + "s";
+  return txt;
+}

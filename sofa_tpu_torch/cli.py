@@ -42,6 +42,17 @@
   top         a live dashboard over a recording's samplers (each
               process's cards and memory, the host's CPU, network and
               disk), redrawn every --interval s; --once draws one frame
+  live        streaming ingest over a logdir the collectors still write:
+              every --live_interval_s seconds (default 2) an epoch tails
+              the raw files from the byte offsets of _live_offsets.json,
+              backs a torn last record off to the next epoch, parses each
+              new chunk once, and refreshes the frames, the tiles that
+              changed, the passes whose inputs changed and report.js, all
+              by tmp+rename; --live_epochs N stops after N epochs (0 =
+              until interrupted), --live_stall_s S flags a source quiet
+              for S seconds while another streams; --drain ends with the
+              batch preprocess + analyze, byte-identical to a batch run;
+              exits 0, 1 when a source is stalled, 2 without the logdir
   clean       remove the derived files, keep the raw ones
 
 analyze --enable_aisi finds the iterations (--iterations_from
@@ -50,7 +61,7 @@ auto|steps|marker|op, --num_iterations) and writes iterations.csv;
 --num_swarms swarms (auto_caption.csv, swarms_report.csv).
 
 report, analyze, viz, status, passes, resume, fsck, diff, whatif, export,
-top and clean run on the host only: they never touch a GPU.
+top, live and clean run on the host only: they never touch a GPU.
 
 --trace_format csv|parquet|columnar (or SOFA_TRACE_FORMAT) picks how
 preprocess writes the frames; the default, columnar, is the chunked Arrow
@@ -81,9 +92,9 @@ from sofa_tpu_torch.config import Filter, SofaConfig
 
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
          "status", "passes", "resume", "fsck", "diff", "whatif", "export",
-         "top", "clean")
+         "top", "live", "clean")
 # Verbs whose positional argument is the logdir.
-LOGDIR_VERBS = ("status", "passes", "resume", "fsck", "whatif")
+LOGDIR_VERBS = ("status", "passes", "resume", "fsck", "whatif", "live")
 
 # Flags that map 1:1 onto SofaConfig fields.
 _FIELDS = (
@@ -100,7 +111,8 @@ _FIELDS = (
     "tile_levels", "is_idle_threshold", "hint_server", "plugins",
     "trace_format", "num_iterations", "num_swarms", "enable_aisi",
     "enable_hsg", "enable_swarms", "iterations_from", "base_logdir",
-    "match_logdir", "whatif_apply",
+    "match_logdir", "whatif_apply", "live_interval_s", "live_epochs",
+    "live_stall_s",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
@@ -120,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("verb", choices=VERBS)
     p.add_argument("command", nargs="?", default=None,
                    help="shell command to profile (record, stat); the "
-                   "logdir for status, passes, resume, fsck and whatif")
+                   "logdir for status, passes, resume, fsck, whatif and "
+                   "live")
     p.add_argument("--logdir")
     p.add_argument("--config",
                    help="TOML file of config fields; flags override it")
@@ -262,6 +275,20 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--once", action="store_true",
                    help="top: draw one frame and exit")
 
+    g = p.add_argument_group("live")
+    g.add_argument("--live_interval_s", type=float,
+                   help="live: seconds between epochs (default 2)")
+    g.add_argument("--live_epochs", type=int,
+                   help="live: run exactly N epochs, then exit (default 0: "
+                   "until interrupted)")
+    g.add_argument("--live_stall_s", type=float,
+                   help="live: a source that stops growing this long while "
+                   "another streams is `stalled` (default 30; 0 = never)")
+    g.add_argument("--drain", action="store_true",
+                   help="live: after the epochs (at once with no epoch "
+                   "budget), the batch preprocess + analyze, so that every "
+                   "output equals a batch run's")
+
     g = p.add_argument_group("fsck")
     g.add_argument("--repair", action="store_true",
                    help="fsck: invalidate the damaged cache, tile and chunk "
@@ -364,6 +391,10 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     if verb == "clean":
         sofa_clean(cfg)
         return 0
+    if verb == "live":
+        from sofa_tpu_torch.live import sofa_live
+
+        return sofa_live(cfg, drain=getattr(args, "drain", False))
     if verb == "diff":
         if not (cfg.base_logdir and cfg.match_logdir):
             from sofa_tpu_torch.printing import print_error

@@ -163,6 +163,14 @@ class SofaConfig:
     match_logdir: Optional[str] = None
     whatif_apply: str = ""           # --apply: comma-joined scenario specs
 
+    # --- live (live.py) -------------------------------------------------------
+    live_interval_s: float = 2.0     # seconds between epochs
+    live_epochs: int = 0             # run exactly N epochs (0 = until
+                                     # interrupted)
+    live_stall_s: float = 30.0       # a source quiet this long while
+                                     # another streams is `stalled` (0 =
+                                     # never)
+
     # --- the board ----------------------------------------------------------
     viz_downsample_to: int = 10000   # points per series in report.js
     enable_tiles: bool = True        # the deep-zoom tile pyramid (--no_tiles)

@@ -34,8 +34,9 @@ root this package cannot check yet); ``resume`` 0 replayed or nothing to
 do.
 
 ``resume`` replays the ``whatif`` stage too (with the ``--apply`` its
-begin entry names).  The archive and ``live`` stages, and ``fsck`` over an
-archive or fleet root, come with those modules.
+begin entry names), and a ``live`` epoch that began and never committed,
+as exactly one epoch.  The archive stage, and ``fsck`` over an archive or
+fleet root, come with those modules.
 """
 
 from __future__ import annotations
@@ -529,7 +530,7 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
 
 # Journal stages that the JAX package's modules of the same names write;
 # this package has none of them yet.
-UNPORTED_STAGES = ("archive", "live")
+UNPORTED_STAGES = ("archive",)
 
 
 def sofa_resume(cfg) -> int:
@@ -574,7 +575,12 @@ def sofa_resume(cfg) -> int:
     wi = state.get("whatif")
     need_wi = wi is not None and (not wi["committed"] or need_pre
                                   or need_an)
-    if not (need_pre or need_an or need_wi):
+    lv = state.get("live")
+    # a committed epoch whose key moved on is the job appending: the next
+    # epoch's business; only an epoch that began and never committed
+    # replays, as exactly one epoch
+    need_lv = lv is not None and not lv["committed"]
+    if not (need_pre or need_an or need_wi or need_lv):
         print_progress("resume: every journaled stage is committed and "
                        "matches the raw files — nothing to replay")
         return 0
@@ -608,5 +614,13 @@ def sofa_resume(cfg) -> int:
         print_progress("resume: replaying whatif "
                        f"(--apply {cfg.whatif_apply or '<identity>'})")
         sofa_whatif(cfg)
+    if need_lv:
+        # committed chunks load from the chunk store; the uncommitted tail
+        # is tailed again from the ledger's last committed offsets
+        from sofa_tpu_torch.live import sofa_live
+
+        print_progress("resume: replaying the interrupted live epoch "
+                       "(committed chunks load from the chunk store)")
+        sofa_live(cfg, epochs=1)
     print_progress("resume: journal replay complete")
     return 0

@@ -1,6 +1,6 @@
 """Fault injection: the record and ingest degradation paths, on demand
-(the JAX package's ``sofa_tpu/faults.py:1-158, 159-531, 609-623``, the
-record and ingest kinds).
+(the JAX package's ``sofa_tpu/faults.py:1-158, 159-531, 597-623``, the
+record, ingest and stream kinds).
 
     SOFA_FAULTS='procmon:die@2s,kineto:wedge@harvest,vmstat:fail@start'
     python -m sofa_tpu_torch record "python train.py" \
@@ -23,10 +23,19 @@ Grammar (comma-joined entries)::
                       which drives the quarantine path
     when   = "start" | "stop" | "harvest" | <float>"s" (die delay)
 
-The JAX package's network, tier and stream kinds (``conn_refused``,
-``worker_die``, ``tail_torn``, ...) drive its archive, fleet and live
-modules, which this package does not have yet: a spec naming one is a
-usage error that says so.
+The stream kinds act on a source ``live`` tails (strace, pystacks,
+cpuinfo, gpumon), in one epoch (``@<n>``, 1-based, default 1) or in every
+one (``@always``):
+
+    tail_truncate  the epoch reads only half of the new bytes
+    tail_torn      the read is cut mid-record: the torn tail waits
+    rotate         the source is treated as rotated: re-read from byte 0
+    stall          the source freezes for the epoch
+
+The JAX package's network and tier kinds (``conn_refused``,
+``worker_die``, ..., and ``stall`` against the ``service`` target) drive
+its archive and fleet modules, which this package does not have yet: a
+spec naming one is a usage error that says so.
 
 Without a plan every hook returns at once.  ``record`` and ``preprocess``
 install the plan from ``cfg.inject_faults`` (else ``SOFA_FAULTS``) and
@@ -42,15 +51,18 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-KINDS = ("die", "wedge", "fail", "truncate", "corrupt")
+# The kinds the ``live`` tailer applies to a source (live.py).
+STREAM_KINDS = ("tail_truncate", "tail_torn", "rotate", "stall")
+KINDS = ("die", "wedge", "fail", "truncate", "corrupt") + STREAM_KINDS
 # The JAX package's kinds whose consumers this package lacks, by module.
+# ``stall`` is one of them only against the ``service`` target: against
+# any other it is a stream kind, as the JAX grammar decides.
 UNPORTED_KINDS = {
     "conn_refused": "archive", "conn_reset": "archive", "http_500": "archive",
     "partial": "archive", "worker_die": "fleet", "replica_stale": "fleet",
     "slo_breach": "fleet", "scrape_stall": "fleet", "disk_full": "fleet",
-    "tail_truncate": "live", "tail_torn": "live", "rotate": "live",
-    "stall": "archive or live",
 }
+UNPORTED_SERVICE_STALL = "archive"
 PHASES = ("start", "stop", "harvest")
 
 ALIASES = {"pcap": "nettrace"}
@@ -75,6 +87,8 @@ class FaultSpec:
     kind: str
     phase: Optional[str] = None      # start|stop|harvest (fail/wedge/truncate)
     delay_s: Optional[float] = None  # die only
+    when: Optional[str] = None       # stream kinds: "always" or None
+    epoch: Optional[int] = None      # stream kinds: the 1-based live epoch
 
     def fires_at(self, phase: str) -> bool:
         return (self.phase or DEFAULT_PHASE.get(self.kind)) == phase
@@ -99,6 +113,16 @@ class FaultPlan:
     def corrupt_for(self, source: str) -> Optional[FaultSpec]:
         return self.find(source, "corrupt")
 
+    def stream_fault(self, source: str, epoch: int) -> Optional[FaultSpec]:
+        """The stream fault to apply to ``source`` in live epoch ``epoch``
+        (1-based): a spec fires in its declared epoch (default 1), or in
+        every one with ``@always``."""
+        for s in self._by_target.get(source, ()):
+            if s.kind in STREAM_KINDS and (
+                    s.when == "always" or (s.epoch or 1) == epoch):
+                return s
+        return None
+
 
 def parse(text: str) -> FaultPlan:
     """Parse a spec string; raises ValueError naming the bad entry."""
@@ -111,14 +135,19 @@ def parse(text: str) -> FaultPlan:
             raise ValueError(
                 f"fault entry {entry!r}: expected <target>:<kind>[@<when>]")
         kind, _, when = rest.partition("@")
-        if kind in UNPORTED_KINDS:
+        module = (UNPORTED_SERVICE_STALL if kind == "stall"
+                  and target == "service" else UNPORTED_KINDS.get(kind))
+        if module is not None:
             raise ValueError(
                 f"fault entry {entry!r}: kind {kind!r} drives the "
-                f"{UNPORTED_KINDS[kind]} module, which sofa_tpu_torch does "
-                f"not have yet; this package takes {KINDS}")
+                f"{module} module, which sofa_tpu_torch does not have yet; "
+                f"this package takes {KINDS}")
         if kind not in KINDS:
             raise ValueError(
                 f"fault entry {entry!r}: kind {kind!r} not in {KINDS}")
+        if kind in STREAM_KINDS:
+            specs.append(_parse_stream(entry, target, kind, when))
+            continue
         phase: Optional[str] = None
         delay: Optional[float] = None
         if when:
@@ -147,6 +176,25 @@ def parse(text: str) -> FaultPlan:
         specs.append(FaultSpec(target=ALIASES.get(target, target),
                                kind=kind, phase=phase, delay_s=delay))
     return FaultPlan(specs)
+
+
+def _parse_stream(entry: str, target: str, kind: str,
+                  when: str) -> FaultSpec:
+    """``<source>:<kind>[@<epoch>|@always]``; the epoch is 1-based."""
+    target = ALIASES.get(target, target)
+    if not when:
+        return FaultSpec(target=target, kind=kind)
+    if when == "always":
+        return FaultSpec(target=target, kind=kind, when="always")
+    try:
+        epoch = int(when)
+    except ValueError:
+        epoch = 0
+    if epoch < 1:
+        raise ValueError(
+            f"fault entry {entry!r}: stream kinds take a 1-based epoch "
+            "ordinal (e.g. tail_torn@2) or 'always'")
+    return FaultSpec(target=target, kind=kind, epoch=epoch)
 
 
 # --- the active plan ---------------------------------------------------------
@@ -220,6 +268,15 @@ def arm_die(col) -> None:
     t.daemon = True
     _TIMERS.append(t)
     t.start()
+
+
+def maybe_stream_fault(source: str, epoch: int) -> Optional[FaultSpec]:
+    """The live tailer's hook: the stream fault to apply to ``source`` in
+    epoch ``epoch``, or None."""
+    plan = _PLAN
+    if plan is None:
+        return None
+    return plan.stream_fault(source, epoch)
 
 
 def maybe_truncate(col) -> None:

@@ -1,6 +1,5 @@
 """Content-keyed ingest cache: parsed frames beside the logdir (the JAX
-package's ``sofa_tpu/ingest/cache.py:1-236``, without the chunk store its
-``live`` module uses).
+package's ``sofa_tpu/ingest/cache.py``).
 
 A source's frames are a pure function of its raw files' bytes, its parser
 and the parameters that shape the output, so each source's frames are
@@ -17,6 +16,12 @@ On a key match the cached frames load instead of a reparse: parquet, or
 pickle where pyarrow is missing (``stats()["formats"]`` says which).  Any
 mismatch reparses and overwrites.  ``--no_ingest_cache`` bypasses reads
 and writes; ``clean`` removes the directory.
+
+``ChunkStore`` keys the same cache by byte range for ``live`` (``live.py``):
+a growing raw file would flip its whole-source key on every append, so each
+committed ``[start, end)`` range of a tailed source is parsed once, stored
+under ``_live_chunks/<source>/<start>-<end>`` and loaded by every later
+epoch and every replay.
 """
 
 from __future__ import annotations
@@ -173,6 +178,10 @@ class IngestCache:
             "formats": dict(self.formats),
         }
 
+    def chunks(self) -> "ChunkStore":
+        """The chunk store ``live`` tails into, enabled as this cache is."""
+        return ChunkStore(self.root, enabled=self.enabled)
+
     def store(self, source: str, key: dict,
               frames: Dict[str, pd.DataFrame],
               meta: Optional[dict] = None) -> None:
@@ -217,3 +226,96 @@ class IngestCache:
                 json.dump(doc, f)
         except OSError:
             pass
+
+
+CHUNK_DIR_NAME = "_live_chunks"
+
+
+class ChunkStore:
+    """The parsed frames of committed byte ranges, under
+    ``_ingest_cache/_live_chunks/<source>/``.  Each chunk is written by
+    tmp+rename and named by its range, so a replayed epoch overwrites its
+    own half-written chunk; the offset ledger (``live.OffsetLedger``) is
+    the commit point, and a chunk it does not name is simply parsed
+    again.  A chunk that cannot be read is a miss."""
+
+    def __init__(self, root: str, enabled: bool = True):
+        self.root = os.path.join(root, CHUNK_DIR_NAME)
+        self.enabled = enabled
+
+    def _path(self, source: str, start: int, end: int, ext: str) -> str:
+        return os.path.join(self.root, source,
+                            f"{int(start):012d}-{int(end):012d}{ext}")
+
+    def store(self, source: str, start: int, end: int,
+              df: pd.DataFrame) -> bool:
+        """Persist one chunk's frame; best effort (an unwritable logdir
+        costs a reparse of the chunk next epoch, never a failed epoch)."""
+        if not self.enabled:
+            return False
+        from sofa_tpu_torch.trace import atomic_replace
+
+        pq = self._path(source, start, end, ".parquet")
+        pk = self._path(source, start, end, ".pkl")
+        try:
+            os.makedirs(os.path.dirname(pq), exist_ok=True)
+            try:
+                with atomic_replace(pq) as tmp:
+                    df.to_parquet(tmp, index=False)
+                with contextlib.suppress(OSError):
+                    os.unlink(pk)
+            except Exception as e:  # noqa: BLE001 - no pyarrow: pickle
+                print_info(f"live chunk cache: parquet store of "
+                           f"{source}[{start}:{end}] failed ({e!r}); "
+                           "using pickle")
+                with atomic_replace(pk) as tmp:
+                    df.to_pickle(tmp)
+            return True
+        except OSError:
+            return False
+
+    def load(self, source: str, start: int,
+             end: int) -> Optional[pd.DataFrame]:
+        """A committed chunk's frame, or None (the caller parses the range
+        again)."""
+        if not self.enabled:
+            return None
+        from sofa_tpu_torch.trace import _conform
+
+        pq = self._path(source, start, end, ".parquet")
+        pk = self._path(source, start, end, ".pkl")
+        try:
+            if os.path.isfile(pq):
+                return _conform(pd.read_parquet(pq))
+            if os.path.isfile(pk):
+                return _conform(pd.read_pickle(pk))
+        except Exception as e:  # noqa: BLE001 - a corrupt chunk is a miss
+            print_warning(f"live chunk cache: unreadable chunk "
+                          f"{source}[{start}:{end}] ({e!r}); reparsing")
+        return None
+
+    def discard(self, source: str, start: int, end: int) -> None:
+        """Remove one chunk (a compaction superseded it)."""
+        for ext in (".parquet", ".pkl"):
+            with contextlib.suppress(OSError):
+                os.unlink(self._path(source, start, end, ext))
+
+    def drop(self, source: str) -> None:
+        """Forget every chunk of a source (a rotation, a vanished file)."""
+        import shutil
+
+        shutil.rmtree(os.path.join(self.root, source), ignore_errors=True)
+
+    def rename(self, old: str, new: str) -> bool:
+        """Move a source's chunks to a new name (a raw file renamed while
+        it was written); False when there was nothing to move or the move
+        failed."""
+        src = os.path.join(self.root, old)
+        if not os.path.isdir(src):
+            return False
+        self.drop(new)
+        try:
+            os.replace(src, os.path.join(self.root, new))
+            return True
+        except OSError:
+            return False

@@ -76,12 +76,22 @@ def gpumon_files(logdir: str):
 
 
 def ingest_gpumon(logdir: str, time_base: float = 0.0) -> pd.DataFrame:
-    frames = []
+    parts = []
     for path in gpumon_files(logdir):
-        if not os.path.isfile(path):
-            continue
-        with open(path) as f:
-            df = parse_gpumon(f.read(), time_base)
+        if os.path.isfile(path):
+            with open(path) as f:
+                parts.append((path, parse_gpumon(f.read(), time_base)))
+    return combine_gpumon(parts)
+
+
+def combine_gpumon(parts) -> pd.DataFrame:
+    """The gpumon frame from each file's parsed rows, ``(path, df)`` in
+    ``gpumon_files`` order: a rank file naming one card renumbers it to
+    the rank (a decision over the whole file, so ``live``, which tails
+    each file as its own source, renumbers here too), then the files merge
+    by time."""
+    frames = []
+    for path, df in parts:
         m = RANK_FILE_RE.search(path)
         if m and not df.empty:
             cards = df.loc[df["deviceId"] >= 0, "deviceId"].unique()

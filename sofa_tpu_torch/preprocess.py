@@ -34,6 +34,10 @@ board's timeline series (``build_series``), their deep-zoom tile pyramid
 run journal's ``begin`` and ``commit`` bracket the verb, and the digests
 are refreshed once the guard is released (``durability.py``; the JAX
 package's ``preprocess.py:474-650``).
+
+``live`` (``live.py``) runs the same ingest over the sources it does not
+tail (``_run_ingest(only=...)``) and assembles its frames through the same
+``assemble_frames``.
 """
 
 from __future__ import annotations
@@ -314,10 +318,14 @@ def _frame_rows(frames: Dict[str, pd.DataFrame]) -> int:
     return int(sum(len(df) for df in frames.values() if df is not None))
 
 
-def _run_ingest(cfg: SofaConfig, time_base: float, jobs: int, tel):
-    """Cache or parse every source -> (tasks, {name: (frames, error)},
-    cache), with one manifest entry per source."""
+def _run_ingest(cfg: SofaConfig, time_base: float, jobs: int, tel,
+                only=None):
+    """Cache or parse every source (``only`` these names, else all) ->
+    (tasks, {name: (frames, error)}, cache), with one manifest entry per
+    source.  ``live`` passes the sources it does not tail."""
     tasks = _ingest_tasks(cfg, time_base)
+    if only is not None:
+        tasks = [t for t in tasks if t.name in only]
     cache = IngestCache(cfg.path(CACHE_DIR_NAME), enabled=cfg.ingest_cache)
     keys = {t.name: make_key(t.name, t.raw_paths, t.params) for t in tasks}
     plan = faults.active()
@@ -471,19 +479,13 @@ def write_frames(cfg: SofaConfig, frames: Dict[str, pd.DataFrame],
                                if s is None and fmt == "columnar")}
 
 
-def _preprocess_body(cfg: SofaConfig, tel, fmt: str
-                     ) -> Dict[str, pd.DataFrame]:
-    from sofa_tpu_torch.collectors.kineto import merge_rank_topology
-
-    time_base = read_time_base(cfg)
-    merge_rank_topology(cfg.logdir)     # the ranks' records, before peaks
-    jobs = pool.cfg_jobs(cfg)
-    tel.set_meta(pool={"jobs": jobs, "cpu_count": os.cpu_count() or 1})
-    with tel.span("ingest", cat="stage"):
-        tasks, results, cache = _run_ingest(cfg, time_base, jobs, tel)
-    # The manual clock fixes (--cpu_time_offset_ms, --gpu_time_offset_ms)
-    # shift the frames after the cache: the cache holds them unshifted, so
-    # a changed offset is applied to a warm run too.
+def assemble_frames(cfg: SofaConfig, tasks, results
+                    ) -> Dict[str, pd.DataFrame]:
+    """The ingest results -> {frame name: df} in the task table's order,
+    shifted by the manual clock fixes (--cpu_time_offset_ms,
+    --gpu_time_offset_ms).  They apply after the cache, which holds the
+    frames unshifted, so a changed offset reaches a warm run too.  Batch
+    and ``live`` both assemble through here."""
     cpu_off = cfg.cpu_time_offset_ms / 1e3
     gpu_off = cfg.gpu_time_offset_ms / 1e3
     frames: Dict[str, pd.DataFrame] = {}
@@ -498,6 +500,20 @@ def _preprocess_body(cfg: SofaConfig, tel, fmt: str
             if shift and not df.empty:
                 df = df.assign(timestamp=df["timestamp"] + shift)
             frames[name] = df
+    return frames
+
+
+def _preprocess_body(cfg: SofaConfig, tel, fmt: str
+                     ) -> Dict[str, pd.DataFrame]:
+    from sofa_tpu_torch.collectors.kineto import merge_rank_topology
+
+    time_base = read_time_base(cfg)
+    merge_rank_topology(cfg.logdir)     # the ranks' records, before peaks
+    jobs = pool.cfg_jobs(cfg)
+    tel.set_meta(pool={"jobs": jobs, "cpu_count": os.cpu_count() or 1})
+    with tel.span("ingest", cat="stage"):
+        tasks, results, cache = _run_ingest(cfg, time_base, jobs, tel)
+    frames = assemble_frames(cfg, tasks, results)
     with derived_write_guard(cfg.logdir):
         t0, t0_unix = time.perf_counter(), time.time()
         tel.set_meta(frames=write_frames(cfg, frames, fmt, jobs))
@@ -581,6 +597,14 @@ def _gpu_meta(cfg: SofaConfig):
         return None
 
 
+def report_meta(cfg: SofaConfig, time_base: float) -> dict:
+    """report.js's ``meta``, before the tile manifest."""
+    return {"elapsed_time": float(read_misc(cfg).get("elapsed_time", 0)
+                                  or 0),
+            "time_base": time_base, "gpu_meta": _gpu_meta(cfg),
+            "logdir": cfg.logdir}
+
+
 def write_board_data(cfg: SofaConfig, frames: Dict[str, pd.DataFrame],
                      time_base: float, tel=None) -> None:
     """The series, their tile pyramid (a failure costs the deep zoom only)
@@ -599,9 +623,7 @@ def write_board_data(cfg: SofaConfig, frames: Dict[str, pd.DataFrame],
             print_warning(f"preprocess: tile pyramid failed ({e!r}); the "
                           "board serves the overview only")
     t2 = time.perf_counter()
-    meta = {"elapsed_time": float(read_misc(cfg).get("elapsed_time", 0) or 0),
-            "time_base": time_base, "gpu_meta": _gpu_meta(cfg),
-            "logdir": cfg.logdir}
+    meta = report_meta(cfg, time_base)
     if manifest is not None:
         meta["tiles"] = manifest
     path = cfg.path("report.js")

@@ -112,6 +112,8 @@ ANALYSIS_FILES = (
     "docker.cid",
     # the run journal and the digests (durability.py)
     "_journal.jsonl", "_digests.json",
+    # live's offset ledger (live.py); its chunks are in _ingest_cache
+    "_live_offsets.json",
 )
 # What the mining passes and the verbs beyond the report write (ml/,
 # whatif/, export): derived too, removed by clean; status names the ones
@@ -127,12 +129,14 @@ VERB_FILES = (
 DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine", "sofa_hints",
                 "_frames")
 # Never digested: the ledgers themselves (they change on every write,
-# fsck's own included), the live sentinel and scratch; the ingest cache,
+# fsck's own included, and every live epoch rewrites its offset ledger),
+# the live sentinel and scratch; the ingest cache,
 # the quarantine and the injection directory; and the chunk store, whose
 # chunks its own index hashes (fsck re-hashes them, frames.py).
 DIGEST_SKIP_FILES = frozenset({
     "_digests.json", "_journal.jsonl", "run_manifest.json",
     "sofa_self_trace.json", "_derived.writing", "docker.cid",
+    "_live_offsets.json",
 })
 DIGEST_SKIP_DIRS = frozenset({
     "_ingest_cache", "_quarantine", "_inject", "__pycache__", "_frames",
@@ -184,7 +188,8 @@ def sofa_clean(cfg: SofaConfig) -> int:
     """Remove the derived files (frame and analysis CSVs, report.js, the
     tile pyramid, the chunk store, the staged pages, hints.txt,
     features.csv, the run manifest and self trace, the journal and the
-    digests, the ingest cache, the quarantine) and every
+    digests, live's offset ledger, the ingest cache with live's chunks,
+    the quarantine) and every
     stray ``*.tmp`` under the logdir (an interrupted atomic write); keep
     the raw collector output and ``kineto/``.  Returns how many entries
     went."""

@@ -24,6 +24,10 @@ The poll period is 0.5 s, ``SOFA_SUPERVISOR_POLL_S`` to change it (at
 least 0.05).  ``record`` starts the supervisor after the collectors start
 and stops it before the epilogue, so that no restart races a deliberate
 stop.
+
+``GrowthWatermark`` is the same stall rule over byte counts, for the
+``live`` tailer (``live.py``): a source that stops growing while its
+siblings stream becomes ``stalled``.
 """
 
 from __future__ import annotations
@@ -268,3 +272,39 @@ class CollectorSupervisor:
                 "truncated": sorted(set(self._truncated)),
             }
 
+
+
+class GrowthWatermark:
+    """Per-key byte growth, the watchdog's output-stall rule for the
+    ``live`` tailer (the JAX package's ``sofa_tpu/supervisor.py:307-341``):
+    ``update(key, nbytes, now)`` returns ``"grew"`` when the size moved,
+    ``"quiet"`` inside the stall window and ``"stalled"`` once the key sat
+    unchanged for more than ``stall_s`` seconds (0 never stalls)."""
+
+    def __init__(self, stall_s: float):
+        self.stall_s = max(float(stall_s), 0.0)
+        self._last: dict = {}
+
+    def update(self, key: str, nbytes: int, now: float) -> str:
+        size, since = self._last.get(key, (None, now))
+        if size != nbytes:
+            self._last[key] = (nbytes, now)
+            return "grew"
+        self._last[key] = (size, since)
+        if self.stall_s and now - since > self.stall_s:
+            return "stalled"
+        return "quiet"
+
+    def to_doc(self) -> dict:
+        """The state the offset ledger keeps, so that a restarted ``live``
+        keeps its stall clocks."""
+        return {k: [v[0], round(v[1], 3)] for k, v in self._last.items()}
+
+    @classmethod
+    def from_doc(cls, stall_s: float, doc) -> "GrowthWatermark":
+        wm = cls(stall_s)
+        if isinstance(doc, dict):
+            for k, v in doc.items():
+                if isinstance(v, list) and len(v) == 2:
+                    wm._last[k] = (v[0], float(v[1]))
+        return wm

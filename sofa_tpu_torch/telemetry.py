@@ -47,8 +47,8 @@ one manifest, and a verb run again replaces its own sections only.  A
 manifest of another schema or version is replaced whole, never merged.
 ``status`` renders the manifest as a health table and exits 1 when a
 collector ended failed, killed, died, timed out or truncated by the disk
-budget, an analysis pass failed, or the last ``fsck`` found damage (2 when
-there is no manifest).
+budget, an analysis pass failed, the last ``fsck`` found damage, or a
+``live`` source stalled (2 when there is no manifest).
 """
 
 from __future__ import annotations
@@ -476,6 +476,13 @@ def manifest_warnings(doc: Optional[dict]) -> List[str]:
                 out.append(f"analysis pass {name} failed ({why}) — its "
                            "features and artifacts are missing this run; "
                            "`sofa passes` shows its contract")
+    live_meta = (doc.get("meta") or {}).get("live")
+    if isinstance(live_meta, dict):
+        for name, ent in sorted((live_meta.get("sources") or {}).items()):
+            if isinstance(ent, dict) and ent.get("status") == "stalled":
+                out.append(f"live source {name} stalled — it stopped "
+                           "growing while the other sources kept "
+                           "streaming; its series end early")
     fsck = (doc.get("meta") or {}).get("fsck")
     if isinstance(fsck, dict) and fsck.get("ok") is False:
         problems = fsck.get("problems") or {}
@@ -594,6 +601,22 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
             line += f", {n_skipped} skipped (gated off)"
         line += " (`sofa passes` shows the DAG)"
         lines.append(line)
+    live_meta = (doc.get("meta") or {}).get("live")
+    if isinstance(live_meta, dict):
+        srcs = [e for e in (live_meta.get("sources") or {}).values()
+                if isinstance(e, dict)]
+        n_stream = sum(1 for e in srcs if e.get("status") == "streaming")
+        n_stall = sum(1 for e in srcs if e.get("status") == "stalled")
+        line = (f"  live: epoch {live_meta.get('epoch')} "
+                f"{'active' if live_meta.get('active') else 'drained'}, "
+                f"{n_stream} source(s) streaming")
+        if n_stall:
+            line += f", {n_stall} STALLED"
+            rc = 1
+        wm = live_meta.get("watermark_s")
+        if isinstance(wm, (int, float)):
+            line += f", watermark {wm:.3f}s"
+        lines.append(line)
     whatif = (doc.get("meta") or {}).get("whatif")
     if isinstance(whatif, dict):
         pred = whatif.get("predicted_step_time_s")
@@ -669,8 +692,9 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
 
 def sofa_status(cfg) -> int:
     """The ``status`` verb: render the health ledger; exit 1 on a
-    collector in a terminal bad status, a failed analysis pass or damage
-    the last fsck found, 2 when there is no manifest."""
+    collector in a terminal bad status, a failed analysis pass, damage
+    the last fsck found or a stalled live source, 2 when there is no
+    manifest."""
     doc = load_manifest(cfg.logdir)
     if doc is None:
         print_error(f"no {MANIFEST_NAME} in {cfg.logdir} — run `record` / "
@@ -684,6 +708,7 @@ def sofa_status(cfg) -> int:
     print("\n".join(lines))
     if rc != 0:
         print_error("one or more collectors failed, died, timed out, or "
-                    "hit the disk budget, an analysis pass failed, or the "
-                    "last fsck found damage — see the report above")
+                    "hit the disk budget, an analysis pass failed, the "
+                    "last fsck found damage, or a live source stalled — "
+                    "see the report above")
     return rc

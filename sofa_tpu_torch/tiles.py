@@ -25,10 +25,20 @@ The per-series key signs the series' data and the pyramid's parameters, so
 a rebuild over unchanged frames writes nothing.  Series build on a small
 thread pool (json and gzip release the GIL); the bytes do not depend on
 the number of threads.
+
+``build_tiles_live`` refreshes the pyramids of a ``live`` epoch (the JAX
+package's ``tiles.py:498-659``): the grid is anchored at the series' first
+event over a power-of-two horizon, so appends land in the right-hand
+windows and only the tiles whose window reaches the new suffix are
+rewritten.  Its ``tile_index.json`` holds a ``live`` section (anchor,
+width, depth, committed rows, a sha of the committed prefix) and no batch
+``key``, so the next batch build rebuilds from scratch and converges to
+the batch bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import hashlib
 import json
@@ -112,12 +122,16 @@ def _series_key(df: pd.DataFrame, ycol: str, params: dict) -> str:
     return h.hexdigest()
 
 
-def _levels_for(xs: np.ndarray, cap: int) -> int:
+def _levels_for(xs: np.ndarray, cap: int, x0: Optional[float] = None,
+                width: Optional[float] = None) -> int:
     """The least depth whose leaves all hold <= TILE_RAW_MAX events (xs
-    sorted), at most ``cap``."""
+    sorted), at most ``cap``.  ``x0`` and ``width`` anchor the grid (a
+    live build's horizon); by default it spans the data."""
     n = len(xs)
-    x0 = float(xs[0])
-    width = (float(xs[-1]) - x0) or 1e-9
+    if x0 is None:
+        x0 = float(xs[0])
+    if width is None:
+        width = (float(xs[-1]) - x0) or 1e-9
     level = 0
     while level < cap - 1:
         nt = 1 << level
@@ -168,19 +182,27 @@ def _level_envelope(xs, ys, x0: float, width: float, nt: int):
 
 
 def _build_pyramid(sdir: str, xs, ys, ds, names: pd.Series,
-                   levels: int) -> dict:
+                   levels: int, x0: Optional[float] = None,
+                   width: Optional[float] = None,
+                   dirty_from: Optional[float] = None,
+                   stats: Optional[dict] = None) -> dict:
     """Write every tile of one series (xs sorted) under ``sdir``; returns
-    its manifest entry."""
+    its manifest entry.  ``x0`` and ``width`` anchor the grid (a live
+    build's horizon, so that appends never shift it); an occupied tile
+    whose window ends at or before ``dirty_from`` is kept on disk as it
+    is.  ``stats`` receives the tiles written and kept."""
     n = len(xs)
-    x0 = float(xs[0])
-    width = (float(xs[-1]) - x0) or 1e-9
+    if x0 is None:
+        x0 = float(xs[0])
+    if width is None:
+        width = (float(xs[-1]) - x0) or 1e-9
     # one string table per series; each tile ships its own slice of it
     codes, uniques = pd.factorize(names, use_na_sentinel=False)
     uniques = [str(u) for u in uniques]
     xi = np.round(xs / X_SCALE).astype(np.int64)
     yi = np.round(ys / Y_SCALE).astype(np.int64)
     di = np.round(ds / D_SCALE).astype(np.int64)
-    n_tiles = n_bytes = 0
+    n_tiles = n_bytes = wrote = kept = 0
     per_level: List[int] = []
     for level in range(levels):
         nt = 1 << level
@@ -202,6 +224,14 @@ def _build_pyramid(sdir: str, xs, ys, ds, names: pd.Series,
             occupied += 1
             tx0 = x0 + width * i / nt
             tw = width / nt
+            if dirty_from is not None and tx0 + tw <= dirty_from:
+                # every event of the window was committed by an earlier
+                # epoch: the file stands
+                kept += 1
+                with contextlib.suppress(OSError):
+                    n_bytes += os.path.getsize(
+                        os.path.join(ldir, f"{i}.json.gz"))
+                continue
             exact = leaf or (b - a) <= TILE_RAW_MAX
             doc = {"level": level, "n": i, "x0": round(tx0, 9),
                    "x1": round(tx0 + tw, 9), "count": b - a,
@@ -232,8 +262,11 @@ def _build_pyramid(sdir: str, xs, ys, ds, names: pd.Series,
             doc["names"] = [uniques[int(j)] for j in local]
             doc["ni"] = inv.tolist()
             n_bytes += _write_tile(os.path.join(ldir, f"{i}.json.gz"), doc)
+            wrote += 1
         per_level.append(occupied)
         n_tiles += occupied
+    if stats is not None:
+        stats["wrote"], stats["kept"] = wrote, kept
     return {"levels": levels, "x0": round(x0, 9),
             "x1": round(x0 + width, 9), "count": int(n),
             "tiles": per_level, "tile_count": n_tiles, "bytes": n_bytes}
@@ -378,3 +411,117 @@ def read_tile(logdir: str, series_path: str, level: int,
             return json.load(f)
     except (OSError, ValueError):
         return None
+
+
+# --- live builds --------------------------------------------------------------
+
+# The live horizon: the least power-of-two multiple of this many seconds
+# that covers PAD times the span seen so far.  Outgrowing it re-anchors (one
+# full rebuild, O(log n) of them over a run's life).
+LIVE_HORIZON_BASE_S = 1.0
+LIVE_HORIZON_PAD = 2.0
+
+
+def _live_horizon(span: float) -> float:
+    width = LIVE_HORIZON_BASE_S
+    target = max(span, 1e-3) * LIVE_HORIZON_PAD
+    while width < target:
+        width *= 2.0
+    return width
+
+
+def _prefix_sha(xs, ys, ds, names: pd.Series, rows: int) -> str:
+    """sha1 over the first ``rows`` sorted events: the committed prefix an
+    append build must find unchanged before it keeps old tiles."""
+    h = hashlib.sha1()
+    for a in (xs, ys, ds):
+        h.update(np.ascontiguousarray(a[:rows]).tobytes())
+    h.update(pd.util.hash_pandas_object(names.iloc[:rows], index=False)
+             .to_numpy().tobytes())
+    return h.hexdigest()
+
+
+def build_tiles_live(cfg, series, jobs: Optional[int] = None
+                     ) -> "tuple[dict, dict]":
+    """Refresh the pyramids of a live epoch.  Returns ``(manifest,
+    stats)``: report.js's ``meta.tiles`` as ``build_tiles`` gives it, and
+    the epoch's ``rebuilt`` tiles, ``kept`` tiles, ``unchanged_series``
+    (skipped whole) and ``full_rebuilds`` (a first build, a re-anchor, a
+    deeper pyramid or a changed prefix).  Pyramids are not pruned: a
+    series a live epoch does not see stays until the batch build."""
+    jobs = jobs or default_jobs()
+    cap = cfg.tile_levels if cfg.tile_levels > 0 else MAX_LEVELS
+    params = _tile_params(cap)
+    root = cfg.path(TILES_DIR_NAME)
+    work = [s for s in series if len(s.data) > int(cfg.viz_downsample_to)]
+
+    def build_one(s):
+        try:
+            dname = series_dir_name(s.name)
+            sdir = os.path.join(root, dname)
+            index_path = os.path.join(sdir, TILE_INDEX_NAME)
+            try:
+                with open(index_path) as f:
+                    index = json.load(f)
+            except (OSError, ValueError):
+                index = None
+            live = index.get("live") if isinstance(index, dict) else None
+            xs, ys, ds, names = _series_arrays(s)
+            n = len(xs)
+            mode, dirty_from = "full", None
+            if isinstance(live, dict) and live.get("params") == params:
+                dx0, dwidth = float(live["x0"]), float(live["width"])
+                levels = int(live["levels"])
+                rows = int(live.get("rows", 0))
+                if 0 < rows <= n and float(xs[0]) >= dx0 \
+                        and float(xs[-1]) < dx0 + dwidth \
+                        and _prefix_sha(xs, ys, ds, names, rows) \
+                        == live.get("prefix_sha"):
+                    if rows == n:
+                        mode = "unchanged"
+                    elif _levels_for(xs, cap, dx0, dwidth) <= levels:
+                        mode, dirty_from = "append", float(xs[rows])
+            if mode == "unchanged":
+                entry = dict(index.get("entry") or {})
+                entry["path"] = dname
+                return s.name, entry, {"kept": entry.get("tile_count", 0),
+                                       "wrote": 0, "unchanged": True}
+            if mode == "full":
+                dx0 = float(xs[0])
+                dwidth = _live_horizon(float(xs[-1]) - dx0)
+                levels = _levels_for(xs, cap, dx0, dwidth)
+                shutil.rmtree(sdir, ignore_errors=True)
+            os.makedirs(sdir, exist_ok=True)
+            stats: dict = {"full": mode == "full"}
+            entry = _build_pyramid(sdir, xs, ys, ds, names, levels,
+                                   x0=dx0, width=dwidth,
+                                   dirty_from=dirty_from, stats=stats)
+            live_doc = {"x0": dx0, "width": dwidth, "levels": levels,
+                        "rows": n,
+                        "prefix_sha": _prefix_sha(xs, ys, ds, names, n),
+                        "params": params}
+            # the commit point, as in the batch build; no batch key
+            with atomic_write(index_path, fsync=True) as f:
+                json.dump({"live": live_doc, "entry": entry}, f)
+            entry = dict(entry)
+            entry["path"] = dname
+            return s.name, entry, stats
+        except Exception as e:  # noqa: BLE001 - costs this series' zoom
+            print_warning(f"tiles: cannot live-build the pyramid of "
+                          f"{s.name}: {e!r}")
+            return None
+
+    built = [r for r in thread_map(build_one, work, jobs) if r is not None]
+    manifest: Dict[str, object] = {
+        "dir": TILES_DIR_NAME, "version": TILES_VERSION,
+        "raw_max": TILE_RAW_MAX,
+        "series": {name: entry for name, entry, _st in built}}
+    stats = {
+        "series": len(built),
+        "rebuilt": sum(st.get("wrote", 0) for _n, _e, st in built),
+        "kept": sum(st.get("kept", 0) for _n, _e, st in built),
+        "unchanged_series": sum(1 for _n, _e, st in built
+                                if st.get("unchanged")),
+        "full_rebuilds": sum(1 for _n, _e, st in built if st.get("full")),
+    }
+    return manifest, stats

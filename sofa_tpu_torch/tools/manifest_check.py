@@ -2,9 +2,12 @@
 ``tools/manifest_check.py``, for the sections this package writes: runs,
 env, collectors, sources, stages, ``digests``, ``meta.pool``,
 ``meta.ingest_cache``, ``meta.disk_budget``, ``meta.passes``,
-``meta.fsck``, ``meta.frames`` and ``meta.whatif``).  Given a logdir, it
-also validates every ``_frames/<name>/frame_index.json`` and the
-``whatif_report.json`` (``validate_whatif``) when there is one.
+``meta.fsck``, ``meta.frames``, ``meta.whatif`` and ``meta.live``).
+Given a logdir, it also validates every ``_frames/<name>/frame_index.json``,
+the ``whatif_report.json`` (``validate_whatif``) and ``live``'s offset
+ledger ``_live_offsets.json`` (``validate_live_offsets``) where they are.
+Under ``--require-healthy`` a stalled live source and an active stream
+whose ``updated_unix`` is older than ``_LIVE_STALE_S`` are problems.
 
     python -m sofa_tpu_torch.tools.manifest_check <logdir-or-manifest.json>
         [--require-healthy]
@@ -21,10 +24,13 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import List
 
 from sofa_tpu_torch.frames import (FRAME_INDEX_NAME, FRAME_INDEX_SCHEMA,
                                    FRAME_INDEX_VERSION, FRAMES_DIR_NAME)
+from sofa_tpu_torch.live import (LIVE_SOURCE_STATUSES, OFFSETS_NAME,
+                                 OFFSETS_SCHEMA, OFFSETS_VERSION)
 from sofa_tpu_torch.telemetry import (CACHE_OUTCOMES, COLLECTOR_STATUSES,
                                       MANIFEST_NAME, MANIFEST_SCHEMA,
                                       MANIFEST_VERSION, PASS_STATUSES,
@@ -38,6 +44,8 @@ _WHATIF_REPORT = "whatif_report.json"
 _WHATIF_CALIBRATION = ("calibrated", "uncalibrated")
 _WHATIF_SCENARIO_STATUSES = ("parsed", "unknown")
 _WHATIF_ATTRIBUTION_STATUSES = ("applied", "no_match", "unknown")
+# An active live stream whose last epoch is older than this is stale.
+_LIVE_STALE_S = 600.0
 
 
 def _is_num(v) -> bool:
@@ -442,6 +450,103 @@ def _check_meta(meta, probs: List[str]) -> None:
                              "object")
 
 
+def _check_live_meta(live, probs: List[str]) -> None:
+    """``meta.live``: the epoch, its stamp, the watermark, the no-reparse
+    counters and each source's status and offsets."""
+    if live is None:
+        return
+    if not isinstance(live, dict):
+        probs.append("meta.live: not an object")
+        return
+    if not isinstance(live.get("active"), bool):
+        probs.append("meta.live.active: missing or not a bool")
+    ep = live.get("epoch")
+    if not _is_count(ep) or ep < 1:
+        probs.append("meta.live.epoch: missing or not a positive int")
+    if not _is_num(live.get("updated_unix")):
+        probs.append("meta.live.updated_unix: missing or not a number")
+    wm = live.get("watermark_s")
+    if wm is not None and not _is_num(wm):
+        probs.append("meta.live.watermark_s: not a number or null")
+    for key in ("chunks_parsed", "chunks_loaded"):
+        if not _is_count(live.get(key)):
+            probs.append(f"meta.live.{key}: missing or not a non-negative "
+                         "int")
+    sources = live.get("sources")
+    if not isinstance(sources, dict):
+        probs.append("meta.live.sources: missing per-source map")
+        sources = {}
+    for name, ent in sorted(sources.items()):
+        where = f"meta.live.sources.{name}"
+        if not isinstance(ent, dict):
+            probs.append(f"{where}: not an object")
+            continue
+        if ent.get("status") not in LIVE_SOURCE_STATUSES:
+            probs.append(f"{where}.status: {ent.get('status')!r} not in "
+                         f"{LIVE_SOURCE_STATUSES}")
+        for key in ("offset", "lag_bytes", "chunks", "chunks_parsed",
+                    "chunks_loaded", "events"):
+            if not _is_count(ent.get(key)):
+                probs.append(f"{where}.{key}: missing or not a "
+                             "non-negative int")
+    tiles = live.get("tiles")
+    if tiles is not None and (not isinstance(tiles, dict) or any(
+            not _is_count(tiles.get(k))
+            for k in ("rebuilt", "kept", "full_rebuilds"))):
+        probs.append("meta.live.tiles: needs non-negative "
+                     "rebuilt/kept/full_rebuilds ints")
+
+
+def validate_live_offsets(doc) -> List[str]:
+    """Schema problems in ``live``'s offset ledger, the commit point of
+    its epochs: per source a non-negative offset and a gapless table of
+    ``[start, end, rows]`` chunks ending at it."""
+    if not isinstance(doc, dict):
+        return ["offset ledger is not a JSON object"]
+    probs: List[str] = []
+    if doc.get("schema") != OFFSETS_SCHEMA:
+        probs.append(f"schema: expected {OFFSETS_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != OFFSETS_VERSION:
+        probs.append(f"version: expected {OFFSETS_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not _is_count(doc.get("epoch")):
+        probs.append("epoch: missing or not a non-negative int")
+    sources = doc.get("sources")
+    if not isinstance(sources, dict):
+        probs.append("sources: missing per-source map")
+        sources = {}
+    for name, ent in sorted(sources.items()):
+        where = f"sources.{name}"
+        if not isinstance(ent, dict):
+            probs.append(f"{where}: not an object")
+            continue
+        off = ent.get("offset")
+        if not _is_count(off):
+            probs.append(f"{where}.offset: missing or not a non-negative "
+                         "int")
+        chunks = ent.get("chunks")
+        if not isinstance(chunks, list) or any(
+                not (isinstance(c, list) and len(c) == 3
+                     and all(isinstance(v, int) for v in c))
+                for c in chunks):
+            probs.append(f"{where}.chunks: not a list of [start, end, "
+                         "rows] triples")
+            continue
+        prev_end = None
+        for c in chunks:
+            if c[0] >= c[1]:
+                probs.append(f"{where}.chunks: empty/inverted range {c}")
+            if prev_end is not None and c[0] != prev_end:
+                probs.append(f"{where}.chunks: gap/overlap at {c} "
+                             f"(previous chunk ended at {prev_end})")
+            prev_end = c[1]
+        if chunks and _is_count(off) and chunks[-1][1] != off:
+            probs.append(f"{where}: offset {off} disagrees with the last "
+                         f"chunk end {chunks[-1][1]}")
+    return probs
+
+
 def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
     """Every schema problem found (an empty list: valid).  With
     ``require_healthy`` a collector in a terminal bad status, a
@@ -481,6 +586,7 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
         probs.append("meta: not an object")
         meta = {}
     _check_meta(meta, probs)
+    _check_live_meta(meta.get("live"), probs)
     _check_digests(doc.get("digests"), probs)
     stages = doc.get("stages", [])
     if not isinstance(stages, list):
@@ -526,6 +632,20 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
             probs.append("unhealthy: the what-if identity gate is "
                          "uncalibrated — the replay model does not "
                          "reproduce this run's measured step times")
+        live = meta.get("live")
+        if isinstance(live, dict):
+            for name, ent in sorted((live.get("sources") or {}).items()):
+                if isinstance(ent, dict) and ent.get("status") == "stalled":
+                    probs.append(f"unhealthy: live source {name} stalled — "
+                                 "it stopped growing while siblings kept "
+                                 "streaming")
+            upd = live.get("updated_unix")
+            if live.get("active") and _is_num(upd) \
+                    and time.time() - upd > _LIVE_STALE_S:
+                probs.append("unhealthy: meta.live says the stream is "
+                             "active but its last epoch is "
+                             f"{time.time() - upd:.0f} s old — is `live` "
+                             "still running?")
     return probs
 
 
@@ -549,6 +669,15 @@ def main(argv=None) -> int:
             if wdoc is not None:
                 probs += [f"{_WHATIF_REPORT}: {p}" for p in
                           validate_whatif(wdoc, args.require_healthy)]
+        ledger = os.path.join(path, OFFSETS_NAME)
+        if os.path.isfile(ledger):
+            try:
+                with open(ledger) as f:
+                    ldoc = json.load(f)
+                probs += [f"{OFFSETS_NAME}: {p}"
+                          for p in validate_live_offsets(ldoc)]
+            except (OSError, ValueError) as e:
+                probs.append(f"{OFFSETS_NAME}: unreadable ({e})")
         path = os.path.join(path, MANIFEST_NAME)
     try:
         with open(path) as f:

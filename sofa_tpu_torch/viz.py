@@ -11,6 +11,9 @@
   * 503 with ``Retry-After`` on data files while a pipeline verb holds the
     derived-write guard (``trace.derived_write_guard``): a board refresh
     racing ``preprocess`` is told to retry, never given a torn file.
+    ``live`` epochs never raise that guard: every live write is by
+    tmp+rename, so a request during an epoch gets the last committed
+    generation, and the board polls ``meta.live`` to grow the timeline.
 """
 
 from __future__ import annotations
@@ -201,6 +204,14 @@ def sofa_viz(cfg, serve_forever: bool = True):
     print_progress(
         f"serving {cfg.logdir} at http://{display_host(cfg.viz_bind)}:"
         f"{port}/ (Ctrl-C stops; bound to {cfg.viz_bind or 'all interfaces'})")
+    from sofa_tpu_torch.live import OFFSETS_NAME
+
+    if os.path.isfile(os.path.join(cfg.logdir, OFFSETS_NAME)):
+        print_progress(
+            "live stream: this logdir is (or was) fed by `live`; every live "
+            "write is atomic, so data requests get the last committed "
+            "epoch while one runs (no 503), and the board polls meta.live "
+            "to grow the timeline while the job runs")
     if not serve_forever:
         return httpd
     try:

@@ -61,6 +61,7 @@ NOT_FORWARDED = {
     "enable_aisi": "analyze", "enable_hsg": "analyze",
     "enable_swarms": "analyze", "iterations_from": "analyze",
     "base_logdir": "diff", "match_logdir": "diff", "whatif_apply": "whatif",
+    "live_interval_s": "live", "live_epochs": "live", "live_stall_s": "live",
 }
 # Values the type alone does not give (a choice, a spec).
 VALUES = {"perf_call_graph": "fp", "inject_faults": "procmon:die@2s",

@@ -92,8 +92,8 @@ def test_fault_specs_rejected_as_the_jax_package_does(bad):
 
 
 @pytest.mark.parametrize("spec", ["service:conn_refused", "service:partial@0.5",
-                                  "service:worker_die@2", "mpstat:tail_torn@2",
-                                  "mpstat:stall"])
+                                  "service:worker_die@2", "service:stall",
+                                  "service:http_500"])
 def test_unported_fault_kinds_are_usage_errors_that_say_so(spec):
     jax_faults.parse(spec)                  # the JAX package takes them
     with pytest.raises(ValueError, match="does not have yet"):
@@ -114,7 +114,7 @@ def test_bad_spec_is_a_usage_error(logdir, monkeypatch):
         sofa_record("true", cfg)
     assert faults.active() is None
     assert cli_main(["record", "--logdir", logdir, "--inject_faults",
-                     "procmon:tail_torn", "true"]) == 1
+                     "service:stall", "true"]) == 1
 
 
 # --- collector faults on a fake swarm -----------------------------------------

@@ -97,7 +97,8 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/export_perfetto.py", "sofa_tpu_torch/charts.py",
             "sofa_tpu_torch/top.py",
             "sofa_tpu_torch/workloads/moe.py",
-            "sofa_tpu_torch/workloads/pipeline.py"} <= rel
+            "sofa_tpu_torch/workloads/pipeline.py",
+            "sofa_tpu_torch/live.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -106,7 +107,7 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.analyze, sofa_tpu_torch.convert, "
             "sofa_tpu_torch.record, sofa_tpu_torch.preprocess, "
             "sofa_tpu_torch.ingest.memprof, sofa_tpu_torch.collectors.gpumon, "
-            "sofa_tpu_torch.api, sofa_tpu_torch.costs, "
+            "sofa_tpu_torch.api, sofa_tpu_torch.costs, sofa_tpu_torch.live, "
             "sofa_tpu_torch.analysis.device, sofa_tpu_torch.analysis.sol, "
             "sofa_tpu_torch.workloads.resnet, "
             "sofa_tpu_torch.tools.overhead_budget, sofa_tpu_torch.tiles, "
