@@ -8,11 +8,11 @@ ring, resnet); then three lanes run side by side, each a thread that runs
 its phases in order: (1) profile, cluster, mesh, tp, tp_serve: the card's
 Llama-width runs at batch 4 and the multi-rank ones, up to 43 GB of the
 card at a time; (2) live, serve, window, faults, ep_pp: its runs of at most
-21 GB; (3) robust, board, cache, verbs, live_drain: host only, over the
-captures the card made, each waiting for the phase of another lane whose
-capture it reads.  A failure
-anywhere raises and exits non-zero; a lane's failure stops every lane
-before its next phase.  The phases:
+21 GB; (3) robust, board, cache, verbs, archive, live_drain: host only,
+over the captures the card made, each waiting for the phase of another
+lane whose capture it reads.  A failure anywhere raises and exits
+non-zero; a lane's failure stops every lane before its next phase.  The
+phases:
 
   device   the card's name and power limit; builds the three CUDA kernels
            from the sources in the checkout (one nvcc each, all at once),
@@ -222,6 +222,26 @@ before its next phase.  The phases:
            name, the sampler's memory, a sample under 5 s old) and over
            the finished capture; (g) no unattributed-kernel hint on the
            level-2 Llama-width capture
+  archive  the trace archive and ``regress`` with no card visible over the
+           ResNet-50 (``report`` back to columnar first: ``cache`` left it
+           in csv) and Llama-width captures, into a fresh root, a line a
+           cell: (a) each ingested twice (the second: the same run id, 0
+           objects, 0 bytes, one more catalog line), each run doc holding
+           the gputrace chunks and the Kineto trace, ``archive show``
+           printing the gpu0_ features, ``archive ls`` 2 runs in 4 ingests;
+           (b) ``regress`` of the Llama-width run against itself (all
+           noise, rc 0), of the ResNet-50 run against it (a verdict the
+           port's validate_verdict accepts, rc 1 exactly when regressed),
+           ``--rolling 3`` (noise: too short a history; rc 0); (c) ``fsck``
+           of the root 0, then an object's byte flipped and 6 bytes written
+           into an index chunk's strings: ``fsck`` 1 naming both, ``fsck
+           --repair`` 0 (the object restored from its logdir, the index
+           rebuilt), ``fsck`` 0, the port's manifest_check accepting the
+           index; (d) the JAX chaos
+           matrix's kill-mid-archive cell over a copy of the Llama-width
+           capture: the ingest SIGKILLed at its 5th stored file, ``resume``
+           0, the uninterrupted run id in the catalog, the root's fsck
+           clean; prints the store's bytes and the ingest walls
 
   live     (a) ``record`` of the training ``main`` at Llama-3-8B width cut
            to 2 layers, batch 1 (LIVE_STEPS steps; its Kineto window
@@ -232,8 +252,9 @@ before its next phase.  The phases:
            streaming in 2 or more, the chunks parsed over all epochs equal
            to the chunks the ledger committed, chunks_loaded growing, the
            watermark never going back and ending within LIVE_WATERMARK_S of
-           the job's last gpumon sample, the first epoch after the capture
-           landed marking the Kineto frames dirty, each whole traced step
+           the job's last gpumon sample, the epoch in flight when the
+           capture landed or the first one after marking the Kineto frames
+           dirty, each whole traced step
            of its kernel frame holding 2 launches of each flash kernel,
            and an epoch with gpumon dirty and the Kineto frames clean
            skipping passes clean with fewer tiles rebuilt than kept;
@@ -362,6 +383,9 @@ LIVE_INTERVAL_S = 2.0
 # The pools of the epochs and of the drain cell's verbs: the lanes beside
 # them hold the host's 8 cores.
 LIVE_JOBS = 2
+# The archive phase's kill cell: the ingest of the Llama-width copy dies at
+# this stored file (the JAX chaos matrix draws 2..8).
+ARCHIVE_KILL_AT = 5
 # The last epoch's watermark against the job's last gpumon sample (s).
 LIVE_WATERMARK_S = 3.0
 # The drain cell's --viz_downsample_to: a pyramid on every large frame.
@@ -3592,6 +3616,287 @@ class Smoke:
                             by_op.head(5).items()))
 
     # -- the ring: four ranks' hops in lockstep on the one card -------------
+    # -- the archive ------------------------------------------------------------
+    def archive(self):
+        """The trace archive and ``regress`` over the ResNet-50 and
+        Llama-width captures (no card visible; the ResNet-50 one reported
+        back to the columnar store first), a line a cell: (a) each
+        ingested twice into a fresh root (the second: the same run id, no
+        object, no byte, one catalog line), each run doc holding the
+        gputrace chunks and the Kineto trace, ``archive show`` printing
+        the gpu0_ features, ``archive ls`` 2 runs in 4 ingests; (b)
+        ``regress`` of the Llama-width run against itself (all noise, rc
+        0), of the ResNet-50 run against it (a verdict the port's
+        validate_verdict accepts, rc 1 exactly when it is regressed), and
+        ``--rolling 3`` (noise: the history is short; rc 0); (c) ``fsck``
+        of the root 0, then an object's byte flipped and 6 bytes written
+        into an index chunk's strings: ``fsck`` 1 naming both, ``fsck
+        --repair`` 0, ``fsck`` 0, ``manifest_check`` accepting the index;
+        (d) an ingest of a copy of the Llama-width capture SIGKILLed at its
+        ARCHIVE_KILL_AT-th stored file, ``resume`` 0: the uninterrupted
+        run id in the catalog, the root's fsck clean."""
+        self.need("llama")
+        self.need("board")
+        t_phase = time.perf_counter()
+        build = os.path.join(REPO, "build")
+        caps = {"resnet": os.path.join(build, "chip_smoke_resnet_r1"),
+                "llama": os.path.join(build, "chip_smoke_profile_llama")}
+        root = os.path.join(build, "chip_smoke_archive")
+        shutil.rmtree(root, ignore_errors=True)
+        # the cache phase left the ResNet-50 capture's frames in csv: back
+        # to the default columnar store (warm), whose chunks get archived
+        out, wall = self.archive_cli("report resnet", "report", "--logdir",
+                                     caps["resnet"], "--jobs", "4")
+        if "Complete!!" not in out:
+            raise AssertionError(f"report resnet: {out[-2000:]}")
+        log(f"archive[report]: the ResNet-50 capture back to columnar in "
+            f"{wall:.1f} s | {self.smi}")
+        runs = {}
+        for cell in (self.archive_ingest, self.archive_regress,
+                     self.archive_fsck):
+            t0 = time.perf_counter()
+            line = cell(caps, root, runs)
+            log(f"archive[{cell.__name__[8:]}]: {line} "
+                f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
+        t0 = time.perf_counter()
+        line = self.archive_kill(caps["llama"], runs["llama"])
+        log(f"archive[kill]: {line} ({time.perf_counter() - t0:.1f} s) | "
+            f"{self.smi}")
+        log(f"archive: phase {time.perf_counter() - t_phase:.1f} s | "
+            f"{self.smi}")
+
+    def archive_cli(self, label, *argv, want=0):
+        """An archive verb with no card visible; raises unless it exits
+        ``want``; returns its output and wall seconds."""
+        r, wall = self.board_cli(*argv)
+        if r.returncode != want:
+            raise AssertionError(f"archive[{label}]: `{' '.join(argv)}` "
+                                 f"exited {r.returncode}, expected {want}: "
+                                 f"{(r.stdout + r.stderr)[-3000:]}")
+        return r.stdout + r.stderr, wall
+
+    def archive_ingest(self, caps, root, runs):
+        """(a) two ingests of each capture, the run docs, show and ls."""
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.archive import catalog
+        from sofa_tpu_torch.archive.store import ArchiveStore
+
+        store = ArchiveStore(root)
+        walls, parts = {}, []
+        for label, logdir in caps.items():
+            got = []
+            for i in range(2):
+                lines = len(catalog.read_catalog(root))
+                _out, wall = self.archive_cli(
+                    f"ingest {label}", "archive", logdir, "--archive_root",
+                    root, "--label", label)
+                walls[f"{label}{i + 1}"] = wall
+                meta = telemetry.load_manifest(logdir)["meta"]["archive"]
+                if len(catalog.read_catalog(root)) != lines + 1:
+                    raise AssertionError(f"{label}: the ingest did not add "
+                                         "one catalog line")
+                got.append(meta)
+            first, second = got
+            if second["run"] != first["run"] or second["new_objects"] \
+                    or second["bytes_added"] or not first["new_objects"]:
+                raise AssertionError(f"{label}: the second ingest is not "
+                                     f"a catalog line only: {got}")
+            runs[label] = first["run"]
+            files = store.load_run(first["run"])["files"]
+            chunks = [r for r in files
+                      if r.startswith("_frames/gputrace/")
+                      and r.endswith(".arrow")]
+            kineto = [r for r in files if r.startswith("kineto/")]
+            if not chunks or "_frames/gputrace/frame_index.json" not in \
+                    files or not kineto:
+                raise AssertionError(f"{label}: the run doc lacks the "
+                                     "gputrace chunks or the Kineto trace")
+            parts.append(
+                f"{label} run {first['run'][:12]}: {first['files']} files, "
+                f"{first['new_objects']} objects, {first['bytes_added']} "
+                f"bytes, then {second['new_objects']} objects and "
+                f"{second['bytes_added']} bytes; {len(chunks)} gputrace "
+                f"chunk(s), {len(kineto)} Kineto file(s)")
+        shown, _ = self.archive_cli("show", "archive", "show",
+                                    runs["llama"][:12], "--archive_root",
+                                    root)
+        gpu = [ln.split()[0] for ln in shown.splitlines()
+               if ln.strip().startswith("gpu0_")]
+        if not gpu:
+            raise AssertionError(f"show prints no gpu0_ feature: "
+                                 f"{shown[-2000:]}")
+        listed, _ = self.archive_cli("ls", "archive", "ls", "--archive_root",
+                                     root)
+        n_ingests = sum(1 for e in catalog.read_catalog(root)
+                        if e.get("ev") == "ingest")
+        if "2 run(s)" not in listed or n_ingests != 4:
+            raise AssertionError(f"ls: {listed[-2000:]} ({n_ingests} "
+                                 "ingests)")
+        store_bytes = sum(os.path.getsize(os.path.join(d, n))
+                          for d, _, ns in os.walk(root) for n in ns)
+        return ("; ".join(parts) + f"; show (llama): {len(gpu)} gpu0_ "
+                f"features; ls 2 runs in {n_ingests} ingests; "
+                f"store {store_bytes} bytes; ingest walls "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+
+    def archive_regress(self, caps, root, runs):
+        """(b) regress: the Llama-width run against itself, the ResNet-50
+        run against it, and a rolling baseline of 3."""
+        from sofa_tpu_torch.tools.manifest_check import validate_verdict
+
+        def verdict(label, want, *argv):
+            out, wall = self.archive_cli(label, "regress", *argv,
+                                         "--archive_root", root, want=want)
+            with open(os.path.join(root, "regress_verdict.json")) as f:
+                doc = json.load(f)
+            probs = validate_verdict(doc)
+            if probs:
+                raise AssertionError(f"regress {label}: {probs}")
+            return doc, wall
+
+        llama, resnet = runs["llama"][:12], runs["resnet"][:12]
+        same, same_s = verdict("self", 0, llama, llama)
+        if same["verdict"] != "noise" or any(
+                r["verdict"] != "noise" for r in same["features"]):
+            raise AssertionError(f"the run against itself: {same['counts']}")
+        r, cross_s = self.board_cli("regress", resnet, llama,
+                                    "--archive_root", root)
+        with open(os.path.join(root, "regress_verdict.json")) as f:
+            cross = json.load(f)
+        if validate_verdict(cross) or r.returncode != (
+                1 if cross["verdict"] == "regressed" else 0):
+            raise AssertionError(f"ResNet-50 against Llama: rc "
+                                 f"{r.returncode}, {cross['verdict']}, "
+                                 f"{validate_verdict(cross)}")
+        worst = [f"{x['name']} x{x['ratio']:.3g}" if isinstance(
+                     x["ratio"], float) else f"{x['name']} {x['ratio']}"
+                 for x in cross["features"] if x["verdict"] == "regressed"]
+        rolling, rolling_s = verdict("rolling", 0, llama, "--rolling", "3")
+        if rolling["verdict"] != "noise" or \
+                rolling["baseline"]["mode"] != "rolling":
+            raise AssertionError(f"rolling: {rolling['counts']}")
+        short = {r["reason"] for r in rolling["features"]
+                 if "baseline sample" in r.get("reason", "")}
+        if not short:
+            raise AssertionError("rolling: no verdict says the history is "
+                                 "short")
+        return (f"self: {same['counts']} rc 0 in {same_s:.2f} s; ResNet-50 "
+                f"vs Llama: {cross['verdict']} {cross['counts']} rc "
+                f"{r.returncode} in {cross_s:.2f} s, regressed e.g. "
+                f"{worst[:4]}; rolling 3: {rolling['verdict']} "
+                f"{rolling['counts']} ({sorted(short)[0]}) rc 0 in "
+                f"{rolling_s:.2f} s")
+
+    @staticmethod
+    def archive_rot_index(root):
+        """6 bytes into the middle of the feature names of the index's
+        first features chunk; returns its root-relative path."""
+        rel = "_index/features/000000.arrow"
+        path = os.path.join(root, rel)
+        with open(path, "rb") as f:
+            data = f.read()
+        hits = [m.start() for m in re.finditer(rb"gpu0_", data)]
+        with open(path, "r+b") as f:
+            f.seek(hits[len(hits) // 2] + 2)
+            f.write(b"\xde\xad\xbe\xef\xde\xad")
+        return rel
+
+    def archive_fsck(self, caps, root, runs):
+        """(c) fsck over the root, damage, repair."""
+        from sofa_tpu_torch.archive.store import ArchiveStore
+        from sofa_tpu_torch.tools.manifest_check import check_archive_index
+
+        clean, clean_s = self.archive_cli("fsck", "fsck", root)
+        store = ArchiveStore(root)
+        sha = store.load_run(runs["llama"])["files"][
+            "_frames/gputrace/000000.arrow"]["sha256"]
+        obj = os.path.relpath(store.object_path(sha), root)
+        with open(store.object_path(sha), "r+b") as f:
+            f.seek(os.path.getsize(store.object_path(sha)) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 1]))
+        idx = self.archive_rot_index(root)
+        found, found_s = self.archive_cli("fsck damaged", "fsck", root,
+                                          want=1)
+        named = [f"corrupt     {obj}" in found, f"index       {idx}" in found]
+        if not all(named):
+            raise AssertionError(f"fsck did not name {obj} and {idx}: "
+                                 f"{found[-3000:]}")
+        repaired, repair_s = self.archive_cli("repair", "fsck", root,
+                                              "--repair")
+        after, after_s = self.archive_cli("fsck after", "fsck", root)
+        probs = check_archive_index(root)
+        if probs:
+            raise AssertionError(f"manifest_check: {probs}")
+        restored = [ln.strip() for ln in repaired.splitlines()
+                    if "restored object" in ln or "rebuilt it" in ln]
+        checked = [ln for ln in after.splitlines()
+                   if "object(s) verified" in ln]
+        return (f"fsck 0 in {clean_s:.2f} s; flipped {obj[:20]}.. and "
+                f"rotted {idx}: fsck 1 naming both in {found_s:.2f} s; "
+                f"--repair 0 in {repair_s:.2f} s ({len(restored)} repair "
+                f"lines); fsck 0 in {after_s:.2f} s "
+                f"({checked[0].split('] ')[-1] if checked else ''}); "
+                "manifest_check 0")
+
+    def archive_kill(self, src, run_id):
+        """(d) a copy of the Llama-width capture, its ingest SIGKILLed at
+        the ARCHIVE_KILL_AT-th stored file, then ``resume``."""
+        from sofa_tpu_torch.archive import catalog
+        from sofa_tpu_torch.archive.store import archive_fsck
+
+        copy = os.path.join(REPO, "build", "chip_smoke_archive_kill")
+        root = copy + "_root"
+        for d in (copy, root):
+            shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        # the ingest cache is not archived, and resume replays no parse
+        shutil.copytree(src, copy,
+                        ignore=shutil.ignore_patterns("_ingest_cache"))
+        copy_s = time.perf_counter() - t0
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        k = subprocess.run([sys.executable, "-c", self.ARCHIVE_KILL_CHILD,
+                            copy, root, str(ARCHIVE_KILL_AT)], cwd=REPO,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        stored = sum(len(ns) for _d, _s, ns in
+                     os.walk(os.path.join(root, "objects")))
+        res, res_s = self.board_cli("resume", copy)
+        entries = catalog.ingest_entries(catalog.read_catalog(root))
+        report = archive_fsck(root)
+        damage = {v: report[v] for v in ("corrupt", "missing", "orphaned",
+                                         "uncataloged", "index")
+                  if report[v]} if report else {"root": "none"}
+        line = (f"copy in {copy_s:.1f} s, the ingest killed at stored file "
+                f"{ARCHIVE_KILL_AT} rc {k.returncode} ({stored} objects "
+                f"landed), resume rc {res.returncode} in {res_s:.1f} s, "
+                f"catalog {[e['run'][:12] for e in entries]} (uninterrupted "
+                f"{run_id[:12]}), fsck {damage or 'clean'}")
+        if k.returncode != -9 or res.returncode or \
+                [e["run"] for e in entries] != [run_id] or damage:
+            raise AssertionError(f"archive kill: {line}; {k.stderr[-1500:]}"
+                                 f" {res.stdout[-1500:]}")
+        return line
+
+    # The JAX chaos matrix's kill-mid-archive cell
+    # (tools/chaos_matrix.py:149-164, 302-352): the ingest SIGKILLs itself
+    # at the n-th put_file.
+    ARCHIVE_KILL_CHILD = (
+        "import os, signal, sys\n"
+        "logdir, root, n = sys.argv[1], sys.argv[2], int(sys.argv[3])\n"
+        "from sofa_tpu_torch.archive import store\n"
+        "count = [0]\n"
+        "orig = store.ArchiveStore.put_file\n"
+        "def hook(self, *a, **kw):\n"
+        "    count[0] += 1\n"
+        "    if count[0] >= n:\n"
+        "        os.kill(os.getpid(), signal.SIGKILL)\n"
+        "    return orig(self, *a, **kw)\n"
+        "store.ArchiveStore.put_file = hook\n"
+        "from sofa_tpu_torch.config import SofaConfig\n"
+        "store.ingest_run(SofaConfig(logdir=logdir), root)\n")
+
     # -- live ------------------------------------------------------------------
     def live(self):
         """(a) ``record`` of the training main at Llama-3-8B width cut to
@@ -3771,7 +4076,10 @@ class Smoke:
             problems.append(f"watermarks {marks}, last gpumon sample "
                             f"{last_sample:.3f} s")
         # the capture landing: the first epoch after epoch 1 whose dirty
-        # frames hold the Kineto ones, and that epoch's kernel frame
+        # frames hold the Kineto ones, and that epoch's kernel frame.  An
+        # epoch rescans the capture after its tail step, so the epoch in
+        # flight when the capture landed may mark it; else the first one
+        # begun after it must.  None that committed before the landing may.
         captures = sorted(glob.glob(os.path.join(logdir, "kineto", "*.json")))
         landed = min(os.path.getmtime(p) for p in captures) if captures \
             else None
@@ -3779,12 +4087,17 @@ class Smoke:
                   if set(KINETO_FRAMES) <= set(e["meta"]["dirty"])]
         first_after = next((e for e in epochs if landed is not None
                             and e["begun"] > landed), None)
+        in_flight = next((e for e in epochs if landed is not None
+                          and e["begun"] <= landed < e["committed"]), None)
+        may_mark = {e["epoch"] for e in (in_flight, first_after) if e}
         if not marked or first_after is None \
-                or marked[0]["epoch"] != first_after["epoch"]:
+                or marked[0]["epoch"] not in may_mark:
             problems.append(f"the capture landed at {landed}; epochs "
                             f"marking the Kineto frames "
-                            f"{[e['epoch'] for e in marked]}, first after "
-                            f"the landing {first_after and first_after['epoch']}")
+                            f"{[e['epoch'] for e in marked]}, in flight at "
+                            f"the landing "
+                            f"{in_flight and in_flight['epoch']}, first "
+                            f"after it {first_after and first_after['epoch']}")
         gpu = frame(logdir, "gputrace")
         kern = gpu[gpu["copyKind"] == 0]
         module = kern["module"].fillna("").astype(str)
@@ -4741,7 +5054,7 @@ def moe_rank() -> None:
 PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
 LANES = (("profile", "cluster", "mesh", "tp", "tp_serve"),
          ("live", "serve", "window", "faults", "ep_pp"),
-         ("robust", "board", "cache", "verbs", "live_drain"))
+         ("robust", "board", "cache", "verbs", "archive", "live_drain"))
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 # bare/profiled pairs, each in a fresh process: with two, the median is
 # their mean and the paired t-test has one degree of freedom (its p-value

@@ -42,6 +42,21 @@
   top         a live dashboard over a recording's samplers (each
               process's cards and memory, the host's CPU, network and
               disk), redrawn every --interval s; --once draws one frame
+  archive     <logdir>: store the run in the archive (--archive_root, else
+              SOFA_ARCHIVE_ROOT, else ./sofa_archive): each artifact once
+              under objects/<sha256>, a run doc, a catalog line, the
+              columnar index (--label tags it); a second ingest of the
+              same run adds no object.  ls [--limit N --since S --host H
+              --label L] | show <run-id-prefix> | gc --keep N
+              --keep_days D | fsck [--repair] | backup <root> <dest> |
+              restore <backup> <target>
+  regress     <run> [<baseline>]: typed verdicts (regressed, improved,
+              noise) a feature and a swarm cluster, of a logdir or an
+              archived run id against another, or with --rolling N
+              against the newest N archived runs (--pct P, default the
+              median; --regress_threshold %, default 10):
+              regress_verdict.json; exits 0 noise or improved, 1
+              regressed, 2 on a usage error
   live        streaming ingest over a logdir the collectors still write:
               every --live_interval_s seconds (default 2) an epoch tails
               the raw files from the byte offsets of _live_offsets.json,
@@ -61,7 +76,9 @@ auto|steps|marker|op, --num_iterations) and writes iterations.csv;
 --num_swarms swarms (auto_caption.csv, swarms_report.csv).
 
 report, analyze, viz, status, passes, resume, fsck, diff, whatif, export,
-top, live and clean run on the host only: they never touch a GPU.
+top, live, archive, regress and clean run on the host only: they never
+touch a GPU.  fsck over an archive root checks the store (objects against
+their names, run docs against the objects, the index's chunks).
 
 --trace_format csv|parquet|columnar (or SOFA_TRACE_FORMAT) picks how
 preprocess writes the frames; the default, columnar, is the chunked Arrow
@@ -92,7 +109,7 @@ from sofa_tpu_torch.config import Filter, SofaConfig
 
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
          "status", "passes", "resume", "fsck", "diff", "whatif", "export",
-         "top", "live", "clean")
+         "top", "live", "archive", "regress", "clean")
 # Verbs whose positional argument is the logdir.
 LOGDIR_VERBS = ("status", "passes", "resume", "fsck", "whatif", "live")
 
@@ -112,7 +129,9 @@ _FIELDS = (
     "trace_format", "num_iterations", "num_swarms", "enable_aisi",
     "enable_hsg", "enable_swarms", "iterations_from", "base_logdir",
     "match_logdir", "whatif_apply", "live_interval_s", "live_epochs",
-    "live_stall_s",
+    "live_stall_s", "archive_root", "archive_label", "archive_keep",
+    "archive_keep_days", "archive_limit", "archive_since", "archive_host",
+    "regress_rolling", "regress_pct", "regress_threshold",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
@@ -133,7 +152,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("command", nargs="?", default=None,
                    help="shell command to profile (record, stat); the "
                    "logdir for status, passes, resume, fsck, whatif and "
-                   "live")
+                   "live; archive's logdir or action; regress's run")
+    p.add_argument("extra", nargs="?", default="",
+                   help="archive show's run, backup's root, restore's "
+                   "backup; regress's baseline")
+    p.add_argument("extra2", nargs="?", default="",
+                   help="archive backup's destination, restore's target")
     p.add_argument("--logdir")
     p.add_argument("--config",
                    help="TOML file of config fields; flags override it")
@@ -292,7 +316,37 @@ def build_parser() -> argparse.ArgumentParser:
     g = p.add_argument_group("fsck")
     g.add_argument("--repair", action="store_true",
                    help="fsck: invalidate the damaged cache, tile and chunk "
-                   "entries, remove the orphans and re-derive")
+                   "entries, remove the orphans and re-derive (over an "
+                   "archive root: re-adopt uncataloged runs, restore or "
+                   "quarantine rotted objects, rebuild the index)")
+
+    g = p.add_argument_group("archive, regress")
+    g.add_argument("--archive_root",
+                   help="the archive root (SOFA_ARCHIVE_ROOT alike; default "
+                   "./sofa_archive)")
+    g.add_argument("--label", dest="archive_label",
+                   help="archive: a tag stored with the ingested run; ls: "
+                   "only runs with it")
+    g.add_argument("--keep", type=int, dest="archive_keep",
+                   help="archive gc: keep the newest N runs")
+    g.add_argument("--keep_days", type=float, dest="archive_keep_days",
+                   help="archive gc: keep the runs ingested within D days")
+    g.add_argument("--limit", type=int, dest="archive_limit",
+                   help="archive ls: the newest N runs only")
+    g.add_argument("--since", dest="archive_since",
+                   help="archive ls: runs ingested since a unix time, or "
+                   "e.g. 7d / 12h / 30m ago")
+    g.add_argument("--host", dest="archive_host",
+                   help="archive ls: runs ingested on this host only")
+    g.add_argument("--rolling", type=int, dest="regress_rolling",
+                   help="regress: the baseline is the newest N archived "
+                   "runs instead of a second run")
+    g.add_argument("--pct", type=float, dest="regress_pct",
+                   help="regress --rolling: the baseline's percentile "
+                   "(default 50, the median)")
+    g.add_argument("--regress_threshold", type=float,
+                   help="regress: the relative %% move a regressed or "
+                   "improved verdict needs (default 10)")
 
     g = p.add_argument_group("board")
     g.add_argument("--no_tiles", action="store_true",
@@ -391,6 +445,15 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     if verb == "clean":
         sofa_clean(cfg)
         return 0
+    if verb == "archive":
+        from sofa_tpu_torch.archive.store import sofa_archive
+
+        return sofa_archive(cfg, args.command or "", args.extra, args.extra2,
+                            repair=getattr(args, "repair", False))
+    if verb == "regress":
+        from sofa_tpu_torch.archive.verdict import sofa_regress
+
+        return sofa_regress(cfg, args.command or "", args.extra)
     if verb == "live":
         from sofa_tpu_torch.live import sofa_live
 

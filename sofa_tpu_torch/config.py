@@ -171,6 +171,22 @@ class SofaConfig:
                                      # another streams is `stalled` (0 =
                                      # never)
 
+    # --- archive and regress (archive/) --------------------------------------
+    archive_root: str = ""           # --archive_root; "" = SOFA_ARCHIVE_ROOT,
+                                     # else ./sofa_archive
+    archive_label: str = ""          # --label: the tag of an ingest, and
+                                     # the `archive ls --label` filter
+    archive_keep: int = 0            # `archive gc --keep N` newest runs
+    archive_keep_days: float = 0.0   # `archive gc --keep_days D`
+    archive_limit: int = 0           # `archive ls --limit N` newest runs
+                                     # (0 = all)
+    archive_since: str = ""          # `archive ls --since <unix|7d|12h|30m>`
+    archive_host: str = ""           # `archive ls --host <hostname>`
+    regress_rolling: int = 0         # `regress --rolling N`: the baseline
+                                     # is the newest N archived runs
+    regress_pct: float = 50.0        # the rolling baseline's percentile
+    regress_threshold: float = 10.0  # the relative % move a verdict needs
+
     # --- the board ----------------------------------------------------------
     viz_downsample_to: int = 10000   # points per series in report.js
     enable_tiles: bool = True        # the deep-zoom tile pyramid (--no_tiles)

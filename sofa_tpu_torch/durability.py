@@ -34,9 +34,11 @@ root this package cannot check yet); ``resume`` 0 replayed or nothing to
 do.
 
 ``resume`` replays the ``whatif`` stage too (with the ``--apply`` its
-begin entry names), and a ``live`` epoch that began and never committed,
-as exactly one epoch.  The archive stage, and ``fsck`` over an archive or
-fleet root, come with those modules.
+begin entry names), a ``live`` epoch that began and never committed, as
+exactly one epoch, and an ``archive`` ingest, into the root its begin
+entry names.  ``fsck`` over an archive root checks the store instead
+(``archive/store.py``); over a fleet root it is a usage error until the
+fleet service is ported.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import os
 import time
 from typing import Dict, List, Optional
 
+from sofa_tpu_torch.archive import ARCHIVE_MARKER_NAME
 from sofa_tpu_torch.trace import atomic_write, fsync_append
 
 JOURNAL_NAME = "_journal.jsonl"
@@ -64,12 +67,16 @@ _HASH_CHUNK = 1 << 20
 # fsck's verdicts, in the order they are printed.
 FSCK_VERDICTS = ("missing", "corrupt", "stale", "orphaned")
 
-# Roots that the JAX package's archive and fleet write (their marker
-# files, by name); checking them belongs to modules not ported yet.
-ARCHIVE_MARKER_NAME = "sofa_archive.json"
+# Roots marked by a file of their own: an archive (archive/) and the JAX
+# package's fleet service root.  The logdir verbs never digest, sweep or
+# walk into one: each keeps its own ledger.
 FLEET_MARKER_NAME = "sofa_fleet.json"
-UNPORTED_ROOTS = {ARCHIVE_MARKER_NAME: "archive",
-                  FLEET_MARKER_NAME: "archive (the fleet)"}
+MARKED_ROOTS = (ARCHIVE_MARKER_NAME, FLEET_MARKER_NAME)
+# What of them this package cannot check yet: the fleet service's root,
+# and the fleet-pass tier (the directory in an archive root that the JAX
+# package's fleet passes write; the archive's fsck reports it unchecked).
+UNPORTED_ROOTS = {FLEET_MARKER_NAME: "fleet"}
+UNPORTED_FLEET_TIER = ("_fleet",)
 
 # Raw files whose names the collectors number (ranks, pids, blktrace's
 # per-cpu files) and the raw directories: everything under them is raw.
@@ -216,10 +223,10 @@ def _sha256(path: str) -> Optional[str]:
     return h.hexdigest()
 
 
-def _marked_root(path: str) -> Optional[str]:
+def marked_root(path: str) -> Optional[str]:
     """The marker file of an archive or fleet root at ``path``, else
     None."""
-    return next((m for m in UNPORTED_ROOTS
+    return next((m for m in MARKED_ROOTS
                  if os.path.isfile(os.path.join(path, m))), None)
 
 
@@ -231,7 +238,7 @@ def _digest_targets(logdir: str) -> List[str]:
     for root, dirs, files in os.walk(logdir):
         rel_root = os.path.relpath(root, logdir)
         parts = [] if rel_root == "." else rel_root.split(os.sep)
-        if parts and (parts[0] in DIGEST_SKIP_DIRS or _marked_root(root)):
+        if parts and (parts[0] in DIGEST_SKIP_DIRS or marked_root(root)):
             # an archive nested in the logdir keeps its own ledger
             dirs[:] = []
             continue
@@ -386,7 +393,7 @@ def fsck_scan(logdir: str, digests: Optional[dict] = None
         rel_root = os.path.relpath(root, logdir)
         parts = [] if rel_root == "." else rel_root.split(os.sep)
         if parts and (parts[0] in ("_inject", "board", "__pycache__")
-                      or _marked_root(root)):
+                      or marked_root(root)):
             dirs[:] = []
             continue
         for name in names:
@@ -477,7 +484,8 @@ def _fsck_repair(cfg, report: dict) -> None:
 def sofa_fsck(cfg, repair: bool = False) -> int:
     """The ``fsck`` verb: 0 healthy, 1 damage (each file printed under
     its verdict; with ``repair`` the rc is the re-scan's), 2 without
-    digests.  Records ``meta.fsck`` in the manifest."""
+    digests.  Records ``meta.fsck`` in the manifest.  Over an archive
+    root it checks the store (``_archive_fsck_verb``)."""
     from sofa_tpu_torch.printing import (SofaUserError, print_error,
                                          print_progress, print_warning)
     from sofa_tpu_torch.trace import reap_stale_sentinel
@@ -485,7 +493,9 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
     if not os.path.isdir(cfg.logdir):
         print_error(f"logdir {cfg.logdir} does not exist")
         return 2
-    marker = _marked_root(cfg.logdir)
+    marker = marked_root(cfg.logdir)
+    if marker == ARCHIVE_MARKER_NAME:
+        return _archive_fsck_verb(cfg.logdir, repair)
     if marker is not None:
         raise SofaUserError(
             f"{cfg.logdir} is a {UNPORTED_ROOTS[marker]} root ({marker}); "
@@ -526,12 +536,39 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
     return 0
 
 
+def _archive_fsck_verb(root: str, repair: bool) -> int:
+    """fsck over an archive root (archive/store.py), with the logdir
+    scan's exit codes: 0 healthy, 1 damage, 2 no store."""
+    from sofa_tpu_torch.archive.store import (ARCHIVE_FSCK_VERDICTS,
+                                              archive_fsck)
+    from sofa_tpu_torch.printing import print_progress, print_warning
+
+    report = archive_fsck(root, repair=repair)
+    if report is None:
+        return 2
+    for verdict in ARCHIVE_FSCK_VERDICTS:
+        for rel in sorted(report.get(verdict) or []):
+            print(f"  {verdict:<11} {rel}")
+    n_unref = len(report.get("unreferenced") or [])
+    if n_unref:
+        print_progress(f"fsck: {n_unref} unreferenced object(s) — not "
+                       "damage; `archive gc` sweeps them")
+    counts = {v: len(report.get(v) or []) for v in ARCHIVE_FSCK_VERDICTS}
+    n_bad = sum(counts.values())
+    if n_bad:
+        summary = ", ".join(f"{counts[v]} {v}"
+                            for v in ARCHIVE_FSCK_VERDICTS if counts[v])
+        print_warning(f"fsck: archive {root}: {report.get('checked', 0)} "
+                      f"object(s) checked — {summary}"
+                      + ("" if repair else "; `fsck --repair` re-adopts, "
+                         "restores or quarantines"))
+        return 1
+    print_progress(f"fsck: archive {root}: {report.get('checked', 0)} "
+                   "object(s) verified, all healthy")
+    return 0
+
+
 # --- resume -------------------------------------------------------------------
-
-# Journal stages that the JAX package's modules of the same names write;
-# this package has none of them yet.
-UNPORTED_STAGES = ("archive",)
-
 
 def sofa_resume(cfg) -> int:
     """The ``resume`` verb: reap a dead writer's sentinel, then replay
@@ -559,11 +596,6 @@ def sofa_resume(cfg) -> int:
             "resume: the recording itself was interrupted — its raw files "
             "are whatever landed before the crash; resuming preprocess/"
             "analyze over them (series may end early)")
-    for stage in UNPORTED_STAGES:
-        if stage in state and not state[stage]["committed"]:
-            print_warning(f"resume: the journal's {stage} stage did not "
-                          f"commit; replaying it needs the {stage} module, "
-                          "which sofa_tpu_torch does not have yet")
     pre = state.get("preprocess")
     need_pre = pre is not None and (not pre["committed"]
                                     or pre.get("key") != cur_key)
@@ -572,6 +604,9 @@ def sofa_resume(cfg) -> int:
                       "preprocess — replaying it")
     an = state.get("analyze")
     need_an = an is not None and (not an["committed"] or need_pre)
+    ar = state.get("archive")
+    need_ar = ar is not None and (not ar["committed"] or need_pre
+                                  or need_an)
     wi = state.get("whatif")
     need_wi = wi is not None and (not wi["committed"] or need_pre
                                   or need_an)
@@ -580,7 +615,7 @@ def sofa_resume(cfg) -> int:
     # epoch's business; only an epoch that began and never committed
     # replays, as exactly one epoch
     need_lv = lv is not None and not lv["committed"]
-    if not (need_pre or need_an or need_wi or need_lv):
+    if not (need_pre or need_an or need_ar or need_wi or need_lv):
         print_progress("resume: every journaled stage is committed and "
                        "matches the raw files — nothing to replay")
         return 0
@@ -601,6 +636,22 @@ def sofa_resume(cfg) -> int:
 
         print_progress("resume: replaying analyze")
         sofa_analyze(cfg, frames=frames)
+    if need_ar:
+        # the root rides the begin entry: the replay lands in the store the
+        # killed ingest was writing (the objects it stored dedup; the
+        # catalog line is the commit point)
+        root = next((e.get("archive_root") for e in reversed(entries)
+                     if e.get("stage") == "archive" and e.get("ev") == "begin"
+                     and e.get("archive_root")), None)
+        if root is None:
+            from sofa_tpu_torch.archive import resolve_root
+
+            root = resolve_root(cfg)
+        from sofa_tpu_torch.archive.store import ingest_run
+
+        print_progress(f"resume: replaying the archive ingest into {root} "
+                       "(objects already stored are deduped)")
+        ingest_run(cfg, root)
     if need_wi:
         # the scenarios ride the begin entry: the replay answers the
         # question the killed run was asked

@@ -58,11 +58,13 @@ KINDS = ("die", "wedge", "fail", "truncate", "corrupt") + STREAM_KINDS
 # ``stall`` is one of them only against the ``service`` target: against
 # any other it is a stream kind, as the JAX grammar decides.
 UNPORTED_KINDS = {
-    "conn_refused": "archive", "conn_reset": "archive", "http_500": "archive",
-    "partial": "archive", "worker_die": "fleet", "replica_stale": "fleet",
-    "slo_breach": "fleet", "scrape_stall": "fleet", "disk_full": "fleet",
+    "conn_refused": "fleet client", "conn_reset": "fleet client",
+    "http_500": "fleet client", "partial": "fleet client",
+    "worker_die": "fleet tier", "replica_stale": "fleet tier",
+    "slo_breach": "fleet tier", "scrape_stall": "fleet tier",
+    "disk_full": "fleet tier",
 }
-UNPORTED_SERVICE_STALL = "archive"
+UNPORTED_SERVICE_STALL = "fleet service"
 PHASES = ("start", "stop", "harvest")
 
 ALIASES = {"pcap": "nettrace"}

@@ -265,14 +265,16 @@ def verify_chunk_store(sdir: str, rel_prefix: str) -> List[str]:
             if tbl.num_rows < rows:
                 bad.append(rel)
                 continue
-            # inside the try: rot in a string buffer surfaces as a decode
-            # error here, not in read_table
-            df = tbl.slice(0, rows).to_pandas()
+            # inside the try, the hash too: rot in a string buffer surfaces
+            # as a decode error here (in to_pandas, or in the row hash of
+            # invalid UTF-8), not in read_table.  The JAX package hashes
+            # outside its try and raises instead of naming the chunk.
+            sha = _chunk_sha(_row_hashes(tbl.slice(0, rows).to_pandas()))
         except Exception as e:  # noqa: BLE001 - unreadable is damaged
             print_warning(f"frames: chunk {rel} is unreadable ({e})")
             bad.append(rel)
             continue
-        if _chunk_sha(_row_hashes(df)) != c.get("sha"):
+        if sha != c.get("sha"):
             bad.append(rel)
     return bad
 

@@ -123,20 +123,22 @@ VERB_FILES = (
     "swarms_report.txt", "gpu_diff.csv", "mem_diff.csv", "swarm_diff.csv",
     "whatif_model.csv", "whatif_report.json", "sofa_report.pdf",
     "overview.png", "trace.json.gz", "pystacks.folded", "cputrace.folded",
-    "memprof.folded",
+    "memprof.folded", "regress_verdict.json",
 )
 # ... and the directories (_frames: the chunk store, frames.py).
 DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine", "sofa_hints",
                 "_frames")
 # Never digested: the ledgers themselves (they change on every write,
 # fsck's own included, and every live epoch rewrites its offset ledger),
-# the live sentinel and scratch; the ingest cache,
+# the live sentinel and scratch, regress's verdict (rewritten by every
+# `regress`, which refreshes no digests: an archived run's id must not
+# change with it); the ingest cache,
 # the quarantine and the injection directory; and the chunk store, whose
 # chunks its own index hashes (fsck re-hashes them, frames.py).
 DIGEST_SKIP_FILES = frozenset({
     "_digests.json", "_journal.jsonl", "run_manifest.json",
     "sofa_self_trace.json", "_derived.writing", "docker.cid",
-    "_live_offsets.json",
+    "_live_offsets.json", "regress_verdict.json",
 })
 DIGEST_SKIP_DIRS = frozenset({
     "_ingest_cache", "_quarantine", "_inject", "__pycache__", "_frames",
@@ -191,15 +193,31 @@ def sofa_clean(cfg: SofaConfig) -> int:
     digests, live's offset ledger, the ingest cache with live's chunks,
     the quarantine) and every
     stray ``*.tmp`` under the logdir (an interrupted atomic write); keep
-    the raw collector output and ``kineto/``.  Returns how many entries
-    went."""
+    the raw collector output and ``kineto/``.  An archive or fleet root
+    nested in the logdir (marked by ``sofa_archive.json`` or
+    ``sofa_fleet.json``) is never removed or walked into, whatever its
+    name: it holds other runs' history, and ``archive gc`` is its only
+    deletion path.  Returns how many entries went."""
+    from sofa_tpu_torch.durability import marked_root
+
     if not os.path.isdir(cfg.logdir):
         print_info(f"nothing to clean: {cfg.logdir} does not exist")
         return 0
-    names = derived_names() + list(DERIVED_DIRS)
-    removed = sum(_remove(cfg.path(n)) for n in names)
-    removed += _remove(cfg.inject_dir)
-    for root, _dirs, files in os.walk(cfg.logdir):
+    removed = 0
+    for path in ([cfg.path(n) for n in derived_names() + list(DERIVED_DIRS)]
+                 + [cfg.inject_dir]):
+        marker = os.path.isdir(path) and marked_root(path)
+        if marker:
+            print_warning(f"clean: {path} is a trace archive or fleet root "
+                          f"({marker}) — left untouched; `archive gc` is "
+                          "its only deletion path")
+            continue
+        removed += _remove(path)
+    top = os.path.normpath(cfg.logdir)
+    for root, dirs, files in os.walk(cfg.logdir):
+        if os.path.normpath(root) != top and marked_root(root):
+            dirs[:] = []        # the archive's own fsck owns its leftovers
+            continue
         removed += sum(_remove(os.path.join(root, n)) for n in files
                        if n.endswith(".tmp"))
     print_info(f"cleaned {removed} derived entries from {cfg.logdir}")

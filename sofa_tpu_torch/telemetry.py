@@ -1,6 +1,6 @@
 """Self-telemetry: the profiler's own run, made legible (the JAX package's
 ``sofa_tpu/telemetry.py``, without the readers of the sections only its
-archive, fleet and live modules write).
+fleet modules write).
 
 Every pipeline verb records spans and counters and lands two files in the
 logdir:
@@ -27,7 +27,11 @@ package writes (schema ``sofa_tpu/run_manifest``, version 5)::
                               analysis-pass ledger (``analysis/
                               registry.py``: schedule, order, jobs, per
                               pass status in PASS_STATUSES, origin, wave,
-                              wall_s, error or skip_reason)
+                              wall_s, error or skip_reason), ``archive``
+                              (the last ingest: run id, files, new
+                              objects, bytes added, root, wall_s, the
+                              index refresh) and ``regress`` (verdict,
+                              counts, the verdict file)
     collectors.<name>         status (COLLECTOR_STATUSES), degraded flag
                               and reason, died/deaths/restarts (the
                               supervisor), timed_out and phase, exit_code,
@@ -38,9 +42,9 @@ package writes (schema ``sofa_tpu/run_manifest``, version 5)::
     stages                    flat span list {verb,name,cat,t0_unix,dur_s}
 
 ``sofa_self_trace.json``: the same spans in Chrome Trace Event Format (pid
-1, one tid lane per verb), with timestamps in microseconds from the run's
-``sofa_time.txt`` zero, so that the pipeline's own run lines up with the
-workload's timeline.
+1, one tid lane per verb, numbered as the JAX package's), with timestamps
+in microseconds from the run's ``sofa_time.txt`` zero, so that the
+pipeline's own run lines up with the workload's timeline.
 
 Writes merge by verb: ``record`` then ``preprocess`` on one logdir build
 one manifest, and a verb run again replaces its own sections only.  A
@@ -87,7 +91,8 @@ _ENV_KEYS = ("SOFA_JOBS", "SOFA_PREPROCESS_POOL", "SOFA_FAULTS",
              "SOFA_SUPERVISOR_POLL_S", "CUDA_VISIBLE_DEVICES", "NO_COLOR")
 
 # Self-trace lanes: one per verb, as parallel tracks of one process.
-_SELF_TRACE_LANES = {"record": 1, "preprocess": 2, "analyze": 3}
+_SELF_TRACE_LANES = {"record": 1, "preprocess": 2, "analyze": 3,
+                     "archive": 5, "regress": 6}
 _OTHER_LANE = 4
 
 _WARNING_TAIL_MAX = 20
@@ -617,6 +622,22 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
         if isinstance(wm, (int, float)):
             line += f", watermark {wm:.3f}s"
         lines.append(line)
+    archive = (doc.get("meta") or {}).get("archive")
+    if isinstance(archive, dict):
+        lines.append(
+            f"  archive: run {str(archive.get('run', '?'))[:12]} — "
+            f"{archive.get('files', 0)} file(s), "
+            f"{archive.get('new_objects', 0)} new object(s), "
+            f"{_fmt_bytes(archive.get('bytes_added'))} added -> "
+            f"{archive.get('root', '?')}")
+    regress = (doc.get("meta") or {}).get("regress")
+    if isinstance(regress, dict):
+        counts = regress.get("counts") or {}
+        lines.append(
+            f"  regress: {regress.get('verdict', '?')} ("
+            + ", ".join(f"{counts.get(v, 0)} {v}"
+                        for v in ("regressed", "improved", "noise"))
+            + f") ({regress.get('out', '?')})")
     whatif = (doc.get("meta") or {}).get("whatif")
     if isinstance(whatif, dict):
         pred = whatif.get("predicted_step_time_s")

@@ -2,15 +2,23 @@
 ``tools/manifest_check.py``, for the sections this package writes: runs,
 env, collectors, sources, stages, ``digests``, ``meta.pool``,
 ``meta.ingest_cache``, ``meta.disk_budget``, ``meta.passes``,
-``meta.fsck``, ``meta.frames``, ``meta.whatif`` and ``meta.live``).
+``meta.fsck``, ``meta.frames``, ``meta.whatif``, ``meta.live``,
+``meta.archive``, ``meta.regress`` and ``meta.backup``).
 Given a logdir, it also validates every ``_frames/<name>/frame_index.json``,
-the ``whatif_report.json`` (``validate_whatif``) and ``live``'s offset
+the ``whatif_report.json`` (``validate_whatif``), the
+``regress_verdict.json`` (``validate_verdict``) and ``live``'s offset
 ledger ``_live_offsets.json`` (``validate_live_offsets``) where they are.
-Under ``--require-healthy`` a stalled live source and an active stream
-whose ``updated_unix`` is older than ``_LIVE_STALE_S`` are problems.
+Given an archive root (``sofa_archive.json``), it validates the columnar
+index instead: ``_index/index_commit.json`` (``validate_index_commit``)
+and each family's ``frame_index.json`` against it (no index at all is
+valid: the readers scan).  Given a ``regress_verdict.json``, it validates
+that.  Under ``--require-healthy`` a stalled live source and an active
+stream whose ``updated_unix`` is older than ``_LIVE_STALE_S`` are
+problems; under ``--require-passing`` a ``regressed`` verdict is one.
 
-    python -m sofa_tpu_torch.tools.manifest_check <logdir-or-manifest.json>
-        [--require-healthy]
+    python -m sofa_tpu_torch.tools.manifest_check
+        <logdir | manifest.json | archive root | regress_verdict.json>
+        [--require-healthy] [--require-passing]
 
 Exit codes: 0 valid, 1 invalid (one problem a line), 2 missing or
 unreadable.  Keys beyond the ones checked are allowed (additive evolution
@@ -27,6 +35,13 @@ import sys
 import time
 from typing import List
 
+from sofa_tpu_torch.archive import ARCHIVE_MARKER_NAME, VERDICT_NAME
+from sofa_tpu_torch.archive.index import (FAMILIES, INDEX_COMMIT_NAME,
+                                          INDEX_DIR_NAME, INDEX_SCHEMA,
+                                          INDEX_VERSION)
+from sofa_tpu_torch.archive.store import BACKUP_SCHEMA, BACKUP_VERSION
+from sofa_tpu_torch.archive.verdict import (VERDICT_SCHEMA, VERDICT_VERSION,
+                                            VERDICTS)
 from sofa_tpu_torch.frames import (FRAME_INDEX_NAME, FRAME_INDEX_SCHEMA,
                                    FRAME_INDEX_VERSION, FRAMES_DIR_NAME)
 from sofa_tpu_torch.live import (LIVE_SOURCE_STATUSES, OFFSETS_NAME,
@@ -432,6 +447,7 @@ def _check_meta(meta, probs: List[str]) -> None:
         elif not isinstance(fsck.get("problems"), dict):
             probs.append("meta.fsck.problems: missing verdict counts")
     _check_whatif_meta(meta.get("whatif"), probs)
+    _check_archive_meta(meta, probs)
     icache = meta.get("ingest_cache")
     if icache is not None:
         if not isinstance(icache, dict) or \
@@ -448,6 +464,169 @@ def _check_meta(meta, probs: List[str]) -> None:
             if not isinstance(icache.get("stored_bytes", {}), dict):
                 probs.append("meta.ingest_cache.stored_bytes: not an "
                              "object")
+
+
+def _check_archive_meta(meta, probs: List[str]) -> None:
+    """``meta.archive`` (the last ingest), ``meta.regress`` (the verdict
+    and its counts) and ``meta.backup`` (the last snapshot)."""
+    archive = meta.get("archive")
+    if archive is not None:
+        if not isinstance(archive, dict):
+            probs.append("meta.archive: not an object")
+        else:
+            run = archive.get("run")
+            if not (isinstance(run, str) and len(run) == 64):
+                probs.append("meta.archive.run: not a 64-hex run id")
+            for key in ("files", "new_objects", "bytes_added"):
+                if not _is_count(archive.get(key)):
+                    probs.append(f"meta.archive.{key}: missing or not a "
+                                 "non-negative int")
+    regress = meta.get("regress")
+    if regress is not None:
+        if not isinstance(regress, dict) or \
+                regress.get("verdict") not in VERDICTS:
+            probs.append(f"meta.regress.verdict: not in {VERDICTS}")
+        elif not isinstance(regress.get("counts"), dict):
+            probs.append("meta.regress.counts: missing verdict counts")
+    backup = meta.get("backup")
+    if backup is None:
+        return
+    if not isinstance(backup, dict):
+        probs.append("meta.backup: not an object")
+        return
+    if backup.get("schema") != BACKUP_SCHEMA:
+        probs.append(f"meta.backup.schema: expected {BACKUP_SCHEMA!r}, "
+                     f"got {backup.get('schema')!r}")
+    if backup.get("version") != BACKUP_VERSION:
+        probs.append(f"meta.backup.version: expected {BACKUP_VERSION}, "
+                     f"got {backup.get('version')!r}")
+    if not _is_count(backup.get("snapshot")) or backup["snapshot"] < 1:
+        probs.append("meta.backup.snapshot: missing or not a positive int")
+    for key in ("dest", "source_root"):
+        if not isinstance(backup.get(key), str) or not backup[key]:
+            probs.append(f"meta.backup.{key}: missing or empty")
+    for key in ("files", "new_objects", "bytes_added"):
+        if not _is_count(backup.get(key)):
+            probs.append(f"meta.backup.{key}: missing or not a "
+                         "non-negative int")
+    sha = backup.get("commit_sha")
+    if not isinstance(sha, str) or (sha and len(sha) != 40):
+        probs.append("meta.backup.commit_sha: not a 40-hex sha or empty")
+    if not _is_num(backup.get("taken_unix")):
+        probs.append("meta.backup.taken_unix: missing or not a number")
+
+
+def validate_verdict(doc, require_passing: bool = False) -> List[str]:
+    """Schema problems in a ``regress_verdict.json`` (archive/verdict.py);
+    with ``require_passing`` an overall ``regressed`` verdict is one too
+    (the CI gate)."""
+    if not isinstance(doc, dict):
+        return ["verdict is not a JSON object"]
+    probs: List[str] = []
+    if doc.get("schema") != VERDICT_SCHEMA:
+        probs.append(f"schema: expected {VERDICT_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != VERDICT_VERSION:
+        probs.append(f"version: expected {VERDICT_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not _is_num(doc.get("generated_unix")):
+        probs.append("generated_unix: missing or not a number")
+    if doc.get("verdict") not in VERDICTS:
+        probs.append(f"verdict: {doc.get('verdict')!r} not in {VERDICTS}")
+    counts = doc.get("counts")
+    if not isinstance(counts, dict) or any(
+            not _is_count(counts.get(v)) for v in VERDICTS):
+        probs.append("counts: missing per-verdict int counters")
+    for section in ("features", "clusters"):
+        rows = doc.get(section)
+        if not isinstance(rows, list):
+            probs.append(f"{section}: not a list")
+            continue
+        for i, r in enumerate(rows):
+            if not isinstance(r, dict) or \
+                    not isinstance(r.get("name"), str) or \
+                    r.get("verdict") not in VERDICTS:
+                probs.append(f"{section}[{i}]: needs a name and a typed "
+                             f"verdict in {VERDICTS}")
+            elif r.get("verdict") != "noise" and \
+                    not isinstance(r.get("reason"), str):
+                probs.append(f"{section}[{i}]: a non-noise verdict must "
+                             "state its reason")
+    base = doc.get("baseline")
+    if not isinstance(base, dict) or base.get("mode") not in (
+            "pairwise", "rolling"):
+        probs.append("baseline.mode: not pairwise/rolling")
+    if require_passing and doc.get("verdict") == "regressed":
+        probs.append("gate: overall verdict is regressed")
+    return probs
+
+
+def validate_index_commit(doc) -> List[str]:
+    """Schema problems in an archive's ``_index/index_commit.json``
+    (archive/index.py), the columnar index's fsync'd-last commit point."""
+    if not isinstance(doc, dict):
+        return ["index commit is not a JSON object"]
+    probs: List[str] = []
+    if doc.get("schema") != INDEX_SCHEMA:
+        probs.append(f"schema: expected {INDEX_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != INDEX_VERSION:
+        probs.append(f"version: expected {INDEX_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    for key in ("catalog_offset", "catalog_gen", "events", "ingest_events",
+                "bench_events", "runs", "features_rows"):
+        if not _is_count(doc.get(key)):
+            probs.append(f"{key}: missing or not a non-negative int")
+    if not isinstance(doc.get("catalog_head_sha"), str):
+        probs.append("catalog_head_sha: missing")
+    if not isinstance(doc.get("commit_sha"), str) \
+            or not doc.get("commit_sha"):
+        probs.append("commit_sha: missing")
+    fams = doc.get("families")
+    if not isinstance(fams, dict) or sorted(fams) != sorted(FAMILIES):
+        probs.append(f"families: expected exactly {sorted(FAMILIES)}, got "
+                     f"{sorted(fams) if isinstance(fams, dict) else fams}")
+        fams = {}
+    for name, ent in sorted(fams.items()):
+        if not isinstance(ent, dict) or not _is_count(ent.get("rows")) \
+                or not _is_count(ent.get("chunks")):
+            probs.append(f"families.{name}: needs int rows and chunks")
+    return probs
+
+
+def check_archive_index(root: str) -> List[str]:
+    """An archive root's columnar index: the commit, and each family's
+    ``frame_index.json`` against it.  No ``_index/`` at all is valid (the
+    readers scan); an ``_index/`` without a commit is not."""
+    idir = os.path.join(root, INDEX_DIR_NAME)
+    if not os.path.isdir(idir):
+        return []
+    where = f"{INDEX_DIR_NAME}/{INDEX_COMMIT_NAME}"
+    try:
+        with open(os.path.join(idir, INDEX_COMMIT_NAME)) as f:
+            doc = json.load(f)
+    except OSError:
+        return [f"{where}: missing (an {INDEX_DIR_NAME}/ without a commit; "
+                "`archive fsck --repair` rebuilds it)"]
+    except ValueError as e:
+        return [f"{where}: not JSON: {e}"]
+    probs = [f"{where}: {p}" for p in validate_index_commit(doc)]
+    families = doc.get("families") if isinstance(doc, dict) else None
+    for family in FAMILIES:
+        fwhere = f"{INDEX_DIR_NAME}/{family}/{FRAME_INDEX_NAME}"
+        try:
+            with open(os.path.join(idir, family, FRAME_INDEX_NAME)) as f:
+                fdoc = json.load(f)
+        except (OSError, ValueError) as e:
+            probs.append(f"{fwhere}: unreadable ({e})")
+            continue
+        probs += [f"{fwhere}: {p}" for p in validate_frame_index(fdoc)]
+        want = ((families or {}).get(family) or {}).get("rows") \
+            if isinstance(families, dict) else None
+        if _is_count(want) and fdoc.get("rows") != want:
+            probs.append(f"{fwhere}: rows {fdoc.get('rows')} disagrees "
+                         f"with the commit ({want})")
+    return probs
 
 
 def _check_live_meta(live, probs: List[str]) -> None:
@@ -649,35 +828,43 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
     return probs
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("path", help="a logdir or a run_manifest.json")
-    p.add_argument("--require-healthy", action="store_true")
-    args = p.parse_args(argv)
-    path = args.path
+def _load(path: str, probs: List[str], where: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError) as e:
+        probs.append(f"{where}: unreadable ({e})")
+        return None
+
+
+def check_path(path: str, require_healthy: bool = False,
+               require_passing: bool = False) -> int:
+    """0 valid, 1 invalid (each problem printed), 2 missing or
+    unreadable."""
     probs: List[str] = []
+    if os.path.isdir(path) and \
+            os.path.isfile(os.path.join(path, ARCHIVE_MARKER_NAME)):
+        probs = check_archive_index(path)
+        for prob in probs:
+            print(prob)
+        if not probs:
+            has = os.path.isfile(os.path.join(path, INDEX_DIR_NAME,
+                                              INDEX_COMMIT_NAME))
+            print(f"{path}: valid archive root (index "
+                  f"{'committed' if has else 'absent: the readers scan'})")
+        return 1 if probs else 0
     if os.path.isdir(path):
         probs += check_frame_indexes(path)
-        report = os.path.join(path, _WHATIF_REPORT)
-        if os.path.isfile(report):
-            try:
-                with open(report) as f:
-                    wdoc = json.load(f)
-            except (OSError, ValueError) as e:
-                wdoc = None
-                probs.append(f"{_WHATIF_REPORT}: unreadable ({e})")
-            if wdoc is not None:
-                probs += [f"{_WHATIF_REPORT}: {p}" for p in
-                          validate_whatif(wdoc, args.require_healthy)]
-        ledger = os.path.join(path, OFFSETS_NAME)
-        if os.path.isfile(ledger):
-            try:
-                with open(ledger) as f:
-                    ldoc = json.load(f)
-                probs += [f"{OFFSETS_NAME}: {p}"
-                          for p in validate_live_offsets(ldoc)]
-            except (OSError, ValueError) as e:
-                probs.append(f"{OFFSETS_NAME}: unreadable ({e})")
+        for name, check in (
+                (_WHATIF_REPORT,
+                 lambda d: validate_whatif(d, require_healthy)),
+                (VERDICT_NAME,
+                 lambda d: validate_verdict(d, require_passing)),
+                (OFFSETS_NAME, validate_live_offsets)):
+            if os.path.isfile(os.path.join(path, name)):
+                doc = _load(os.path.join(path, name), probs, name)
+                if doc is not None:
+                    probs += [f"{name}: {p}" for p in check(doc)]
         path = os.path.join(path, MANIFEST_NAME)
     try:
         with open(path) as f:
@@ -685,12 +872,26 @@ def main(argv=None) -> int:
     except (OSError, ValueError) as e:
         print(f"cannot read {path}: {e}", file=sys.stderr)
         return 2
-    probs = validate_manifest(doc, args.require_healthy) + probs
+    if isinstance(doc, dict) and doc.get("schema") == VERDICT_SCHEMA:
+        probs = validate_verdict(doc, require_passing)
+    else:
+        probs = validate_manifest(doc, require_healthy) + probs
     for prob in probs:
         print(prob)
     if not probs:
         print(f"{path}: valid")
     return 1 if probs else 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("path", help="a logdir, a run_manifest.json, an archive "
+                   "root or a regress_verdict.json")
+    p.add_argument("--require-healthy", action="store_true")
+    p.add_argument("--require-passing", action="store_true",
+                   help="a regressed verdict is a problem (the CI gate)")
+    args = p.parse_args(argv)
+    return check_path(args.path, args.require_healthy, args.require_passing)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,12 @@
     ``live`` epochs never raise that guard: every live write is by
     tmp+rename, so a request during an epoch gets the last committed
     generation, and the board polls ``meta.live`` to grow the timeline.
+  * ``/archive/<rel>``: the archive root (``--archive_root``, else
+    ``SOFA_ARCHIVE_ROOT``, else ``./sofa_archive``), read-only, when it is
+    one: the catalog, the run docs and the objects that
+    ``archive-diff.html`` fetches.  A path with a ``..`` component is
+    refused (404); archive files land by tmp+rename and objects never
+    change, so the logdir's mid-write 503 does not apply to them.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import os
 import posixpath
 import socket
 import threading
+import urllib.parse
 
 from sofa_tpu_torch.printing import print_progress, print_warning
 from sofa_tpu_torch.trace import derived_writing, reap_stale_sentinel
@@ -81,10 +88,27 @@ class BoardHandler(http.server.SimpleHTTPRequestHandler):
     def log_message(self, fmt, *args):  # noqa: A003
         pass
 
+    def __init__(self, *args, archive_root=None, **kwargs):
+        self.archive_root = archive_root
+        super().__init__(*args, **kwargs)
+
+    def _translate_archive(self, path: str):
+        """``/archive/<rel>`` under the archive root; None when a component
+        is ``..``."""
+        rel = urllib.parse.unquote(
+            path.split("?", 1)[0].split("#", 1)[0])[len("/archive/"):]
+        parts = [p for p in rel.split("/") if p and p != "."]
+        if ".." in parts:
+            return None
+        return os.path.join(os.path.abspath(self.archive_root), *parts)
+
     def translate_path(self, path):  # noqa: A003
         clean = path.split("?", 1)[0].split("#", 1)[0]
         if clean.startswith("/tiles/"):
             path = "/_tiles/" + path[len("/tiles/"):]
+        elif clean.startswith("/archive/") and self.archive_root:
+            return (self._translate_archive(path)
+                    or super().translate_path("/archive-denied"))
         # the base class drops every ".." component: a request never
         # leaves the logdir
         return super().translate_path(path)
@@ -120,7 +144,10 @@ class BoardHandler(http.server.SimpleHTTPRequestHandler):
         path = self.translate_path(self.path)
         if os.path.isdir(path):
             return super().send_head()
-        if self._is_data(path) and derived_writing(self.directory):
+        in_archive = bool(self.archive_root) and path.startswith(
+            os.path.abspath(self.archive_root) + os.sep)
+        if not in_archive and self._is_data(path) \
+                and derived_writing(self.directory):
             return self._unavailable()
         actual, precompressed = path, False
         if os.path.isfile(path):
@@ -172,10 +199,20 @@ class BoardHandler(http.server.SimpleHTTPRequestHandler):
         return f
 
 
+def archive_root(cfg):
+    """The archive root ``/archive/`` serves, or None without one."""
+    from sofa_tpu_torch.archive import is_archive_root, resolve_root
+
+    root = resolve_root(cfg)
+    return root if is_archive_root(root) else None
+
+
 def bind_server(cfg):
     """A server on the first free port of viz_port..viz_port+19 (the next
-    port is tried only when one is taken), or None."""
-    handler = functools.partial(BoardHandler, directory=cfg.logdir)
+    port is tried only when one is taken), or None.  It serves the archive
+    root under ``/archive/`` when there is one."""
+    handler = functools.partial(BoardHandler, directory=cfg.logdir,
+                                archive_root=archive_root(cfg))
     last_err = None
     for port in range(cfg.viz_port, cfg.viz_port + PORT_TRIES):
         try:
@@ -212,6 +249,11 @@ def sofa_viz(cfg, serve_forever: bool = True):
             "write is atomic, so data requests get the last committed "
             "epoch while one runs (no 503), and the board polls meta.live "
             "to grow the timeline while the job runs")
+    if archive_root(cfg):
+        print_progress(
+            f"trace archive: /archive/ (root {archive_root(cfg)}, "
+            "read-only); archive-diff.html compares two of its runs tile by "
+            "tile by content hash, fetching no tile")
     if not serve_forever:
         return httpd
     try:

@@ -62,6 +62,11 @@ NOT_FORWARDED = {
     "enable_swarms": "analyze", "iterations_from": "analyze",
     "base_logdir": "diff", "match_logdir": "diff", "whatif_apply": "whatif",
     "live_interval_s": "live", "live_epochs": "live", "live_stall_s": "live",
+    "archive_root": "archive", "archive_label": "archive",
+    "archive_keep": "archive", "archive_keep_days": "archive",
+    "archive_limit": "archive", "archive_since": "archive",
+    "archive_host": "archive", "regress_rolling": "regress",
+    "regress_pct": "regress", "regress_threshold": "regress",
 }
 # Values the type alone does not give (a choice, a spec).
 VALUES = {"perf_call_graph": "fp", "inject_faults": "procmon:die@2s",

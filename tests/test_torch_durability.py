@@ -218,9 +218,16 @@ def test_fsck_without_digests_and_on_an_archive_root(tmp_path):
     d = tmp_path / "bare"
     d.mkdir()
     assert _cli("fsck", str(d)).returncode == 2
+    # an archive root is checked as a store (an empty one is healthy)...
     (d / durability.ARCHIVE_MARKER_NAME).write_text("{}")
     r = _cli("fsck", str(d))
-    assert r.returncode == 1 and "archive module" in r.stderr
+    assert r.returncode == 0 and "all healthy" in r.stderr + r.stdout
+    # ... and a fleet root is still refused, saying why
+    f = tmp_path / "fleet"
+    f.mkdir()
+    (f / durability.FLEET_MARKER_NAME).write_text("{}")
+    r = _cli("fsck", str(f))
+    assert r.returncode == 1 and "fleet module" in r.stderr
 
 
 def test_frame_indexes_pass_the_jax_validator(tmp_path):

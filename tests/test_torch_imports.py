@@ -98,7 +98,12 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/top.py",
             "sofa_tpu_torch/workloads/moe.py",
             "sofa_tpu_torch/workloads/pipeline.py",
-            "sofa_tpu_torch/live.py"} <= rel
+            "sofa_tpu_torch/live.py", "sofa_tpu_torch/archive/__init__.py",
+            "sofa_tpu_torch/archive/catalog.py",
+            "sofa_tpu_torch/archive/index.py",
+            "sofa_tpu_torch/archive/store.py",
+            "sofa_tpu_torch/archive/baseline.py",
+            "sofa_tpu_torch/archive/verdict.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -134,7 +139,10 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.whatif.replay, sofa_tpu_torch.whatif.calibrate, "
             "sofa_tpu_torch.export_static, sofa_tpu_torch.export_folded, "
             "sofa_tpu_torch.export_perfetto, sofa_tpu_torch.charts, "
-            "sofa_tpu_torch.top; "
+            "sofa_tpu_torch.top, sofa_tpu_torch.archive, "
+            "sofa_tpu_torch.archive.catalog, sofa_tpu_torch.archive.index, "
+            "sofa_tpu_torch.archive.store, sofa_tpu_torch.archive.baseline, "
+            "sofa_tpu_torch.archive.verdict; "
             "registry = sofa_tpu_torch.analysis.registry; "
             "registry.load_builtin_passes(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
