@@ -8,9 +8,9 @@ ring, resnet); then three lanes run side by side, each a thread that runs
 its phases in order: (1) profile, cluster, mesh, tp, tp_serve: the card's
 Llama-width runs at batch 4 and the multi-rank ones, up to 43 GB of the
 card at a time; (2) live, serve, window, faults, ep_pp: its runs of at most
-21 GB; (3) robust, board, cache, verbs, archive, live_drain: host only,
-over the captures the card made, each waiting for the phase of another
-lane whose capture it reads.  A failure anywhere raises and exits
+21 GB; (3) robust, board, cache, verbs, archive, fleet_push, live_drain:
+host only, over the captures the card made, each waiting for the phase of
+another lane whose capture it reads.  A failure anywhere raises and exits
 non-zero; a lane's failure stops every lane before its next phase.  The
 phases:
 
@@ -242,6 +242,25 @@ phases:
            capture: the ingest SIGKILLed at its 5th stored file, ``resume``
            0, the uninterrupted run id in the catalog, the root's fsck
            clean; prints the store's bytes and the ingest walls
+  fleet_push the fleet transport with no card visible over copies of the
+           ResNet-50 and Llama-width captures, each ``serve`` and each
+           ``agent --once`` a child on loopback, a line a cell: (a) one
+           agent delivers both (rc 0, 2 runs in the tenant, each server
+           run id its spooled one, meta.agent pushed and meta.serve in each
+           manifest, the port's manifest_check 0); (b) again with the
+           delivered flags cleared: rc 0, 0 objects and 0 bytes, no catalog
+           line; (c) the Llama-width copy, a fresh spool and tenant each,
+           under ``service:partial@0.5`` and ``service:conn_reset``: one
+           run, fsck clean; (d) the JAX chaos matrix's kill-service-mid-
+           upload cell: ``SOFA_SERVE_EXIT_AFTER=4``, the service exits 86,
+           the agent 1, the spool fsck-clean, a restarted service takes the
+           retry (rc 0, one run, meta.serve); (e) two agents, spools of
+           their own, push two copies of the Llama-width capture into one
+           tenant at once: rc 0 both, one run, fsck clean; (f) three WAL
+           records seeded in a tenant held mid-gc, SIGTERM: exit 0 with
+           every WAL drained, the ``serve handled:`` line with a
+           422_hash_mismatch and no 500, ``fsck`` of the root 0; prints
+           each push's wall, objects, bytes and loopback MB/s
 
   live     (a) ``record`` of the training ``main`` at Llama-3-8B width cut
            to 2 layers, batch 1 (LIVE_STEPS steps; its Kineto window
@@ -383,6 +402,10 @@ LIVE_INTERVAL_S = 2.0
 # The pools of the epochs and of the drain cell's verbs: the lanes beside
 # them hold the host's 8 cores.
 LIVE_JOBS = 2
+# The least width of the window phase's trace window (s): with the lanes
+# beside it, a 4-period window (0.201 s, from the full run's 50.2 ms period)
+# once held 122 ms of forward kernels and no whole step on an H100.
+WINDOW_MIN_S = 1.0
 # The archive phase's kill cell: the ingest of the Llama-width copy dies at
 # this stored file (the JAX chaos matrix draws 2..8).
 ARCHIVE_KILL_AT = 5
@@ -1975,9 +1998,11 @@ class Smoke:
         from the full run's capture (the same workload, traced from
         ``import torch`` at level 0): start at twice that run's first step
         plus 2 P (P its traced step period; warm-ups, cuDNN's search among
-        them, vary from process to process) and stop 4 P later; its steps,
-        each at least the device time a traced step held, outlast the
-        window: it holds some steps and not all.  Its kernels must lie
+        them, vary from process to process) and stop 4 P, at least
+        WINDOW_MIN_S, later (the host-bound steps of this process slow
+        several times over while the lanes beside it hold the host's
+        cores); its steps, each at least the device time a traced step
+        held, outlast the window: it holds some steps and not all.  Its kernels must lie
         inside the window (a 0.5 s margin), its steps be fewer than the
         run's, and its kernels keep their launch context (op_path, fw and
         bw phases)."""
@@ -1996,7 +2021,8 @@ class Smoke:
         in_steps = full[(full["copyKind"] == 0) & full["module"].astype(
             str).str.match(r"sofa_step_\d+$")]
         device_step = float(in_steps["duration"].sum()) / len(steps)
-        delay, duration = 2 * first + 2 * period, 4 * period
+        delay = 2 * first + 2 * period
+        duration = max(4 * period, WINDOW_MIN_S)
         n_steps = int(math.ceil((delay + duration) / device_step))
         feats, logdir, out = self.run_stat(
             "resnet_window", f"{sys.executable} -m sofa_tpu_torch.workloads."
@@ -3897,6 +3923,364 @@ class Smoke:
         "from sofa_tpu_torch.config import SofaConfig\n"
         "store.ingest_run(SofaConfig(logdir=logdir), root)\n")
 
+    # -- the fleet: serve and agent -------------------------------------------
+    def fleet_push(self):
+        """The fleet transport over the ResNet-50 and Llama-width captures
+        (no card visible; each ``serve`` and each ``agent --once`` a child
+        process on loopback, each agent over copies of the captures), a
+        line a cell: (a) ``agent --once`` delivers both (rc 0, the tenant's
+        catalog 2 runs, each server run id its spooled one, each manifest's
+        meta.agent.push pushed with meta.serve, the port's manifest_check
+        accepting it); (b) again with the delivered flags cleared: rc 0, 0
+        objects and 0 bytes sent, no catalog line; (c) the Llama-width copy
+        with a fresh spool into a fresh tenant under
+        ``service:partial@0.5`` and under ``service:conn_reset``: one run
+        each, the tenant fsck-clean; (d) a service started with
+        ``SOFA_SERVE_EXIT_AFTER=4`` exits 86 mid-upload, the agent rc 1,
+        the spool holding the run fsck-clean, a restarted service taking
+        the retry (rc 0, one run, meta.serve); (e) two agents with spools
+        of their own push two copies of the Llama-width capture into one
+        tenant at once: both rc 0, one run, fsck clean; (f) three WAL
+        records seeded in a tenant held mid-gc, SIGTERM: the service
+        drains them and exits 0 (its ``serve handled:`` line: a
+        422_hash_mismatch from (c), no 500, no traceback), and ``fsck``
+        of the fleet root exits 0."""
+        self.need("archive")
+        t_phase = time.perf_counter()
+        base = os.path.join(REPO, "build", "chip_smoke_fleet")
+        shutil.rmtree(base, ignore_errors=True)
+        build = os.path.join(REPO, "build")
+        caps = {"resnet": os.path.join(build, "chip_smoke_resnet_r1"),
+                "llama": os.path.join(build, "chip_smoke_profile_llama")}
+        t0 = time.perf_counter()
+        watch = os.path.join(base, "watch")
+        copies = {label: os.path.join(watch, label) for label in caps}
+        copies["llama2"] = os.path.join(base, "llama2")
+        for label, dest in copies.items():
+            shutil.copytree(caps[label.rstrip("2")], dest,
+                            ignore=shutil.ignore_patterns("_ingest_cache"))
+        log(f"fleet[copy]: the captures copied in "
+            f"{time.perf_counter() - t0:.1f} s | {self.smi}")
+        root = os.path.join(base, "root")
+        proc, url, slog = self.fleet_serve(root, "main")
+        try:
+            for cell in (self.fleet_first, self.fleet_again,
+                         self.fleet_faults):
+                t0 = time.perf_counter()
+                line = cell(url, root, base, copies)
+                log(f"fleet[{cell.__name__[6:]}]: {line} "
+                    f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
+            t0 = time.perf_counter()
+            line = self.fleet_kill(base, copies["llama"])
+            log(f"fleet[kill]: {line} ({time.perf_counter() - t0:.1f} s) "
+                f"| {self.smi}")
+            t0 = time.perf_counter()
+            line = self.fleet_concurrent(url, root, base, copies)
+            log(f"fleet[concurrent]: {line} "
+                f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
+            t0 = time.perf_counter()
+            line = self.fleet_term(proc, root, slog)
+            log(f"fleet[term]: {line} ({time.perf_counter() - t0:.1f} s) | "
+                f"{self.smi}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log(f"fleet_push: phase {time.perf_counter() - t_phase:.1f} s | "
+            f"{self.smi}")
+
+    FLEET_TOKEN = "chip-smoke-fleet-token"
+
+    def fleet_serve(self, root, label, env=None):
+        """``serve <root>`` on loopback port 0, a child with no card
+        visible; returns the process, its URL and its log file."""
+        slog = os.path.join(os.path.dirname(root), f"serve_{label}.log")
+        # a quick index refresh after each ack, so that fleet_fsck's wait
+        # for it is short
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   SOFA_REFRESH_MIN_INTERVAL_S="0.2", **(env or {}))
+        with open(slog, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "sofa_tpu_torch", "serve", root,
+                 "--serve_port", "0", "--token", self.FLEET_TOKEN],
+                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with open(slog) as f:
+                m = re.search(r"fleet archive service: .* at "
+                              r"http://[^:]+:(\d+)/v1/", f.read())
+            if m:
+                return proc, f"http://127.0.0.1:{m.group(1)}", slog
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        proc.kill()
+        with open(slog) as f:
+            raise AssertionError(f"serve {label} printed no URL: "
+                                 f"{f.read()[-2000:]}")
+
+    def fleet_agent(self, label, watch, url, spool, *flags, want=0,
+                    tenant="smoke"):
+        """``agent <watch> --once`` into ``url``, no card visible; raises
+        unless it exits ``want``; returns its output and wall seconds."""
+        argv = ["agent", watch, "--once", "--service", url, "--token",
+                self.FLEET_TOKEN, "--spool", spool, "--tenant", tenant,
+                "--settle_s", "0", "--push_backoff_s", "0.05",
+                "--push_backoff_cap_s", "0.5", *flags]
+        r, wall = self.board_cli(*argv)
+        if r.returncode != want:
+            raise AssertionError(f"fleet[{label}]: `{' '.join(argv)}` "
+                                 f"exited {r.returncode}, expected {want}: "
+                                 f"{(r.stdout + r.stderr)[-3000:]}")
+        return r.stdout + r.stderr, wall
+
+    @staticmethod
+    def fleet_runs(root, tenant):
+        from sofa_tpu_torch.archive import catalog
+
+        troot = os.path.join(root, "tenants", tenant)
+        return [e["run"] for e in
+                catalog.ingest_entries(catalog.read_catalog(troot))]
+
+    @staticmethod
+    def fleet_fsck(troot):
+        """The archive fsck's damage in a store ({} when clean).  A served
+        tenant is first let settle: its WAL applied and its index refreshed
+        (the refresher writes after the ack; an fsck racing it would read
+        its stage files as orphans)."""
+        from sofa_tpu_torch.archive import tier
+        from sofa_tpu_torch.archive.store import archive_fsck
+
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            state = tier.load_wal_state(troot)
+            if tier.wal_depth(troot) == 0 and all(
+                    int(state["refreshed"].get(n, 0)) >= int(off)
+                    for n, off in state["applied"].items()):
+                break
+            time.sleep(0.05)
+        else:
+            return {"wal": "not settled after 60 s"}
+        report = archive_fsck(troot)
+        if report is None:
+            return {"store": "none"}
+        return {v: report[v] for v in ("corrupt", "missing", "orphaned",
+                                       "uncataloged", "index") if report[v]}
+
+    def fleet_first(self, url, root, base, copies):
+        """(a) both captures delivered."""
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.archive.spool import Spool
+        from sofa_tpu_torch.tools.manifest_check import validate_manifest
+
+        spool = os.path.join(base, "spool")
+        _out, wall = self.fleet_agent("push", os.path.dirname(
+            copies["resnet"]), url, spool)
+        state = Spool(spool)
+        runs = self.fleet_runs(root, "smoke")
+        parts = []
+        for label in ("resnet", "llama"):
+            doc = telemetry.load_manifest(copies[label])
+            meta = doc["meta"]
+            push = meta["agent"]["push"]
+            spooled = state.entry(copies[label]).get("run")
+            probs = validate_manifest(doc)
+            if push["status"] != "pushed" or "serve" not in meta or \
+                    meta["serve"]["run"] != spooled or \
+                    spooled not in runs or probs:
+                raise AssertionError(f"push {label}: {push['status']}, "
+                                     f"meta.serve {meta.get('serve')}, "
+                                     f"spooled {spooled}, catalog {runs}, "
+                                     f"{probs}")
+            mb_s = push["bytes_sent"] / max(push["wall_s"], 1e-9) / 1e6
+            parts.append(f"{label} run {spooled[:12]}: "
+                         f"{push['objects_sent']} objects, "
+                         f"{push['bytes_sent']} bytes in {push['wall_s']} s "
+                         f"({mb_s:.1f} MB/s loopback), "
+                         f"{push['attempts']} requests")
+        if len(runs) != 2:
+            raise AssertionError(f"the tenant holds {len(runs)} runs")
+        return (f"agent rc 0 in {wall:.2f} s, the tenant 2 runs; "
+                + "; ".join(parts) + "; manifest_check 0")
+
+    def fleet_again(self, url, root, base, copies):
+        """(b) both pushed again: nothing sent, no catalog line."""
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.archive import catalog
+        from sofa_tpu_torch.archive.spool import Spool
+
+        spool = os.path.join(base, "spool")
+        state = Spool(spool)
+        for ent in state._state["logdirs"].values():
+            ent["pushed"] = False
+        state._save_state()
+        troot = os.path.join(root, "tenants", "smoke")
+        lines = len(catalog.read_catalog(troot))
+        _out, wall = self.fleet_agent("again", os.path.dirname(
+            copies["resnet"]), url, spool)
+        sent = {label: telemetry.load_manifest(copies[label])["meta"][
+                    "agent"]["push"] for label in ("resnet", "llama")}
+        if any(p["status"] != "pushed" or p["objects_sent"]
+               or p["bytes_sent"] for p in sent.values()) or \
+                len(catalog.read_catalog(troot)) != lines:
+            raise AssertionError(f"the re-push sent {sent} or grew the "
+                                 "catalog")
+        return (f"agent rc 0 in {wall:.2f} s: "
+                + ", ".join(f"{k} {p['objects_sent']} objects "
+                            f"{p['bytes_sent']} bytes in {p['wall_s']} s"
+                            for k, p in sent.items())
+                + f"; the catalog still {lines} line(s)")
+
+    def fleet_faults(self, url, root, base, copies):
+        """(c) the Llama-width copy under partial@0.5 and conn_reset."""
+        from sofa_tpu_torch import telemetry
+
+        parts = []
+        for tenant, spec in (("partial", "service:partial@0.5"),
+                             ("reset", "service:conn_reset")):
+            _out, wall = self.fleet_agent(
+                tenant, copies["llama"], url,
+                os.path.join(base, f"spool_{tenant}"), "--inject_faults",
+                spec, tenant=tenant)
+            runs = self.fleet_runs(root, tenant)
+            damage = self.fleet_fsck(os.path.join(root, "tenants", tenant))
+            push = telemetry.load_manifest(copies["llama"])["meta"][
+                "agent"]["push"]
+            if len(runs) != 1 or damage:
+                raise AssertionError(f"{spec}: runs {runs}, fsck {damage}")
+            parts.append(f"{spec}: rc 0 in {wall:.2f} s, 1 run, fsck clean, "
+                         f"{push['objects_sent']} objects "
+                         f"{push['bytes_sent']} bytes in {push['attempts']} "
+                         "requests")
+        return "; ".join(parts)
+
+    def fleet_kill(self, base, llama):
+        """(d) the service dies at its 4th write; a restart takes the retry
+        (the JAX chaos matrix's kill-service-mid-upload cell)."""
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.archive import catalog
+
+        root = os.path.join(base, "kill_root")
+        spool = os.path.join(base, "spool_kill")
+        proc, url, slog = self.fleet_serve(
+            root, "kill", env={"SOFA_SERVE_EXIT_AFTER": "4"})
+        try:
+            _out, wall1 = self.fleet_agent("kill", llama, url, spool,
+                                           "--push_retries", "2", want=1,
+                                           tenant="default")
+            rc = proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        spooled = catalog.ingest_entries(catalog.read_catalog(spool))
+        damage = self.fleet_fsck(spool)
+        if rc != 86 or len(spooled) != 1 or damage:
+            raise AssertionError(f"the killed service rc {rc}, spool runs "
+                                 f"{len(spooled)}, spool fsck {damage}")
+        proc, url, slog = self.fleet_serve(root, "kill_again")
+        try:
+            _out, wall2 = self.fleet_agent("retry", llama, url, spool,
+                                           tenant="default")
+        finally:
+            proc.terminate()
+            proc.wait(timeout=30)
+        runs = self.fleet_runs(root, "default")
+        damage = self.fleet_fsck(os.path.join(root, "tenants", "default"))
+        meta = telemetry.load_manifest(llama)["meta"]
+        if runs != [spooled[0]["run"]] or damage or \
+                meta.get("serve", {}).get("run") != runs[0]:
+            raise AssertionError(f"the retry: runs {runs}, fsck {damage}, "
+                                 f"meta.serve {meta.get('serve')}")
+        return (f"the service exited 86 at its 4th write, agent rc 1 in "
+                f"{wall1:.2f} s, the spool 1 run fsck-clean; restarted, "
+                f"agent rc 0 in {wall2:.2f} s, 1 run {runs[0][:12]}, "
+                f"meta.serve written, fsck clean")
+
+    def fleet_concurrent(self, url, root, base, copies):
+        """(e) two agents push two copies of one capture at once: each
+        spools its copy first (no service), so that the two pushes start
+        together."""
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        env.pop("SOFA_AGENT_SERVICE", None)
+
+        def both(*service):
+            procs = [subprocess.Popen(
+                [sys.executable, "-m", "sofa_tpu_torch", "agent",
+                 copies[label], "--once", *service, "--token",
+                 self.FLEET_TOKEN, "--spool",
+                 os.path.join(base, f"spool_conc{i}"), "--tenant",
+                 "concurrent", "--settle_s", "0", "--push_backoff_s", "0.05",
+                 "--push_backoff_cap_s", "0.5"], cwd=REPO, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for i, label in enumerate(("llama", "llama2"))]
+            t0 = time.perf_counter()
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+            rcs = [p.returncode for p in procs]
+            if rcs != [0, 0]:
+                raise AssertionError(f"concurrent agents rc {rcs}: "
+                                     + " | ".join(o[-1500:] for o in outs))
+            return time.perf_counter() - t0
+
+        spool_s = both()
+        push_s = both("--service", url)
+        runs = self.fleet_runs(root, "concurrent")
+        damage = self.fleet_fsck(os.path.join(root, "tenants",
+                                              "concurrent"))
+        if len(runs) != 1 or damage:
+            raise AssertionError(f"concurrent agents: runs {runs}, fsck "
+                                 f"{damage}")
+        return (f"both spooled in {spool_s:.2f} s, then both pushed rc 0 "
+                f"in {push_s:.2f} s, 1 run {runs[0][:12]}, fsck clean")
+
+    def fleet_term(self, proc, root, slog):
+        """(f) SIGTERM drains the seeded WAL; then fsck of the root."""
+        from sofa_tpu_torch.archive import tier
+        from sofa_tpu_torch.trace import derived_write_guard
+
+        troot = os.path.join(root, "tenants", "term")
+        app = tier.WalAppender(troot, worker=0)
+        recs = [{"run": f"{i:02d}" + "cd" * 31, "logdir": f"/jobs/{i}/",
+                 "hostname": "chip-smoke", "label": "", "tenant": "term",
+                 "files": {}, "features": {}} for i in range(3)]
+        with derived_write_guard(troot):
+            for rec in recs:
+                app.append(rec)
+            time.sleep(0.2)     # drain polls the guard holds off
+            depth = tier.wal_depth(troot)
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            term_s = time.perf_counter() - t0
+        with open(slog) as f:
+            out = f.read()
+        handled = [ln for ln in out.splitlines() if "serve handled:" in ln]
+        runs = self.fleet_runs(root, "term")
+        depths = {t: tier.wal_depth(os.path.join(root, "tenants", t))
+                  for t in sorted(os.listdir(os.path.join(root, "tenants")))}
+        stats = {}
+        for entry in (handled[-1].split("serve handled: ")[-1].split(", ")
+                      if handled else ()):
+            n, key = entry.split(" ", 1)
+            stats[key] = int(n)
+        if rc != 0 or depth != 3 or "drained 3 WAL record(s)" not in out \
+                or any(depths.values()) or runs != [r["run"] for r in recs] \
+                or not stats.get("422_hash_mismatch") \
+                or any(k.startswith("500") for k in stats) \
+                or "Traceback" in out:
+            raise AssertionError(f"SIGTERM: rc {rc}, depth {depth} before, "
+                                 f"{depths} after, runs {runs}: "
+                                 f"{out[-3000:]}")
+        r, fsck_s = self.board_cli("fsck", root)
+        if r.returncode != 0:
+            raise AssertionError(f"fsck of the fleet root rc "
+                                 f"{r.returncode}: {r.stdout[-2000:]}")
+        tenants = r.stdout.count("fsck: tenant ")
+        return (f"3 WAL records held mid-gc, SIGTERM: rc 0 in {term_s:.2f} "
+                f"s, drained 3, every tenant's WAL 0; {handled[-1].strip()}"
+                f"; fsck of the root ({tenants} tenants) rc 0 in "
+                f"{fsck_s:.2f} s")
+
     # -- live ------------------------------------------------------------------
     def live(self):
         """(a) ``record`` of the training main at Llama-3-8B width cut to
@@ -5054,7 +5438,8 @@ def moe_rank() -> None:
 PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
 LANES = (("profile", "cluster", "mesh", "tp", "tp_serve"),
          ("live", "serve", "window", "faults", "ep_pp"),
-         ("robust", "board", "cache", "verbs", "archive", "live_drain"))
+         ("robust", "board", "cache", "verbs", "archive", "fleet_push",
+          "live_drain"))
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 # bare/profiled pairs, each in a fresh process: with two, the median is
 # their mean and the paired t-test has one degree of freedom (its p-value

@@ -1,6 +1,6 @@
 """The multi-run trace archive, a content-addressed store of many runs
-(the JAX package's ``sofa_tpu/archive/``, without the fleet service, the
-tier and the fleet passes).
+(the JAX package's ``sofa_tpu/archive/``, with the fleet service at one
+worker and without the rest of the tier and the fleet passes).
 
 One logdir answers "what happened in this run"; the archive answers "did
 this run regress against the last hundred".  It is built from what the
@@ -29,7 +29,10 @@ reads the other's roots.
 Verbs: ``archive <logdir>`` ingests (and ``ls``, ``show <run>``, ``gc
 --keep N --keep_days D``, ``fsck``, ``backup``, ``restore``); ``regress
 <run> [<baseline>]`` (verdict.py) is the typed regression engine over the
-catalog; ``fsck <archive_root>`` checks the store.
+catalog; ``fsck <archive_root>`` checks the store.  ``serve <root>``
+(service.py, over the write-ahead queue of tier.py) takes runs that
+``agent`` (client.py, spool.py) pushes into tenant archive roots under
+``<root>/tenants/``; protocol.py holds their shared vocabulary.
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ import json
 import os
 import re
 import socket
+import tempfile
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -155,23 +156,34 @@ class ArchiveStore:
     def put_bytes(self, blob: bytes) -> Tuple[str, int]:
         """Store an in-memory blob; returns (sha256, bytes_added).
 
-        Staged under a pid-unique ``.tmp`` (fsck still classifies it as
-        an orphan, never damage): two writers storing the SAME object at
-        once each stage privately and the renames converge on identical
-        bytes — no fixed-name collision."""
+        Each call stages under a ``.tmp`` name of its own (``mkstemp``
+        beside the object; fsck classifies a leftover as an orphan, never
+        damage) and publishes it by ``os.link``, which fails when the
+        object exists: of the writers storing the SAME object at once
+        (the service's handler threads, or its processes), exactly one
+        publishes and counts the bytes, and every other returns
+        ``(sha, 0)``.  The JAX package stages under a pid-only name, which
+        two threads of one process share: one truncates the other's bytes
+        and the loser's rename raises."""
         sha = hashlib.sha256(blob).hexdigest()
         dest = self.object_path(sha)
         if os.path.isfile(dest):
             return sha, 0
         os.makedirs(os.path.dirname(dest), exist_ok=True)
-        stage = f"{dest}.{os.getpid()}.tmp"
-        # not atomic_write: its fixed .tmp name would collide across
-        # writers storing the same object
-        with open(stage, "wb") as f:
-            f.write(blob)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(stage, dest)
+        fd, stage = tempfile.mkstemp(prefix=f"{sha}.", suffix=".tmp",
+                                     dir=os.path.dirname(dest))
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(blob)
+                f.flush()
+                os.fsync(f.fileno())
+            os.chmod(stage, 0o644)
+            try:
+                os.link(stage, dest)
+            except FileExistsError:
+                return sha, 0
+        finally:
+            os.unlink(stage)
         return sha, len(blob)
 
     def read_object(self, sha: str) -> Optional[bytes]:

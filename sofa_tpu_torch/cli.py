@@ -68,6 +68,22 @@
               for S seconds while another streams; --drain ends with the
               batch preprocess + analyze, byte-identical to a batch run;
               exits 0, 1 when a source is stalled, 2 without the logdir
+  serve       <root>: the fleet's write service over a root of tenant
+              archives (<root>/tenants/<tenant>/), at one worker: agents
+              push runs into it over HTTP (--token, else SOFA_SERVE_TOKEN,
+              required; --serve_port, 0 = any; --quota_mb per tenant,
+              --max_inflight writes); every commit goes through a
+              write-ahead log, applied before the ack; SIGTERM drains it
+              and exits 0.  --workers above 1, --replica-of, --slo and
+              --rolling-restart need the fleet tier: exit 2
+  agent       <watch_dir>: spool every finished run under the directory
+              into a local archive (--spool, else SOFA_AGENT_SPOOL, else
+              ./sofa_spool) and push it to --service (comma-joined URLs
+              fail over; SOFA_AGENT_SERVICE alike; none = spool only) as
+              --tenant; resumable, idempotent, retried with jittered
+              backoff; writes meta.agent and meta.serve into each run's
+              manifest.  --once: one pass, exit 0 all delivered, 1 some
+              spooled but not delivered, 2 no watch directory
   clean       remove the derived files, keep the raw ones
 
 analyze --enable_aisi finds the iterations (--iterations_from
@@ -76,9 +92,10 @@ auto|steps|marker|op, --num_iterations) and writes iterations.csv;
 --num_swarms swarms (auto_caption.csv, swarms_report.csv).
 
 report, analyze, viz, status, passes, resume, fsck, diff, whatif, export,
-top, live, archive, regress and clean run on the host only: they never
-touch a GPU.  fsck over an archive root checks the store (objects against
-their names, run docs against the objects, the index's chunks).
+top, live, archive, regress, serve, agent and clean run on the host only:
+they never touch a GPU.  fsck over an archive root checks the store
+(objects against their names, run docs against the objects, the index's
+chunks), over a fleet root each tenant's store.
 
 --trace_format csv|parquet|columnar (or SOFA_TRACE_FORMAT) picks how
 preprocess writes the frames; the default, columnar, is the chunked Arrow
@@ -109,7 +126,7 @@ from sofa_tpu_torch.config import Filter, SofaConfig
 
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
          "status", "passes", "resume", "fsck", "diff", "whatif", "export",
-         "top", "live", "archive", "regress", "clean")
+         "top", "live", "archive", "regress", "serve", "agent", "clean")
 # Verbs whose positional argument is the logdir.
 LOGDIR_VERBS = ("status", "passes", "resume", "fsck", "whatif", "live")
 
@@ -132,6 +149,11 @@ _FIELDS = (
     "live_stall_s", "archive_root", "archive_label", "archive_keep",
     "archive_keep_days", "archive_limit", "archive_since", "archive_host",
     "regress_rolling", "regress_pct", "regress_threshold",
+    "serve_bind", "serve_port", "serve_token", "serve_quota_mb",
+    "serve_max_inflight", "serve_workers", "serve_replica_of", "serve_slo",
+    "serve_rolling_restart", "fleet_tenant", "agent_service", "agent_spool",
+    "agent_poll_s", "agent_settle_s", "agent_timeout_s", "agent_retries",
+    "agent_backoff_s", "agent_backoff_cap_s",
 )
 # --disable_<flag> clears SofaConfig.<field>.
 _DISABLES = {"disable_kineto": "enable_kineto",
@@ -152,7 +174,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("command", nargs="?", default=None,
                    help="shell command to profile (record, stat); the "
                    "logdir for status, passes, resume, fsck, whatif and "
-                   "live; archive's logdir or action; regress's run")
+                   "live; archive's logdir or action; regress's run; "
+                   "serve's root; agent's watch directory")
     p.add_argument("extra", nargs="?", default="",
                    help="archive show's run, backup's root, restore's "
                    "backup; regress's baseline")
@@ -218,7 +241,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--inject_faults",
                    help="fault spec, e.g. 'procmon:die@2s,kineto:wedge@"
                    "harvest,kineto:corrupt' (SOFA_FAULTS alike; kinds die, "
-                   "wedge, fail, truncate, corrupt)")
+                   "wedge, fail, truncate, corrupt; agent: service:"
+                   "conn_refused|conn_reset|stall|http_500[@start|@always], "
+                   "service:partial@<fraction>)")
     g.add_argument("--collector_restarts", type=int,
                    help="restarts of a collector that dies mid-run (default "
                    "1; 0 disables)")
@@ -297,7 +322,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--interval", type=float,
                    help="top: seconds between frames (default 2)")
     g.add_argument("--once", action="store_true",
-                   help="top: draw one frame and exit")
+                   help="top: draw one frame and exit; agent: one pass")
 
     g = p.add_argument_group("live")
     g.add_argument("--live_interval_s", type=float,
@@ -347,6 +372,61 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--regress_threshold", type=float,
                    help="regress: the relative %% move a regressed or "
                    "improved verdict needs (default 10)")
+
+    g = p.add_argument_group("fleet (serve / agent)")
+    g.add_argument("--serve_bind",
+                   help="serve: bind address (default 127.0.0.1; 0.0.0.0 "
+                   "opens it)")
+    g.add_argument("--serve_port", type=int,
+                   help="serve: first port tried (default 8044, up to +19; "
+                   "0 = any)")
+    g.add_argument("--token", dest="serve_token",
+                   help="the bearer token of serve and agent "
+                   "(SOFA_SERVE_TOKEN alike; serve refuses to start "
+                   "without one)")
+    g.add_argument("--quota_mb", type=float, dest="serve_quota_mb",
+                   help="serve: per-tenant object-store quota in MB (0 = "
+                   "none; a breach answers 429, the agent keeps the run "
+                   "spooled)")
+    g.add_argument("--max_inflight", type=int, dest="serve_max_inflight",
+                   help="serve: concurrent writes before 503 + Retry-After "
+                   "(default 8)")
+    g.add_argument("--workers", type=int, dest="serve_workers",
+                   help="serve: worker processes; above 1 needs the fleet "
+                   "tier (exit 2)")
+    g.add_argument("--replica-of", "--replica_of", dest="serve_replica_of",
+                   metavar="URL",
+                   help="serve: a read-only replica; needs the fleet tier "
+                   "(exit 2)")
+    g.add_argument("--slo", dest="serve_slo", metavar="SPEC",
+                   help="serve: declared SLOs; need the fleet tier (exit 2)")
+    g.add_argument("--rolling-restart", "--rolling_restart",
+                   dest="serve_rolling_restart", action="store_true",
+                   help="serve: restart a worker pool; needs the fleet tier "
+                   "(exit 2)")
+    g.add_argument("--tenant", dest="fleet_tenant",
+                   help="agent: the tenant to push into (default 'default')")
+    g.add_argument("--service", dest="agent_service",
+                   help="agent: the service URL, e.g. http://collector:8044 "
+                   "(comma-joined URLs fail over; SOFA_AGENT_SERVICE alike; "
+                   "none = spool only)")
+    g.add_argument("--spool", dest="agent_spool",
+                   help="agent: the spool root (SOFA_AGENT_SPOOL alike; "
+                   "default ./sofa_spool)")
+    g.add_argument("--poll_s", type=float, dest="agent_poll_s",
+                   help="agent: seconds between scans (default 5)")
+    g.add_argument("--settle_s", type=float, dest="agent_settle_s",
+                   help="agent: a logdir quiet this long is finished "
+                   "(default 0.5)")
+    g.add_argument("--push_timeout_s", type=float, dest="agent_timeout_s",
+                   help="agent: per-request deadline (default 10)")
+    g.add_argument("--push_retries", type=int, dest="agent_retries",
+                   help="agent: retries per request (default 4)")
+    g.add_argument("--push_backoff_s", type=float, dest="agent_backoff_s",
+                   help="agent: retry backoff base, jittered (default 0.5)")
+    g.add_argument("--push_backoff_cap_s", type=float,
+                   dest="agent_backoff_cap_s",
+                   help="agent: retry backoff cap (default 30)")
 
     g = p.add_argument_group("board")
     g.add_argument("--no_tiles", action="store_true",
@@ -454,6 +534,15 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
         from sofa_tpu_torch.archive.verdict import sofa_regress
 
         return sofa_regress(cfg, args.command or "", args.extra)
+    if verb == "serve":
+        from sofa_tpu_torch.archive.service import sofa_serve
+
+        return sofa_serve(cfg, root=args.command or None)
+    if verb == "agent":
+        from sofa_tpu_torch.agent import sofa_agent
+
+        return sofa_agent(cfg, watch=args.command or None,
+                          once=getattr(args, "once", False))
     if verb == "live":
         from sofa_tpu_torch.live import sofa_live
 

@@ -25,16 +25,17 @@ def jittered_backoff(attempt: int, base_s: float = 0.5,
 
 
 class Guard:
-    """A named re-entrant lock that declares the attributes it protects."""
+    """A named lock that declares the attributes it protects; re-entrant
+    unless ``reentrant=False``."""
 
     __slots__ = ("name", "protects", "_lock")
 
-    def __init__(self, name: str, protects=()):
+    def __init__(self, name: str, protects=(), reentrant: bool = True):
         if not name or not isinstance(name, str):
             raise ValueError(f"Guard needs a non-empty name, got {name!r}")
         self.name = name
         self.protects = tuple(protects)
-        self._lock = threading.RLock()
+        self._lock = threading.RLock() if reentrant else threading.Lock()
 
     def __enter__(self) -> "Guard":
         self._lock.acquire()

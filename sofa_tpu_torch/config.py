@@ -187,6 +187,30 @@ class SofaConfig:
     regress_pct: float = 50.0        # the rolling baseline's percentile
     regress_threshold: float = 10.0  # the relative % move a verdict needs
 
+    # --- the fleet: serve and agent (archive/service.py, agent.py) -----------
+    serve_bind: str = "127.0.0.1"    # loopback unless opted open
+    serve_port: int = 8044           # 0 = OS-assigned
+    serve_token: str = ""            # --token; SOFA_SERVE_TOKEN alike
+    serve_quota_mb: float = 0.0      # per-tenant object-store quota (0 = off)
+    serve_max_inflight: int = 8      # concurrent writes before a 503 +
+                                     # Retry-After
+    serve_workers: int = 1           # --workers: above 1 needs the fleet
+                                     # tier (a usage error here)
+    serve_replica_of: str = ""       # --replica-of: the fleet tier's
+    serve_slo: str = ""              # --slo: the fleet tier's
+    serve_rolling_restart: bool = False  # --rolling-restart: the tier's
+    fleet_tenant: str = "default"    # the tenant an agent pushes into
+    agent_service: str = ""          # service URL(s) (SOFA_AGENT_SERVICE);
+                                     # empty = spool-only mode
+    agent_spool: str = ""            # the spool root (SOFA_AGENT_SPOOL, else
+                                     # ./sofa_spool)
+    agent_poll_s: float = 5.0        # the daemon's scan period
+    agent_settle_s: float = 0.5      # a logdir quiet this long is finished
+    agent_timeout_s: float = 10.0    # per-request transport deadline
+    agent_retries: int = 4           # per-operation retry budget
+    agent_backoff_s: float = 0.5     # retry backoff base (jittered)
+    agent_backoff_cap_s: float = 30.0  # retry backoff cap
+
     # --- the board ----------------------------------------------------------
     viz_downsample_to: int = 10000   # points per series in report.js
     enable_tiles: bool = True        # the deep-zoom tile pyramid (--no_tiles)

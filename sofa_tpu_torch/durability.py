@@ -29,16 +29,15 @@ refreshed at the end of each verb.  ``fsck`` classifies damage:
 ``fsck --repair`` invalidates exactly the poisoned state (the ingest-cache
 entry of a damaged raw file, a damaged tile series, a damaged chunk
 store), removes the orphans, re-derives and re-digests.  Exit codes:
-``fsck`` 0 healthy, 1 damage found, 2 no digests to check against (or a
-root this package cannot check yet); ``resume`` 0 replayed or nothing to
-do.
+``fsck`` 0 healthy, 1 damage found, 2 no digests to check against;
+``resume`` 0 replayed or nothing to do.
 
 ``resume`` replays the ``whatif`` stage too (with the ``--apply`` its
 begin entry names), a ``live`` epoch that began and never committed, as
 exactly one epoch, and an ``archive`` ingest, into the root its begin
 entry names.  ``fsck`` over an archive root checks the store instead
-(``archive/store.py``); over a fleet root it is a usage error until the
-fleet service is ported.
+(``archive/store.py``), and over a fleet service's root each tenant's
+store.
 """
 
 from __future__ import annotations
@@ -67,15 +66,16 @@ _HASH_CHUNK = 1 << 20
 # fsck's verdicts, in the order they are printed.
 FSCK_VERDICTS = ("missing", "corrupt", "stale", "orphaned")
 
-# Roots marked by a file of their own: an archive (archive/) and the JAX
-# package's fleet service root.  The logdir verbs never digest, sweep or
-# walk into one: each keeps its own ledger.
+# Roots marked by a file of their own: an archive (archive/) and the fleet
+# service's root (archive/service.py), a container of tenant archives.  The
+# logdir verbs never digest, sweep or walk into one: each keeps its own
+# ledger.
 FLEET_MARKER_NAME = "sofa_fleet.json"
 MARKED_ROOTS = (ARCHIVE_MARKER_NAME, FLEET_MARKER_NAME)
-# What of them this package cannot check yet: the fleet service's root,
-# and the fleet-pass tier (the directory in an archive root that the JAX
-# package's fleet passes write; the archive's fsck reports it unchecked).
-UNPORTED_ROOTS = {FLEET_MARKER_NAME: "fleet"}
+# The marked roots this package cannot check yet (none), and the fleet-pass
+# tier (the directory in an archive root that the JAX package's fleet passes
+# write; the archive's fsck reports it unchecked).
+UNPORTED_ROOTS: Dict[str, str] = {}
 UNPORTED_FLEET_TIER = ("_fleet",)
 
 # Raw files whose names the collectors number (ranks, pids, blktrace's
@@ -485,7 +485,8 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
     """The ``fsck`` verb: 0 healthy, 1 damage (each file printed under
     its verdict; with ``repair`` the rc is the re-scan's), 2 without
     digests.  Records ``meta.fsck`` in the manifest.  Over an archive
-    root it checks the store (``_archive_fsck_verb``)."""
+    root it checks the store (``_archive_fsck_verb``), over a fleet root
+    each tenant's (``_fleet_fsck_verb``)."""
     from sofa_tpu_torch.printing import (SofaUserError, print_error,
                                          print_progress, print_warning)
     from sofa_tpu_torch.trace import reap_stale_sentinel
@@ -496,7 +497,9 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
     marker = marked_root(cfg.logdir)
     if marker == ARCHIVE_MARKER_NAME:
         return _archive_fsck_verb(cfg.logdir, repair)
-    if marker is not None:
+    if marker == FLEET_MARKER_NAME:
+        return _fleet_fsck_verb(cfg.logdir, repair)
+    if marker in UNPORTED_ROOTS:
         raise SofaUserError(
             f"{cfg.logdir} is a {UNPORTED_ROOTS[marker]} root ({marker}); "
             f"checking one needs the {UNPORTED_ROOTS[marker]} module, "
@@ -534,6 +537,31 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
     print_progress(f"fsck: {report.get('checked', 0)} artifact(s) verified, "
                    "all healthy")
     return 0
+
+
+def _fleet_fsck_verb(root: str, repair: bool) -> int:
+    """fsck over a fleet service's root: the archive fsck of each tenant
+    under ``tenants/``, the worst exit code winning (0 healthy, 1 damage,
+    2 a tenant without a store); a root with no tenant yet is healthy."""
+    from sofa_tpu_torch.archive.service import TENANTS_DIR_NAME
+    from sofa_tpu_torch.printing import print_progress
+
+    tdir = os.path.join(root, TENANTS_DIR_NAME)
+    try:
+        tenants = sorted(n for n in os.listdir(tdir)
+                         if os.path.isdir(os.path.join(tdir, n)))
+    except OSError:
+        tenants = []
+    if not tenants:
+        print_progress(f"fsck: fleet root {root} has no tenants yet — "
+                       "nothing to verify")
+        return 0
+    worst = 0
+    for tenant in tenants:
+        print_progress(f"fsck: tenant {tenant}")
+        worst = max(worst, _archive_fsck_verb(os.path.join(tdir, tenant),
+                                              repair))
+    return worst
 
 
 def _archive_fsck_verb(root: str, repair: bool) -> int:

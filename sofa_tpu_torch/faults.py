@@ -1,6 +1,6 @@
 """Fault injection: the record and ingest degradation paths, on demand
 (the JAX package's ``sofa_tpu/faults.py:1-158, 159-531, 597-623``, the
-record, ingest and stream kinds).
+record, ingest, stream and network kinds).
 
     SOFA_FAULTS='procmon:die@2s,kineto:wedge@harvest,vmstat:fail@start'
     python -m sofa_tpu_torch record "python train.py" \
@@ -32,10 +32,30 @@ one (``@always``):
     rotate         the source is treated as rotated: re-read from byte 0
     stall          the source freezes for the epoch
 
-The JAX package's network and tier kinds (``conn_refused``,
-``worker_die``, ..., and ``stall`` against the ``service`` target) drive
-its archive and fleet modules, which this package does not have yet: a
-spec naming one is a usage error that says so.
+The network kinds act on the fleet client (``archive/client.py``), against
+the target ``service``; the service itself is never faulted, so what they
+prove is the client's retry, resume and backoff:
+
+    service:conn_refused[@start|@always]   the connection is refused
+    service:conn_reset[@start|@always]     the connection is reset
+                                           mid-request: the ack is lost,
+                                           the retry a committed no-op
+    service:stall[@start|@always]          the request passes its deadline
+    service:http_500[@start|@always]       a 5xx from the service
+    service:partial@<fraction>             the object body is cut at the
+                                           fraction (0 < f < 1): the
+                                           service's hash check rejects it
+
+A network kind fires once per request key by default (one object upload,
+one commit), so the first attempt fails and the retry runs; ``@start``
+fires once for the whole plan; ``@always`` never clears.  ``partial`` is
+always once per key and only on object uploads.  (``stall`` against any
+other target is a stream kind.)
+
+The JAX package's tier kinds (``worker_die``, ``replica_stale``,
+``slo_breach``, ``scrape_stall``, ``disk_full``) drive its fleet tier,
+which this package does not have yet: a spec naming one is a usage error
+that says so.
 
 Without a plan every hook returns at once.  ``record`` and ``preprocess``
 install the plan from ``cfg.inject_faults`` (else ``SOFA_FAULTS``) and
@@ -53,18 +73,20 @@ from typing import Dict, List, Optional
 
 # The kinds the ``live`` tailer applies to a source (live.py).
 STREAM_KINDS = ("tail_truncate", "tail_torn", "rotate", "stall")
-KINDS = ("die", "wedge", "fail", "truncate", "corrupt") + STREAM_KINDS
-# The JAX package's kinds whose consumers this package lacks, by module.
-# ``stall`` is one of them only against the ``service`` target: against
-# any other it is a stream kind, as the JAX grammar decides.
+# The kinds the fleet client applies to a request (archive/client.py).
+# ``stall`` is in both vocabularies: the ``service`` target picks the
+# transport kind, any other target a stream source.
+NET_KINDS = ("conn_refused", "conn_reset", "stall", "http_500", "partial")
+KINDS = ("die", "wedge", "fail", "truncate", "corrupt", "conn_refused",
+         "conn_reset", "http_500", "partial") + STREAM_KINDS
+# The firing policies of the network kinds ("" is once per request key).
+NET_WHENS = ("start", "always")
+# The JAX package's kinds whose consumer this package lacks, by module.
 UNPORTED_KINDS = {
-    "conn_refused": "fleet client", "conn_reset": "fleet client",
-    "http_500": "fleet client", "partial": "fleet client",
     "worker_die": "fleet tier", "replica_stale": "fleet tier",
     "slo_breach": "fleet tier", "scrape_stall": "fleet tier",
     "disk_full": "fleet tier",
 }
-UNPORTED_SERVICE_STALL = "fleet service"
 PHASES = ("start", "stop", "harvest")
 
 ALIASES = {"pcap": "nettrace"}
@@ -89,7 +111,9 @@ class FaultSpec:
     kind: str
     phase: Optional[str] = None      # start|stop|harvest (fail/wedge/truncate)
     delay_s: Optional[float] = None  # die only
-    when: Optional[str] = None       # stream kinds: "always" or None
+    fraction: Optional[float] = None  # partial only: where the body is cut
+    when: Optional[str] = None       # network kinds: start|always|None (per
+                                     # key); stream kinds: always|None
     epoch: Optional[int] = None      # stream kinds: the 1-based live epoch
 
     def fires_at(self, phase: str) -> bool:
@@ -100,10 +124,16 @@ class FaultPlan:
     """A parsed spec, indexed by target."""
 
     def __init__(self, specs: List[FaultSpec]):
+        from sofa_tpu_torch.concurrency import Guard
+
         self.specs = list(specs)
         self._by_target: Dict[str, List[FaultSpec]] = {}
         for s in self.specs:
             self._by_target.setdefault(s.target, []).append(s)
+        # the network kinds are consumed (fire-once policies) from whatever
+        # thread runs the client
+        self._fired_guard = Guard("faults.fired", protects=("_fired",))
+        self._fired: Dict[tuple, bool] = {}
 
     def find(self, target: str, kind: str,
              phase: Optional[str] = None) -> Optional[FaultSpec]:
@@ -125,6 +155,29 @@ class FaultPlan:
                 return s
         return None
 
+    def service_fault(self, target: str, op: str,
+                      key: str) -> Optional[FaultSpec]:
+        """Consult and consume: the first network spec for ``target`` that
+        fires for the request ``op:key``.  ``@always`` never clears,
+        ``@start`` clears after the plan's first matching request, the
+        default clears per request key; ``partial`` fires on object
+        uploads (op ``put``) only."""
+        for s in self._by_target.get(target, ()):
+            if s.kind not in NET_KINDS:
+                continue
+            if s.kind == "partial" and op != "put":
+                continue
+            if s.when == "always":
+                return s
+            fkey = (s.kind, s.target,
+                    "" if s.when == "start" else f"{op}:{key}")
+            with self._fired_guard:
+                if self._fired.get(fkey):
+                    continue
+                self._fired[fkey] = True
+            return s
+        return None
+
 
 def parse(text: str) -> FaultPlan:
     """Parse a spec string; raises ValueError naming the bad entry."""
@@ -137,8 +190,7 @@ def parse(text: str) -> FaultPlan:
             raise ValueError(
                 f"fault entry {entry!r}: expected <target>:<kind>[@<when>]")
         kind, _, when = rest.partition("@")
-        module = (UNPORTED_SERVICE_STALL if kind == "stall"
-                  and target == "service" else UNPORTED_KINDS.get(kind))
+        module = UNPORTED_KINDS.get(kind)
         if module is not None:
             raise ValueError(
                 f"fault entry {entry!r}: kind {kind!r} drives the "
@@ -147,6 +199,10 @@ def parse(text: str) -> FaultPlan:
         if kind not in KINDS:
             raise ValueError(
                 f"fault entry {entry!r}: kind {kind!r} not in {KINDS}")
+        if kind in NET_KINDS and (target == "service"
+                                  or kind not in STREAM_KINDS):
+            specs.append(_parse_net(entry, target, kind, when))
+            continue
         if kind in STREAM_KINDS:
             specs.append(_parse_stream(entry, target, kind, when))
             continue
@@ -197,6 +253,26 @@ def _parse_stream(entry: str, target: str, kind: str,
             f"fault entry {entry!r}: stream kinds take a 1-based epoch "
             "ordinal (e.g. tail_torn@2) or 'always'")
     return FaultSpec(target=target, kind=kind, epoch=epoch)
+
+
+def _parse_net(entry: str, target: str, kind: str,
+               when: str) -> FaultSpec:
+    """``service:<kind>[@start|@always]``, or ``service:partial@<f>``."""
+    if kind == "partial":
+        try:
+            fraction = float(when)
+        except ValueError:
+            fraction = -1.0
+        if not 0.0 < fraction < 1.0:
+            raise ValueError(
+                f"fault entry {entry!r}: partial needs a fraction in "
+                "(0, 1), e.g. partial@0.5")
+        return FaultSpec(target=target, kind=kind, fraction=fraction)
+    if when and when not in NET_WHENS:
+        raise ValueError(
+            f"fault entry {entry!r}: {when!r} is not a network firing "
+            f"policy {NET_WHENS} (default: once per request key)")
+    return FaultSpec(target=target, kind=kind, when=when or None)
 
 
 # --- the active plan ---------------------------------------------------------
@@ -270,6 +346,17 @@ def arm_die(col) -> None:
     t.daemon = True
     _TIMERS.append(t)
     t.start()
+
+
+def maybe_service_fault(op: str, key: str = "",
+                        target: str = "service") -> Optional[FaultSpec]:
+    """The fleet client's hook: the network fault to apply to the request
+    ``op:key`` (e.g. ``put:<sha>``), or None; the client turns it into a
+    refused connection, a reset, a timeout, a 500 or a cut body."""
+    plan = _PLAN
+    if plan is None:
+        return None
+    return plan.service_fault(target, op, key)
 
 
 def maybe_stream_fault(source: str, epoch: int) -> Optional[FaultSpec]:

@@ -1,6 +1,6 @@
 """Self-telemetry: the profiler's own run, made legible (the JAX package's
-``sofa_tpu/telemetry.py``, without the readers of the sections only its
-fleet modules write).
+``sofa_tpu/telemetry.py``, without the readers of ``meta.metrics``'s
+scrape age and ``meta.slo``, which wait for the fleet tier's scrape loop).
 
 Every pipeline verb records spans and counters and lands two files in the
 logdir:
@@ -30,8 +30,12 @@ package writes (schema ``sofa_tpu/run_manifest``, version 5)::
                               wall_s, error or skip_reason), ``archive``
                               (the last ingest: run id, files, new
                               objects, bytes added, root, wall_s, the
-                              index refresh) and ``regress`` (verdict,
-                              counts, the verdict file)
+                              index refresh), ``regress`` (verdict,
+                              counts, the verdict file), and from
+                              ``agent`` ``agent`` (spool, run, service,
+                              push), ``serve`` (the service's ack),
+                              ``tier``, ``metrics`` and ``health`` (the
+                              client's endpoints and breakers)
     collectors.<name>         status (COLLECTOR_STATUSES), degraded flag
                               and reason, died/deaths/restarts (the
                               supervisor), timed_out and phase, exit_code,
@@ -92,7 +96,7 @@ _ENV_KEYS = ("SOFA_JOBS", "SOFA_PREPROCESS_POOL", "SOFA_FAULTS",
 
 # Self-trace lanes: one per verb, as parallel tracks of one process.
 _SELF_TRACE_LANES = {"record": 1, "preprocess": 2, "analyze": 3,
-                     "archive": 5, "regress": 6}
+                     "archive": 5, "regress": 6, "agent": 7}
 _OTHER_LANE = 4
 
 _WARNING_TAIL_MAX = 20
@@ -488,6 +492,16 @@ def manifest_warnings(doc: Optional[dict]) -> List[str]:
                 out.append(f"live source {name} stalled — it stopped "
                            "growing while the other sources kept "
                            "streaming; its series end early")
+    agent_meta = (doc.get("meta") or {}).get("agent")
+    if isinstance(agent_meta, dict):
+        push = agent_meta.get("push")
+        if isinstance(push, dict) and push.get("status") != "pushed":
+            where = agent_meta.get("service") or "the fleet service"
+            out.append(
+                f"the agent could not deliver this run to {where} "
+                f"({push.get('status')}) — it is durable in the spool "
+                f"({agent_meta.get('spool')}) and retries on the next "
+                "agent pass")
     fsck = (doc.get("meta") or {}).get("fsck")
     if isinstance(fsck, dict) and fsck.get("ok") is False:
         problems = fsck.get("problems") or {}
@@ -638,6 +652,18 @@ def render_status(doc: dict, logdir: str) -> "tuple[List[str], int]":
             + ", ".join(f"{counts.get(v, 0)} {v}"
                         for v in ("regressed", "improved", "noise"))
             + f") ({regress.get('out', '?')})")
+    agent_meta = (doc.get("meta") or {}).get("agent")
+    if isinstance(agent_meta, dict):
+        push = agent_meta.get("push") or {}
+        line = (f"  fleet: run {str(agent_meta.get('run') or '?')[:12]} "
+                f"{push.get('status') or 'spooled (no service)'}")
+        serve_meta = (doc.get("meta") or {}).get("serve")
+        if isinstance(serve_meta, dict):
+            line += (f" -> {serve_meta.get('url')} "
+                     f"(tenant {serve_meta.get('tenant')})")
+        elif agent_meta.get("spool"):
+            line += f" (spool {agent_meta['spool']})"
+        lines.append(line)
     whatif = (doc.get("meta") or {}).get("whatif")
     if isinstance(whatif, dict):
         pred = whatif.get("predicted_step_time_s")

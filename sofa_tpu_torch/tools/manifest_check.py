@@ -3,7 +3,10 @@
 env, collectors, sources, stages, ``digests``, ``meta.pool``,
 ``meta.ingest_cache``, ``meta.disk_budget``, ``meta.passes``,
 ``meta.fsck``, ``meta.frames``, ``meta.whatif``, ``meta.live``,
-``meta.archive``, ``meta.regress`` and ``meta.backup``).
+``meta.archive``, ``meta.regress``, ``meta.backup``, and the sections the
+agent writes: ``meta.agent``, ``meta.serve``, ``meta.tier``,
+``meta.metrics`` and ``meta.health``; the JAX package's ``meta.slo``
+reader waits for the fleet tier's SLOs).
 Given a logdir, it also validates every ``_frames/<name>/frame_index.json``,
 the ``whatif_report.json`` (``validate_whatif``), the
 ``regress_verdict.json`` (``validate_verdict``) and ``live``'s offset
@@ -13,8 +16,9 @@ index instead: ``_index/index_commit.json`` (``validate_index_commit``)
 and each family's ``frame_index.json`` against it (no index at all is
 valid: the readers scan).  Given a ``regress_verdict.json``, it validates
 that.  Under ``--require-healthy`` a stalled live source and an active
-stream whose ``updated_unix`` is older than ``_LIVE_STALE_S`` are
-problems; under ``--require-passing`` a ``regressed`` verdict is one.
+stream whose ``updated_unix`` is older than ``_LIVE_STALE_S`` and a run
+the agent could not deliver are problems; under ``--require-passing`` a
+``regressed`` verdict is one.
 
     python -m sofa_tpu_torch.tools.manifest_check
         <logdir | manifest.json | archive root | regress_verdict.json>
@@ -36,10 +40,12 @@ import time
 from typing import List
 
 from sofa_tpu_torch.archive import ARCHIVE_MARKER_NAME, VERDICT_NAME
+from sofa_tpu_torch.archive.client import HEALTH_SCHEMA, HEALTH_VERSION
 from sofa_tpu_torch.archive.index import (FAMILIES, INDEX_COMMIT_NAME,
                                           INDEX_DIR_NAME, INDEX_SCHEMA,
                                           INDEX_VERSION)
 from sofa_tpu_torch.archive.store import BACKUP_SCHEMA, BACKUP_VERSION
+from sofa_tpu_torch.archive.tier import TIER_SCHEMA, TIER_VERSION
 from sofa_tpu_torch.archive.verdict import (VERDICT_SCHEMA, VERDICT_VERSION,
                                             VERDICTS)
 from sofa_tpu_torch.frames import (FRAME_INDEX_NAME, FRAME_INDEX_SCHEMA,
@@ -516,6 +522,124 @@ def _check_archive_meta(meta, probs: List[str]) -> None:
         probs.append("meta.backup.taken_unix: missing or not a number")
 
 
+def _is_run_id(v) -> bool:
+    return isinstance(v, str) and len(v) == 64
+
+
+def _check_fleet_meta(meta, probs: List[str]) -> None:
+    """The sections ``agent`` writes (agent.py): ``meta.agent`` (the spool
+    and the push), ``meta.serve`` (the service's ack), ``meta.tier`` (the
+    worker that committed it and its WAL depth), ``meta.metrics`` (the
+    push's trace id and the worker's metrics fold) and ``meta.health``
+    (the client's endpoints, failovers and open breakers)."""
+    agent = meta.get("agent")
+    if agent is not None and not isinstance(agent, dict):
+        probs.append("meta.agent: not an object")
+    elif agent is not None:
+        if not isinstance(agent.get("spool"), str):
+            probs.append("meta.agent.spool: missing spool root")
+        if not _is_run_id(agent.get("run")):
+            probs.append("meta.agent.run: not a 64-hex run id")
+        svc = agent.get("service")
+        if svc is not None and not isinstance(svc, str):
+            probs.append("meta.agent.service: not a string or null")
+        push = agent.get("push")
+        if push is not None:
+            if not isinstance(push, dict) or push.get("status") not in (
+                    "pushed", "spooled", "rejected"):
+                probs.append("meta.agent.push.status: not in "
+                             "('pushed', 'spooled', 'rejected')")
+            else:
+                if not _is_count(push.get("attempts")):
+                    probs.append("meta.agent.push.attempts: missing or not "
+                                 "a non-negative int")
+                if not _is_num(push.get("wall_s")) \
+                        or push.get("wall_s", 0) < 0:
+                    probs.append("meta.agent.push.wall_s: missing or "
+                                 "negative")
+    serve = meta.get("serve")
+    if serve is not None and not isinstance(serve, dict):
+        probs.append("meta.serve: not an object")
+    elif serve is not None:
+        for key in ("url", "tenant"):
+            if not isinstance(serve.get(key), str) or not serve[key]:
+                probs.append(f"meta.serve.{key}: missing or empty")
+        if not _is_run_id(serve.get("run")):
+            probs.append("meta.serve.run: not a 64-hex run id")
+        if not _is_num(serve.get("committed_unix")):
+            probs.append("meta.serve.committed_unix: missing or not a "
+                         "number")
+    tier = meta.get("tier")
+    if tier is not None and not isinstance(tier, dict):
+        probs.append("meta.tier: not an object")
+    elif tier is not None:
+        if tier.get("schema") != TIER_SCHEMA:
+            probs.append(f"meta.tier.schema: expected {TIER_SCHEMA!r}, "
+                         f"got {tier.get('schema')!r}")
+        if tier.get("version") != TIER_VERSION:
+            probs.append(f"meta.tier.version: expected {TIER_VERSION}, "
+                         f"got {tier.get('version')!r}")
+        if not isinstance(tier.get("url"), str) or not tier.get("url"):
+            probs.append("meta.tier.url: missing or empty")
+        worker, workers = tier.get("worker"), tier.get("workers")
+        for key, v in (("worker", worker), ("workers", workers),
+                       ("wal_depth", tier.get("wal_depth"))):
+            if not _is_count(v):
+                probs.append(f"meta.tier.{key}: missing or not a "
+                             "non-negative int")
+        if _is_count(worker) and _is_count(workers) \
+                and (workers < 1 or not worker < workers):
+            probs.append(f"meta.tier: worker {worker} out of range for "
+                         f"{workers} worker(s)")
+    mmet = meta.get("metrics")
+    if mmet is not None and not isinstance(mmet, dict):
+        probs.append("meta.metrics: not an object")
+    elif mmet is not None:
+        if not isinstance(mmet.get("trace"), str):
+            probs.append("meta.metrics.trace: missing or not a string")
+        for key in ("last_scrape_unix", "scrape_age_s", "push_wall_s",
+                    "push_p99_ms", "wal_depth", "replica_behind"):
+            v = mmet.get(key)
+            if v is not None and not _is_num(v):
+                probs.append(f"meta.metrics.{key}: not a number or null")
+        if mmet.get("slo_ok") is not None \
+                and not isinstance(mmet["slo_ok"], bool):
+            probs.append("meta.metrics.slo_ok: not a bool or null")
+        br = mmet.get("slo_breaching")
+        if br is not None and (not isinstance(br, list)
+                               or any(not isinstance(n, str) for n in br)):
+            probs.append("meta.metrics.slo_breaching: not a list of metric "
+                         "names")
+    mh = meta.get("health")
+    if mh is not None and not isinstance(mh, dict):
+        probs.append("meta.health: not an object")
+    elif mh is not None:
+        if mh.get("schema") != HEALTH_SCHEMA:
+            probs.append(f"meta.health.schema: expected {HEALTH_SCHEMA!r}, "
+                         f"got {mh.get('schema')!r}")
+        if mh.get("version") != HEALTH_VERSION:
+            probs.append(f"meta.health.version: expected {HEALTH_VERSION}, "
+                         f"got {mh.get('version')!r}")
+        eps = mh.get("endpoints")
+        if not isinstance(eps, list) or not eps or any(
+                not isinstance(u, str) or not u for u in eps):
+            probs.append("meta.health.endpoints: not a non-empty list of "
+                         "URLs")
+        active = mh.get("active")
+        if not isinstance(active, str) or not active:
+            probs.append("meta.health.active: missing or empty")
+        elif isinstance(eps, list) and eps and active not in eps:
+            probs.append(f"meta.health.active: {active!r} not in endpoints")
+        if not _is_count(mh.get("failovers")):
+            probs.append("meta.health.failovers: missing or not a "
+                         "non-negative int")
+        bo = mh.get("breakers_open")
+        if not isinstance(bo, list) or any(not isinstance(u, str)
+                                           for u in bo):
+            probs.append("meta.health.breakers_open: not a list of "
+                         "endpoint URLs")
+
+
 def validate_verdict(doc, require_passing: bool = False) -> List[str]:
     """Schema problems in a ``regress_verdict.json`` (archive/verdict.py);
     with ``require_passing`` an overall ``regressed`` verdict is one too
@@ -766,6 +890,7 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
         meta = {}
     _check_meta(meta, probs)
     _check_live_meta(meta.get("live"), probs)
+    _check_fleet_meta(meta, probs)
     _check_digests(doc.get("digests"), probs)
     stages = doc.get("stages", [])
     if not isinstance(stages, list):
@@ -805,6 +930,13 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
                 probs.append(f"unhealthy: analysis pass {name} failed"
                              + (f" ({ent['error']})"
                                 if ent.get("error") else ""))
+        agent = meta.get("agent")
+        if isinstance(agent, dict) and \
+                isinstance(agent.get("push"), dict) and \
+                agent["push"].get("status") != "pushed":
+            probs.append("unhealthy: the agent could not deliver this "
+                         f"run ({agent['push'].get('status')}) — it is "
+                         "spooled locally, not in the fleet archive")
         whatif = meta.get("whatif")
         if isinstance(whatif, dict) and \
                 whatif.get("verdict") == "uncalibrated":

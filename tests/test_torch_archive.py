@@ -866,3 +866,41 @@ def test_each_package_reads_the_others_root(tmp_path):
     for root in roots.values():
         got, want = archive_fsck(root), jax_store.archive_fsck(root)
         assert got == want
+
+
+def test_put_bytes_concurrent_writers_store_one_blob_once(tmp_path):
+    """8 threads behind a barrier store one 4 MB blob, 20 trials: no call
+    raises, the object hashes to its name, the bytes added sum to the
+    blob's length (counted once, so a tenant's quota is charged once),
+    and no stage file is left."""
+    import hashlib
+    import threading
+
+    blob = os.urandom(4 << 20)
+    want = hashlib.sha256(blob).hexdigest()
+    for trial in range(20):
+        store = ArchiveStore(str(tmp_path / f"t{trial}"), create=True)
+        barrier = threading.Barrier(8)
+        results, errors = [], []
+
+        def put():
+            barrier.wait()
+            try:
+                results.append(store.put_bytes(blob))
+            except BaseException as e:   # every failure is the finding
+                errors.append(e)
+
+        threads = [threading.Thread(target=put) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert errors == []
+        assert {sha for sha, _ in results} == {want}
+        assert sum(added for _, added in results) == len(blob)
+        with open(store.object_path(want), "rb") as f:
+            assert hashlib.sha256(f.read()).hexdigest() == want
+        left = [n for _d, _s, ns in os.walk(store.root) for n in ns
+                if n.endswith(".tmp")]
+        assert left == []
+        assert archive_fsck(store.root)["orphaned"] == []

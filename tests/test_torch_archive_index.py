@@ -577,3 +577,166 @@ def test_each_package_reads_the_others_index(tmp_path, monkeypatch):
     assert len(aindex.offenders(root)) == 20
     assert aindex.offenders_scan(store) == jax_index.offenders_scan(
         jax_store.ArchiveStore(root), "gpu*_sol_distance")
+
+
+# --- the /v1/query service endpoint -------------------------------------------
+
+TOKEN = "test-index-token"
+
+
+@pytest.fixture
+def service(tmp_path):
+    """The port's fleet service over a quota of ~1 KiB (trivially
+    breached)."""
+    import threading
+
+    from sofa_tpu_torch.archive.service import sofa_serve
+
+    cfg = SofaConfig(logdir=str(tmp_path / "unused"), serve_token=TOKEN,
+                     serve_port=0, serve_quota_mb=0.001)
+    httpd = sofa_serve(cfg, root=str(tmp_path / "fleet"),
+                       serve_forever=False)
+    assert httpd is not None
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield httpd
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=5)
+
+
+def _url(httpd):
+    from sofa_tpu_torch.archive.service import service_url
+
+    return service_url(httpd)
+
+
+def _tenant_archive(httpd, tmp_path, n=8):
+    """The default tenant seeded with a synthetic archive of ``n`` runs,
+    its index refreshed."""
+    import shutil
+
+    root = httpd.tenant_root("default")
+    ArchiveStore(root, create=True)
+    seeded, _store = _mkarchive(tmp_path / "seed", n=n, name="a")
+    for name in os.listdir(os.path.join(seeded, "runs")):
+        shutil.copy(os.path.join(seeded, "runs", name),
+                    os.path.join(root, "runs", name))
+    shutil.copy(catalog.catalog_path(seeded), catalog.catalog_path(root))
+    aindex.refresh(root)
+    return root
+
+
+def _get(url, headers=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def test_v1_query_auth_etag_pagination(service, tmp_path):
+    _tenant_archive(service, tmp_path)
+    base = _url(service)
+    code, _h, _b = _get(f"{base}/v1/default/query?kind=runs")
+    assert code == 401
+    auth = {"Authorization": f"Bearer {TOKEN}"}
+    code, hdrs, body = _get(f"{base}/v1/default/query?kind=runs&limit=3",
+                            auth)
+    assert code == 200
+    doc = json.loads(body)
+    assert doc["schema"] == "sofa_tpu/fleet_service"
+    assert doc["source"] == "index" and len(doc["rows"]) == 3
+    assert doc["total"] == 8
+    etag = hdrs["ETag"]
+    assert etag.startswith('"idx-')
+    code, _h, _b = _get(f"{base}/v1/default/query?kind=runs&limit=3",
+                        {**auth, "If-None-Match": etag})
+    assert code == 304
+    code, _h, body = _get(
+        f"{base}/v1/default/query?kind=features"
+        f"&feature=gpu*_sol_distance&limit=4&offset=2&token={TOKEN}")
+    assert code == 200
+    doc = json.loads(body)
+    assert doc["offset"] == 2 and len(doc["rows"]) == 4
+    assert doc["rows"][0]["value"] >= doc["rows"][1]["value"]
+    code, _h, _b = _get(f"{base}/v1/default/query?kind=bogus", auth)
+    assert code == 400
+
+
+def test_v1_query_answers_while_quota_exhausted(service, tmp_path):
+    """A tenant refused uploads (429 quota) can still query: the route
+    takes no write slot and checks no quota."""
+    import hashlib
+    import urllib.error
+    import urllib.request
+
+    _tenant_archive(service, tmp_path)
+    base = _url(service)
+    auth = {"Authorization": f"Bearer {TOKEN}"}
+    blob = b"x" * 4096
+    sha = hashlib.sha256(blob).hexdigest()
+    req = urllib.request.Request(f"{base}/v1/default/object/{sha}",
+                                 data=blob, method="PUT", headers=auth)
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        urllib.request.urlopen(req, timeout=10)
+    assert exc.value.code == 429
+    assert json.load(exc.value)["error"] == "quota"
+    code, _h, body = _get(f"{base}/v1/default/query?kind=runs", auth)
+    assert code == 200 and json.loads(body)["total"] == 8
+
+
+def test_v1_query_scan_fallback_and_catalog_etag(service, tmp_path):
+    root = _tenant_archive(service, tmp_path, n=3)
+    aindex.drop(root)
+    base = _url(service)
+    auth = {"Authorization": f"Bearer {TOKEN}"}
+    code, hdrs, body = _get(f"{base}/v1/default/query?kind=runs", auth)
+    assert code == 200
+    assert json.loads(body)["source"] == "scan"
+    etag = hdrs["ETag"]
+    assert etag.startswith('"cat-')
+    code, _h, _b = _get(f"{base}/v1/default/query?kind=runs",
+                        {**auth, "If-None-Match": etag})
+    assert code == 304
+    code, hdrs, body = _get(f"{base}/v1/default/catalog", auth)
+    assert code == 200
+    assert int(hdrs["Content-Length"]) == len(body)
+    assert body == open(catalog.catalog_path(root), "rb").read()
+    code, _h, _b = _get(f"{base}/v1/default/catalog",
+                        {**auth, "If-None-Match": hdrs["ETag"]})
+    assert code == 304
+
+
+def test_v1_reads_503_while_mid_gc(service, tmp_path):
+    root = _tenant_archive(service, tmp_path, n=2)
+    base = _url(service)
+    auth = {"Authorization": f"Bearer {TOKEN}"}
+    with derived_write_guard(root):
+        for route in ("catalog", "query?kind=runs"):
+            code, hdrs, _b = _get(f"{base}/v1/default/{route}", auth)
+            assert code == 503
+            assert hdrs.get("Retry-After")
+    code, _h, _b = _get(f"{base}/v1/default/catalog", auth)
+    assert code == 200
+
+
+def test_v1_query_cors_preflight(service, tmp_path):
+    import urllib.request
+
+    _tenant_archive(service, tmp_path, n=2)
+    base = _url(service)
+    req = urllib.request.Request(f"{base}/v1/default/query",
+                                 method="OPTIONS")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        assert r.status == 204
+        assert r.headers["Access-Control-Allow-Origin"] == "*"
+    code, hdrs, _b = _get(f"{base}/v1/default/query?kind=runs&token={TOKEN}")
+    assert code == 200
+    assert hdrs.get("Access-Control-Allow-Origin") == "*"

@@ -67,6 +67,14 @@ NOT_FORWARDED = {
     "archive_limit": "archive", "archive_since": "archive",
     "archive_host": "archive", "regress_rolling": "regress",
     "regress_pct": "regress", "regress_threshold": "regress",
+    **{f: "serve" for f in ("serve_bind", "serve_port", "serve_token",
+                            "serve_quota_mb", "serve_max_inflight",
+                            "serve_workers", "serve_replica_of",
+                            "serve_slo", "serve_rolling_restart")},
+    **{f: "agent" for f in ("fleet_tenant", "agent_service", "agent_spool",
+                            "agent_poll_s", "agent_settle_s",
+                            "agent_timeout_s", "agent_retries",
+                            "agent_backoff_s", "agent_backoff_cap_s")},
 }
 # Values the type alone does not give (a choice, a spec).
 VALUES = {"perf_call_graph": "fp", "inject_faults": "procmon:die@2s",

@@ -91,13 +91,25 @@ def test_fault_specs_rejected_as_the_jax_package_does(bad):
         faults.parse(bad)
 
 
-@pytest.mark.parametrize("spec", ["service:conn_refused", "service:partial@0.5",
-                                  "service:worker_die@2", "service:stall",
-                                  "service:http_500"])
+@pytest.mark.parametrize("spec", ["service:worker_die@2",
+                                  "service:replica_stale",
+                                  "service:slo_breach@1",
+                                  "service:scrape_stall",
+                                  "service:disk_full@3"])
 def test_unported_fault_kinds_are_usage_errors_that_say_so(spec):
     jax_faults.parse(spec)                  # the JAX package takes them
-    with pytest.raises(ValueError, match="does not have yet"):
+    with pytest.raises(ValueError, match="fleet tier.*does not have yet"):
         faults.parse(spec)
+
+
+@pytest.mark.parametrize("spec", ["service:conn_refused", "service:partial@0.5",
+                                  "service:stall", "service:http_500",
+                                  "service:conn_reset@always"])
+def test_network_fault_kinds_parse_as_the_jax_package_does(spec):
+    """The fleet client's kinds: the JAX package's spec, field for field."""
+    (got,), (want,) = faults.parse(spec).specs, jax_faults.parse(spec).specs
+    assert (got.target, got.kind, got.when, got.fraction) == \
+        (want.target, want.kind, want.when, want.fraction)
 
 
 def test_no_spec_means_no_plan(monkeypatch):
@@ -114,7 +126,7 @@ def test_bad_spec_is_a_usage_error(logdir, monkeypatch):
         sofa_record("true", cfg)
     assert faults.active() is None
     assert cli_main(["record", "--logdir", logdir, "--inject_faults",
-                     "service:stall", "true"]) == 1
+                     "service:worker_die@1", "true"]) == 1
 
 
 # --- collector faults on a fake swarm -----------------------------------------

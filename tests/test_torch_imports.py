@@ -103,7 +103,13 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/archive/index.py",
             "sofa_tpu_torch/archive/store.py",
             "sofa_tpu_torch/archive/baseline.py",
-            "sofa_tpu_torch/archive/verdict.py"} <= rel
+            "sofa_tpu_torch/archive/verdict.py",
+            "sofa_tpu_torch/archive/protocol.py",
+            "sofa_tpu_torch/archive/tier.py",
+            "sofa_tpu_torch/archive/service.py",
+            "sofa_tpu_torch/archive/client.py",
+            "sofa_tpu_torch/archive/spool.py",
+            "sofa_tpu_torch/agent.py", "sofa_tpu_torch/metrics.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -142,7 +148,10 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.top, sofa_tpu_torch.archive, "
             "sofa_tpu_torch.archive.catalog, sofa_tpu_torch.archive.index, "
             "sofa_tpu_torch.archive.store, sofa_tpu_torch.archive.baseline, "
-            "sofa_tpu_torch.archive.verdict; "
+            "sofa_tpu_torch.archive.verdict, sofa_tpu_torch.archive.protocol, "
+            "sofa_tpu_torch.archive.tier, sofa_tpu_torch.archive.service, "
+            "sofa_tpu_torch.archive.client, sofa_tpu_torch.archive.spool, "
+            "sofa_tpu_torch.agent, sofa_tpu_torch.metrics; "
             "registry = sofa_tpu_torch.analysis.registry; "
             "registry.load_builtin_passes(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
