@@ -8,9 +8,10 @@ ring, resnet); then three lanes run side by side, each a thread that runs
 its phases in order: (1) profile, cluster, mesh, tp, tp_serve: the card's
 Llama-width runs at batch 4 and the multi-rank ones, up to 43 GB of the
 card at a time; (2) live, serve, window, faults, ep_pp: its runs of at most
-21 GB; (3) robust, board, cache, verbs, archive, fleet_push, live_drain:
-host only, over the captures the card made, each waiting for the phase of
-another lane whose capture it reads.  A failure anywhere raises and exits
+21 GB, then fleet_tier, host only; (3) robust, board, cache, verbs,
+archive, fleet_push, live_drain: host only.  The host-only phases run over
+the captures the card made, each waiting for the phase of another lane
+whose capture it reads.  A failure anywhere raises and exits
 non-zero; a lane's failure stops every lane before its next phase.  The
 phases:
 
@@ -261,6 +262,36 @@ phases:
            every WAL drained, the ``serve handled:`` line with a
            422_hash_mismatch and no 500, ``fsck`` of the root 0; prints
            each push's wall, objects, bytes and loopback MB/s
+  fleet_tier the fleet tier with no card visible over copies of the
+           ResNet-50 and Llama-width captures, each ``serve`` (a pool of 4
+           workers, a replica) and each ``agent --once`` a child on
+           loopback, a line a cell: (a) the pool (its log names SO_REUSEPORT
+           or the dispatcher) under ``--slo``, the port's ``fleet_load`` (4
+           agents x 8 pushes over 2 tenants, 2 query pollers; its five
+           numbers printed) and both captures: every push acked and
+           committed, the run sets the ones offered, ``/v1/tier`` naming 4
+           workers and each tenant's ring owner, meta.tier and meta.metrics
+           in the manifests; (b) a second pool under
+           ``service:worker_die@2,service:slo_breach@2``: worker 2 exits 89
+           once and is respawned, no acked push lost, every WAL 0, one
+           ``slo_breach`` catalog event, ``slo_verdict.json`` not ok,
+           ``status --fleet`` 1; then a WAL append under
+           ``service:disk_full@1``: 507, the retry committed; (c)
+           ``--rolling-restart`` under load: workers 0-3 handed off in
+           order, every push acked and committed, no 500; (d) a replica:
+           each tenant's query bytes the primary's with the commit header,
+           a write 403, a second pull moving nothing; under
+           ``service:replica_stale`` the stale header and ``status
+           --fleet``'s staleness line; (e) ``/v1/metrics`` 200 then 304, 401
+           without the token, and a served scrape loop stalled by
+           ``service:scrape_stall`` past STALE_SCRAPE_S: ``status`` and
+           ``status --fleet`` warn; (f) ``fleet analyze`` cold, warm and
+           again on a tenant's copy (memoized no-ops, one report),
+           ``/v1/smoke/fleet`` 200 then 304, a rotted fleet_state.json:
+           ``fsck`` 1 naming it, ``--repair`` 0, the same bytes rebuilt;
+           (g) SIGTERM: the pool exits 0, every worker 0, every WAL 0, no 500
+           and no traceback, ``fsck`` of the root 0, the merged fleet trace
+           joining the Llama-width push's spans across processes
 
   live     (a) ``record`` of the training ``main`` at Llama-3-8B width cut
            to 2 layers, batch 1 (LIVE_STEPS steps; its Kineto window
@@ -308,6 +339,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import glob
+import hashlib
 import json
 import math
 import os
@@ -319,6 +351,8 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
+import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -4281,6 +4315,648 @@ class Smoke:
                 f"; fsck of the root ({tenants} tenants) rc 0 in "
                 f"{fsck_s:.2f} s")
 
+    # -- the fleet tier: pool, replicas, metrics, fleet passes ----------------
+    TIER_SLO = "push_p99_ms<600000,wal_depth<100000"
+
+    def fleet_tier(self):
+        """The fleet tier over the ResNet-50 and Llama-width captures (no
+        card visible; each ``serve`` and each ``agent --once`` a child
+        process on loopback), a line a cell: (a) ``serve --workers 4
+        --slo`` (its log names SO_REUSEPORT or the dispatcher), the port's
+        ``fleet_load`` (4 agents x 8 pushes over 2 tenants, 2 pollers) and
+        the two captures by ``agent --once``: every push acked and
+        committed, each tenant's run set the one offered, ``/v1/tier``
+        naming 4 workers and each tenant's ring owner, the acks' ``tier``
+        and ``metrics`` in the manifests; (b) a second pool under
+        ``service:worker_die@2,service:slo_breach@2``: worker 2 exits 89
+        once and is respawned, no acked push lost, every WAL at 0, one
+        ``slo_breach`` catalog event, ``slo_verdict.json`` not ok and
+        ``status --fleet`` exiting 1; (c) ``serve --rolling-restart``
+        under load: every worker a new pid, one at a time, no acked push
+        lost, no 500; (d) ``serve --replica-of`` the pool: each tenant's
+        query bytes the primary's with the commit header, a write 403, a
+        second pull moving nothing; under ``service:replica_stale`` the
+        stale header and ``status --fleet``'s staleness line; (e)
+        ``/v1/metrics``'s 304, and a served scrape loop stalled by
+        ``service:scrape_stall`` for over STALE_SCRAPE_S giving the
+        stale-scrape warnings; (f) ``fleet analyze`` cold, warm and again
+        on a tenant's copy (no-ops, the same bytes), ``/v1/<t>/fleet``'s
+        304, a rotted ``fleet_state.json`` named by ``fsck`` and dropped
+        by ``--repair``, the next analyze the same bytes; a WAL append
+        under ``service:disk_full@1`` answering 507 and the retry
+        committing; (g) SIGTERM: every worker exits 0, every WAL at 0, no
+        500 and no traceback, ``fsck`` of the root 0, and the merged fleet
+        trace joining one push's spans across processes."""
+        self.need("llama")
+        build = os.path.join(REPO, "build")
+        caps = {"resnet": os.path.join(build, "chip_smoke_resnet_r1"),
+                "llama": os.path.join(build, "chip_smoke_profile_llama")}
+        self.fleet_tier_cells(caps, os.path.join(build,
+                                                 "chip_smoke_fleet_tier"))
+
+    def fleet_tier_cells(self, caps, base):
+        from sofa_tpu_torch import metrics
+
+        t_phase = time.perf_counter()
+        shutil.rmtree(base, ignore_errors=True)
+        t0 = time.perf_counter()
+        copies = {}
+        for label, src in caps.items():
+            for where in (("watch_a", "watch_b", "stale")
+                          if label == "resnet" else ("watch_a",)):
+                dest = os.path.join(base, where, label)
+                shutil.copytree(src, dest, ignore=shutil.ignore_patterns(
+                    "_ingest_cache"))
+                copies[(where, label)] = dest
+        log(f"tier[copy]: the captures copied in "
+            f"{time.perf_counter() - t0:.1f} s | {self.smi}")
+        # (e)'s stalled scrape loop needs STALE_SCRAPE_S of wall time: it
+        # runs beside the other cells
+        stale = subprocess.Popen(
+            [sys.executable, "-c", self.TIER_STALE_CHILD,
+             os.path.join(base, "stale_root"),
+             os.path.join(base, "stale"), self.FLEET_TOKEN,
+             str(metrics.STALE_SCRAPE_S + 2)],
+            cwd=REPO, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        root_a = os.path.join(base, "root_a")
+        pool, url, alog = self.tier_pool(root_a, "a", ["--slo",
+                                                       self.TIER_SLO])
+        procs = [stale, pool]
+        try:
+            cells = [("pool", lambda: self.tier_pool_cell(
+                         url, root_a, alog, copies))]
+            cells.append(("die", lambda: self.tier_die_cell(base, copies)))
+            cells.append(("replica", lambda: self.tier_replica_cell(
+                url, root_a, base, procs)))
+            cells.append(("restart", lambda: self.tier_restart_cell(
+                url, root_a, alog)))
+            cells.append(("metrics", lambda: self.tier_metrics_cell(
+                url, stale)))
+            cells.append(("passes", lambda: self.tier_passes_cell(
+                url, root_a, base)))
+            cells.append(("drain", lambda: self.tier_drain_cell(
+                pool, root_a, alog)))
+            for name, cell in cells:
+                t0 = time.perf_counter()
+                line = cell()
+                log(f"tier[{name}]: {line} "
+                    f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        log(f"fleet_tier: phase {time.perf_counter() - t_phase:.1f} s | "
+            f"{self.smi}")
+
+    def tier_pool(self, root, label, flags=(), env=None, workers=4):
+        """``serve <root> --workers N`` on loopback port 0, a child with
+        no card visible; returns the process, its URL and its log."""
+        slog = os.path.join(os.path.dirname(root), f"pool_{label}.log")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   SOFA_REFRESH_MIN_INTERVAL_S="0.2",
+                   SOFA_METRICS_SCRAPE_S="1", **(env or {}))
+        with open(slog, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "sofa_tpu_torch", "serve", root,
+                 "--serve_port", "0", "--token", self.FLEET_TOKEN,
+                 "--workers", str(workers), *flags],
+                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline:
+            with open(slog) as f:
+                m = re.search(r"fleet archive service: .* at "
+                              r"http://[^:]+:(\d+)/v1/", f.read())
+            if m:
+                return proc, f"http://127.0.0.1:{m.group(1)}", slog
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        proc.kill()
+        with open(slog) as f:
+            raise AssertionError(f"pool {label} printed no URL: "
+                                 f"{f.read()[-2000:]}")
+
+    def tier_get(self, url, path, token=None, headers=None, conn=None):
+        """(status, headers, body) of one GET, over ``conn`` if given."""
+        import http.client
+        import urllib.parse
+
+        hdr = {"Authorization": f"Bearer {token or self.FLEET_TOKEN}",
+               **(headers or {})}
+        own = conn is None
+        if own:
+            u = urllib.parse.urlparse(url)
+            conn = http.client.HTTPConnection(u.hostname, u.port,
+                                              timeout=30)
+        try:
+            conn.request("GET", path, headers=hdr)
+            r = conn.getresponse()
+            return r.status, dict(r.getheaders()), r.read()
+        finally:
+            if own:
+                conn.close()
+
+    def tier_load(self, url, *args):
+        """The port's ``fleet_load`` against ``url``; returns its result
+        document (raises on an error or a failed push)."""
+        r = subprocess.run(
+            [sys.executable, "-m", "sofa_tpu_torch.tools.fleet_load",
+             "--url", url, "--token", self.FLEET_TOKEN, *args], cwd=REPO,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        res = json.loads(lines[-1]) if lines else {}
+        if r.returncode != 0 or res.get("error_count"):
+            raise AssertionError(f"fleet_load {' '.join(args)}: rc "
+                                 f"{r.returncode}, {res.get('errors')}: "
+                                 f"{r.stderr[-2000:]}")
+        return res
+
+    @staticmethod
+    def tier_offered(res, payload_bytes=2048):
+        """tenant -> the run ids of the pushes ``fleet_load`` acked."""
+        from sofa_tpu_torch.archive.store import run_content_id
+        from sofa_tpu_torch.tools.fleet_load import _synthetic_run
+
+        out = {}
+        for t in res["traces"]:
+            files = {rel: {"sha256": hashlib.sha256(data).hexdigest(),
+                           "bytes": len(data)}
+                     for rel, data in _synthetic_run(
+                         t["tenant"], t["agent"], t["i"],
+                         payload_bytes).items()}
+            out.setdefault(t["tenant"], set()).add(run_content_id(files))
+        return out
+
+    def tier_settled(self, root):
+        """Every tenant of ``root``: WAL applied and index refreshed."""
+        tdir = os.path.join(root, "tenants")
+        for tenant in sorted(os.listdir(tdir)):
+            bad = self.fleet_fsck(os.path.join(tdir, tenant))
+            if bad:
+                raise AssertionError(f"tenant {tenant}: {bad}")
+
+    def tier_pool_cell(self, url, root, slog, copies):
+        """(a) the load and the captures through the pool of 4."""
+        from sofa_tpu_torch import telemetry
+        from sofa_tpu_torch.archive import tier
+        from sofa_tpu_torch.tools.manifest_check import validate_manifest
+
+        with open(slog) as f:
+            m = re.search(r"4 workers via (SO_REUSEPORT|dispatcher)",
+                          f.read())
+        if m is None:
+            raise AssertionError("the pool's log names no accept path")
+        res = self.tier_load(url, "--agents", "4", "--pushes", "8",
+                             "--pollers", "2", "--tenants", "2")
+        if res["pushes"] != 32:
+            raise AssertionError(f"{res['pushes']} of 32 pushes acked")
+        watch = os.path.dirname(copies[("watch_a", "llama")])
+        _out, wall = self.fleet_agent("tier", watch, url,
+                                      os.path.join(root, "..", "spool_a"))
+        self.tier_settled(root)
+        offered = self.tier_offered(res)
+        got = {t: set(self.fleet_runs(root, t)) for t in offered}
+        if got != offered:
+            raise AssertionError(f"run sets {got} != offered {offered}")
+        for label in ("resnet", "llama"):
+            meta = telemetry.load_manifest(copies[("watch_a",
+                                                   label)])["meta"]
+            mt = meta.get("tier") or {}
+            if mt.get("workers") != 4 or "metrics" not in meta or \
+                    meta["agent"]["push"]["status"] != "pushed" or \
+                    validate_manifest({"meta": meta, **{
+                        k: v for k, v in telemetry.load_manifest(
+                            copies[("watch_a", label)]).items()
+                        if k != "meta"}}):
+                raise AssertionError(f"{label}: meta.tier {mt}, "
+                                     f"{sorted(meta)}")
+        if len(self.fleet_runs(root, "smoke")) != 2:
+            raise AssertionError("the captures' tenant holds "
+                                 f"{self.fleet_runs(root, 'smoke')}")
+        _s, _h, body = self.tier_get(url, "/v1/tier")
+        doc = json.loads(body)
+        owners = {r["tenant"]: r["worker"] for r in doc["tenants"]}
+        want = {t: tier.ring_owner(t, 4) for t in ("lt0", "lt1", "smoke")}
+        if doc["workers"] != 4 or owners != want or \
+                doc["reuseport"] != (m.group(1) == "SO_REUSEPORT"):
+            raise AssertionError(f"/v1/tier: {doc}")
+        mm = res["metrics"]
+        return (f"4 workers via {m.group(1)}; fleet_load 32/32 pushes "
+                f"acked, {res['queries']} queries, 0 errors in "
+                f"{res['wall_s']} s: fleet_push_p50_ms "
+                f"{mm['fleet_push_p50_ms']}, fleet_push_p99_ms "
+                f"{mm['fleet_push_p99_ms']}, fleet_query_p50_ms "
+                f"{mm['fleet_query_p50_ms']}, fleet_query_p99_ms "
+                f"{mm['fleet_query_p99_ms']}, fleet_saturation_rps "
+                f"{mm['fleet_saturation_rps']}; run sets as offered "
+                f"({ {t: len(v) for t, v in got.items()} }); the captures "
+                f"by agent rc 0 in {wall:.2f} s with meta.tier (workers 4) "
+                f"and meta.metrics; /v1/tier owners {owners}")
+
+    def tier_die_cell(self, base, copies):
+        """(b) worker 2 dies once; the SLO breach fault beside it."""
+        from sofa_tpu_torch.archive import catalog, tier
+        from sofa_tpu_torch.archive.store import ArchiveStore
+
+        root = os.path.join(base, "root_b")
+        # the breach event lands in the tenants there are at window 2
+        ArchiveStore(os.path.join(root, "tenants", "smoke"), create=True)
+        proc, url, slog = self.tier_pool(root, "b", env={
+            "SOFA_FAULTS": "service:worker_die@2,service:slo_breach@2"})
+        try:
+            res = self.tier_load(url, "--agents", "4", "--pushes", "4",
+                                 "--pollers", "1", "--tenants", "2")
+            watch = os.path.dirname(copies[("watch_b", "resnet")])
+            self.fleet_agent("die", watch, url,
+                             os.path.join(base, "spool_b"))
+            self.tier_settled(root)
+            offered = self.tier_offered(res)
+            lost = {t: v - set(self.fleet_runs(root, t))
+                    for t, v in offered.items()}
+            with open(slog) as f:
+                out = f.read()
+            died = re.findall(r"worker (\d+) \(pid \d+\) exited (\d+)", out)
+            r, _ = self.board_cli("status", "--fleet", url, "--token",
+                                  self.FLEET_TOKEN)
+            verdict = json.load(open(os.path.join(
+                root, "_metrics", "slo_verdict.json")))
+            events = [e for e in catalog.read_catalog(
+                os.path.join(root, "tenants", "smoke"))
+                if e.get("ev") == "slo_breach"]
+            depths = {t: tier.wal_depth(os.path.join(root, "tenants", t))
+                      for t in os.listdir(os.path.join(root, "tenants"))}
+            if died != [("1", "89")] or any(lost.values()) or \
+                    any(depths.values()) or r.returncode != 1 or \
+                    "injected_fault" not in r.stdout + r.stderr or \
+                    verdict["ok"] is not False or len(events) != 1 or \
+                    len(self.fleet_runs(root, "smoke")) != 1:
+                raise AssertionError(
+                    f"worker_die: exits {died}, lost {lost}, WAL {depths}, "
+                    f"status --fleet rc {r.returncode}, verdict "
+                    f"{verdict.get('breaching')}, {len(events)} breach "
+                    f"event(s): {(r.stdout + r.stderr)[-1500:]} "
+                    f"{out[-2000:]}")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"pool b exited {rc} on SIGTERM")
+        line = self.tier_disk_full(root)
+        return (f"worker 1 (ordinal 2) exited 89 once and was respawned; "
+                f"{res['pushes']}/16 pushes and the ResNet-50 capture acked, none "
+                f"lost, every WAL 0; slo_breach@2: 1 catalog event, "
+                f"slo_verdict.json ok false ({verdict['breaching']}), "
+                f"status --fleet rc 1; SIGTERM rc 0; {line}")
+
+    def tier_disk_full(self, root):
+        """(f) a commit whose objects are all stored: its WAL append is
+        the process's first write, under ``service:disk_full@1``."""
+        from sofa_tpu_torch.archive.store import ArchiveStore
+
+        proc, url, slog = self.fleet_serve(root, "disk_full", env={
+            "SOFA_FAULTS": "service:disk_full@1"})
+        try:
+            store = ArchiveStore(os.path.join(root, "tenants", "smoke"))
+            run = store.load_run(self.fleet_runs(root, "smoke")[0])
+            files = {f"again/{rel}": ent
+                     for rel, ent in run["files"].items()}
+            body = json.dumps({"files": files, "logdir": "/again",
+                               "hostname": "chip-smoke"}).encode()
+            codes = []
+            for _ in range(2):
+                req = urllib.request.Request(
+                    url + "/v1/smoke/commit", data=body, method="POST",
+                    headers={"Authorization":
+                             f"Bearer {self.FLEET_TOKEN}"})
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        codes.append((r.status, json.loads(r.read())))
+                except urllib.error.HTTPError as e:
+                    codes.append((e.code, json.loads(e.read())))
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        (c1, d1), (c2, d2) = codes
+        if (c1, d1.get("error")) != (507, "no_space") or c2 != 200 or \
+                not d2.get("committed") or not d2.get("new") or rc != 0:
+            raise AssertionError(f"disk_full: {codes}, rc {rc}")
+        return (f"disk_full@1 on the WAL append: 507 {d1['error']}, the "
+                f"retry 200 committed (run {d2['run'][:12]})")
+
+    def tier_replica_cell(self, url, root, base, procs):
+        """(d) a replica of the pool, then one under replica_stale."""
+        from sofa_tpu_torch.archive import tier
+
+        def commits(u):
+            doc = json.loads(self.tier_get(u, "/v1/tier")[2])
+            return {r["tenant"]: r["commit_sha"] for r in doc["tenants"]}
+
+        def replica(label, env):
+            proc, rurl, _log = self.tier_replica(
+                os.path.join(base, f"replica_{label}"), url, label, env)
+            procs.append(proc)
+            return rurl
+
+        want = commits(url)
+        rurl = replica("r1", {})
+        deadline = time.monotonic() + 60
+        while commits(rurl) != want and time.monotonic() < deadline:
+            time.sleep(0.2)
+        if commits(rurl) != want:
+            raise AssertionError(f"replica {commits(rurl)} != {want}")
+        same = 0
+        for tenant in sorted(want):
+            q = f"/v1/{tenant}/query?kind=runs"
+            _s, hp, bp = self.tier_get(url, q)
+            s, hr, br = self.tier_get(rurl, q)
+            if s != 200 or bp != br or \
+                    hr.get("X-Sofa-Replica-Commit") != want[tenant]:
+                raise AssertionError(f"{tenant}: replica {s} {hr}")
+            same += len(br)
+        req = urllib.request.Request(
+            rurl + "/v1/smoke/have", data=b'{"files": {}}', method="POST",
+            headers={"Authorization": f"Bearer {self.FLEET_TOKEN}"})
+        try:
+            urllib.request.urlopen(req, timeout=30)
+            write = 200
+        except urllib.error.HTTPError as e:
+            write = e.code
+        puller = tier.ReplicaPuller(os.path.join(base, "replica_pull"),
+                                    url, self.FLEET_TOKEN)
+        first, second = puller.pull_once(), puller.pull_once()
+        if write != 403 or not first["fetched_chunks"] or \
+                second["fetched_chunks"] or \
+                second["unchanged"] != len(want) or first["errors"]:
+            raise AssertionError(f"write {write}, pulls {first} {second}")
+        surl = replica("r2", {"SOFA_FAULTS": "service:replica_stale"})
+        while commits(surl) != want and time.monotonic() < deadline + 60:
+            time.sleep(0.2)
+        res = self.tier_load(url, "--agents", "1", "--pushes", "1",
+                             "--pollers", "0", "--tenants", "1",
+                             "--payload_bytes", "4096")
+        deadline = time.monotonic() + 60
+        hdr = {}
+        while time.monotonic() < deadline:
+            _s, hdr, _b = self.tier_get(surl, "/v1/lt0/query?kind=runs")
+            if hdr.get("X-Sofa-Replica-Stale"):
+                break
+            time.sleep(0.2)
+        r, _ = self.board_cli("status", "--fleet", surl, "--token",
+                              self.FLEET_TOKEN)
+        stale_lines = [ln.strip() for ln in r.stdout.splitlines()
+                       if "STALE" in ln]
+        if hdr.get("X-Sofa-Replica-Stale") != "1" or not stale_lines or \
+                r.returncode != 0 or res["pushes"] != 1:
+            raise AssertionError(f"replica_stale: {hdr}, status rc "
+                                 f"{r.returncode}: {r.stdout[-1500:]}")
+        return (f"replica r1 at the primary's {len(want)} commits, "
+                f"{same} query bytes identical with X-Sofa-Replica-Commit, "
+                f"a write 403; pulls {first['fetched_chunks']} chunks then "
+                f"0 ({second['unchanged']} unchanged); replica_stale: "
+                f"X-Sofa-Replica-Behind {hdr['X-Sofa-Replica-Behind'][:12]}"
+                f", status --fleet rc 0: {stale_lines[0]}")
+
+    def tier_replica(self, root, upstream, label, env):
+        slog = root + ".log"
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   SOFA_REPLICA_POLL_S="0.5", **env)
+        with open(slog, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "sofa_tpu_torch", "serve", root,
+                 "--serve_port", "0", "--token", self.FLEET_TOKEN,
+                 "--replica-of", upstream],
+                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with open(slog) as f:
+                m = re.search(r"fleet archive replica: .* at "
+                              r"http://[^:]+:(\d+)/v1/", f.read())
+            if m:
+                return proc, f"http://127.0.0.1:{m.group(1)}", slog
+            if proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        proc.kill()
+        with open(slog) as f:
+            raise AssertionError(f"replica {label}: {f.read()[-2000:]}")
+
+    def tier_restart_cell(self, url, root, slog):
+        """(c) the rolling restart under load."""
+        with open(slog) as f:
+            before = f.read().count("handed off")
+        load = subprocess.Popen(
+            [sys.executable, "-m", "sofa_tpu_torch.tools.fleet_load",
+             "--url", url, "--token", self.FLEET_TOKEN, "--agents", "4",
+             "--pushes", "10", "--pollers", "1", "--tenants", "2",
+             "--payload_bytes", "3000", "--push_interval_s", "0.5"],
+            cwd=REPO, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            time.sleep(1.0)
+            r, _ = self.board_cli("serve", root, "--rolling-restart")
+            deadline = time.monotonic() + 180
+            handed = []
+            while time.monotonic() < deadline:
+                with open(slog) as f:
+                    handed = re.findall(
+                        r"worker (\d) handed off \(pid (\d+) -> (\d+)\)",
+                        f.read())[before:]
+                if len(handed) == 4:
+                    break
+                time.sleep(0.2)
+            out, err = load.communicate(timeout=600)
+        finally:
+            if load.poll() is None:
+                load.kill()
+        res = json.loads(out.strip().splitlines()[-1])
+        self.tier_settled(root)
+        offered = self.tier_offered(res, 3000)
+        lost = {t: v - set(self.fleet_runs(root, t))
+                for t, v in offered.items()}
+        if r.returncode != 0 or [w for w, _o, _n in handed] != \
+                ["0", "1", "2", "3"] or any(o == n for _w, o, n in handed) \
+                or res["error_count"] or res["pushes"] != 40 or \
+                any(lost.values()):
+            raise AssertionError(f"rolling restart: rc {r.returncode}, "
+                                 f"handed {handed}, {res['errors']}, lost "
+                                 f"{lost}: {err[-1500:]}")
+        return (f"--rolling-restart rc 0; workers 0-3 handed off in order "
+                f"({', '.join(f'{o}->{n}' for _w, o, n in handed)}); under "
+                f"load 40/40 pushes acked and committed, 0 errors (no 500), "
+                f"push p99 {res['metrics']['fleet_push_p99_ms']} ms")
+
+    def tier_metrics_cell(self, url, stale):
+        """(e) /v1/metrics's 304; the stalled scrape loop's warnings."""
+        import http.client
+        import urllib.parse
+
+        u = urllib.parse.urlparse(url)
+        tries = []
+        for _ in range(3):
+            conn = http.client.HTTPConnection(u.hostname, u.port,
+                                              timeout=30)
+            try:
+                s1, h1, b1 = self.tier_get(url, "/v1/metrics", conn=conn)
+                s2, _h2, _b2 = self.tier_get(
+                    url, "/v1/metrics", headers={"If-None-Match":
+                                                 h1["ETag"]}, conn=conn)
+            finally:
+                conn.close()
+            tries.append((s1, s2))
+            if s2 == 304:
+                break
+        bad, _h, _b = self.tier_get(url, "/v1/metrics", token="wrong")
+        doc = json.loads(b1)
+        out, _ = stale.communicate(timeout=300)
+        got = json.loads(out.strip().splitlines()[-1])
+        if tries[-1] != (200, 304) or bad != 401 or \
+                doc["schema"] != "sofa_tpu/fleet_metrics" or \
+                got["agent_rc"] != 0 or not got["status_warning"] or \
+                not got["fleet_warning"] or not got["stalled"]:
+            raise AssertionError(f"metrics: {tries}, 401? {bad}, stale "
+                                 f"child {got}")
+        return (f"/v1/metrics 200 then 304 on its ETag ({len(tries)} "
+                f"tr{'y' if len(tries) == 1 else 'ies'}), 401 without the "
+                f"token; scrape_stall: {got['stalled']} ticks skipped, "
+                f"the push's meta.metrics.scrape_age_s {got['age_s']}, "
+                f"status: \"{got['status_warning'][:60]}...\", status "
+                f"--fleet: \"{got['fleet_warning'][:60]}...\"")
+
+    def tier_passes_cell(self, url, root, base):
+        """(f) the fleet passes: the verb, the route, fsck."""
+        troot = os.path.join(root, "tenants", "smoke")
+        copy = os.path.join(base, "fleet_copy")
+        shutil.copytree(troot, copy, ignore=shutil.ignore_patterns(
+            "_fleet", "_wal"))
+        report = os.path.join(copy, "_fleet", "fleet_report.json")
+        outs, blobs, walls = [], [], []
+        for _ in range(3):
+            r, wall = self.board_cli("fleet", "analyze", copy)
+            if r.returncode != 0:
+                raise AssertionError(f"fleet analyze rc {r.returncode}: "
+                                     f"{(r.stdout + r.stderr)[-2000:]}")
+            outs.append(r.stdout)
+            walls.append(wall)
+            with open(report, "rb") as f:
+                blobs.append(f.read())
+        noops = ["memoized no-op" in o for o in outs]
+        s1, h1, b1 = self.tier_get(url, "/v1/smoke/fleet")
+        s2, _h, _b = self.tier_get(url, "/v1/smoke/fleet",
+                                   headers={"If-None-Match": h1["ETag"]})
+        state = os.path.join(copy, "_fleet", "fleet_state.json")
+        with open(state, "r+b") as f:
+            f.write(b"X")
+        found, _ = self.board_cli("fsck", copy)
+        fixed, _ = self.board_cli("fsck", copy, "--repair")
+        r, _ = self.board_cli("fleet", "analyze", copy)
+        with open(report, "rb") as f:
+            rebuilt = f.read()
+        doc = json.loads(blobs[0])
+        if noops != [False, True, True] or len(set(blobs)) != 1 or \
+                s1 != 200 or s2 != 304 or found.returncode != 1 or \
+                "_fleet/fleet_state.json" not in found.stdout or \
+                fixed.returncode != 0 or r.returncode != 0 or \
+                rebuilt != blobs[0]:
+            raise AssertionError(
+                f"fleet passes: noops {noops}, {len(set(blobs))} reports, "
+                f"route {s1} {s2}, fsck {found.returncode} "
+                f"{fixed.returncode}: {found.stdout[-1500:]}")
+        return (f"fleet analyze cold {walls[0]:.2f} s, warm {walls[1]:.2f} "
+                f"s and again {walls[2]:.2f} s (memoized no-ops), one "
+                f"report ({len(blobs[0])} bytes, {len(doc['order'])} "
+                f"passes, {len(doc['features'])} fleet features); "
+                f"/v1/smoke/fleet 200 then 304; a rotted fleet_state.json: "
+                f"fsck 1 naming it, --repair 0, the next analyze the same "
+                f"bytes")
+
+    def tier_drain_cell(self, pool, root, slog):
+        """(g) SIGTERM the pool; fsck; the merged fleet trace."""
+        from sofa_tpu_torch import metrics, telemetry
+        from sofa_tpu_torch.archive import tier
+
+        t0 = time.perf_counter()
+        pool.send_signal(signal.SIGTERM)
+        rc = pool.wait(timeout=180)
+        term_s = time.perf_counter() - t0
+        with open(slog) as f:
+            out = f.read()
+        exits = re.findall(r"serve: worker (\d+) exited (\S+)", out)
+        handled = [ln.split("serve handled: ")[-1] for ln in
+                   out.splitlines() if "serve handled:" in ln]
+        depths = {t: tier.wal_depth(os.path.join(root, "tenants", t))
+                  for t in os.listdir(os.path.join(root, "tenants"))}
+        r, fsck_s = self.board_cli("fsck", root)
+        doc = metrics.export_fleet_trace(root)
+        spans = [e for e in (doc or {}).get("traceEvents", [])
+                 if e.get("ph") == "X"]
+        trace = telemetry.load_manifest(os.path.join(
+            os.path.dirname(root), "watch_a",
+            "llama"))["meta"]["metrics"]["trace"]
+        mine = [e for e in spans if (e.get("args") or {}).get("trace")
+                == trace]
+        names = {e["name"] for e in mine}
+        if rc != 0 or sorted(exits) != [(str(w), "0") for w in range(4)] \
+                or any(depths.values()) or "Traceback" in out or any(
+                    re.search(r"\b500", h) for h in handled) or \
+                r.returncode != 0 or \
+                len({e["pid"] for e in spans}) < 2 or \
+                not {"commit", "wal_apply"} <= names:
+            raise AssertionError(
+                f"drain: rc {rc}, exits {exits}, WAL {depths}, fsck "
+                f"{r.returncode}, trace {sorted(names)}: {out[-2500:]}")
+        return (f"SIGTERM: rc 0 in {term_s:.2f} s, workers {exits} exited "
+                f"0, every WAL 0, {len(handled)} handled lines with no 500 "
+                f"and no traceback; fsck of the root rc 0 in {fsck_s:.2f} "
+                f"s; fleet trace: {len(spans)} spans from "
+                f"{len({e['pid'] for e in spans})} processes, the Llama "
+                f"push's trace {trace} in {sorted(names)} over "
+                f"{len({e['pid'] for e in mine})} process(es)")
+
+    # A served root whose scrape loop stalls after its first scrape: the
+    # plan is installed in-process, where the loop runs; an agent then
+    # pushes a capture, and ``status`` and ``status --fleet`` are read.
+    TIER_STALE_CHILD = (
+        "import json, os, subprocess, sys, threading, time, types\n"
+        "root, watch, token, wait = sys.argv[1], sys.argv[2], "
+        "sys.argv[3], float(sys.argv[4])\n"
+        "os.environ['SOFA_METRICS_SCRAPE_S'] = '0.5'\n"
+        "from sofa_tpu_torch import faults\n"
+        "from sofa_tpu_torch.archive.service import service_url, sofa_serve\n"
+        "from sofa_tpu_torch.config import SofaConfig\n"
+        "cfg = SofaConfig(logdir=os.path.join(root, 'u'), serve_token=token,"
+        " serve_port=0)\n"
+        "httpd = sofa_serve(cfg, root=root, serve_forever=False)\n"
+        "threading.Thread(target=httpd.serve_forever, daemon=True).start()\n"
+        "while not httpd.metrics.last_scrape_unix:\n"
+        "    time.sleep(0.05)\n"
+        "faults.install_from(types.SimpleNamespace("
+        "inject_faults='service:scrape_stall'))\n"
+        "time.sleep(wait)\n"
+        "url = service_url(httpd)\n"
+        "env = dict(os.environ, CUDA_VISIBLE_DEVICES='')\n"
+        "def cli(*argv):\n"
+        "    return subprocess.run([sys.executable, '-m', 'sofa_tpu_torch',"
+        " *argv], env=env, capture_output=True, text=True, timeout=600)\n"
+        "a = cli('agent', watch, '--once', '--service', url, '--token', "
+        "token, '--spool', os.path.join(root, 'spool'), '--settle_s', '0')\n"
+        "logdir = os.path.join(watch, 'resnet')\n"
+        "st = cli('status', logdir)\n"
+        "fl = cli('status', '--fleet', url, '--token', token)\n"
+        "def warn(text, key):\n"
+        "    return next((ln for ln in text.splitlines() if key in ln), '')\n"
+        "from sofa_tpu_torch import telemetry\n"
+        "mm = telemetry.load_manifest(logdir)['meta']['metrics']\n"
+        "print(json.dumps({'agent_rc': a.returncode, 'age_s': "
+        "mm.get('scrape_age_s'), 'stalled': httpd.metrics.snapshot()[0]"
+        ".get('scrape_stalled_total'), 'status_warning': warn(st.stdout + "
+        "st.stderr, 'had not scraped'), 'fleet_warning': warn(fl.stdout + "
+        "fl.stderr, 'may be stalled')}))\n"
+        "httpd.shutdown()\n"
+        "httpd.server_close()\n")
+
     # -- live ------------------------------------------------------------------
     def live(self):
         """(a) ``record`` of the training main at Llama-3-8B width cut to
@@ -5437,7 +6113,7 @@ def moe_rank() -> None:
 # (``Smoke.need`` waits for what a phase reads from another lane).
 PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
 LANES = (("profile", "cluster", "mesh", "tp", "tp_serve"),
-         ("live", "serve", "window", "faults", "ep_pp"),
+         ("live", "serve", "window", "faults", "ep_pp", "fleet_tier"),
          ("robust", "board", "cache", "verbs", "archive", "fleet_push",
           "live_drain"))
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings

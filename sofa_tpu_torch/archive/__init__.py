@@ -1,6 +1,6 @@
 """The multi-run trace archive, a content-addressed store of many runs
-(the JAX package's ``sofa_tpu/archive/``, with the fleet service at one
-worker and without the rest of the tier and the fleet passes).
+(the JAX package's ``sofa_tpu/archive/``, with the fleet service and its
+tier).
 
 One logdir answers "what happened in this run"; the archive answers "did
 this run regress against the last hundred".  It is built from what the

@@ -50,8 +50,9 @@ archive's fsck re-hashes the committed chunks.
   index or fall back to the scan; refresh runs at the ingest and gc commit
   points.  ``SOFA_ARCHIVE_INDEX=0`` sends every reader to the scan.
 
-The JAX package's read-replica pins (its tier serves pulled commits with
-no local catalog) are not here: the tier is not ported.
+A read replica (``archive/tier.py``) serves pulled commits with no local
+catalog: it pins each tenant root (:func:`pin_root`), and a pinned root's
+commit is current by definition.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ import shutil
 from typing import Callable, Dict, List, Optional
 
 from sofa_tpu_torch.archive import catalog
+from sofa_tpu_torch.concurrency import Guard
 from sofa_tpu_torch.printing import print_warning
 
 INDEX_DIR_NAME = "_index"
@@ -142,6 +144,22 @@ def enabled() -> bool:
         and available()
 
 
+# Roots whose committed index is authoritative by fiat: a read replica's
+# tenant roots, pinned after their first pull (process-local).
+_PINNED_ROOTS: set = set()
+_PINNED_GUARD = Guard("archive_index.pins", protects=("_PINNED_ROOTS",))
+
+
+def pin_root(root: str) -> None:
+    with _PINNED_GUARD:
+        _PINNED_ROOTS.add(os.path.abspath(root))
+
+
+def unpin_root(root: str) -> None:
+    with _PINNED_GUARD:
+        _PINNED_ROOTS.discard(os.path.abspath(root))
+
+
 def load_commit(root: str) -> Optional[dict]:
     """The committed index manifest, or None when there is no readable
     v1 commit (readers then fall back to the linear scan)."""
@@ -167,6 +185,10 @@ def is_current(root: str, commit: "dict | None" = None) -> bool:
     commit = commit if commit is not None else load_commit(root)
     if commit is None:
         return False
+    if os.path.abspath(root) in _PINNED_ROOTS:
+        # a replica root: the pulled commit is the truth, with no local
+        # catalog to be current against
+        return True
     offset = int(commit.get("catalog_offset") or 0)
     try:
         size = os.path.getsize(catalog.catalog_path(root))

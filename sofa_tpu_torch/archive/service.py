@@ -1,6 +1,5 @@
 """``serve``: the authenticated, multi-tenant write service of the fleet
-(the JAX package's ``sofa_tpu/archive/service.py``, at one primary
-worker).
+(the JAX package's ``sofa_tpu/archive/service.py``).
 
 Agents (``agent.py``) push finished runs into it.  The unit of upload is
 one content-addressed object: the client POSTs the run's ``(rel ->
@@ -15,20 +14,25 @@ Each tenant is an archive root under ``<root>/tenants/<tenant>/``.
 More than ``--max_inflight`` concurrent writes, or a tenant root mid-gc,
 answers 503 with ``Retry-After``.  Every commit is write-ahead: one
 fsync'd WAL record (``archive/tier.py``), acked once the drainer applied
-it; the index refresh runs after the ack.  SIGTERM stops new writes
-(``draining``), drains the WAL to empty and exits 0.
+it; the index refresh, and the fleet passes' refresh after it, run after
+the ack.  SIGTERM stops new writes (``draining``), drains the WAL to empty
+and exits 0.
+
+The tier (``archive/tier.py``): ``--workers N`` runs a pool of N workers
+on one port, each tenant's commit path owned by one worker on the ring;
+``--replica-of <url>`` runs a read-only replica that pulls the primary's
+index commits (writes answer 403, queries name their commit);
+``--rolling-restart`` hands a running pool's workers off one at a time.
+``--slo`` declares the targets each scrape window is judged against
+(``metrics.py``).  ``GET /v1/tier`` is the topology, ``GET /v1/metrics``
+the worker's metrics document, ``GET /v1/<tenant>/fleet`` the tenant's
+fleet-pass report (``analysis/fleet.py``).
 
 The bearer token (``--token`` / ``SOFA_SERVE_TOKEN``) is compared in
 constant time; without one the service refuses to start.
 ``SOFA_SERVE_EXIT_AFTER=<n>`` hard-exits the process (86) at the start of
 the n-th write request: the kill-service-mid-upload cell.
 
-Not ported yet (the fleet tier), each refused by name (see
-``UNPORTED_SERVE``): the worker pool (``--workers`` above 1), read
-replicas (``--replica-of``), SLOs (``--slo``), the rolling restart
-(``--rolling-restart``): usage errors, exit 2; and the routes ``GET
-/v1/tier``, ``/v1/metrics`` and ``/v1/<tenant>/fleet``: 404 ``{"error":
-"no_such_route", "unported": "fleet tier"}``.
 """
 
 from __future__ import annotations
@@ -49,8 +53,9 @@ from sofa_tpu_torch.archive.protocol import (
     ERR_BAD_FILES_MAP, ERR_BAD_JSON, ERR_BAD_KIND, ERR_BAD_PARAMS,
     ERR_BAD_TENANT, ERR_BROWNOUT, ERR_DEADLINE_EXPIRED, ERR_DRAINING,
     ERR_HASH_MISMATCH, ERR_LENGTH_REQUIRED, ERR_LOADED, ERR_MID_GC,
-    ERR_MISSING_OBJECTS, ERR_NO_INDEX, ERR_NO_SPACE, ERR_NO_SUCH_CHUNK,
-    ERR_NO_SUCH_ROUTE, ERR_NO_SUCH_RUN, ERR_QUOTA, ERR_TOO_LARGE,
+    ERR_MISSING_OBJECTS, ERR_NO_FLEET_REPORT, ERR_NO_INDEX, ERR_NO_SPACE,
+    ERR_NO_SUCH_CHUNK, ERR_NO_SUCH_ROUTE, ERR_NO_SUCH_RUN, ERR_QUOTA,
+    ERR_READ_ONLY_REPLICA, ERR_REPLICA_WARMING, ERR_TOO_LARGE,
     ERR_UNAUTHORIZED, ERR_WAL_BACKLOG)
 from sofa_tpu_torch.archive.store import ArchiveStore, run_content_id
 from sofa_tpu_torch.concurrency import Guard
@@ -62,17 +67,6 @@ SERVICE_SCHEMA = "sofa_tpu/fleet_service"
 SERVICE_VERSION = 1
 
 TENANTS_DIR_NAME = "tenants"
-
-# What the JAX service has and this one refuses by name until the tier is
-# ported: the options (usage errors, exit 2) and the routes (404 with
-# ``"unported": UNPORTED_MODULE``).
-UNPORTED_MODULE = "fleet tier"
-UNPORTED_OPTIONS = (("serve_workers", "--workers above 1"),
-                    ("serve_replica_of", "--replica-of"),
-                    ("serve_slo", "--slo"),
-                    ("serve_rolling_restart", "--rolling-restart"))
-UNPORTED_SERVE = tuple(flag for _f, flag in UNPORTED_OPTIONS) + (
-    "GET /v1/tier", "GET /v1/metrics", "GET /v1/<tenant>/fleet")
 
 _TENANT_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,63}$")
 _SHA_RE = re.compile(r"^[0-9a-f]{64}$")
@@ -107,14 +101,21 @@ def _chaos_exit_after() -> int:
 class _FleetServer(http.server.ThreadingHTTPServer):
     """The state shared by the handler threads, under one guard: the
     response counters, the in-flight write gauge, the per-tenant byte
-    ledger, ``draining``; and the WAL drainer, stopped in
-    ``server_close``."""
+    ledger, ``draining``; and the WAL drainer (a primary's), the replica
+    puller (a replica's) and the scrape loop, stopped in
+    ``server_close``.  ``worker`` of ``workers`` names this process's
+    place on the ring; ``generation`` counts its respawns."""
 
     allow_reuse_address = True
     daemon_threads = True
 
     def __init__(self, addr, handler, root: str, token: str,
-                 quota_mb: float = 0.0, max_inflight: int = 8):
+                 quota_mb: float = 0.0, max_inflight: int = 8,
+                 worker: int = 0, workers: int = 1,
+                 reuse_port: bool = False, role: str = "primary",
+                 generation: int = 0, slo: str = ""):
+        # read by server_bind(), which super().__init__ calls
+        self.reuse_port = bool(reuse_port)
         super().__init__(addr, handler)
         from sofa_tpu_torch import metrics
 
@@ -122,12 +123,22 @@ class _FleetServer(http.server.ThreadingHTTPServer):
         self.token = token
         self.quota_bytes = int(max(quota_mb, 0.0) * 2 ** 20)
         self.max_inflight = max(int(max_inflight), 1)
-        self.worker = 0
-        self.workers = 1
-        self.role = "primary"
+        self.worker = int(worker)
+        self.workers = max(int(workers), 1)
+        self.role = role
+        self.generation = int(generation)
+        self.replica = None  # the ReplicaPuller of a replica
+        # an emulated storage latency (ms), slept per object and commit
+        # write while the write slot is held (SOFA_TIER_IO_MS): the load
+        # harness's capacity comparison, where a page cache would make
+        # every write free
+        try:
+            self.io_ms = float(os.environ.get("SOFA_TIER_IO_MS", "0") or 0)
+        except ValueError:
+            self.io_ms = 0.0
         self._state_guard = Guard("serve.state", protects=(
             "stats", "inflight", "tenant_bytes", "writes_handled",
-            "drainer", "draining", "_wal_depth", "_appenders"))
+            "drainer", "replica", "draining", "_wal_depth", "_appenders"))
         self.stats: Dict[str, int] = {}
         self.inflight = 0
         self.tenant_bytes: Dict[str, int] = {}
@@ -139,23 +150,50 @@ class _FleetServer(http.server.ThreadingHTTPServer):
         # once-a-second WAL depth
         self._wal_depth: Dict[str, Tuple[float, int]] = {}
         self._appenders: Dict[str, tier.WalAppender] = {}
+        self.drainer = None
+        if role == "primary":
+            self.drainer = tier.Drainer(self.root, worker=self.worker,
+                                        workers=self.workers)
+            self.drainer.start()
+        # the metrics registry and this worker's scrape loop; sofa_serve
+        # refused a bad --slo spec already
         self.metrics = metrics.for_root(self.root, worker=self.worker)
-        self.drainer = tier.Drainer(self.root, worker=self.worker,
-                                    workers=self.workers)
-        self.drainer.start()
+        self.slo_spec = slo or ""
+        self.scraper = None
+        if metrics.metrics_enabled():
+            self.scraper = metrics.Scraper(
+                self.metrics, slo_targets=metrics.parse_slo(self.slo_spec),
+                role=role)
+            self.scraper.start()
+
+    def server_bind(self):
+        """SO_REUSEPORT before the bind: every pool worker listens on the
+        same public port and the kernel spreads the accepts."""
+        if self.reuse_port:
+            import socket
+
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT,
+                                   1)
+        super().server_bind()
 
     def server_close(self):
         # detach under the guard, stop outside it: stop() joins threads
         with self._state_guard:
             drainer, self.drainer = self.drainer, None
+            replica, self.replica = self.replica, None
         if drainer is not None:
             drainer.stop()
+        if replica is not None:
+            replica.stop()
+        scraper, self.scraper = self.scraper, None
+        if scraper is not None:
+            scraper.close()
         super().server_close()
 
     # -- the write-ahead queue ---------------------------------------------
     def tier_append(self, tenant: str, record: dict) -> Tuple[str, int]:
         """Durably append a commit record to this worker's WAL file of the
-        tenant, and kick the drainer."""
+        tenant, and kick the drainer if this worker owns the tenant."""
         with self._state_guard:
             app = self._appenders.get(tenant)
             if app is None:
@@ -164,19 +202,26 @@ class _FleetServer(http.server.ThreadingHTTPServer):
                 self._appenders[tenant] = app
             drainer = self.drainer
         name, end = app.append(record)
-        if drainer is not None:
+        if drainer is not None and \
+                tier.ring_owner(tenant, self.workers) == self.worker:
             drainer.kick()
         return name, end
 
     def tier_wait_applied(self, tenant: str, name: str, end: int,
                           timeout_s: "float | None" = None) -> bool:
-        """The commit ack's wait (read your writes): until the drainer
-        applied the record, at most COMMIT_APPLY_TIMEOUT_S or the request's
-        deadline."""
+        """The commit ack's wait.  On the tenant's owner, read your
+        writes: until the drainer applied the record, at most
+        COMMIT_APPLY_TIMEOUT_S or the request's deadline.  On another
+        worker (SO_REUSEPORT spreads connections by the kernel's hash) the
+        fsync'd WAL line is the commit point: it cannot be lost, ``have``
+        and ``commit`` already count WAL-pending runs, and the owner
+        applies it within its poll."""
         with self._state_guard:
             drainer = self.drainer
         if drainer is None:
             return False
+        if tier.ring_owner(tenant, self.workers) != self.worker:
+            return True
         wait = tier.COMMIT_APPLY_TIMEOUT_S if timeout_s is None \
             else max(min(timeout_s, tier.COMMIT_APPLY_TIMEOUT_S), 0.0)
         return drainer.wait_local(tenant, name, end, timeout_s=wait)
@@ -244,7 +289,14 @@ class _FleetServer(http.server.ThreadingHTTPServer):
                        default=0)
 
     def chaos_tick(self) -> None:
-        """Count a write request; hard-exit 86 at the chaos threshold."""
+        """Count a write request; hard-exit 86 at the chaos threshold, or
+        89 where the ``worker_die@<n>`` fault names this pool worker (the
+        dispatcher or the client retries on a sibling, and the supervisor
+        respawns this one at the next generation)."""
+        from sofa_tpu_torch import faults
+
+        if faults.maybe_worker_die(self.worker + 1, self.generation):
+            os._exit(89)
         n = _chaos_exit_after()
         if not n:
             return
@@ -342,12 +394,6 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
             return None
         return data
 
-    def _unported(self) -> None:
-        """A route the JAX service has and this one does not yet."""
-        self._count("404_unported")
-        self._json(404, {"error": ERR_NO_SUCH_ROUTE,
-                         "unported": UNPORTED_MODULE})
-
     def _route(self, allow_token_param: bool = False
                ) -> "Tuple[str, List[str]] | None":
         """(tenant, the path's segments under it) of an authenticated /v1/
@@ -373,6 +419,15 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
             self._json(400, {"error": ERR_BAD_TENANT})
             return None
         return tenant, parts[2:]
+
+    def _read_only(self) -> bool:
+        """True when a write was refused because this is a replica (403:
+        a replica never owns a tenant's write path)."""
+        if self.server.role != "replica":
+            return False
+        self._count("403_read_only")
+        self._json(403, {"error": ERR_READ_ONLY_REPLICA})
+        return True
 
     def _backpressure(self, tenant: str) -> bool:
         """True when answered 503: the tenant root is mid-gc (``archive
@@ -440,9 +495,18 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
             self._health()
             return
         if clean in ("/v1/tier", "/v1/metrics"):
-            self._unported()
+            if not self.server.auth_ok(
+                    self.headers.get("Authorization")):
+                self._count("401_unauthorized")
+                self._json(401, {"error": ERR_UNAUTHORIZED})
+                return
+            if clean == "/v1/tier":
+                self._tier()
+            else:
+                self._metrics_route()
             return
-        routed = self._route(allow_token_param=clean.endswith("/query"))
+        routed = self._route(allow_token_param=clean.endswith("/query")
+                             or clean.endswith("/fleet"))
         if routed is None:
             return
         tenant, rest = routed
@@ -454,7 +518,7 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
             self._query(tenant, store)
             return
         if rest == ["fleet"]:
-            self._unported()
+            self._fleet_report(tenant, store)
             return
         if rest and rest[0] == "index":
             self._index_file(tenant, rest[1:])
@@ -550,7 +614,8 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
         if self._backpressure(tenant):
             return
         soft, _hard = tier.wal_watermarks()
-        if self.server.wal_pressure(tenant) >= soft:
+        if self.server.role != "replica" and \
+                self.server.wal_pressure(tenant) >= soft:
             # brownout: reads are the degradable load, shed first
             self._refuse("503_brownout", 503,
                          {"error": ERR_BROWNOUT, "tenant": tenant})
@@ -573,6 +638,13 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
         except ValueError:
             self._json(400, {"error": ERR_BAD_PARAMS})
             return
+        if self.server.role == "replica" and \
+                aindex.load_commit(store.root) is None:
+            # nothing pulled yet: the replica is warming, not empty
+            self._count("503_replica_warming")
+            self._json(503, {"error": ERR_REPLICA_WARMING},
+                       retry_after=_RETRY_AFTER_S)
+            return
         doc = aindex.query(store.root, kind=kind, host=one("host"),
                            label=one("label"), since=since,
                            feature=one("feature"), limit=limit,
@@ -582,6 +654,21 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
         else:
             etag, _size = self._catalog_etag(store)
         headers = [("ETag", etag)] + list(_CORS_HEADERS)
+        if self.server.role == "replica":
+            # a replica names the commit it answered from, and says so
+            # when its upstream has moved on
+            headers.append(("X-Sofa-Replica", "1"))
+            served = doc.get("commit_sha") or ""
+            headers.append(("X-Sofa-Replica-Commit", served))
+            with self.server._state_guard:
+                replica = self.server.replica
+            rst = (replica.state().get(tenant)
+                   if replica is not None else None) or {}
+            upstream = rst.get("upstream") or ""
+            if upstream and upstream != served:
+                self._count("stale_replica_query")
+                headers.append(("X-Sofa-Replica-Stale", "1"))
+                headers.append(("X-Sofa-Replica-Behind", upstream))
         if self.headers.get("If-None-Match") == etag:
             self._count("304_query")
             self.send_response(304)
@@ -598,6 +685,111 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
                          "version": SERVICE_VERSION,
                          "tenant": tenant, **doc},
                    extra_headers=headers)
+
+    def _fleet_report(self, tenant: str, store: ArchiveStore) -> None:
+        """``GET /v1/<tenant>/fleet``: the committed fleet-pass report
+        (schema ``sofa_tpu/fleet_report``), ETag'd on the index commit sha
+        it covers; the drainer's refresh after each commit keeps it warm,
+        so an idle poll is a 304.  Read-only and shed under brownout like
+        ``/v1/query``."""
+        from sofa_tpu_torch.analysis import fleet as fleet_mod
+
+        if self._backpressure(tenant):
+            return
+        soft, _hard = tier.wal_watermarks()
+        if self.server.role != "replica" and \
+                self.server.wal_pressure(tenant) >= soft:
+            self._refuse("503_brownout", 503,
+                         {"error": ERR_BROWNOUT, "tenant": tenant})
+            return
+        t0 = time.time()
+        doc = fleet_mod.load_report(store.root)
+        if doc is None:
+            # no committed report yet: the artifact is derived state —
+            # `sofa fleet analyze` (or the next drain's refresh) builds
+            # it; answering an empty 200 would read as "fleet is clean"
+            self._count("404_no_fleet_report")
+            self._json(404, {"error": ERR_NO_FLEET_REPORT,
+                             "tenant": tenant},
+                       extra_headers=list(_CORS_HEADERS))
+            return
+        etag = f'"idx-{doc.get("commit_sha")}"'
+        headers = [("ETag", etag)] + list(_CORS_HEADERS)
+        if self.server.role == "replica":
+            headers.append(("X-Sofa-Replica", "1"))
+        if self.headers.get("If-None-Match") == etag:
+            self._count("304_fleet")
+            self.send_response(304)
+            for key, value in headers:
+                self.send_header(key, value)
+            self.end_headers()
+            return
+        self._count("fleet_read")
+        reg = self.server.metrics
+        reg.inc("fleet_reads")
+        reg.inc(f"tenant_requests.{tenant}")
+        reg.observe("fleet", (time.time() - t0) * 1e3)
+        self._json(200, {"schema": SERVICE_SCHEMA,
+                         "version": SERVICE_VERSION,
+                         "tenant": tenant, **doc},
+                   extra_headers=headers)
+
+    def _tier(self) -> None:
+        """``GET /v1/tier``: the topology (role, this worker, and per
+        tenant its ring owner, WAL depth and index commit sha), the feed
+        of ``status --fleet``.  Computed from disk, so any pool worker
+        answers alike up to its own ordinal."""
+        self._count("tier_read")
+        with self.server._state_guard:
+            replica = self.server.replica
+        doc = tier.tier_doc(
+            self.server.root, self.server.worker, self.server.workers,
+            self.server.role, self.server.reuse_port,
+            replica_state=replica.state() if replica is not None else None)
+        # worker-LOCAL saturation signal (each worker answers for itself
+        # only — sample repeatedly to see the whole pool)
+        doc["inflight"] = self.server.inflight
+        doc["max_inflight"] = self.server.max_inflight
+        from sofa_tpu_torch import metrics as fleet_metrics
+
+        doc["metrics"] = fleet_metrics.metrics_summary(self.server.metrics)
+        self._json(200, doc)
+
+    def _metrics_route(self) -> None:
+        """``GET /v1/metrics``: this worker's snapshot, its windowed
+        history (``?offset``, ``?limit``, ``?window``) and its latest SLO
+        verdict, ETag'd on the stable content, so an idle poll is a 304."""
+        from sofa_tpu_torch import metrics as fleet_metrics
+
+        qs = urllib.parse.parse_qs(self.path.partition("?")[2])
+
+        def _one(key: str) -> "str | None":
+            return (qs.get(key) or [None])[0]
+
+        try:
+            offset = int(_one("offset") or 0)
+            limit = int(_one("limit") or fleet_metrics.HISTORY_ROWS)
+            window = float(_one("window")) if _one("window") else None
+        except ValueError:
+            self._json(400, {"error": ERR_BAD_PARAMS})
+            return
+        if offset < 0 or limit < 0 or (window is not None and window <= 0):
+            self._json(400, {"error": ERR_BAD_PARAMS})
+            return
+        doc, etag = fleet_metrics.metrics_doc(
+            self.server.metrics, offset=offset, limit=limit,
+            window_s=window, role=self.server.role)
+        if self.headers.get("If-None-Match") == etag:
+            self._count("304_metrics")
+            self.send_response(304)
+            self.send_header("ETag", etag)
+            for key, value in _CORS_HEADERS:
+                self.send_header(key, value)
+            self.end_headers()
+            return
+        self._count("metrics_read")
+        self._json(200, doc,
+                   extra_headers=[("ETag", etag)] + list(_CORS_HEADERS))
 
     _INDEX_FILE_RE = re.compile(r"^(\d{6}\.arrow|frame_index\.json)$")
 
@@ -645,8 +837,10 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
 
     # -- admission of a write ------------------------------------------------
     def _admit_write(self) -> bool:
-        """Draining, the deadline, then a write slot; True with the slot
-        held, else the refusal is answered."""
+        """A replica, draining, the deadline, then a write slot; True with
+        the slot held, else the refusal is answered."""
+        if self._read_only():
+            return False
         if self.server.is_draining():
             self._refuse("503_draining", 503, {"error": ERR_DRAINING})
             return False
@@ -745,6 +939,8 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
                          {"error": ERR_WAL_BACKLOG, "tenant": tenant,
                           "wal_depth": depth, "wal_hard": hard})
             return
+        if self.server.io_ms:
+            time.sleep(self.server.io_ms / 1000.0)  # emulated storage
         store = self.server.tenant_store(tenant)
         run_id = run_content_id(files)
         missing = sorted({e["sha256"] for e in files.values()
@@ -843,6 +1039,8 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
                     "used_mb": round(used / 2 ** 20, 3)},
                     retry_after=_RETRY_AFTER_S)
                 return
+            if self.server.io_ms:
+                time.sleep(self.server.io_ms / 1000.0)  # emulated storage
             got = hashlib.sha256(data).hexdigest()
             if got != sha:
                 # a truncated or corrupted upload: the store only ever
@@ -850,6 +1048,14 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
                 self._count("422_hash_mismatch")
                 self._json(422, {"error": ERR_HASH_MISMATCH,
                                  "expected": sha, "got": got})
+                return
+            from sofa_tpu_torch import faults
+
+            if faults.maybe_disk_full():
+                # refused before the write: the bytes were never durable,
+                # so the 507 is true, and the retry lands
+                self._refuse("507_disk_full", 507,
+                             {"error": ERR_NO_SPACE, "sha256": sha})
                 return
             _, added = store.put_bytes(data)
             if added:
@@ -885,6 +1091,8 @@ def graceful_drain(httpd) -> int:
                               f"{tenant} failed: {e}")
                 continue
             applied += stats["applied"] + stats["replayed"]
+    if httpd.scraper is not None:
+        httpd.scraper.tick()  # the final metrics flush
     print_progress(f"serve: worker {httpd.worker} drained "
                    f"{applied} WAL record(s) on SIGTERM — exiting 0")
     return applied
@@ -945,16 +1153,6 @@ def resolve_token(cfg=None) -> str:
     return tok or os.environ.get("SOFA_SERVE_TOKEN", "")
 
 
-def unported_options(cfg) -> List[str]:
-    """The options of ``cfg`` that need the fleet tier."""
-    out = []
-    for field, flag in UNPORTED_OPTIONS:
-        value = getattr(cfg, field, None)
-        if (int(value or 1) > 1 if field == "serve_workers" else value):
-            out.append(flag)
-    return out
-
-
 def sofa_serve(cfg, root: "str | None" = None, serve_forever: bool = True):
     """``serve <root>``: run the fleet ingest service.
 
@@ -966,12 +1164,10 @@ def sofa_serve(cfg, root: "str | None" = None, serve_forever: bool = True):
     from sofa_tpu_torch.viz import display_host
 
     root = root or resolve_root(cfg)
-    unported = unported_options(cfg)
-    if unported:
-        print_error(f"serve: {', '.join(unported)} need the "
-                    f"{UNPORTED_MODULE}, which sofa_tpu_torch does not have "
-                    "yet (one primary worker only)")
-        return 2 if serve_forever else None
+    if getattr(cfg, "serve_rolling_restart", False):
+        # not a server: signal the running supervisor and leave
+        rc = tier.signal_rolling_restart(root)
+        return rc if serve_forever else None
     token = resolve_token(cfg)
     if not token:
         print_error(
@@ -988,6 +1184,39 @@ def sofa_serve(cfg, root: "str | None" = None, serve_forever: bool = True):
     max_inflight = int(getattr(cfg, "serve_max_inflight", 8) or 8)
     bind = getattr(cfg, "serve_bind", "127.0.0.1")
     base_port = int(getattr(cfg, "serve_port", 8044) or 0)
+    replica_of = (getattr(cfg, "serve_replica_of", "") or "").rstrip("/")
+    workers = max(int(getattr(cfg, "serve_workers", 1) or 1), 1)
+    slo = (getattr(cfg, "serve_slo", "") or "").strip()
+    if slo:
+        from sofa_tpu_torch import metrics
+
+        try:
+            metrics.parse_slo(slo)
+        except ValueError as e:
+            print_error(f"serve: bad --slo spec: {e}")
+            return 2 if serve_forever else None
+    if replica_of and workers > 1:
+        print_error("serve: --workers scales the primary; a replica is "
+                    "one read-only process (run several replicas "
+                    "instead): pick one of --workers / --replica-of")
+        return 2 if serve_forever else None
+    fault_text = _fault_text(cfg)
+    if fault_text:
+        from sofa_tpu_torch import faults
+        from sofa_tpu_torch.printing import SofaUserError
+
+        try:
+            faults.install_from(cfg)
+        except SofaUserError as e:
+            print_error(f"serve: {e}")
+            return 2 if serve_forever else None
+    if replica_of:
+        return _serve_replica(root, token, replica_of, bind, base_port,
+                              max_inflight, serve_forever, slo=slo)
+    if workers > 1:
+        return _serve_pool(root, token, bind, base_port, quota_mb,
+                           max_inflight, workers, serve_forever, slo=slo,
+                           fault_text=fault_text)
     httpd = None
     last_err = None
     ports = [0] if base_port == 0 else range(base_port, base_port + 20)
@@ -995,7 +1224,7 @@ def sofa_serve(cfg, root: "str | None" = None, serve_forever: bool = True):
         try:
             httpd = _FleetServer((bind, port_try), _FleetHandler,
                                  root=root, token=token, quota_mb=quota_mb,
-                                 max_inflight=max_inflight)
+                                 max_inflight=max_inflight, slo=slo)
             break
         except OSError as e:
             last_err = e
@@ -1025,6 +1254,136 @@ def sofa_serve(cfg, root: "str | None" = None, serve_forever: bool = True):
     finally:
         if got_term.is_set():
             graceful_drain(httpd)
+        httpd.server_close()
+        served = httpd.stats_line()
+        if served:
+            print_progress(f"serve handled: {served}")
+    return 0
+
+
+def _fault_text(cfg) -> str:
+    """The fault spec a served process installs: ``cfg.inject_faults``,
+    else ``SOFA_FAULTS``."""
+    return (getattr(cfg, "inject_faults", "")
+            or os.environ.get("SOFA_FAULTS", "") or "").strip()
+
+
+def _serve_pool(root: str, token: str, bind: str, base_port: int,
+                quota_mb: float, max_inflight: int, workers: int,
+                serve_forever: bool, slo: str = "", fault_text: str = ""):
+    """``serve --workers N``: the sharded worker pool.  Returns the running
+    :class:`tier.TierHandle` when ``serve_forever`` is False.  SIGTERM
+    stops the pool: each worker drains its WAL and exits 0."""
+    from sofa_tpu_torch.viz import display_host
+
+    handle = tier.start_pool(root, token, bind, base_port, quota_mb,
+                             max_inflight, workers, slo=slo,
+                             fault_text=fault_text)
+    if handle is None:
+        return 2 if serve_forever else None
+    host = display_host(bind)
+    mode = "SO_REUSEPORT" if handle.reuse else "dispatcher"
+    print_progress(
+        f"fleet archive service: {root} at http://{host}:{handle.port}"
+        f"/v1/ (tenants under {TENANTS_DIR_NAME}/; {workers} workers "
+        f"via {mode}; tenants consistent-hash-sharded; "
+        + (f"quota {quota_mb:g} MB/tenant; " if quota_mb else "")
+        + f"max {max_inflight} in-flight write(s)/worker; Ctrl-C stops)")
+    print_progress(
+        "push with: python -m sofa_tpu_torch agent <watch_dir> --service "
+        f"http://{host}:{handle.port} --token <secret>")
+    if not serve_forever:
+        return handle
+    # the long-running supervisor: record the pid so `sofa serve
+    # --rolling-restart <root>` can find us, and hand SIGHUP to the
+    # one-worker-at-a-time restart (off the signal thread — the restart
+    # waits on respawns, and a blocked main thread cannot supervise)
+    import signal
+    import threading
+
+    tier.write_supervisor_pidfile(root)
+    stop = threading.Event()
+
+    def _on_hup(signum, frame):  # noqa: ARG001 — signal handler contract
+        # bounded by rolling_restart's own per-worker timeout
+        threading.Thread(target=handle.rolling_restart, daemon=True,
+                         name="sofa-rolling-restart").start()
+
+    def _on_term(signum, frame):  # noqa: ARG001 — signal handler contract
+        stop.set()
+
+    signal.signal(signal.SIGHUP, _on_hup)
+    signal.signal(signal.SIGTERM, _on_term)
+    try:
+        while not stop.wait(3600):
+            pass
+    except KeyboardInterrupt:
+        pass
+    finally:
+        tier.remove_supervisor_pidfile(root)
+        codes = handle.stop()
+    for w, code in sorted(codes.items()):
+        print_progress(f"serve: worker {w} exited {code}")
+    return 0 if all(c == 0 for c in codes.values()) else 1
+
+
+def _serve_replica(root: str, token: str, upstream: str, bind: str,
+                   base_port: int, max_inflight: int,
+                   serve_forever: bool, slo: str = ""):
+    """``serve --replica-of <url>``: a read-only query replica pulling
+    immutable index commits from its upstream primary."""
+    from sofa_tpu_torch.archive import index as aindex
+    from sofa_tpu_torch.viz import display_host
+
+    httpd = None
+    last_err = None
+    ports = [0] if base_port == 0 else range(base_port, base_port + 20)
+    for port_try in ports:
+        try:
+            httpd = _FleetServer((bind, port_try), _FleetHandler,
+                                 root=root, token=token, quota_mb=0.0,
+                                 max_inflight=max_inflight,
+                                 role="replica", slo=slo)
+            break
+        except OSError as e:
+            last_err = e
+            if getattr(e, "errno", None) != errno.EADDRINUSE:
+                break
+    if httpd is None:
+        print_error(f"serve: cannot bind {bind} near port {base_port}: "
+                    f"{last_err}")
+        return 2 if serve_forever else None
+    # tenants pulled by an earlier life of this replica serve at once
+    tdir = os.path.join(root, TENANTS_DIR_NAME)
+    try:
+        names = sorted(os.listdir(tdir))
+    except OSError:
+        names = []
+    for tenant in names:
+        troot = os.path.join(tdir, tenant)
+        if aindex.load_commit(troot) is not None:
+            aindex.pin_root(troot)
+    puller = tier.ReplicaPuller(root, upstream, token)
+    with httpd._state_guard:
+        httpd.replica = puller
+    puller.pull_once()  # an unreachable upstream leaves the poll to retry
+    puller.start()
+    port = httpd.server_address[1]
+    host = display_host(bind)
+    print_progress(
+        f"fleet archive replica: {root} at http://{host}:{port}/v1/ "
+        f"(replica of {upstream}; read-only /v1/query off pulled index "
+        "commits; Ctrl-C stops)")
+    if not serve_forever:
+        return httpd
+    got_term = _install_sigterm_drain(httpd)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if got_term.is_set():
+            print_progress("serve: replica stopped on SIGTERM")
         httpd.server_close()
         served = httpd.stats_line()
         if served:

@@ -66,9 +66,8 @@ _HASH_CHUNK = 1 << 20
 # index-signed sha — pure derived state: --repair drops + rebuilds it).
 # ``unreferenced`` objects (no surviving run points at them) are reported
 # but are NOT damage: they are what `archive gc` exists to sweep.
-# ``fleet`` is the JAX package's check of the fleet-pass tier (_fleet/),
-# which is not ported: it stays a key, so that both packages' reports have
-# the same keys, and stays empty (a present _fleet/ is reported unchecked).
+# ``fleet`` names a fleet-pass report or memo (_fleet/, analysis/fleet.py)
+# that fails its schema-validated load: derived state, --repair drops it.
 ARCHIVE_FSCK_VERDICTS = ("corrupt", "missing", "orphaned", "uncataloged",
                          "index", "fleet")
 
@@ -619,17 +618,12 @@ def archive_fsck(root: str, repair: bool = False) -> Optional[dict]:
     from sofa_tpu_torch.archive import index as aindex
 
     report["index"] = aindex.verify(root)
-    # The JAX package checks its fleet-pass tier (_fleet/) here; the port
-    # has no such tier yet (durability.UNPORTED_FLEET_TIER), so a present
-    # one is reported unchecked, never as damage.
-    from sofa_tpu_torch.durability import UNPORTED_FLEET_TIER
+    # The fleet-pass tier is one more layer of derived state: what is
+    # present is schema-validated; a report ahead of its memo (a kill
+    # between the two writes) is a healthy pending state, not damage.
+    from sofa_tpu_torch.analysis import fleet as afleet
 
-    report["fleet"] = []
-    for name in UNPORTED_FLEET_TIER:
-        if os.path.isdir(os.path.join(root, name)):
-            print_warning(f"archive fsck: {name}/ (the JAX package's "
-                          "fleet-pass tier) is not checked: sofa_tpu_torch "
-                          "has no fleet passes yet")
+    report["fleet"] = afleet.verify(root)
     report["checked"] = checked
     if repair:
         _archive_repair(store, report)
@@ -730,6 +724,16 @@ def _archive_repair(store: ArchiveStore, report: Dict[str, list]) -> None:
                            "index and rebuilt it from the catalog")
         else:
             report["index"] = still or report["index"]
+    if report.get("fleet"):
+        # same rule one layer up: the fleet report/memo are pure
+        # functions of the index commit — drop and let the next analyze
+        # (or post-drain refresh) rebuild rather than trusting rot
+        from sofa_tpu_torch.analysis import fleet as afleet
+
+        afleet.drop(store.root)
+        report["fleet"] = []
+        print_progress("archive fsck: dropped the damaged fleet report "
+                       "(`fleet analyze` rebuilds it)")
 
 
 # ---------------------------------------------------------------------------

@@ -69,13 +69,19 @@
               batch preprocess + analyze, byte-identical to a batch run;
               exits 0, 1 when a source is stalled, 2 without the logdir
   serve       <root>: the fleet's write service over a root of tenant
-              archives (<root>/tenants/<tenant>/), at one worker: agents
-              push runs into it over HTTP (--token, else SOFA_SERVE_TOKEN,
-              required; --serve_port, 0 = any; --quota_mb per tenant,
-              --max_inflight writes); every commit goes through a
-              write-ahead log, applied before the ack; SIGTERM drains it
-              and exits 0.  --workers above 1, --replica-of, --slo and
-              --rolling-restart need the fleet tier: exit 2
+              archives (<root>/tenants/<tenant>/): agents push runs into
+              it over HTTP (--token, else SOFA_SERVE_TOKEN, required;
+              --serve_port, 0 = any; --quota_mb per tenant, --max_inflight
+              writes); every commit goes through a write-ahead log,
+              applied before the ack; SIGTERM drains it and exits 0.
+              --workers N: a pool of N workers on one port, tenants
+              sharded on a hash ring (SO_REUSEPORT, else a dispatcher);
+              --replica-of URL: a read-only replica pulling the primary's
+              index commits; --slo 'push_p99_ms<50,wal_depth<1000':
+              targets judged every scrape window; --rolling-restart: hand
+              a running pool's workers off one at a time.  GET /v1/tier,
+              /v1/metrics and /v1/<tenant>/fleet answer the topology, the
+              metrics and the fleet report
   agent       <watch_dir>: spool every finished run under the directory
               into a local archive (--spool, else SOFA_AGENT_SPOOL, else
               ./sofa_spool) and push it to --service (comma-joined URLs
@@ -84,7 +90,15 @@
               backoff; writes meta.agent and meta.serve into each run's
               manifest.  --once: one pass, exit 0 all delivered, 1 some
               spooled but not delivered, 2 no watch directory
+  fleet       analyze <archive root>: the fleet passes over the root's
+              columnar index, incremental (only the chunks since the last
+              commit), into _fleet/fleet_report.json; exits 0, 1 when a
+              pass failed, 2 on a usage error
   clean       remove the derived files, keep the raw ones
+
+status --fleet URL[,URL] prints a running tier's topology, replica
+staleness and SLO state instead of a logdir's; it exits 1 when no URL
+answers or an SLO breach is active.
 
 analyze --enable_aisi finds the iterations (--iterations_from
 auto|steps|marker|op, --num_iterations) and writes iterations.csv;
@@ -92,7 +106,8 @@ auto|steps|marker|op, --num_iterations) and writes iterations.csv;
 --num_swarms swarms (auto_caption.csv, swarms_report.csv).
 
 report, analyze, viz, status, passes, resume, fsck, diff, whatif, export,
-top, live, archive, regress, serve, agent and clean run on the host only:
+top, live, archive, regress, serve, agent, fleet and clean run on the host
+only:
 they never touch a GPU.  fsck over an archive root checks the store
 (objects against their names, run docs against the objects, the index's
 chunks), over a fleet root each tenant's store.
@@ -126,7 +141,8 @@ from sofa_tpu_torch.config import Filter, SofaConfig
 
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
          "status", "passes", "resume", "fsck", "diff", "whatif", "export",
-         "top", "live", "archive", "regress", "serve", "agent", "clean")
+         "top", "live", "archive", "regress", "serve", "agent", "fleet",
+         "clean")
 # Verbs whose positional argument is the logdir.
 LOGDIR_VERBS = ("status", "passes", "resume", "fsck", "whatif", "live")
 
@@ -151,7 +167,7 @@ _FIELDS = (
     "regress_rolling", "regress_pct", "regress_threshold",
     "serve_bind", "serve_port", "serve_token", "serve_quota_mb",
     "serve_max_inflight", "serve_workers", "serve_replica_of", "serve_slo",
-    "serve_rolling_restart", "fleet_tenant", "agent_service", "agent_spool",
+    "serve_rolling_restart", "status_fleet", "fleet_tenant", "agent_service", "agent_spool",
     "agent_poll_s", "agent_settle_s", "agent_timeout_s", "agent_retries",
     "agent_backoff_s", "agent_backoff_cap_s",
 )
@@ -175,10 +191,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shell command to profile (record, stat); the "
                    "logdir for status, passes, resume, fsck, whatif and "
                    "live; archive's logdir or action; regress's run; "
-                   "serve's root; agent's watch directory")
+                   "serve's root; agent's watch directory; analyze "
+                   "(fleet)")
     p.add_argument("extra", nargs="?", default="",
                    help="archive show's run, backup's root, restore's "
-                   "backup; regress's baseline")
+                   "backup; regress's baseline; fleet analyze's root")
     p.add_argument("extra2", nargs="?", default="",
                    help="archive backup's destination, restore's target")
     p.add_argument("--logdir")
@@ -392,18 +409,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve: concurrent writes before 503 + Retry-After "
                    "(default 8)")
     g.add_argument("--workers", type=int, dest="serve_workers",
-                   help="serve: worker processes; above 1 needs the fleet "
-                   "tier (exit 2)")
+                   help="serve: worker processes sharing the port "
+                   "(SO_REUSEPORT, else a dispatcher), tenants sharded on "
+                   "the ring (default 1)")
     g.add_argument("--replica-of", "--replica_of", dest="serve_replica_of",
                    metavar="URL",
-                   help="serve: a read-only replica; needs the fleet tier "
-                   "(exit 2)")
+                   help="serve: a read-only query replica of this primary, "
+                   "pulling its index commits")
     g.add_argument("--slo", dest="serve_slo", metavar="SPEC",
-                   help="serve: declared SLOs; need the fleet tier (exit 2)")
+                   help="serve: SLO targets, e.g. "
+                   "'push_p99_ms<50,wal_depth<1000,replica_behind<3', "
+                   "judged every scrape window into slo_verdict.json; a "
+                   "breach lands in each tenant's catalog and `status "
+                   "--fleet` exits 1")
     g.add_argument("--rolling-restart", "--rolling_restart",
                    dest="serve_rolling_restart", action="store_true",
-                   help="serve: restart a worker pool; needs the fleet tier "
-                   "(exit 2)")
+                   help="serve: ask the running pool supervisor of this "
+                   "root to restart its workers one at a time, and exit")
+    g.add_argument("--fleet", dest="status_fleet", metavar="URL",
+                   help="status: the live tier topology of this service "
+                   "(/v1/tier), not a logdir (comma-joined URLs fail "
+                   "over)")
     g.add_argument("--tenant", dest="fleet_tenant",
                    help="agent: the tenant to push into (default 'default')")
     g.add_argument("--service", dest="agent_service",
@@ -508,6 +534,10 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     from sofa_tpu_torch.viz import sofa_viz
 
     verb = args.verb
+    if verb == "status" and cfg.status_fleet:
+        from sofa_tpu_torch.archive.tier import sofa_fleet_status
+
+        return sofa_fleet_status(cfg)
     if verb == "status":
         return sofa_status(cfg)
     if verb == "passes":
@@ -538,6 +568,10 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
         from sofa_tpu_torch.archive.service import sofa_serve
 
         return sofa_serve(cfg, root=args.command or None)
+    if verb == "fleet":
+        from sofa_tpu_torch.analysis.fleet import sofa_fleet
+
+        return sofa_fleet(cfg, args.command or "", args.extra)
     if verb == "agent":
         from sofa_tpu_torch.agent import sofa_agent
 

@@ -194,11 +194,16 @@ class SofaConfig:
     serve_quota_mb: float = 0.0      # per-tenant object-store quota (0 = off)
     serve_max_inflight: int = 8      # concurrent writes before a 503 +
                                      # Retry-After
-    serve_workers: int = 1           # --workers: above 1 needs the fleet
-                                     # tier (a usage error here)
-    serve_replica_of: str = ""       # --replica-of: the fleet tier's
-    serve_slo: str = ""              # --slo: the fleet tier's
-    serve_rolling_restart: bool = False  # --rolling-restart: the tier's
+    serve_workers: int = 1           # --workers: pool processes on one
+                                     # port, tenants sharded on the ring
+    serve_replica_of: str = ""       # --replica-of: a read-only query
+                                     # replica of this primary URL
+    serve_slo: str = ""              # --slo: SLO targets judged per scrape
+                                     # window (metrics.parse_slo)
+    serve_rolling_restart: bool = False  # --rolling-restart: SIGHUP the
+                                     # root's pool supervisor, then exit
+    status_fleet: str = ""           # status --fleet: the tier topology of
+                                     # this service URL (comma: failover)
     fleet_tenant: str = "default"    # the tenant an agent pushes into
     agent_service: str = ""          # service URL(s) (SOFA_AGENT_SERVICE);
                                      # empty = spool-only mode

@@ -72,11 +72,6 @@ FSCK_VERDICTS = ("missing", "corrupt", "stale", "orphaned")
 # ledger.
 FLEET_MARKER_NAME = "sofa_fleet.json"
 MARKED_ROOTS = (ARCHIVE_MARKER_NAME, FLEET_MARKER_NAME)
-# The marked roots this package cannot check yet (none), and the fleet-pass
-# tier (the directory in an archive root that the JAX package's fleet passes
-# write; the archive's fsck reports it unchecked).
-UNPORTED_ROOTS: Dict[str, str] = {}
-UNPORTED_FLEET_TIER = ("_fleet",)
 
 # Raw files whose names the collectors number (ranks, pids, blktrace's
 # per-cpu files) and the raw directories: everything under them is raw.
@@ -487,8 +482,8 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
     digests.  Records ``meta.fsck`` in the manifest.  Over an archive
     root it checks the store (``_archive_fsck_verb``), over a fleet root
     each tenant's (``_fleet_fsck_verb``)."""
-    from sofa_tpu_torch.printing import (SofaUserError, print_error,
-                                         print_progress, print_warning)
+    from sofa_tpu_torch.printing import (print_error, print_progress,
+                                         print_warning)
     from sofa_tpu_torch.trace import reap_stale_sentinel
 
     if not os.path.isdir(cfg.logdir):
@@ -499,11 +494,6 @@ def sofa_fsck(cfg, repair: bool = False) -> int:
         return _archive_fsck_verb(cfg.logdir, repair)
     if marker == FLEET_MARKER_NAME:
         return _fleet_fsck_verb(cfg.logdir, repair)
-    if marker in UNPORTED_ROOTS:
-        raise SofaUserError(
-            f"{cfg.logdir} is a {UNPORTED_ROOTS[marker]} root ({marker}); "
-            f"checking one needs the {UNPORTED_ROOTS[marker]} module, "
-            "which sofa_tpu_torch does not have yet")
     reap_stale_sentinel(cfg.logdir)
     report = fsck_scan(cfg.logdir)
     if report is None:

@@ -1,6 +1,5 @@
-"""Fault injection: the record and ingest degradation paths, on demand
-(the JAX package's ``sofa_tpu/faults.py:1-158, 159-531, 597-623``, the
-record, ingest, stream and network kinds).
+"""Fault injection: the record, ingest, stream, network and tier
+degradation paths, on demand (the JAX package's ``sofa_tpu/faults.py``).
 
     SOFA_FAULTS='procmon:die@2s,kineto:wedge@harvest,vmstat:fail@start'
     python -m sofa_tpu_torch record "python train.py" \
@@ -52,10 +51,25 @@ fires once for the whole plan; ``@always`` never clears.  ``partial`` is
 always once per key and only on object uploads.  (``stall`` against any
 other target is a stream kind.)
 
-The JAX package's tier kinds (``worker_die``, ``replica_stale``,
-``slo_breach``, ``scrape_stall``, ``disk_full``) drive its fleet tier,
-which this package does not have yet: a spec naming one is a usage error
-that says so.
+The tier kinds act on the service side of the fleet tier
+(``archive/tier.py``, ``archive/service.py``, ``metrics.py``), against the
+target ``service``; the client never applies them:
+
+    service:worker_die@<n>     pool worker <n> (1-based) hard-exits on its
+                               next write request, once, at spawn
+                               generation 0: the supervisor's respawn
+                               comes back healthy
+    service:replica_stale      the replica's puller holds its current
+                               commit while it learns the upstream sha:
+                               queries carry X-Sofa-Replica-Stale
+    service:slo_breach@<n>     scrape window <n> (1-based) folds a
+                               synthetic breached target into its verdict
+                               (once)
+    service:scrape_stall       the scrape loop's ticks return without a
+                               scrape, so the last scrape ages
+    service:disk_full@<n>      the <n>-th WAL or store write of the process
+                               (1-based) raises ENOSPC: a typed 507, once,
+                               so the retry lands
 
 Without a plan every hook returns at once.  ``record`` and ``preprocess``
 install the plan from ``cfg.inject_faults`` (else ``SOFA_FAULTS``) and
@@ -76,17 +90,17 @@ STREAM_KINDS = ("tail_truncate", "tail_torn", "rotate", "stall")
 # The kinds the fleet client applies to a request (archive/client.py).
 # ``stall`` is in both vocabularies: the ``service`` target picks the
 # transport kind, any other target a stream source.
-NET_KINDS = ("conn_refused", "conn_reset", "stall", "http_500", "partial")
+NET_KINDS = ("conn_refused", "conn_reset", "stall", "http_500", "partial",
+             "worker_die", "replica_stale", "slo_breach", "scrape_stall",
+             "disk_full")
+# The network kinds the tier's service side consumes; the client skips
+# them.
+TIER_KINDS = ("worker_die", "replica_stale", "slo_breach", "scrape_stall",
+              "disk_full")
 KINDS = ("die", "wedge", "fail", "truncate", "corrupt", "conn_refused",
-         "conn_reset", "http_500", "partial") + STREAM_KINDS
+         "conn_reset", "http_500", "partial") + TIER_KINDS + STREAM_KINDS
 # The firing policies of the network kinds ("" is once per request key).
 NET_WHENS = ("start", "always")
-# The JAX package's kinds whose consumer this package lacks, by module.
-UNPORTED_KINDS = {
-    "worker_die": "fleet tier", "replica_stale": "fleet tier",
-    "slo_breach": "fleet tier", "scrape_stall": "fleet tier",
-    "disk_full": "fleet tier",
-}
 PHASES = ("start", "stop", "harvest")
 
 ALIASES = {"pcap": "nettrace"}
@@ -114,7 +128,8 @@ class FaultSpec:
     fraction: Optional[float] = None  # partial only: where the body is cut
     when: Optional[str] = None       # network kinds: start|always|None (per
                                      # key); stream kinds: always|None
-    epoch: Optional[int] = None      # stream kinds: the 1-based live epoch
+    epoch: Optional[int] = None      # stream kinds: the 1-based live
+                                     # epoch; tier kinds: their ordinal
 
     def fires_at(self, phase: str) -> bool:
         return (self.phase or DEFAULT_PHASE.get(self.kind)) == phase
@@ -163,7 +178,7 @@ class FaultPlan:
         default clears per request key; ``partial`` fires on object
         uploads (op ``put``) only."""
         for s in self._by_target.get(target, ()):
-            if s.kind not in NET_KINDS:
+            if s.kind not in NET_KINDS or s.kind in TIER_KINDS:
                 continue
             if s.kind == "partial" and op != "put":
                 continue
@@ -178,6 +193,76 @@ class FaultPlan:
             return s
         return None
 
+    def tier_worker_die(self, ordinal: int, generation: int) -> bool:
+        """Consult-and-consume for ``worker_die@<n>``: True exactly once,
+        for pool worker ``ordinal`` (1-based) at spawn generation 0 — a
+        respawned worker (generation > 0) never re-fires even though its
+        plan still lists the spec."""
+        if generation != 0:
+            return False
+        for s in self._by_target.get("service", ()):
+            if s.kind != "worker_die" or (s.epoch or 1) != ordinal:
+                continue
+            fkey = ("worker_die", ordinal)
+            with self._fired_guard:
+                if self._fired.get(fkey):
+                    continue
+                self._fired[fkey] = True
+            return True
+        return False
+
+    def tier_replica_stale(self) -> bool:
+        """Whether a ``replica_stale`` spec is active (never consumed —
+        the replica stays pinned until the plan clears)."""
+        return any(s.kind == "replica_stale"
+                   for s in self._by_target.get("service", ()))
+
+    def tier_slo_breach(self, window: int) -> bool:
+        """Consult-and-consume for ``slo_breach@<n>``: True exactly once,
+        at scrape window ``window`` (1-based) — the metrics plane folds a
+        synthetic breached target into that window's verdict so the
+        breach plumbing (typed verdict, catalog event, fleet-status exit)
+        is exercised without real load."""
+        for s in self._by_target.get("service", ()):
+            if s.kind != "slo_breach" or (s.epoch or 1) != window:
+                continue
+            fkey = ("slo_breach", window)
+            with self._fired_guard:
+                if self._fired.get(fkey):
+                    continue
+                self._fired[fkey] = True
+            return True
+        return False
+
+    def tier_scrape_stall(self) -> bool:
+        """Whether a ``scrape_stall`` spec is active (never consumed —
+        scrape ticks keep skipping until the plan clears)."""
+        return any(s.kind == "scrape_stall"
+                   for s in self._by_target.get("service", ()))
+
+    def tier_disk_full(self) -> bool:
+        """Consult-and-consume for ``disk_full@<n>``: True exactly once,
+        at the plan's <n>-th consulted WAL/store write (1-based, counted
+        process-wide across tenants).  The write site answers with a
+        typed out-of-space refusal instead of acking bytes it never made
+        durable; the consumed spec lets the client's retry land."""
+        spec = None
+        for s in self._by_target.get("service", ()):
+            if s.kind == "disk_full":
+                spec = s
+                break
+        if spec is None:
+            return False
+        with self._fired_guard:
+            if self._fired.get(("disk_full",)):
+                return False
+            count = int(self._fired.get(("disk_full_writes",), 0)) + 1
+            self._fired[("disk_full_writes",)] = count
+            if count != (spec.epoch or 1):
+                return False
+            self._fired[("disk_full",)] = True
+        return True
+
 
 def parse(text: str) -> FaultPlan:
     """Parse a spec string; raises ValueError naming the bad entry."""
@@ -190,12 +275,6 @@ def parse(text: str) -> FaultPlan:
             raise ValueError(
                 f"fault entry {entry!r}: expected <target>:<kind>[@<when>]")
         kind, _, when = rest.partition("@")
-        module = UNPORTED_KINDS.get(kind)
-        if module is not None:
-            raise ValueError(
-                f"fault entry {entry!r}: kind {kind!r} drives the "
-                f"{module} module, which sofa_tpu_torch does not have yet; "
-                f"this package takes {KINDS}")
         if kind not in KINDS:
             raise ValueError(
                 f"fault entry {entry!r}: kind {kind!r} not in {KINDS}")
@@ -257,7 +336,50 @@ def _parse_stream(entry: str, target: str, kind: str,
 
 def _parse_net(entry: str, target: str, kind: str,
                when: str) -> FaultSpec:
-    """``service:<kind>[@start|@always]``, or ``service:partial@<f>``."""
+    """``service:<kind>[@start|@always]``, ``service:partial@<f>``, or
+    a tier kind with its ordinal."""
+    if kind == "worker_die":
+        if not when:
+            return FaultSpec(target=target, kind=kind, epoch=1)
+        try:
+            ordinal = int(when)
+        except ValueError:
+            ordinal = 0
+        if ordinal < 1:
+            raise ValueError(
+                f"fault entry {entry!r}: worker_die takes a 1-based "
+                "pool-worker ordinal (e.g. worker_die@2)")
+        return FaultSpec(target=target, kind=kind, epoch=ordinal)
+    if kind in ("replica_stale", "scrape_stall"):
+        if when and when != "always":
+            raise ValueError(
+                f"fault entry {entry!r}: {kind} takes no firing "
+                "policy (it holds until the plan clears)")
+        return FaultSpec(target=target, kind=kind, when="always")
+    if kind == "slo_breach":
+        if not when:
+            return FaultSpec(target=target, kind=kind, epoch=1)
+        try:
+            window = int(when)
+        except ValueError:
+            window = 0
+        if window < 1:
+            raise ValueError(
+                f"fault entry {entry!r}: slo_breach takes a 1-based "
+                "scrape-window ordinal (e.g. slo_breach@2)")
+        return FaultSpec(target=target, kind=kind, epoch=window)
+    if kind == "disk_full":
+        if not when:
+            return FaultSpec(target=target, kind=kind, epoch=1)
+        try:
+            nth = int(when)
+        except ValueError:
+            nth = 0
+        if nth < 1:
+            raise ValueError(
+                f"fault entry {entry!r}: disk_full takes a 1-based "
+                "write ordinal (e.g. disk_full@3)")
+        return FaultSpec(target=target, kind=kind, epoch=nth)
     if kind == "partial":
         try:
             fraction = float(when)
@@ -357,6 +479,58 @@ def maybe_service_fault(op: str, key: str = "",
     if plan is None:
         return None
     return plan.service_fault(target, op, key)
+
+
+def maybe_worker_die(ordinal: int, generation: int = 0) -> bool:
+    """The pool worker's hook (archive/service.py): True when pool
+    worker ``ordinal`` (1-based) should hard-exit NOW — the
+    ``worker_die@<n>`` cell.  Fires once, and only at spawn generation 0:
+    the supervisor's respawn must come back healthy."""
+    plan = _PLAN
+    if plan is None:
+        return False
+    return plan.tier_worker_die(ordinal, generation)
+
+
+def maybe_replica_stale() -> bool:
+    """The replica puller's hook (archive/tier.py): True while a
+    ``replica_stale`` spec pins the replica at its current commit."""
+    plan = _PLAN
+    if plan is None:
+        return False
+    return plan.tier_replica_stale()
+
+
+def maybe_slo_breach(window: int) -> bool:
+    """The metrics plane's hook (metrics.py): True when scrape window
+    ``window`` (1-based) should fold a synthetic breached target into its
+    slo_verdict — the ``slo_breach@<n>`` cell.  Fires once."""
+    plan = _PLAN
+    if plan is None:
+        return False
+    return plan.tier_slo_breach(window)
+
+
+def maybe_disk_full() -> bool:
+    """The hook of the tier's durable writes (WAL appends in
+    archive/tier.py, object uploads in archive/service.py): True when this durable write should see ENOSPC — the
+    ``disk_full@<n>`` cell.  The caller refuses the request with a typed
+    out-of-space error instead of acking; fires once, so the client's
+    backed-off retry proves recovery."""
+    plan = _PLAN
+    if plan is None:
+        return False
+    return plan.tier_disk_full()
+
+
+def maybe_scrape_stall() -> bool:
+    """The metrics plane's hook (metrics.py): True while a
+    ``scrape_stall`` spec freezes the scrape loop — ticks return without
+    scraping, so last-scrape age grows honestly."""
+    plan = _PLAN
+    if plan is None:
+        return False
+    return plan.tier_scrape_stall()
 
 
 def maybe_stream_fault(source: str, epoch: int) -> Optional[FaultSpec]:

@@ -1,6 +1,5 @@
 """Self-telemetry: the profiler's own run, made legible (the JAX package's
-``sofa_tpu/telemetry.py``, without the readers of ``meta.metrics``'s
-scrape age and ``meta.slo``, which wait for the fleet tier's scrape loop).
+``sofa_tpu/telemetry.py``).
 
 Every pipeline verb records spans and counters and lands two files in the
 logdir:
@@ -502,6 +501,26 @@ def manifest_warnings(doc: Optional[dict]) -> List[str]:
                 f"({push.get('status')}) — it is durable in the spool "
                 f"({agent_meta.get('spool')}) and retries on the next "
                 "agent pass")
+    metrics_meta = (doc.get("meta") or {}).get("metrics")
+    if isinstance(metrics_meta, dict):
+        from sofa_tpu_torch import metrics as fleet_metrics
+
+        age = metrics_meta.get("scrape_age_s")
+        if isinstance(age, (int, float)) and \
+                age > fleet_metrics.STALE_SCRAPE_S:
+            out.append(
+                f"the tier worker that committed this run had not "
+                f"scraped its metrics for {age:.0f}s at commit time — "
+                "its /v1/metrics view (and any SLO verdict) was stale; "
+                "check the worker's scrape loop")
+    slo_meta = (doc.get("meta") or {}).get("slo")
+    if isinstance(slo_meta, dict) and slo_meta.get("ok") is False:
+        names = ", ".join(str(n) for n in
+                          (slo_meta.get("breaching") or [])) or "unknown"
+        out.append(
+            f"the tier was BREACHING its declared SLO ({names}) when "
+            "this run committed — `status --fleet` shows the live "
+            "verdict")
     fsck = (doc.get("meta") or {}).get("fsck")
     if isinstance(fsck, dict) and fsck.get("ok") is False:
         problems = fsck.get("problems") or {}

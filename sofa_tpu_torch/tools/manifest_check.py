@@ -5,8 +5,7 @@ env, collectors, sources, stages, ``digests``, ``meta.pool``,
 ``meta.fsck``, ``meta.frames``, ``meta.whatif``, ``meta.live``,
 ``meta.archive``, ``meta.regress``, ``meta.backup``, and the sections the
 agent writes: ``meta.agent``, ``meta.serve``, ``meta.tier``,
-``meta.metrics`` and ``meta.health``; the JAX package's ``meta.slo``
-reader waits for the fleet tier's SLOs).
+``meta.metrics``, ``meta.slo`` and ``meta.health``).
 Given a logdir, it also validates every ``_frames/<name>/frame_index.json``,
 the ``whatif_report.json`` (``validate_whatif``), the
 ``regress_verdict.json`` (``validate_verdict``) and ``live``'s offset
@@ -14,14 +13,21 @@ ledger ``_live_offsets.json`` (``validate_live_offsets``) where they are.
 Given an archive root (``sofa_archive.json``), it validates the columnar
 index instead: ``_index/index_commit.json`` (``validate_index_commit``)
 and each family's ``frame_index.json`` against it (no index at all is
-valid: the readers scan).  Given a ``regress_verdict.json``, it validates
-that.  Under ``--require-healthy`` a stalled live source and an active
-stream whose ``updated_unix`` is older than ``_LIVE_STALE_S`` and a run
-the agent could not deliver are problems; under ``--require-passing`` a
-``regressed`` verdict is one.
+valid: the readers scan), the fleet-pass report and memo under ``_fleet/``
+(``validate_fleet_report``, ``validate_fleet_state``) and the merged
+fleet trace (``validate_fleet_trace``).  Given a ``regress_verdict.json``,
+a ``_metrics/slo_verdict.json`` (``validate_slo_verdict``), a
+``/v1/metrics`` document (``validate_fleet_metrics``) or a fleet report or
+memo, it validates that.  Under ``--require-healthy`` a stalled live
+source, an active stream whose ``updated_unix`` is older than
+``_LIVE_STALE_S``, a run the agent could not deliver, a run committed
+during an SLO breach and a failed fleet pass are problems; under
+``--require-passing`` a ``regressed`` verdict and a breaching SLO verdict
+are.
 
     python -m sofa_tpu_torch.tools.manifest_check
-        <logdir | manifest.json | archive root | regress_verdict.json>
+        <logdir | manifest.json | archive root | regress_verdict.json |
+         slo_verdict.json | metrics document | fleet report>
         [--require-healthy] [--require-passing]
 
 Exit codes: 0 valid, 1 invalid (one problem a line), 2 missing or
@@ -46,6 +52,10 @@ from sofa_tpu_torch.archive.index import (FAMILIES, INDEX_COMMIT_NAME,
                                           INDEX_VERSION)
 from sofa_tpu_torch.archive.store import BACKUP_SCHEMA, BACKUP_VERSION
 from sofa_tpu_torch.archive.tier import TIER_SCHEMA, TIER_VERSION
+from sofa_tpu_torch.metrics import (FLEET_TRACE_DIR_NAME, FLEET_TRACE_NAME,
+                                    METRICS_DIR_NAME, METRICS_SCHEMA,
+                                    METRICS_VERSION, SLO_OPS, SLO_SCHEMA,
+                                    SLO_VERSION)
 from sofa_tpu_torch.archive.verdict import (VERDICT_SCHEMA, VERDICT_VERSION,
                                             VERDICTS)
 from sofa_tpu_torch.frames import (FRAME_INDEX_NAME, FRAME_INDEX_SCHEMA,
@@ -67,6 +77,17 @@ _WHATIF_SCENARIO_STATUSES = ("parsed", "unknown")
 _WHATIF_ATTRIBUTION_STATUSES = ("applied", "no_match", "unknown")
 # An active live stream whose last epoch is older than this is stale.
 _LIVE_STALE_S = 600.0
+_SLO_STATUSES = ("ok", "breach", "no_data")
+# The fleet-pass tier (analysis/fleet.py); its names are repeated here so
+# that the validator stays a reader of the documents alone.
+_FLEET_DIR = "_fleet"
+_FLEET_REPORT_NAME = "fleet_report.json"
+_FLEET_REPORT_SCHEMA = "sofa_tpu/fleet_report"
+_FLEET_REPORT_VERSION = 1
+_FLEET_STATE_NAME = "fleet_state.json"
+_FLEET_STATE_SCHEMA = "sofa_tpu/fleet_state"
+_FLEET_STATE_VERSION = 1
+_FLEET_PASS_STATUSES = ("ok", "failed")
 
 
 def _is_num(v) -> bool:
@@ -610,6 +631,20 @@ def _check_fleet_meta(meta, probs: List[str]) -> None:
                                or any(not isinstance(n, str) for n in br)):
             probs.append("meta.metrics.slo_breaching: not a list of metric "
                          "names")
+    mslo = meta.get("slo")
+    if mslo is not None:
+        if not isinstance(mslo, dict) or \
+                not isinstance(mslo.get("ok"), bool):
+            probs.append("meta.slo: not an object with a bool ok")
+        else:
+            br = mslo.get("breaching")
+            if not isinstance(br, list) or \
+                    any(not isinstance(n, str) for n in br):
+                probs.append("meta.slo.breaching: not a list of metric "
+                             "names")
+            elif mslo["ok"] is False and not br:
+                probs.append("meta.slo: ok is false but breaching names "
+                             "no metric")
     mh = meta.get("health")
     if mh is not None and not isinstance(mh, dict):
         probs.append("meta.health: not an object")
@@ -800,6 +835,334 @@ def _check_live_meta(live, probs: List[str]) -> None:
                      "rebuilt/kept/full_rebuilds ints")
 
 
+def validate_slo_verdict(doc, require_passing: bool = False) -> List[str]:
+    """Schema problems in a ``_metrics/slo_verdict.json``
+    (metrics.evaluate_slo) — the typed per-window judgement
+    of the tier's declared objectives.  ``require_passing`` additionally
+    fails on an actively breaching verdict — the CI-gate mode."""
+    probs: List[str] = []
+    if not isinstance(doc, dict):
+        return ["slo verdict is not a JSON object"]
+    if doc.get("schema") != SLO_SCHEMA:
+        probs.append(f"schema: expected {SLO_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != SLO_VERSION:
+        probs.append(f"version: expected {SLO_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not _is_num(doc.get("generated_unix")):
+        probs.append("generated_unix: missing or not a number")
+    w = doc.get("window")
+    if not isinstance(w, int) or isinstance(w, bool) or w < 0:
+        probs.append("window: missing or not a non-negative int")
+    if not isinstance(doc.get("ok"), bool):
+        probs.append("ok: missing or not a bool")
+    breaching = doc.get("breaching")
+    if not isinstance(breaching, list) or \
+            any(not isinstance(n, str) for n in breaching):
+        probs.append("breaching: not a list of metric names")
+        breaching = []
+    targets = doc.get("targets")
+    if not isinstance(targets, list):
+        probs.append("targets: not a list")
+        targets = []
+    breached_names = []
+    for i, t in enumerate(targets):
+        if not isinstance(t, dict) \
+                or not isinstance(t.get("name"), str) \
+                or t.get("op") not in SLO_OPS \
+                or not _is_num(t.get("value")) \
+                or t.get("status") not in _SLO_STATUSES:
+            probs.append(f"targets[{i}]: needs name, an op in {SLO_OPS}, "
+                         f"a numeric value, and a status in "
+                         f"{_SLO_STATUSES}")
+            continue
+        obs = t.get("observed")
+        if t.get("status") != "no_data" and not _is_num(obs):
+            probs.append(f"targets[{i}].observed: a judged target must "
+                         "carry its observed number")
+        if t.get("status") == "breach":
+            breached_names.append(t["name"])
+    if isinstance(doc.get("ok"), bool) and targets and \
+            not probs and doc["ok"] == bool(breached_names):
+        probs.append(f"ok: {doc['ok']} disagrees with the target "
+                     f"statuses ({len(breached_names)} breach(es))")
+    if sorted(breaching) != sorted(breached_names) and not probs:
+        probs.append("breaching: disagrees with the per-target statuses")
+    if require_passing and doc.get("ok") is False:
+        probs.append("gate: the tier is actively breaching its SLO ("
+                     + ", ".join(breaching) + ")")
+    return probs
+
+
+def validate_fleet_metrics(doc) -> List[str]:
+    """Schema problems in a ``GET /v1/metrics`` document
+    (metrics.metrics_doc) — the board/test contract."""
+    probs: List[str] = []
+    if not isinstance(doc, dict):
+        return ["metrics document is not a JSON object"]
+    if doc.get("schema") != METRICS_SCHEMA:
+        probs.append(f"schema: expected {METRICS_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != METRICS_VERSION:
+        probs.append(f"version: expected {METRICS_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not _is_num(doc.get("generated_unix")):
+        probs.append("generated_unix: missing or not a number")
+    if doc.get("role") not in ("primary", "replica"):
+        probs.append(f"role: {doc.get('role')!r} not primary/replica")
+    worker = doc.get("worker")
+    if not isinstance(worker, int) or isinstance(worker, bool) \
+            or worker < 0:
+        probs.append("worker: missing or not a non-negative int")
+    seq = doc.get("scrape_seq")
+    if not isinstance(seq, int) or isinstance(seq, bool) or seq < 0:
+        probs.append("scrape_seq: missing or not a non-negative int")
+    snap = doc.get("snapshot")
+    if not isinstance(snap, dict) or any(
+            not isinstance(k, str) or (v is not None and not _is_num(v))
+            for k, v in snap.items()):
+        probs.append("snapshot: not a flat name -> number map")
+    hist = doc.get("history")
+    if not isinstance(hist, dict) \
+            or not isinstance(hist.get("rows"), list) \
+            or not isinstance(hist.get("total"), int) \
+            or isinstance(hist.get("total"), bool):
+        probs.append("history: needs a rows list and an int total")
+    else:
+        for i, r in enumerate(hist["rows"]):
+            if not isinstance(r, dict) or not _is_num(r.get("t")) \
+                    or not isinstance(r.get("name"), str) \
+                    or not _is_num(r.get("value")):
+                probs.append(f"history.rows[{i}]: needs numeric t, a "
+                             "name, and a numeric value")
+                break  # one line for a malformed table, not thousands
+    slo = doc.get("slo")
+    if slo is not None:
+        probs.extend(f"slo: {p}" for p in validate_slo_verdict(slo))
+    return probs
+
+
+def validate_fleet_trace(doc) -> List[str]:
+    """Schema problems in a merged ``fleet_trace.json``
+    (metrics.export_fleet_trace) — the Chrome-trace shape
+    Perfetto accepts: a ``traceEvents`` list of M metadata events and
+    complete (``ph == "X"``) spans with numeric ts/dur and a pid, so
+    the cross-process join stays loadable."""
+    probs: List[str] = []
+    if not isinstance(doc, dict):
+        return ["fleet trace is not a JSON object"]
+    events = doc.get("traceEvents")
+    if not isinstance(events, list):
+        return ["traceEvents: missing or not a list"]
+    saw_span = False
+    for i, e in enumerate(events):
+        if not isinstance(e, dict) or not isinstance(e.get("name"), str):
+            probs.append(f"traceEvents[{i}]: not a named event object")
+            break
+        ph = e.get("ph")
+        if ph == "M":
+            continue
+        if ph != "X":
+            probs.append(f"traceEvents[{i}]: ph {ph!r} is neither "
+                         "metadata (M) nor a complete span (X)")
+            break
+        saw_span = True
+        if not _is_num(e.get("ts")) or e["ts"] < 0 \
+                or not _is_num(e.get("dur")) or e["dur"] < 0:
+            probs.append(f"traceEvents[{i}]: span needs non-negative "
+                         "numeric ts and dur")
+            break
+        if not isinstance(e.get("pid"), int):
+            probs.append(f"traceEvents[{i}]: span has no integer pid — "
+                         "the cross-process join is lost")
+            break
+    if not probs and not saw_span:
+        probs.append("traceEvents: no complete (X) span in the merge")
+    return probs
+
+
+def check_fleet_trace(root: str) -> List[str]:
+    """Validate ``_metrics/fleet_trace/fleet_trace.json`` under an
+    archive root when an export has been written (absent = no export
+    yet, healthy)."""
+    path = os.path.join(root, METRICS_DIR_NAME, FLEET_TRACE_DIR_NAME,
+                        FLEET_TRACE_NAME)
+    if not os.path.isfile(path):
+        return []
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        return [f"{FLEET_TRACE_NAME}: unreadable ({e})"]
+    return [f"{FLEET_TRACE_NAME}: {p}"
+            for p in validate_fleet_trace(doc)]
+
+
+def validate_fleet_report(doc, require_healthy: bool = False) -> List[str]:
+    """Schema problems in a ``_fleet/fleet_report.json``
+    (analysis/fleet.py analyze) — the served cross-run pass
+    artifact behind ``GET /v1/<tenant>/fleet``.  ``require_healthy``
+    additionally fails on any failed pass — the CI-gate mode."""
+    probs: List[str] = []
+    if not isinstance(doc, dict):
+        return ["fleet report is not a JSON object"]
+    if doc.get("schema") != _FLEET_REPORT_SCHEMA:
+        probs.append(f"schema: expected {_FLEET_REPORT_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != _FLEET_REPORT_VERSION:
+        probs.append(f"version: expected {_FLEET_REPORT_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    sha = doc.get("commit_sha")
+    if not isinstance(sha, str) or not sha:
+        probs.append("commit_sha: missing (the /v1/fleet ETag key)")
+    for key in ("catalog_gen", "runs", "ingest_events", "features_rows"):
+        v = doc.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            probs.append(f"{key}: missing or not a non-negative int")
+    sched = doc.get("schedule")
+    if not isinstance(sched, list) or any(
+            not isinstance(w, list)
+            or any(not isinstance(n, str) for n in w) for w in sched):
+        probs.append("schedule: not a list of name-list waves")
+        sched = []
+    order = doc.get("order")
+    if not isinstance(order, list) or \
+            any(not isinstance(n, str) for n in order):
+        probs.append("order: not a list of pass names")
+        order = []
+    passes = doc.get("passes")
+    if not isinstance(passes, dict):
+        probs.append("passes: missing per-pass ledger")
+        passes = {}
+    if sorted(passes) != sorted(order):
+        probs.append("passes: ledger disagrees with order "
+                     f"({sorted(passes)} vs {sorted(order)})")
+    scheduled = {n for w in sched for n in w}
+    for name, ent in sorted(passes.items()):
+        where = f"passes.{name}"
+        if not isinstance(ent, dict):
+            probs.append(f"{where}: not an object")
+            continue
+        if ent.get("status") not in _FLEET_PASS_STATUSES:
+            probs.append(f"{where}.status: {ent.get('status')!r} not in "
+                         f"{_FLEET_PASS_STATUSES}")
+        if not isinstance(ent.get("fingerprint"), str) \
+                or not ent.get("fingerprint"):
+            probs.append(f"{where}.fingerprint: missing contract "
+                         "fingerprint")
+        wave = ent.get("wave")
+        if not isinstance(wave, int) or isinstance(wave, bool) or wave < 0:
+            probs.append(f"{where}.wave: missing or not a non-negative "
+                         "int")
+        if ent.get("status") == "ok" and \
+                not isinstance(ent.get("report"), (dict, type(None))):
+            probs.append(f"{where}.report: not an object or null")
+        if ent.get("status") == "failed" and \
+                not isinstance(ent.get("error"), str):
+            probs.append(f"{where}.error: a failed pass must carry its "
+                         "error")
+        if name not in scheduled:
+            probs.append(f"{where}: absent from the resolved schedule")
+    feats = doc.get("features")
+    if not isinstance(feats, dict) or any(
+            not isinstance(k, str) or not _is_num(v)
+            for k, v in feats.items()):
+        probs.append("features: not a flat name -> number map")
+    if require_healthy:
+        for name, ent in sorted(passes.items()):
+            if isinstance(ent, dict) and ent.get("status") == "failed":
+                probs.append(f"gate: fleet pass {name} failed"
+                             + (f" ({ent['error']})"
+                                if ent.get("error") else ""))
+    return probs
+
+
+def validate_fleet_state(doc) -> List[str]:
+    """Schema problems in a ``_fleet/fleet_state.json``
+    (analysis/fleet.py) — the fold-state memo written LAST as
+    the incremental engine's commit point."""
+    probs: List[str] = []
+    if not isinstance(doc, dict):
+        return ["fleet state is not a JSON object"]
+    if doc.get("schema") != _FLEET_STATE_SCHEMA:
+        probs.append(f"schema: expected {_FLEET_STATE_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != _FLEET_STATE_VERSION:
+        probs.append(f"version: expected {_FLEET_STATE_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not isinstance(doc.get("commit_sha"), str) \
+            or not doc.get("commit_sha"):
+        probs.append("commit_sha: missing memoization key")
+    for key in ("catalog_gen", "chunk_rows"):
+        v = doc.get(key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            probs.append(f"{key}: missing or not a non-negative int")
+    fams = doc.get("families")
+    if not isinstance(fams, dict):
+        probs.append("families: missing append-only family signatures")
+        fams = {}
+    for name, ent in sorted(fams.items()):
+        if not isinstance(ent, dict) \
+                or not isinstance(ent.get("rows"), int) \
+                or isinstance(ent.get("rows"), bool) \
+                or not isinstance(ent.get("chunks"), list) \
+                or any(not isinstance(s, str) for s in ent["chunks"]):
+            probs.append(f"families.{name}: needs int rows + a chunk-sha "
+                         "list")
+    passes = doc.get("passes")
+    if not isinstance(passes, dict):
+        probs.append("passes: missing per-pass memo")
+        passes = {}
+    for name, ent in sorted(passes.items()):
+        if not isinstance(ent, dict) \
+                or not isinstance(ent.get("fingerprint"), str):
+            probs.append(f"passes.{name}: needs a contract fingerprint")
+            continue
+        feats = ent.get("features")
+        if not isinstance(feats, list) or any(
+                not (isinstance(p, list) and len(p) == 2
+                     and isinstance(p[0], str) and _is_num(p[1]))
+                for p in feats):
+            probs.append(f"passes.{name}.features: not a list of "
+                         "[name, value] pairs")
+    return probs
+
+
+def check_fleet_dir(root: str) -> List[str]:
+    """Validate an archive root's ``_fleet/`` tier: report + memo when
+    present.  An absent dir (or a report ahead of its memo — the crash
+    window the next analyze converges) is healthy; unreadable or
+    schema-invalid documents are not."""
+    fdir = os.path.join(root, _FLEET_DIR)
+    if not os.path.isdir(fdir):
+        return []
+    probs: List[str] = []
+    docs = {}
+    for name, validate in ((_FLEET_REPORT_NAME, validate_fleet_report),
+                           (_FLEET_STATE_NAME, validate_fleet_state)):
+        path = os.path.join(fdir, name)
+        if not os.path.isfile(path):
+            continue
+        where = f"{_FLEET_DIR}/{name}"
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError) as e:
+            probs.append(f"{where}: unreadable ({e})")
+            continue
+        docs[name] = doc
+        probs.extend(f"{where}: {p}" for p in validate(doc))
+    report = docs.get(_FLEET_REPORT_NAME)
+    state = docs.get(_FLEET_STATE_NAME)
+    if isinstance(state, dict) and not isinstance(report, dict):
+        # the inverse tear (memo ahead of report) cannot come from the
+        # report-first write order — a memo with no report is damage
+        probs.append(f"{_FLEET_DIR}/{_FLEET_STATE_NAME}: memo present "
+                     "but the report is missing — the write order is "
+                     "report first, memo last")
+    return probs
+
+
 def validate_live_offsets(doc) -> List[str]:
     """Schema problems in ``live``'s offset ledger, the commit point of
     its epochs: per source a non-negative offset and a gapless table of
@@ -937,6 +1300,13 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
             probs.append("unhealthy: the agent could not deliver this "
                          f"run ({agent['push'].get('status')}) — it is "
                          "spooled locally, not in the fleet archive")
+        mslo = meta.get("slo")
+        if isinstance(mslo, dict) and mslo.get("ok") is False:
+            probs.append("unhealthy: the tier was breaching its declared "
+                         "SLO ("
+                         + ", ".join(str(n) for n in
+                                     (mslo.get("breaching") or []))
+                         + ") when this run committed")
         whatif = meta.get("whatif")
         if isinstance(whatif, dict) and \
                 whatif.get("verdict") == "uncalibrated":
@@ -976,7 +1346,8 @@ def check_path(path: str, require_healthy: bool = False,
     probs: List[str] = []
     if os.path.isdir(path) and \
             os.path.isfile(os.path.join(path, ARCHIVE_MARKER_NAME)):
-        probs = check_archive_index(path)
+        probs = (check_archive_index(path) + check_fleet_trace(path)
+                 + check_fleet_dir(path))
         for prob in probs:
             print(prob)
         if not probs:
@@ -1006,6 +1377,14 @@ def check_path(path: str, require_healthy: bool = False,
         return 2
     if isinstance(doc, dict) and doc.get("schema") == VERDICT_SCHEMA:
         probs = validate_verdict(doc, require_passing)
+    elif isinstance(doc, dict) and doc.get("schema") == SLO_SCHEMA:
+        probs = validate_slo_verdict(doc, require_passing)
+    elif isinstance(doc, dict) and doc.get("schema") == METRICS_SCHEMA:
+        probs = validate_fleet_metrics(doc)
+    elif isinstance(doc, dict) and doc.get("schema") == _FLEET_REPORT_SCHEMA:
+        probs = validate_fleet_report(doc, require_healthy)
+    elif isinstance(doc, dict) and doc.get("schema") == _FLEET_STATE_SCHEMA:
+        probs = validate_fleet_state(doc)
     else:
         probs = validate_manifest(doc, require_healthy) + probs
     for prob in probs:

@@ -253,7 +253,21 @@ def sofa_viz(cfg, serve_forever: bool = True):
         print_progress(
             f"trace archive: /archive/ (root {archive_root(cfg)}, "
             "read-only); archive-diff.html compares two of its runs tile by "
-            "tile by content hash, fetching no tile")
+            "tile by content hash, fetching no tile; `serve` runs the "
+            "write-capable fleet service over an archive root")
+        from sofa_tpu_torch.archive import index as aindex
+
+        if aindex.is_current(archive_root(cfg)):
+            print_progress(
+                "fleet board: /fleet.html ranks the archive's worst "
+                "speed-of-light-distance offenders from the columnar "
+                "catalog index; point it at a `serve` endpoint for the "
+                "fleet-pass report (/v1/<tenant>/fleet)")
+        print_progress(
+            "tier board: /tier.html watches a `serve` worker's metrics "
+            "(push latency, WAL depth, replica lag, the SLO verdict), "
+            "polled from the authenticated /v1/metrics with ETag-aware "
+            "refresh")
     if not serve_forever:
         return httpd
     try:

@@ -264,22 +264,30 @@ def test_fsck_verb_dispatches_on_archive_root(tmp_path):
 
 
 def test_fsck_leaves_the_fleet_tier_unchecked(tmp_path, capsys):
-    """A ``_fleet/`` (the JAX package's fleet-pass tier) is reported
-    unchecked, never as damage, and ``--repair`` leaves it alone; the
-    report keeps the JAX package's keys."""
+    """The fleet-pass tier ``_fleet/`` is checked as the JAX package checks
+    it: a rotted report is damage named in ``fleet``, ``--repair`` drops
+    the tier, the next ``fleet analyze`` rebuilds the same bytes, and both
+    packages' reports carry the same keys and verdicts."""
+    from sofa_tpu_torch.analysis import fleet as afleet
+
     cfg = _mini_logdir(tmp_path)
     root = str(tmp_path / "arch")
     ingest_run(cfg, root)
-    fleet = os.path.join(root, durability.UNPORTED_FLEET_TIER[0])
-    os.makedirs(fleet)
-    with open(os.path.join(fleet, "fleet_report.json"), "w") as f:
+    afleet.analyze(root)
+    with open(afleet.report_path(root), "rb") as f:
+        good = f.read()
+    assert archive_fsck(root)["fleet"] == []
+    with open(afleet.report_path(root), "w") as f:
         f.write("not json")
-    capsys.readouterr()
-    report = archive_fsck(root, repair=True)
-    assert report["fleet"] == [] and "not checked" in capsys.readouterr().err
-    assert os.path.isfile(os.path.join(fleet, "fleet_report.json"))
+    report = archive_fsck(root)
     want = jax_store.archive_fsck(root)
-    assert set(report) == set(want) and want["fleet"]   # JAX: damage
+    assert set(report) == set(want)
+    assert report["fleet"] == want["fleet"] == ["_fleet/fleet_report.json"]
+    assert archive_fsck(root, repair=True)["fleet"] == []
+    assert not os.path.isdir(afleet.fleet_dir(root))
+    afleet.analyze(root)
+    with open(afleet.report_path(root), "rb") as f:
+        assert f.read() == good
 
 
 # --- resume replay ----------------------------------------------------------

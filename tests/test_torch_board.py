@@ -408,7 +408,7 @@ def test_board_static_references_covered():
 STAGED = ["index.html", "gpu-report.html", "op-tree.html", "flame.html",
           "cpu-report.html", "comm-report.html", "disk.html", "net.html",
           "serving.html", "diff-report.html", "archive-diff.html",
-          "whatif.html", "run-report.html"]
+          "fleet.html", "tier.html", "whatif.html", "run-report.html"]
 
 
 @pytest.mark.parametrize("page", STAGED)

@@ -67,6 +67,7 @@ NOT_FORWARDED = {
     "archive_limit": "archive", "archive_since": "archive",
     "archive_host": "archive", "regress_rolling": "regress",
     "regress_pct": "regress", "regress_threshold": "regress",
+    "status_fleet": "status --fleet reads a service, not a recording",
     **{f: "serve" for f in ("serve_bind", "serve_port", "serve_token",
                             "serve_quota_mb", "serve_max_inflight",
                             "serve_workers", "serve_replica_of",

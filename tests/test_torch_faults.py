@@ -97,9 +97,20 @@ def test_fault_specs_rejected_as_the_jax_package_does(bad):
                                   "service:scrape_stall",
                                   "service:disk_full@3"])
 def test_unported_fault_kinds_are_usage_errors_that_say_so(spec):
-    jax_faults.parse(spec)                  # the JAX package takes them
-    with pytest.raises(ValueError, match="fleet tier.*does not have yet"):
-        faults.parse(spec)
+    """The tier's kinds parse as the JAX package parses them, field for
+    field, and each misused ordinal or policy is a usage error in both
+    packages that names the kind."""
+    (got,), (want,) = faults.parse(spec).specs, jax_faults.parse(spec).specs
+    assert (got.target, got.kind, got.when, got.epoch) == \
+        (want.target, want.kind, want.when, want.epoch)
+    kind = spec.split(":")[1].split("@")[0]
+    bad = f"service:{kind}@start" if kind in ("replica_stale",
+                                              "scrape_stall") \
+        else f"service:{kind}@zero"
+    with pytest.raises(ValueError):
+        jax_faults.parse(bad)
+    with pytest.raises(ValueError, match=kind):
+        faults.parse(bad)
 
 
 @pytest.mark.parametrize("spec", ["service:conn_refused", "service:partial@0.5",
@@ -126,7 +137,7 @@ def test_bad_spec_is_a_usage_error(logdir, monkeypatch):
         sofa_record("true", cfg)
     assert faults.active() is None
     assert cli_main(["record", "--logdir", logdir, "--inject_faults",
-                     "service:worker_die@1", "true"]) == 1
+                     "service:worker_die@zero", "true"]) == 1
 
 
 # --- collector faults on a fake swarm -----------------------------------------

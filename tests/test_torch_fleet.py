@@ -45,8 +45,7 @@ from sofa_tpu_torch.archive import protocol, tier
 from sofa_tpu_torch.archive.client import (ServiceClient, ServiceIncomplete,
                                            ServiceRejected,
                                            ServiceUnavailable)
-from sofa_tpu_torch.archive.service import (UNPORTED_SERVE, service_url,
-                                            sofa_serve)
+from sofa_tpu_torch.archive.service import service_url, sofa_serve
 from sofa_tpu_torch.archive.spool import Spool
 from sofa_tpu_torch.archive.store import ArchiveStore, archive_fsck
 from sofa_tpu_torch.cli import main as sofa_main
@@ -583,18 +582,32 @@ def test_serve_cli_exit_codes(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--workers", "2"], ["--replica-of", "http://127.0.0.1:1"],
-    ["--slo", "push_p99_ms<50"], ["--rolling-restart"]])
+    ["--workers", "2", "--replica-of", "http://127.0.0.1:1"],
+    ["--replica-of", "http://127.0.0.1:1", "--workers", "3"],
+    ["--slo", "push_p99_ms<<50"], ["--rolling-restart"]])
 def test_serve_refuses_the_fleet_tier_options(tmp_path, capsys, flags):
-    """What needs the fleet tier is a usage error that names it, before
-    the root is touched."""
+    """The tier's options, misused, are usage errors that name the
+    option, as in the JAX package: a pool and a replica at once, a bad
+    ``--slo`` spec, and ``--rolling-restart`` with no pool supervisor on
+    the root."""
     root = tmp_path / "store"
     assert sofa_main(["serve", str(root), "--token", TOKEN,
                       "--serve_port", "0", *flags]) == 2
     err = capsys.readouterr().err
-    assert "fleet tier" in err and flags[0] in err
-    assert not root.exists()
-    assert flags[0] in " ".join(UNPORTED_SERVE)
+    assert {"--workers": "pick one of --workers / --replica-of",
+            "--replica-of": "pick one of --workers / --replica-of",
+            "--slo": "bad --slo spec",
+            "--rolling-restart": "no supervisor pidfile"}[flags[0]] in err
+    jroot = tmp_path / "jax_store"
+    cfg = JaxConfig(logdir=str(tmp_path / "u"), serve_token=TOKEN,
+                    serve_port=0, serve_workers=int(
+                        flags[flags.index("--workers") + 1])
+                    if "--workers" in flags else 1,
+                    serve_replica_of="http://127.0.0.1:1"
+                    if "--replica-of" in flags else "",
+                    serve_slo=flags[1] if flags[0] == "--slo" else "",
+                    serve_rolling_restart=flags[0] == "--rolling-restart")
+    assert jax_sofa_serve(cfg, root=str(jroot)) == 2
 
 
 def test_agent_cli_exit_codes(service, tmp_path, monkeypatch):
@@ -639,7 +652,8 @@ def test_fleet_root_fsck_and_clean_guard(service, tmp_path):
     winning; a fleet root nested under a logdir survives ``clean``."""
     from sofa_tpu_torch.record import sofa_clean
 
-    assert durability.UNPORTED_ROOTS == {}
+    assert durability.MARKED_ROOTS == ("sofa_archive.json",
+                                       "sofa_fleet.json")
     watch = tmp_path / "watch"
     _mklog(watch)
     cfg = _agent_cfg(tmp_path, service_url(service))
@@ -718,14 +732,31 @@ def test_service_catalog_and_run_read(service, tmp_path):
 
 @pytest.mark.parametrize("route", ["/v1/tier", "/v1/metrics",
                                    "/v1/default/fleet"])
-def test_unported_routes_answer_typed_404(service, route):
-    """The fleet tier's routes: a 404 the protocol allows, naming what is
-    missing."""
-    code, _h, doc = _request(service_url(service), "GET", route,
-                             token=TOKEN)
-    assert code == 404
-    assert doc == {"error": "no_such_route", "unported": "fleet tier"}
-    assert doc["error"] in protocol.STATUS_ERRORS[404]
+def test_unported_routes_answer_typed_404(service, route, tmp_path):
+    """The fleet tier's routes answer as the JAX service's do: a typed
+    401 without the token; with it, the topology and the metrics document
+    under their schemas, and the fleet report's typed 404 before the
+    first ``fleet analyze``."""
+    jroot = str(tmp_path / "jax_store")
+    jhttpd, jt = _start(jax_sofa_serve, JaxConfig(
+        logdir=str(tmp_path / "ju"), serve_token=TOKEN, serve_port=0), jroot)
+    try:
+        for httpd in (service, jhttpd):
+            code, _h, doc = _request(service_url(httpd), "GET", route,
+                                     token="wrong")
+            assert (code, doc) == (401, {"error": "unauthorized"})
+        got = _request(service_url(service), "GET", route, token=TOKEN)
+        want = _request(service_url(jhttpd), "GET", route, token=TOKEN)
+    finally:
+        _stop(jhttpd, jt)
+    assert got[0] == want[0]
+    assert set(got[2]) == set(want[2])
+    if route == "/v1/default/fleet":
+        assert got[0] == 404
+        assert got[2] == {"error": "no_fleet_report", "tenant": "default"}
+        assert got[2]["error"] in protocol.STATUS_ERRORS[404]
+    else:
+        assert got[0] == 200 and got[2]["schema"] == want[2]["schema"]
 
 
 # --- the two packages against each other -------------------------------------

@@ -109,7 +109,10 @@ def test_scan_sees_the_whole_port():
             "sofa_tpu_torch/archive/service.py",
             "sofa_tpu_torch/archive/client.py",
             "sofa_tpu_torch/archive/spool.py",
-            "sofa_tpu_torch/agent.py", "sofa_tpu_torch/metrics.py"} <= rel
+            "sofa_tpu_torch/agent.py", "sofa_tpu_torch/metrics.py",
+            "sofa_tpu_torch/analysis/fleet.py",
+            "sofa_tpu_torch/analysis/fleet_passes.py",
+            "sofa_tpu_torch/tools/fleet_load.py"} <= rel
 
 
 def test_importing_the_port_loads_no_jax():
@@ -151,9 +154,13 @@ def test_importing_the_port_loads_no_jax():
             "sofa_tpu_torch.archive.verdict, sofa_tpu_torch.archive.protocol, "
             "sofa_tpu_torch.archive.tier, sofa_tpu_torch.archive.service, "
             "sofa_tpu_torch.archive.client, sofa_tpu_torch.archive.spool, "
-            "sofa_tpu_torch.agent, sofa_tpu_torch.metrics; "
+            "sofa_tpu_torch.agent, sofa_tpu_torch.metrics, "
+            "sofa_tpu_torch.analysis.fleet, "
+            "sofa_tpu_torch.analysis.fleet_passes, "
+            "sofa_tpu_torch.tools.fleet_load; "
             "registry = sofa_tpu_torch.analysis.registry; "
             "registry.load_builtin_passes(); "
+            "sofa_tpu_torch.analysis.fleet.load_builtin_passes(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'sofa_tpu', 'grpc') "
             "or m.startswith('google.protobuf')]; "
@@ -170,8 +177,8 @@ def test_board_files_are_the_ports_own():
     from sofa_tpu_torch.analyze import BOARD_DIR, board_pages
 
     assert os.path.dirname(BOARD_DIR) == os.path.join(REPO, "sofa_tpu_torch")
-    assert {"index.html", "gpu-report.html", "sofa_board.js",
-            "style.css"} <= set(board_pages())
+    assert {"index.html", "gpu-report.html", "fleet.html", "tier.html",
+            "sofa_board.js", "style.css"} <= set(board_pages())
     for path in _port_files():
         with open(path) as f:
             src = f.read()
