@@ -7,7 +7,7 @@ The timed phases run alone, in this order (device, kernel, model, train,
 ring, resnet); then three lanes run side by side, each a thread that runs
 its phases in order: (1) profile, cluster, mesh, tp, tp_serve: the card's
 Llama-width runs at batch 4 and the multi-rank ones, up to 43 GB of the
-card at a time; (2) live, serve, window, faults, ep_pp: its runs of at most
+card at a time, then tooling, host only; (2) live, serve, window, faults, ep_pp: its runs of at most
 21 GB, then fleet_tier, host only; (3) robust, board, cache, verbs,
 archive, fleet_push, live_drain: host only.  The host-only phases run over
 the captures the card made, each waiting for the phase of another lane
@@ -188,6 +188,21 @@ phases:
            tensor-parallel 2: both ranks' tokens identical, the first token
            the model phase's one-device argmax or within SERVE_TP_LOGIT_TOL
            of its maximum
+  tooling  the project's own checks, host only (no card visible, but for
+           setup's probe), the cells and their processes side by side, a
+           line a cell: (a) ``lint`` over the port's tree
+           against sofa_tpu_torch/lint_baseline.json: exit 0, the clean line
+           with its totals, ``--json`` at ``--jobs 1`` and ``--jobs 4``
+           byte-identical, the checker's seconds; (b) ``artifacts --json``
+           validated by the port's manifest_check with full closure, then
+           ``report`` over copies of the Llama-width and ResNet-50 captures
+           and ``artifacts <copy>`` of each: every file the card's runs
+           left is in a registry (zero leaks); (c) ``protocol --json``
+           validated, its routes archive/protocol.py's ROUTES; (d)
+           ``setup`` on the card's host: the probe line names cuda, 1
+           device and the card, the exit code 1 exactly when it printed a
+           problem; with ``CUDA_VISIBLE_DEVICES=`` the probe fails and
+           setup exits 1
   ep_pp    (c) the MoE main (vocab 8192, d 256, 8 experts, B 8, T 256) on
            two gloo ranks (--data 1 --expert 2) under ``stat``: losses that
            descend, equal on both ranks, the all-to-all in the capture;
@@ -4025,6 +4040,188 @@ class Smoke:
 
     FLEET_TOKEN = "chip-smoke-fleet-token"
 
+    def tooling(self):
+        """The project's own checks over the port's tree and copies of the
+        Llama-width and ResNet-50 captures, cells (a)-(d) as the module
+        docstring says; a line a cell, then the phase's seconds."""
+        self.need("llama")
+        self.need("archive")        # the last phase that rewrites a capture
+        t_phase = time.perf_counter()
+        base = os.path.join(REPO, "build", "chip_smoke_tooling")
+        shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(base)
+
+        def timed(cell):
+            t0 = time.perf_counter()
+            line = cell(base)
+            log(f"tooling[{cell.__name__[8:]}]: {line} "
+                f"({time.perf_counter() - t0:.1f} s) | {self.smi}")
+
+        self.tooling_together([
+            lambda c=cell: timed(c)
+            for cell in (self.tooling_lint, self.tooling_artifacts,
+                         self.tooling_protocol, self.tooling_setup)])
+        log(f"tooling: phase {time.perf_counter() - t_phase:.1f} s | "
+            f"{self.smi}")
+
+    @staticmethod
+    def tooling_together(calls):
+        """Runs the zero-argument ``calls`` side by side, each on a thread
+        of its own (each drives child processes independent of the
+        others'); returns their results in order, or raises the first
+        failure once all have ended."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=len(calls)) as pool:
+            futures = [pool.submit(call) for call in calls]
+        return [f.result() for f in futures]
+
+    def tooling_cli(self, label, *argv, want=0):
+        """A host-only verb (no card visible); raises unless it exits
+        ``want``; returns its stdout and wall seconds."""
+        r, wall = self.board_cli(*argv)
+        if r.returncode != want:
+            raise AssertionError(f"tooling[{label}]: `{' '.join(argv)}` "
+                                 f"exited {r.returncode}, expected {want}: "
+                                 f"{(r.stdout + r.stderr)[-3000:]}")
+        return r.stdout, wall
+
+    def tooling_valid(self, label, base, doc_text):
+        """The port's manifest_check over a --json document, gating on
+        closure (--require-healthy); returns the parsed document."""
+        path = os.path.join(base, f"{label}.json")
+        with open(path, "w") as f:
+            f.write(doc_text)
+        r = subprocess.run(
+            [sys.executable, "-m", "sofa_tpu_torch.tools.manifest_check",
+             path, "--require-healthy"], cwd=REPO, capture_output=True,
+            text=True, timeout=120, env=dict(os.environ,
+                                             CUDA_VISIBLE_DEVICES=""))
+        if r.returncode != 0:
+            raise AssertionError(f"tooling[{label}]: manifest_check "
+                                 f"exited {r.returncode}: "
+                                 f"{(r.stdout + r.stderr)[-2000:]}")
+        return json.loads(doc_text)
+
+    def tooling_lint(self, base):
+        """(a) lint: exit 0 against the port's baseline, and the JSON
+        report byte-identical at --jobs 1 and 4."""
+        (out, wall), (j1, wall1), (j4, wall4) = self.tooling_together([
+            lambda: self.tooling_cli("lint", "lint"),
+            lambda: self.tooling_cli("lint", "lint", "--json", "--jobs", "1"),
+            lambda: self.tooling_cli("lint", "lint", "--json", "--jobs", "4")])
+        clean = [ln for ln in out.splitlines()
+                 if ln.startswith("sofa-lint: clean (")]
+        if not clean:
+            raise AssertionError(f"tooling[lint]: no clean line: "
+                                 f"{out[-2000:]}")
+        if j1 != j4:
+            raise AssertionError("tooling[lint]: --jobs 1 and --jobs 4 "
+                                 "reports differ")
+        doc = json.loads(j1)
+        if doc["new"] or doc["baselined"] != doc["total"]:
+            raise AssertionError(f"tooling[lint]: {doc}")
+        return (f"{clean[0]}; by rule {doc['by_rule']}; --jobs 1 and 4 "
+                f"JSON equal; {wall:.2f} s, --json at --jobs 1 "
+                f"{wall1:.2f} s, at 4 {wall4:.2f} s (three processes side "
+                f"by side)")
+
+    def tooling_artifacts(self, base):
+        """(b) the static inventory validated with full closure, and side
+        by side the audit of a copy of each capture after ``report``:
+        zero leaks."""
+        build = os.path.join(REPO, "build")
+        return "; ".join(self.tooling_together([
+            lambda: self.tooling_inventory(base),
+            lambda: self.tooling_audit(
+                base, "llama",
+                os.path.join(build, "chip_smoke_profile_llama")),
+            lambda: self.tooling_audit(
+                base, "resnet", os.path.join(build, "chip_smoke_resnet_r1"))
+        ]))
+
+    def tooling_inventory(self, base):
+        out, wall = self.tooling_cli("artifacts", "artifacts", "--json")
+        doc = self.tooling_valid("artifacts", base, out)
+        if not doc["ok"] or doc["violations"]:
+            raise AssertionError(f"tooling[artifacts]: {doc['violations']}")
+        return (f"{doc['counts']['artifacts']} artifacts, "
+                f"{doc['counts']['writers']} writers, validated "
+                f"({wall:.2f} s)")
+
+    def tooling_audit(self, base, label, src):
+        copy = os.path.join(base, label)
+        t0 = time.perf_counter()
+        shutil.copytree(src, copy)
+        t_copy = time.perf_counter() - t0
+        out, t_report = self.tooling_cli(
+            f"report {label}", "report", "--logdir", copy, "--jobs", "4")
+        if "Complete!!" not in out:
+            raise AssertionError(f"tooling[report {label}]: {out[-2000:]}")
+        out, t_audit = self.tooling_cli(
+            f"audit {label}", "artifacts", copy, "--json")
+        audit = self.tooling_valid(f"audit_{label}", base, out)["logdir"]
+        if audit["unaccounted"] or audit["files_checked"] < 50:
+            raise AssertionError(f"tooling[audit {label}]: {audit}")
+        return (f"{label}: {audit['files_checked']} files, 0 leaks (copy "
+                f"{t_copy:.1f} s, report {t_report:.1f} s, audit "
+                f"{t_audit:.2f} s)")
+
+    def tooling_protocol(self, base):
+        """(c) the protocol inventory validated, every declared route."""
+        from sofa_tpu_torch.archive.protocol import ROUTES
+
+        out, wall = self.tooling_cli("protocol", "protocol", "--json")
+        doc = self.tooling_valid("protocol", base, out)
+        routes = [f"{r['method']} {r['path']}" for r in doc["routes"]]
+        if not doc["ok"] or routes != list(ROUTES):
+            raise AssertionError(f"tooling[protocol]: ok {doc['ok']}, "
+                                 f"routes {routes}")
+        c = doc["counts"]
+        return (f"{c['routes']} routes (ROUTES'), {c['statuses']} "
+                f"statuses, {c['errors']} errors, {c['knobs']} knobs, "
+                f"{c['fault_kinds']} fault kinds, validated ({wall:.2f} s)")
+
+    def tooling_setup(self, base):
+        """(d) setup on the card's host, then with no card visible."""
+        import torch
+
+        name = torch.cuda.get_device_name(0)
+        parts = []
+        for label, env in (("card", dict(os.environ)),
+                           ("hidden", dict(os.environ,
+                                           CUDA_VISIBLE_DEVICES=""))):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "sofa_tpu_torch",
+                                "setup"], cwd=REPO, env=env,
+                               capture_output=True, text=True, timeout=120)
+            wall = time.perf_counter() - t0
+            text = r.stdout + r.stderr
+            problems = [ln for ln in text.splitlines()
+                        if ln.startswith("[WARNING] setup:")]
+            healthy = [ln for ln in text.splitlines()
+                       if "setup: device backend healthy:" in ln]
+            if r.returncode != (1 if problems else 0):
+                raise AssertionError(f"tooling[setup {label}]: rc "
+                                     f"{r.returncode} with {len(problems)} "
+                                     f"problem line(s): {text[-2000:]}")
+            if label == "card":
+                want = f"healthy: cuda (1 device(s), {name})"
+                if len(healthy) != 1 or not healthy[0].endswith(want):
+                    raise AssertionError(f"tooling[setup]: no `{want}`: "
+                                         f"{text[-2000:]}")
+                said = healthy[0]
+            else:
+                failed = [ln for ln in problems
+                          if "device backend init failed" in ln]
+                if healthy or r.returncode != 1 or not failed:
+                    raise AssertionError(f"tooling[setup hidden]: "
+                                         f"{text[-2000:]}")
+                said = failed[0]
+            parts.append(f"{label}: rc {r.returncode}, {len(problems)} "
+                         f"problem(s), `{said}` ({wall:.1f} s)")
+        return "; ".join(parts)
+
     def fleet_serve(self, root, label, env=None):
         """``serve <root>`` on loopback port 0, a child with no card
         visible; returns the process, its URL and its log file."""
@@ -6112,7 +6309,7 @@ def moe_rank() -> None:
 # runs of at most 21 GB, and the host-only phases over the captures
 # (``Smoke.need`` waits for what a phase reads from another lane).
 PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
-LANES = (("profile", "cluster", "mesh", "tp", "tp_serve"),
+LANES = (("profile", "cluster", "mesh", "tp", "tp_serve", "tooling"),
          ("live", "serve", "window", "faults", "ep_pp", "fleet_tier"),
          ("robust", "board", "cache", "verbs", "archive", "fleet_push",
           "live_drain"))

@@ -78,7 +78,7 @@ def logdir_ready(logdir: str, settle_s: float = 0.5) -> bool:
     mtime = _manifest_mtime(logdir)
     if mtime is None:
         return False
-    return (time.time() - mtime / 1e9) >= max(settle_s, 0.0)
+    return (time.time() - mtime / 1e9) >= max(settle_s, 0.0)  # sofa-lint: disable=SL003 — compared against a file mtime, which IS wall clock; monotonic has no common epoch with it
 
 
 class _AgentPass:

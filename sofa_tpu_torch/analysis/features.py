@@ -17,10 +17,10 @@ class Features:
         self._info: List[Tuple[str, str]] = []
 
     def add(self, name: str, value: float) -> None:
-        self._rows.append((name, float(value)))
+        self._rows.append((name, float(value)))  # sofa-lint: disable=SL019 — wave-confined: each pass writes its own buffer; merge happens after the pool joins (happens-before)
 
     def add_info(self, name: str, value: str) -> None:
-        self._info.append((name, str(value)))
+        self._info.append((name, str(value)))  # sofa-lint: disable=SL019 — wave-confined, same as add()
 
     def get(self, name: str) -> Optional[float]:
         for n, v in reversed(self._rows):

@@ -216,7 +216,7 @@ class ServiceClient:
             # work instead of answering nobody (docs/FLEET.md)
             req.add_header(
                 "X-Sofa-Deadline",
-                f"{time.time() + self.timeout_s:.3f}")
+                f"{time.time() + self.timeout_s:.3f}")  # sofa-lint: disable=SL003 — the deadline crosses process and machine boundaries; wall clock is the only shared one
             if self.trace_id:
                 req.add_header("X-Sofa-Trace", self.trace_id)
             if body is not None:

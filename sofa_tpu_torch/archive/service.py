@@ -468,7 +468,7 @@ class _FleetHandler(http.server.BaseHTTPRequestHandler):
         except ValueError:
             return None
         # the client's wall clock: the only one both processes share
-        left = deadline - time.time()
+        left = deadline - time.time()  # sofa-lint: disable=SL003 — the deadline is the agent's wall-clock stamp; monotonic has no common epoch across processes
         if left > _DEADLINE_SKEW_CAP_S:
             return None
         return left
@@ -1112,7 +1112,7 @@ def _install_sigterm_drain(httpd):
         got_term.set()
         with httpd._state_guard:
             httpd.draining = True
-        threading.Thread(target=httpd.shutdown, daemon=True,
+        threading.Thread(target=httpd.shutdown, daemon=True,  # sofa-lint: disable=SL023 — this thread IS the stop path: shutdown() unblocks serve_forever, the drain runs, and the process exits
                          name="sofa-serve-drain").start()
 
     if threading.current_thread() is threading.main_thread():
@@ -1306,7 +1306,7 @@ def _serve_pool(root: str, token: str, bind: str, base_port: int,
 
     def _on_hup(signum, frame):  # noqa: ARG001 — signal handler contract
         # bounded by rolling_restart's own per-worker timeout
-        threading.Thread(target=handle.rolling_restart, daemon=True,
+        threading.Thread(target=handle.rolling_restart, daemon=True,  # sofa-lint: disable=SL023 — bounded by rolling_restart's own per-worker timeout; joining in a signal handler would block the supervisor
                          name="sofa-rolling-restart").start()
 
     def _on_term(signum, frame):  # noqa: ARG001 — signal handler contract

@@ -211,7 +211,7 @@ def _save_wal_state(tenant_root: str, state: dict,
     # stale offset only re-walks records the idempotent drain applied.
     path = _wal_state_path(tenant_root)
     stage = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    with open(stage, "w") as f:
+    with open(stage, "w") as f:  # sofa-lint: disable=SL009 — the writer-unique stage + os.replace below IS the atomic write; atomic_write's shared .tmp name would let the drainer and refresher threads collide
         json.dump(state, f, sort_keys=True)
         if fsync:
             f.flush()
@@ -302,7 +302,7 @@ class WalAppender:
         t0 = time.time()
         with self._guard:
             name = self._name(self._epoch)
-            path = os.path.join(wal_dir(self.tenant_root), name)
+            path = os.path.join(wal_dir(self.tenant_root), name)  # sofa-lint: disable=SL020 — os.path.join is pure string math, not IO; the .join blocking-method heuristic misfires
             try:
                 size = os.path.getsize(path)
             except OSError:
@@ -311,7 +311,7 @@ class WalAppender:
                 self._gc_applied_epochs()
                 self._epoch += 1
                 name = self._name(self._epoch)
-                path = os.path.join(wal_dir(self.tenant_root), name)
+                path = os.path.join(wal_dir(self.tenant_root), name)  # sofa-lint: disable=SL020 — os.path.join is pure string math, not IO
                 size = 0
             if faults.maybe_disk_full():
                 raise OSError(errno.ENOSPC,
@@ -1139,7 +1139,7 @@ def _worker_main(spec: dict, worker: int, generation: int, ready) -> None:
             httpd.draining = True
         # shutdown() blocks until serve_forever returns; the handler
         # runs ON the serve_forever thread — a direct call deadlocks
-        threading.Thread(target=httpd.shutdown, daemon=True,
+        threading.Thread(target=httpd.shutdown, daemon=True,  # sofa-lint: disable=SL023 — this thread IS the stop path: shutdown() unblocks serve_forever, the drain runs, and the process exits
                          name="sofa-tier-drain").start()
 
     import signal
@@ -1402,7 +1402,7 @@ class TierHandle:
             if p is None or old_pid == 0:
                 continue
             try:
-                os.kill(old_pid, signal.SIGTERM)  # the graceful drain; the respawn follows
+                os.kill(old_pid, signal.SIGTERM)  # sofa-lint: disable=SL008 — graceful drain of our own child: TERM->KILL escalation would defeat the WAL drain; the supervisor respawn IS the fallback
             except OSError:
                 continue  # already gone; the supervisor is on it
             deadline = time.monotonic() + timeout_s
@@ -1485,7 +1485,7 @@ def signal_rolling_restart(root: str) -> int:
                     "this root?")
         return 2
     try:
-        os.kill(pid, signal.SIGHUP)  # a restart request, not a kill
+        os.kill(pid, signal.SIGHUP)  # sofa-lint: disable=SL008 — SIGHUP is a control message to the supervisor (restart request), not a kill; nothing to escalate
     except OSError as e:
         print_error(f"serve --rolling-restart: supervisor pid {pid} from "
                     f"{path} is not signalable ({e}) — stale pidfile?")

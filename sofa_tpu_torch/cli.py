@@ -95,6 +95,27 @@
               commit), into _fleet/fleet_report.json; exits 0, 1 when a
               pass failed, 2 on a usage error
   clean       remove the derived files, keep the raw ones
+  lint        [path]: the package's own static checks (rules SL000-SL028,
+              sofa_tpu_torch/docs/STATIC_ANALYSIS.md) against
+              sofa_tpu_torch/lint_baseline.json; --rule SLxxx[,SLyyy]
+              keeps those rules' findings, --explain SLxxx prints a
+              rule's catalog row; exits 0 clean, 1 on new findings, 2 on
+              an internal error
+  artifacts   [logdir]: the artifact-lifecycle inventory (who writes and
+              reads each artifact, how clean, the digests and
+              manifest_check account for it); with a logdir, every file
+              in it audited against the registries; --json for the
+              sofa_tpu/artifact_inventory document; exits 0 on full
+              closure, 2 on a violation or an unaccounted file
+  protocol    the fleet protocol inventory (routes, statuses and their
+              typed errors, Retry-After, the client's handling, fault
+              kinds, SOFA_* knobs); --json for the
+              sofa_tpu/protocol_inventory document; exits 0 on full
+              closure, 2 on a violation
+  setup       report what the collectors need (sysctls, tools, with
+              --empower <tool> its capability grant) and probe the CUDA
+              backend in a bounded subprocess (--no-device-probe skips
+              it); --apply runs the fix commands; exits 1 on a problem
 
 status --fleet URL[,URL] prints a running tier's topology, replica
 staleness and SLO state instead of a logdir's; it exits 1 when no URL
@@ -106,11 +127,12 @@ auto|steps|marker|op, --num_iterations) and writes iterations.csv;
 --num_swarms swarms (auto_caption.csv, swarms_report.csv).
 
 report, analyze, viz, status, passes, resume, fsck, diff, whatif, export,
-top, live, archive, regress, serve, agent, fleet and clean run on the host
-only:
-they never touch a GPU.  fsck over an archive root checks the store
-(objects against their names, run docs against the objects, the index's
-chunks), over a fleet root each tenant's store.
+top, live, archive, regress, serve, agent, fleet, clean, lint, artifacts
+and protocol run on the host only: they never touch a GPU.  setup's probe
+is the one place a host verb asks the CUDA driver, in a child process.
+fsck over an archive root checks the store (objects against their names,
+run docs against the objects, the index's chunks), over a fleet root each
+tenant's store.
 
 --trace_format csv|parquet|columnar (or SOFA_TRACE_FORMAT) picks how
 preprocess writes the frames; the default, columnar, is the chunked Arrow
@@ -142,7 +164,10 @@ from sofa_tpu_torch.config import Filter, SofaConfig
 VERBS = ("record", "preprocess", "analyze", "stat", "report", "viz",
          "status", "passes", "resume", "fsck", "diff", "whatif", "export",
          "top", "live", "archive", "regress", "serve", "agent", "fleet",
-         "clean")
+         "clean", "lint", "artifacts", "protocol", "setup")
+# Verbs that read no config: their positional is a path (lint) or a logdir
+# to audit (artifacts), and each owns its exit contract.
+CONFIG_FREE_VERBS = ("lint", "artifacts", "protocol")
 # Verbs whose positional argument is the logdir.
 LOGDIR_VERBS = ("status", "passes", "resume", "fsck", "whatif", "live")
 
@@ -161,7 +186,7 @@ _FIELDS = (
     "tile_levels", "is_idle_threshold", "hint_server", "plugins",
     "trace_format", "num_iterations", "num_swarms", "enable_aisi",
     "enable_hsg", "enable_swarms", "iterations_from", "base_logdir",
-    "match_logdir", "whatif_apply", "live_interval_s", "live_epochs",
+    "match_logdir", "live_interval_s", "live_epochs",
     "live_stall_s", "archive_root", "archive_label", "archive_keep",
     "archive_keep_days", "archive_limit", "archive_since", "archive_host",
     "regress_rolling", "regress_pct", "regress_threshold",
@@ -192,7 +217,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "logdir for status, passes, resume, fsck, whatif and "
                    "live; archive's logdir or action; regress's run; "
                    "serve's root; agent's watch directory; analyze "
-                   "(fleet)")
+                   "(fleet); the path to lint; the logdir artifacts "
+                   "audits")
     p.add_argument("extra", nargs="?", default="",
                    help="archive show's run, backup's root, restore's "
                    "backup; regress's baseline; fleet analyze's root")
@@ -329,9 +355,12 @@ def build_parser() -> argparse.ArgumentParser:
     g = p.add_argument_group("diff, whatif, export, top")
     g.add_argument("--base_logdir", help="diff: the base run")
     g.add_argument("--match_logdir", help="diff: the run compared to it")
-    g.add_argument("--apply", dest="whatif_apply", metavar="SCENARIOS",
+    # ONE --apply, two verbs: bare for setup (run the fix commands),
+    # valued for whatif (the scenarios)
+    g.add_argument("--apply", nargs="?", const=True, metavar="SCENARIOS",
                    help="whatif: comma-joined scenarios, e.g. "
-                   "'overlap:*,scale:aten::mm=0.5,scale:*=sol,link:2'")
+                   "'overlap:*,scale:aten::mm=0.5,scale:*=sol,link:2'; "
+                   "setup (bare): run the fix commands")
     g.add_argument("--perfetto", action="store_true",
                    help="export: also trace.json.gz (Trace Event Format)")
     g.add_argument("--folded", action="store_true",
@@ -454,6 +483,22 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="agent_backoff_cap_s",
                    help="agent: retry backoff cap (default 30)")
 
+    g = p.add_argument_group("lint, artifacts, protocol, setup")
+    g.add_argument("--rule", dest="lint_rule", metavar="SLxxx[,SLyyy]",
+                   help="lint: only report these rule id(s)")
+    g.add_argument("--explain", dest="lint_explain", metavar="SLxxx",
+                   help="lint: print the rule's catalog row and exit")
+    g.add_argument("--json", action="store_true", dest="as_json",
+                   help="artifacts/protocol: the machine-readable "
+                   "inventory on stdout, validated by "
+                   "tools/manifest_check.py")
+    g.add_argument("--empower", action="append",
+                   help="setup: a utility to grant profiling capabilities "
+                   "(e.g. --empower tcpdump); repeatable")
+    g.add_argument("--no-device-probe", dest="no_device_probe",
+                   action="store_true",
+                   help="setup: skip the bounded CUDA backend probe")
+
     g = p.add_argument_group("board")
     g.add_argument("--no_tiles", action="store_true",
                    help="skip the deep-zoom tile pyramid")
@@ -483,6 +528,8 @@ def config_from_args(args: argparse.Namespace) -> SofaConfig:
     for name in _FIELDS:
         if name in passed:
             setattr(cfg, name, passed[name])
+    if isinstance(passed.get("apply"), str):
+        cfg.whatif_apply = passed["apply"]
     for flag, field in _DISABLES.items():
         if passed.get(flag):
             setattr(cfg, field, False)
@@ -500,6 +547,8 @@ def main(argv: Optional[list] = None) -> int:
 
     p = build_parser()
     args = p.parse_intermixed_args(argv)
+    if args.verb in CONFIG_FREE_VERBS:
+        return _config_free(args)
     if args.verb in ("record", "stat") and not args.command \
             and "pid" not in vars(args):
         p.error(f"{args.verb} needs a command (or --pid)")
@@ -524,6 +573,33 @@ def main(argv: Optional[list] = None) -> int:
         # done their work; the others' files may be unwritten
         sys.stdout = open(os.devnull, "w")
         return 0 if args.verb in ("top", "viz") else 1
+
+
+def _config_free(args: argparse.Namespace) -> int:
+    """lint, artifacts and protocol: no config, the positional read as a
+    path or logdir, and each verb's own 0/1/2 contract."""
+    passed = vars(args)
+    if args.verb == "lint":
+        from sofa_tpu_torch.lint.cli import run_lint
+
+        argv = [args.command] if args.command else []
+        if passed.get("lint_rule"):
+            argv += ["--rule", passed["lint_rule"]]
+        if passed.get("lint_explain"):
+            argv += ["--explain", passed["lint_explain"]]
+        if passed.get("as_json"):
+            argv.append("--json")
+        if "jobs" in passed:
+            argv += ["--jobs", str(passed["jobs"])]
+        return run_lint(argv)
+    if args.verb == "artifacts":
+        from sofa_tpu_torch.artifacts import sofa_artifacts
+
+        return sofa_artifacts(logdir=args.command or None,
+                              as_json=passed.get("as_json", False))
+    from sofa_tpu_torch.protocol import sofa_protocol
+
+    return sofa_protocol(as_json=passed.get("as_json", False))
 
 
 def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
@@ -555,6 +631,13 @@ def _run(args: argparse.Namespace, cfg: SofaConfig) -> int:
     if verb == "clean":
         sofa_clean(cfg)
         return 0
+    if verb == "setup":
+        from sofa_tpu_torch.setup_env import sofa_setup
+
+        return sofa_setup(utilities=getattr(args, "empower", None),
+                          apply=getattr(args, "apply", None) is True,
+                          probe_device=not getattr(args, "no_device_probe",
+                                                   False))
     if verb == "archive":
         from sofa_tpu_torch.archive.store import sofa_archive
 

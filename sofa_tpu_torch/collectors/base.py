@@ -49,7 +49,7 @@ def _run_bounded(fn, timeout: Optional[float], name: str, phase: str) -> bool:
     def _run():
         try:
             fn()
-        except BaseException as e:  # noqa: BLE001 - re-raised below
+        except BaseException as e:  # sofa-lint: disable=SL002 — re-raised in the caller via box["err"]
             box["err"] = e
 
     t = threading.Thread(target=_run, daemon=True,

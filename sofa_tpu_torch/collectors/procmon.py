@@ -153,7 +153,7 @@ class ProcMonCollector(ProcessCollector):
         the daemon is killed, or the sampler thread ends; a restart appends
         to the same files."""
         if self.proc is not None:
-            super().kill()
+            super().kill()  # sofa-lint: disable=SL008 — ProcessCollector.kill, the collector's own kill-all hook, not a process signal
         else:
             self._stop_event.set()
 

@@ -290,7 +290,7 @@ def export_perfetto(cfg, frames: Optional[Dict[str, pd.DataFrame]] = None,
     from sofa_tpu_torch.trace import atomic_replace
 
     with atomic_replace(path) as tmp_path, \
-            gzip.open(tmp_path, "wt", encoding="utf-8",
+            gzip.open(tmp_path, "wt", encoding="utf-8",  # sofa-lint: disable=SL009 — streamed gzip body inside atomic_replace; the rename IS the atomic step
                       compresslevel=5) as f:
         f.write('{"traceEvents":[')
         batch: List[str] = []

@@ -333,7 +333,8 @@ def _tail_source(ledger: OffsetLedger, chunks, source: str, path: str,
             # an injected stall freezes the size the clock sees, so its
             # window elapses even while the file grows underneath
             seen = int(entry["offset"]) if kind == "stall" else max(size, 0)
-            if watermark.update(source, seen, time.time()) == "stalled":
+            grown = watermark.update(source, seen, time.time())
+            if grown == "stalled":
                 out.info["status"] = "stalled"
     return out
 

@@ -601,7 +601,7 @@ class Scraper:
         while not self._stop.wait(self.interval_s):
             try:
                 self.tick()
-            except Exception:  # noqa: BLE001 — the scrape loop must never kill the serving process; a failed window is absent from the history
+            except Exception:  # sofa-lint: disable=SL002 — the scrape loop must never kill the serving process; a failed window is simply absent from the history
                 pass
 
     # -- one window --------------------------------------------------------

@@ -257,7 +257,7 @@ def _run_pending(pending: List[_IngestTask], jobs: int) -> Dict[str, tuple]:
         t0 = time.perf_counter()
         try:
             return t.fn(*t.args, **t.kwargs), None, time.perf_counter() - t0
-        except Exception as e:  # noqa: BLE001 - routed to the manifest
+        except Exception as e:  # sofa-lint: disable=SL002 — the exception object IS the routing: dispatched downstream to quarantine/degraded manifest entries
             return None, e, time.perf_counter() - t0
 
     outcomes: Dict[str, tuple] = {}
@@ -308,7 +308,7 @@ def _run_pending(pending: List[_IngestTask], jobs: int) -> Dict[str, tuple]:
                               "reparsing the remaining sources here")
                 broken = True
                 outcomes[t.name] = run_local(t)
-            except Exception as e:  # noqa: BLE001 - routed like run_local's
+            except Exception as e:  # sofa-lint: disable=SL002 — routed downstream, same as run_local
                 outcomes[t.name] = (None, e, 0.0)
         procpool.shutdown()
     return outcomes

@@ -100,13 +100,13 @@ RAW_FILES = (
 # What preprocess and analyze derive from it, beside the frame CSVs and the
 # staged board pages: removed by clean.
 ANALYSIS_FILES = (
-    "net_addrs.csv", "report.js", "features.csv", "hints.txt",
+    "net_addrs.csv", "report.js", "features.csv", "hints.txt",  # sofa-lint: disable=SL017 — net_addrs.csv is read through read_net_addrs(path), a parameter
     "gpu_top_kernels.csv", "gpu_memprof.csv", "cpu_top.csv",
     "disk_summary.csv", "strace_top.csv", "pystacks_top.csv",
     "gpu_categories.csv", "gpu_modules_summary.csv", "gpu_op_tree.csv",
     "gpu_input_pipeline.csv", "roofline.csv", "sol_roofline.csv",
-    "netrank.csv", "performance.csv", "cluster_summary.csv", "comm.csv",
-    "commtrace.csv", "link_matrix.csv", "gpu_step_skew.csv",
+    "netrank.csv", "performance.csv", "cluster_summary.csv", "comm.csv",  # sofa-lint: disable=SL017 — cluster_summary.csv is an end artifact for the user
+    "commtrace.csv", "link_matrix.csv", "gpu_step_skew.csv",  # sofa-lint: disable=SL017 — gpu_step_skew.csv is an end artifact for the user
     "_derived.writing", "run_manifest.json", "sofa_self_trace.json",
     # the container id docker publishes for perf's scoping: scratch
     "docker.cid",
@@ -119,11 +119,20 @@ ANALYSIS_FILES = (
 # whatif/, export): derived too, removed by clean; status names the ones
 # a logdir holds.
 VERB_FILES = (
-    "iterations.csv", "auto_caption.csv", "swarms_report.csv",
+    "iterations.csv", "auto_caption.csv", "swarms_report.csv",  # sofa-lint: disable=SL017 — the mining passes' tables, end artifacts for the user
     "swarms_report.txt", "gpu_diff.csv", "mem_diff.csv", "swarm_diff.csv",
-    "whatif_model.csv", "whatif_report.json", "sofa_report.pdf",
+    "whatif_model.csv", "whatif_report.json", "sofa_report.pdf",  # sofa-lint: disable=SL017 — whatif_model.csv is an end artifact for the user
     "overview.png", "trace.json.gz", "pystacks.folded", "cputrace.folded",
     "memprof.folded", "regress_verdict.json",
+)
+# The ledgers of the roots beside the logdirs (an archive, a fleet root,
+# a backup, an agent's spool; durability.MARKED_ROOTS) and the chunk-store
+# index, which lives under _frames/<name>/ or an archive's _index/: no
+# logdir sweep or digest walk enters those roots, which keep their own
+# fsck.  Listed so that every file the package writes has a registry.
+ROOT_FILES = (
+    "agent_state.json", "catalog.gen", "fleet_trace.json",
+    "frame_index.json", "sofa_backup.json", "sofa_fleet.json",
 )
 # ... and the directories (_frames: the chunk store, frames.py).
 DERIVED_DIRS = ("_tiles", "_ingest_cache", "_quarantine", "sofa_hints",

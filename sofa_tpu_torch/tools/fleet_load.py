@@ -83,7 +83,7 @@ class _Conn:
         while time.monotonic() < deadline:
             attempt += 1
             if self._conn is None:
-                self._conn = http.client.HTTPConnection(
+                self._conn = http.client.HTTPConnection(  # sofa-lint: disable=SL019 — each worker thread owns its own _Conn; no instance is shared across threads
                     self.host, self.port, timeout=self.timeout_s)
                 try:
                     self._conn.connect()
@@ -259,9 +259,9 @@ def run_fleet_load(url: str, token: str, *, agents: int = 8,
         finally:
             conn.close()
 
-    threads = [threading.Thread(target=agent_main, args=(a,), daemon=True)
+    threads = [threading.Thread(target=agent_main, args=(a,), daemon=True)  # sofa-lint: disable=SL023 — joined below: every agent thread before wall_s
                for a in range(agents)]
-    pthreads = [threading.Thread(target=poller_main, args=(p,),
+    pthreads = [threading.Thread(target=poller_main, args=(p,),  # sofa-lint: disable=SL023 — joined below after done.set(), with a timeout
                                  daemon=True) for p in range(pollers)]
     t0 = time.perf_counter()
     for t in threads + pthreads:

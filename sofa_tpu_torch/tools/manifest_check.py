@@ -17,17 +17,21 @@ valid: the readers scan), the fleet-pass report and memo under ``_fleet/``
 (``validate_fleet_report``, ``validate_fleet_state``) and the merged
 fleet trace (``validate_fleet_trace``).  Given a ``regress_verdict.json``,
 a ``_metrics/slo_verdict.json`` (``validate_slo_verdict``), a
-``/v1/metrics`` document (``validate_fleet_metrics``) or a fleet report or
-memo, it validates that.  Under ``--require-healthy`` a stalled live
+``/v1/metrics`` document (``validate_fleet_metrics``), a fleet report or
+memo, or an ``artifacts --json`` / ``protocol --json`` inventory
+(``validate_inventory``, ``validate_protocol_inventory``), it validates
+that.  Under ``--require-healthy`` a stalled live
 source, an active stream whose ``updated_unix`` is older than
 ``_LIVE_STALE_S``, a run the agent could not deliver, a run committed
-during an SLO breach and a failed fleet pass are problems; under
+during an SLO breach, a failed fleet pass, an inventory's closure
+violation, unaccounted file or undocumented knob are problems; under
 ``--require-passing`` a ``regressed`` verdict and a breaching SLO verdict
 are.
 
     python -m sofa_tpu_torch.tools.manifest_check
         <logdir | manifest.json | archive root | regress_verdict.json |
-         slo_verdict.json | metrics document | fleet report>
+         slo_verdict.json | metrics document | fleet report |
+         artifacts or protocol inventory>
         [--require-healthy] [--require-passing]
 
 Exit codes: 0 valid, 1 invalid (one problem a line), 2 missing or
@@ -58,10 +62,12 @@ from sofa_tpu_torch.metrics import (FLEET_TRACE_DIR_NAME, FLEET_TRACE_NAME,
                                     SLO_VERSION)
 from sofa_tpu_torch.archive.verdict import (VERDICT_SCHEMA, VERDICT_VERSION,
                                             VERDICTS)
+from sofa_tpu_torch.artifacts import INVENTORY_SCHEMA, INVENTORY_VERSION
 from sofa_tpu_torch.frames import (FRAME_INDEX_NAME, FRAME_INDEX_SCHEMA,
                                    FRAME_INDEX_VERSION, FRAMES_DIR_NAME)
 from sofa_tpu_torch.live import (LIVE_SOURCE_STATUSES, OFFSETS_NAME,
                                  OFFSETS_SCHEMA, OFFSETS_VERSION)
+from sofa_tpu_torch.protocol import PROTOCOL_SCHEMA, PROTOCOL_VERSION
 from sofa_tpu_torch.telemetry import (CACHE_OUTCOMES, COLLECTOR_STATUSES,
                                       MANIFEST_NAME, MANIFEST_SCHEMA,
                                       MANIFEST_VERSION, PASS_STATUSES,
@@ -1163,6 +1169,132 @@ def check_fleet_dir(root: str) -> List[str]:
     return probs
 
 
+def validate_inventory(doc, require_healthy: bool = False) -> List[str]:
+    """Schema problems in an ``artifacts --json`` document
+    (sofa_tpu_torch/artifacts.py).  ``require_healthy`` additionally fails
+    on closure violations and on files a logdir audit could not account
+    for — the CI-gate mode."""
+    probs: List[str] = []
+    if not isinstance(doc, dict):
+        return ["inventory is not a JSON object"]
+    if doc.get("schema") != INVENTORY_SCHEMA:
+        probs.append(f"schema: expected {INVENTORY_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != INVENTORY_VERSION:
+        probs.append(f"version: expected {INVENTORY_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not _is_num(doc.get("generated_unix")):
+        probs.append("generated_unix: missing or not a number")
+    if not isinstance(doc.get("ok"), bool):
+        probs.append("ok: missing or not a bool")
+    rows = doc.get("artifacts")
+    if not isinstance(rows, list) or not rows:
+        probs.append("artifacts: missing or empty")
+        rows = []
+    for i, r in enumerate(rows):
+        if not isinstance(r, dict) or not isinstance(r.get("name"), str) \
+                or r.get("kind") not in ("raw", "derived") \
+                or not isinstance(r.get("clean"), str) \
+                or not isinstance(r.get("digest"), str) \
+                or not isinstance(r.get("read"), bool) \
+                or not isinstance(r.get("writers"), list):
+            probs.append(f"artifacts[{i}]: needs name, kind raw/derived, "
+                         "clean/digest coverage strings, a bool read, "
+                         "and a writers list")
+            break  # one line for a malformed table, not eighty
+    viol = doc.get("violations")
+    if not isinstance(viol, list):
+        probs.append("violations: not a list")
+        viol = []
+    counts = doc.get("counts")
+    if not isinstance(counts, dict) or not all(
+            isinstance(counts.get(k), int)
+            for k in ("artifacts", "writers", "violations")):
+        probs.append("counts: missing artifact/writer/violation counters")
+    audit = doc.get("logdir")
+    if audit is not None and (
+            not isinstance(audit, dict)
+            or not isinstance(audit.get("unaccounted"), list)):
+        probs.append("logdir: not an object with an unaccounted list")
+    if require_healthy:
+        if viol:
+            probs.append(f"gate: {len(viol)} closure violation(s)")
+        if audit and audit.get("unaccounted"):
+            probs.append("gate: on-disk files no registry accounts for: "
+                         + ", ".join(audit["unaccounted"][:8]))
+    return probs
+
+
+def validate_protocol_inventory(doc,
+                                require_healthy: bool = False) -> List[str]:
+    """Schema problems in a ``protocol --json`` document
+    (sofa_tpu_torch/protocol.py).  ``require_healthy`` additionally fails
+    on closure violations and undocumented knobs — the CI-gate mode."""
+    probs: List[str] = []
+    if not isinstance(doc, dict):
+        return ["protocol inventory is not a JSON object"]
+    if doc.get("schema") != PROTOCOL_SCHEMA:
+        probs.append(f"schema: expected {PROTOCOL_SCHEMA!r}, "
+                     f"got {doc.get('schema')!r}")
+    if doc.get("version") != PROTOCOL_VERSION:
+        probs.append(f"version: expected {PROTOCOL_VERSION}, "
+                     f"got {doc.get('version')!r}")
+    if not _is_num(doc.get("generated_unix")):
+        probs.append("generated_unix: missing or not a number")
+    if not isinstance(doc.get("ok"), bool):
+        probs.append("ok: missing or not a bool")
+    routes = doc.get("routes")
+    if not isinstance(routes, list) or not routes:
+        probs.append("routes: missing or empty")
+        routes = []
+    for i, r in enumerate(routes):
+        if not isinstance(r, dict) or not isinstance(r.get("method"), str) \
+                or not isinstance(r.get("path"), str) \
+                or not r.get("path", "").startswith("/v1/") \
+                or not isinstance(r.get("clients"), list):
+            probs.append(f"routes[{i}]: needs method, a /v1/ path, and a "
+                         "clients list")
+            break
+    statuses = doc.get("statuses")
+    if not isinstance(statuses, list) or not statuses:
+        probs.append("statuses: missing or empty")
+        statuses = []
+    for i, s in enumerate(statuses):
+        if not isinstance(s, dict) \
+                or not isinstance(s.get("status"), int) \
+                or not isinstance(s.get("errors"), list) \
+                or not isinstance(s.get("retry_after"), bool) \
+                or s.get("client") not in ("fatal", "resume", "retry", "-"):
+            probs.append(f"statuses[{i}]: needs an int status, an errors "
+                         "list, a retry_after bool, and a client "
+                         "handling class")
+            break
+        if s.get("retry_after") and s.get("client") == "fatal":
+            probs.append(f"statuses[{i}]: HTTP {s.get('status')} carries "
+                         "Retry-After but the client treats it as fatal")
+    for section in ("errors", "knobs", "fault_kinds", "violations"):
+        if not isinstance(doc.get(section), list):
+            probs.append(f"{section}: not a list")
+    counts = doc.get("counts")
+    if not isinstance(counts, dict) or not all(
+            isinstance(counts.get(k), int)
+            for k in ("routes", "statuses", "errors", "knobs",
+                      "fault_kinds", "violations")):
+        probs.append("counts: missing route/status/error/knob/fault/"
+                     "violation counters")
+    if require_healthy:
+        viol = doc.get("violations")
+        if isinstance(viol, list) and viol:
+            probs.append(f"gate: {len(viol)} closure violation(s)")
+        undocumented = [k.get("knob") for k in doc.get("knobs") or []
+                        if isinstance(k, dict) and not k.get("documented")
+                        and k.get("read_by")]
+        if undocumented:
+            probs.append("gate: undocumented knobs: "
+                         + ", ".join(undocumented[:8]))
+    return probs
+
+
 def validate_live_offsets(doc) -> List[str]:
     """Schema problems in ``live``'s offset ledger, the commit point of
     its epochs: per source a non-negative offset and a gapless table of
@@ -1322,7 +1454,7 @@ def validate_manifest(doc, require_healthy: bool = False) -> List[str]:
                                  "streaming")
             upd = live.get("updated_unix")
             if live.get("active") and _is_num(upd) \
-                    and time.time() - upd > _LIVE_STALE_S:
+                    and time.time() - upd > _LIVE_STALE_S:  # sofa-lint: disable=SL003 — updated_unix is another process's wall-clock stamp; monotonic has no common epoch with it
                 probs.append("unhealthy: meta.live says the stream is "
                              "active but its last epoch is "
                              f"{time.time() - upd:.0f} s old — is `live` "
@@ -1385,6 +1517,10 @@ def check_path(path: str, require_healthy: bool = False,
         probs = validate_fleet_report(doc, require_healthy)
     elif isinstance(doc, dict) and doc.get("schema") == _FLEET_STATE_SCHEMA:
         probs = validate_fleet_state(doc)
+    elif isinstance(doc, dict) and doc.get("schema") == INVENTORY_SCHEMA:
+        probs = validate_inventory(doc, require_healthy)
+    elif isinstance(doc, dict) and doc.get("schema") == PROTOCOL_SCHEMA:
+        probs = validate_protocol_inventory(doc, require_healthy)
     else:
         probs = validate_manifest(doc, require_healthy) + probs
     for prob in probs:

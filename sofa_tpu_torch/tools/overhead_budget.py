@@ -193,7 +193,7 @@ def run_budget(workload: str = "resnet", steps: int = 20, reps: int = 6,
                     tb = _timed_once(step, steps)
                     teardown = setup()
                     tc = _timed_once(step, steps)
-                except Exception as e:  # noqa: BLE001 - the row says so
+                except Exception as e:  # sofa-lint: disable=SL002 — the failure IS the row's result: the table reports it
                     fail = e
                     break
                 finally:

@@ -329,11 +329,10 @@ def write_net_addrs(ids, logdir: str):
     if not ids:
         return None
     out = os.path.join(logdir, "net_addrs.csv")
-    with open(out + ".tmp", "w") as f:
+    with atomic_write(out) as f:
         f.write("id,address\n")
         for literal, aid in sorted(ids.items(), key=lambda kv: kv[1]):
             f.write(f"{aid},{literal}\n")
-    os.replace(out + ".tmp", out)
     return out
 
 
@@ -430,7 +429,7 @@ def fsync_append(path: str, text: str) -> None:
     a crash mid-append leaves at worst one torn last line, which the
     JSONL readers skip (the run journal's write)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "a") as f:
+    with open(path, "a") as f:  # sofa-lint: disable=SL009 — THE durable-append helper (atomic_write's sibling): appends cannot rename
         f.write(text)
         f.flush()
         os.fsync(f.fileno())
@@ -454,7 +453,7 @@ def derived_writing(logdir: str) -> bool:
         st = os.stat(path)
     except OSError:
         return False
-    if time.time() - st.st_mtime > SENTINEL_STALE_S:
+    if time.time() - st.st_mtime > SENTINEL_STALE_S:  # sofa-lint: disable=SL003 — compared against a file mtime, which IS wall clock; monotonic has no common epoch with it
         return False
     try:
         with open(path) as f:
@@ -466,7 +465,7 @@ def derived_writing(logdir: str) -> bool:
     if pid <= 0:
         return True
     try:
-        os.kill(pid, 0)          # signal 0: a liveness probe
+        os.kill(pid, 0)  # sofa-lint: disable=SL008 — signal 0 is a liveness probe, not a kill
         return True
     except ProcessLookupError:
         return False             # the writer died without cleaning up
@@ -509,7 +508,7 @@ class derived_write_guard:
             pass
         try:
             os.makedirs(os.path.dirname(self._path), exist_ok=True)
-            with open(self._path, "w") as f:
+            with open(self._path, "w") as f:  # sofa-lint: disable=SL009 — the sentinel IS the mid-write signal; an atomic rename would defeat its purpose
                 f.write(str(os.getpid()))
             self._owned = True
         except OSError:

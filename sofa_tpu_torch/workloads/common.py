@@ -266,7 +266,7 @@ def spawn_ranks(n: int, fn, *args, timeout: float = 120.0) -> None:
     finally:
         for p in ctx.processes:
             if p.is_alive():
-                p.kill()
+                p.kill()  # sofa-lint: disable=SL008 — a spawned rank still alive past the join deadline: no collector tree, nothing to escalate; joined below
             p.join(5)
 
 

@@ -1,8 +1,7 @@
 """The incremental fleet-pass engine of the port: the ``@fleet_pass``
 registry domain over the archive's ``_index/`` column families
 (``sofa_tpu_torch/analysis/fleet.py``), held to the JAX package's recipes
-(``tests/test_fleet_pass.py``, all but its four ``test_lint_*``, which
-wait for the port's lint) and to the JAX package itself.
+(``tests/test_fleet_pass.py``) and to the JAX package itself.
 
 The recipes: contract validation, the schedule's waves, the memo, delta
 and full modes (warm byte-identical to cold at any ``--jobs``, the memoized
@@ -493,6 +492,104 @@ def test_v1_fleet_auth_etag_304(service, tmp_path):
     code, hdrs, _b = _get(f"{base}/v1/default/fleet",
                           {**auth, "If-None-Match": etag})
     assert code == 200 and hdrs.get("ETag") != etag
+
+
+# ---------------------------------------------------------------------------
+# The lint: SL010-SL013 over @fleet_pass declarations, both engines
+# ---------------------------------------------------------------------------
+
+def _fleet_lint(tmp_path, files):
+    """Lint {relname: src} with the port's engine and the JAX package's,
+    the pinned family schemas from each package's archive/index.py; the
+    pass-rule findings must agree.  Returns the port's."""
+    from sofa_tpu.lint.core import ProjectContext as JaxProjectContext
+    from sofa_tpu.lint.core import lint_paths as jax_lint_paths
+    from sofa_tpu.lint.rules import default_rules as jax_default_rules
+    from sofa_tpu_torch.lint.core import ProjectContext, lint_paths
+    from sofa_tpu_torch.lint.rules import default_rules
+
+    paths = []
+    for rel, body in files.items():
+        p = tmp_path / rel
+        p.write_text(textwrap.dedent(body))
+        paths.append(str(p))
+    base = str(tmp_path)
+    ids = ("SL010", "SL011", "SL012", "SL013")
+    project = ProjectContext.detect(paths, base=base)
+    assert project.index_columns
+    port = [f for f in lint_paths(paths, default_rules(), project=project,
+                                  base=base) if f.rule_id in ids]
+    jax = [f for f in jax_lint_paths(
+        paths, jax_default_rules(),
+        project=JaxProjectContext.detect(paths, base=base), base=base)
+        if f.rule_id in ids]
+    assert sorted((f.rule_id, f.file, f.line, f.severity) for f in port) \
+        == sorted((f.rule_id, f.file, f.line, f.severity) for f in jax)
+    return port
+
+
+def test_lint_flags_undeclared_fleet_reads(tmp_path):
+    fs = _fleet_lint(tmp_path, {"p.py": '''
+        from sofa_tpu_torch.analysis.fleet import fleet_pass
+
+        @fleet_pass(name="leaky", reads_frames=("features",),
+                    reads_columns=("features.value",))
+        def leaky(state, tables, ctx, features):
+            tbl = tables["catalog"]
+            col = tables["features"]["name"]
+            return {"state": None, "report": {}}
+    '''})
+    msgs = [f.message for f in fs if f.rule_id == "SL010"]
+    assert any("'catalog'" in m for m in msgs), msgs
+    assert any("'name'" in m for m in msgs), msgs
+
+
+def test_lint_flags_phantom_fleet_declaration(tmp_path):
+    fs = _fleet_lint(tmp_path, {"p.py": '''
+        from sofa_tpu_torch.analysis.fleet import fleet_pass
+
+        @fleet_pass(name="phantom", reads_frames=("notafamily",),
+                    reads_columns=("features.bogus",))
+        def phantom(state, tables, ctx, features):
+            return {"state": None, "report": {}}
+    '''})
+    msgs = [f.message for f in fs if f.rule_id == "SL010"]
+    assert any("'notafamily'" in m for m in msgs), msgs
+    assert any("'features.bogus'" in m for m in msgs), msgs
+
+
+def test_lint_flags_cross_domain_after_edge(tmp_path):
+    fs = _fleet_lint(tmp_path, {"p.py": '''
+        from sofa_tpu_torch.analysis.fleet import fleet_pass
+        from sofa_tpu_torch.analysis.registry import analysis_pass
+
+        @analysis_pass(name="per_run")
+        def per_run(frames, cfg, features):
+            pass
+
+        @fleet_pass(name="crosser", reads_frames=("runs",),
+                    after=("per_run",))
+        def crosser(state, tables, ctx, features):
+            return {"state": None, "report": {}}
+    '''})
+    msgs = [f.message for f in fs if f.rule_id == "SL012"]
+    assert any("cross-domain" in m for m in msgs), msgs
+
+
+def test_lint_clean_fleet_pass(tmp_path):
+    fs = _fleet_lint(tmp_path, {"p.py": '''
+        from sofa_tpu_torch.analysis.fleet import fleet_pass
+
+        @fleet_pass(name="tidy", reads_frames=("features",),
+                    reads_columns=("features.name", "features.value"),
+                    provides_features=("fleet_tidy_total",))
+        def tidy(state, tables, ctx, features):
+            tbl = tables["features"]
+            vals = tbl["value"]
+            features.add("fleet_tidy_total", 1.0)
+            return {"state": None, "report": {}}
+    '''})
+    assert fs == []
 
 
 # ---------------------------------------------------------------------------
