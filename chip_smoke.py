@@ -3,29 +3,39 @@
 
     python3 chip_smoke.py          # one H100, no arguments
 
-The timed phases run alone, in this order (device, kernel, model, train,
-ring, resnet); then three lanes run side by side, each a thread that runs
-its phases in order: (1) profile, cluster, mesh, tp, tp_serve: the card's
-Llama-width runs at batch 4 and the multi-rank ones, up to 43 GB of the
-card at a time, then tooling, host only; (2) live, serve, window, faults, ep_pp: its runs of at most
-21 GB, then fleet_tier, host only; (3) robust, board, cache, verbs,
-archive, fleet_push, live_drain: host only.  The host-only phases run over
-the captures the card made, each waiting for the phase of another lane
-whose capture it reads.  A failure anywhere raises and exits
-non-zero; a lane's failure stops every lane before its next phase.  The
-phases:
+The timed phases run alone, in this order (device, kernel, kernel_perf,
+model, train, ring, resnet); then three lanes run side by side, each a
+thread that runs its phases in order: (1) profile, cluster, mesh, tp,
+tp_serve: the card's Llama-width runs at batch 4 and the multi-rank ones,
+up to 43 GB of the card at a time, then tooling, host only, examples (under
+2 GB of the card) and chaos_tier, host only; (2) live, serve, window,
+faults, ep_pp: its runs of at most 21 GB, then fleet_tier, host only; (3)
+robust, board, cache, verbs, archive, fleet_push, live_drain: host only.
+The host-only phases run over the captures the card made, each waiting for
+the phase of another lane whose capture it reads.  A failure anywhere
+raises and exits non-zero; a lane's failure stops every lane before its
+next phase.  The phases:
 
   device   the card's name and power limit; builds the three CUDA kernels
-           from the sources in the checkout (one nvcc each, all at once),
+           from the sources in the checkout, and the ring-depth variants
+           kernel_perf's tune_flash sweeps (one nvcc each, all at once),
            and the native sysmon /proc sampler and Perfetto writer with the
            machine's C++ compiler, printing it and the build seconds
   kernel   holds each kernel against its plain PyTorch version at the
            shapes the main paths give it (a tensor-parallel rank's heads,
            H 16 / KVH 4, too) and at the mask and tiling edge cases,
            checks that every kernel is deterministic (two launches
-           bit-identical), and times kernel and one library call in turns
+           bit-identical), holds the backward pair in both output modes
+           (float32 at GRAD_REL, bfloat16 one ulp wider), and times kernel and one library call in turns
            (kernel, library, library, kernel), the plain version and the
            bound; logs the backward pair's sum against SDPA's backward
+  kernel_perf  the port's kernel_perf tool into a temporary --out: the
+           forward at T 2048, 8192 and 16384 (GQA off and 4x), forward plus
+           backward end to end and each backward kernel alone at the same
+           T, the non-causal ring hop and the Llama-3-8B shape, each in
+           turns with SDPA and none faster than its bound; then tune_flash at the Llama-3-8B shape, forward and
+           --bwd: every ring-depth variant that fits held against its plain
+           version, timed, and ranked
   model    the serving path: the Llama-3-8B-width decoder forward with the
            fused kernel, then 4 requests through the KV-cache serving
            loop; launch counts are zeroed just before and read just after.
@@ -203,6 +213,18 @@ phases:
            device and the card, the exit code 1 exactly when it printed a
            problem; with ``CUDA_VISIBLE_DEVICES=`` the probe fails and
            setup exits 1
+  examples the five examples (sofa_tpu_torch/examples/) side by side,
+           each in its own process on the card, their output appended to
+           one log:
+           matmul_burn, io_churn, train_tiny, serve_tiny by their lines,
+           long_context under ``stat --enable_aisi`` (all three sofa_flash
+           kernels in gputrace, its 8 steps in iterations.csv); meanwhile
+           ``edr`` watches the log and fires on train_tiny's "final loss" a
+           2 s ``record`` into <base>/edr-train/, whose ``report`` (no card
+           visible) must end with Complete!!
+  chaos_tier ``python -m sofa_tpu_torch.tools.chaos_tier --smoke`` on the
+           host: the tier's five chaos events under fleet_load, its last
+           line ``"ok": true``
   ep_pp    (c) the MoE main (vocab 8192, d 256, 8 experts, B 8, T 256) on
            two gloo ranks (--data 1 --expert 2) under ``stat``: losses that
            descend, equal on both ranks, the all-to-all in the capture;
@@ -368,29 +390,22 @@ import time
 import traceback
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_HBM_BYTES = 3.35e12        # H100 SXM HBM3
+# one timing code, one bound, one table of peaks and one set of kernel
+# tolerances for the kernel phase and the tools
+from sofa_tpu_torch.tools.kernel_perf import (  # noqa: E402
+    backward_costs, bound, card_peaks, cuda_ms, forward_cost, in_turns)
+from sofa_tpu_torch.tools.tune_flash import (  # noqa: E402
+    GRAD_REL, LSE_ATOL, OUT_ATOL, OUT_RTOL, grad_limit)
+
 L2_BYTES = 50 * 2 ** 20         # H100 SXM L2 cache (data sheet: 50 MB)
-# bf16 storage: one ulp is 2**-8..2**-7 relative, and p rounds to bf16
-# against the running max in the kernel but the final max in the plain
-# version.  The worst reading on an H100 was 7.8e-3 (one ulp at |out| in
-# [1, 2)) at the Llama-3-8B and the segmented shapes.
-OUT_ATOL = OUT_RTOL = 1e-2
-# lse is float32 throughout in both (only summation order and the fast exp
-# differ).
-LSE_ATOL = 1e-3
 # Decoder logits after 32 bf16 layers, fused vs plain attention (and the
 # serving prefill, whose cache attention is plain, vs the fused forward):
 # relative Frobenius error of the logits.  The fused-vs-plain reading on an
 # H100 was 1.9e-2.
 LOGITS_REL = 3e-2
-# Backward kernels vs their plain versions: max |err| over the largest
-# |reference| of each gradient.  Both round p and ds to bf16, but at
-# different ulps where __expf and torch.exp differ, and sum in other orders.
-# The worst reading on an H100 was 3.43e-3 (dk, ragged T = 200).
-GRAD_REL = 6e-3
 # Per-leaf gradients of the 4-layer Llama-width loss at B1 T2048, fused vs
 # plain attention: relative Frobenius error (worst reading on an H100
 # 5.37e-3, the embedding, dense), and the loss's relative difference.  The
@@ -493,33 +508,6 @@ def nvidia_smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device milliseconds of fn() over ``iters`` back-to-back calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def in_turns(kernel_fn, library_fn, iters: int = 20):
-    """Device ms of a kernel and of its library yardstick, timed in turns
-    (kernel, library, library, kernel) so that drift in the card's clocks
-    falls on both alike: ((kernel, kernel), (library, library))."""
-    k1 = cuda_ms(kernel_fn, iters)
-    l1 = cuda_ms(library_fn, iters)
-    l2 = cuda_ms(library_fn, iters)
-    k2 = cuda_ms(kernel_fn, iters)
-    return (k1, k2), (l1, l2)
 
 
 def descendants(root: int):
@@ -732,6 +720,11 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.smi = ""
         self.kernel_rows = {}
+        # (flop/s, bytes/s): analysis/sol.py's peaks of this card
+        self.peaks = card_peaks(torch.cuda.get_device_name(0))
+        if self.peaks is None:
+            raise AssertionError(f"{torch.cuda.get_device_name(0)!r} is not "
+                                 f"in analysis/sol.py's PEAKS: no bounds")
         from sofa_tpu_torch.frames import columnar_available
 
         # where pyarrow is missing, columnar falls back to csv
@@ -761,15 +754,21 @@ class Smoke:
     # -- phases ---------------------------------------------------------------
     def device(self):
         from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.tools.tune_flash import all_variant_builds
 
         self.smi = nvidia_smi()
         log(f"device: {self.torch.cuda.get_device_name(0)} | nvidia-smi: "
             f"{self.smi} | torch {self.torch.__version__} cuda "
             f"{self.torch.version.cuda}")
         t0 = time.perf_counter()
-        reports = kernels.build_all(kernels.KERNELS)
-        log(f"device: built {', '.join(reports)} in "
-            f"{time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+        # the kernel_perf phase's tune_flash variants beside the defaults
+        variants = all_variant_builds()
+        reports = kernels.build_all(kernels.KERNELS, variants)
+        log(f"device: built {', '.join(reports)} and {len(variants)} "
+            f"ring-depth variants (" + ", ".join(
+                f"{k.name} {n}={v}" for k, ((n, v),) in variants)
+            + f") in {time.perf_counter() - t0:.2f} s (one nvcc each, in "
+            f"parallel)")
         for kern in kernels.KERNELS:
             for line in reports[kern.name].splitlines():
                 if any(w in line for w in ("registers", "spill", "smem",
@@ -892,22 +891,20 @@ class Smoke:
                 lambda: _flash_forward(q, k, v, 0),
                 lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
                 iters)
-            bq, tq, hq, dq = q.shape
-            flops = 4.0 * bq * hq * dq * tq * (tq + 1) / 2   # visible pairs
-            nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) \
-                + 4.0 * bq * hq * tq
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-            bound_ms = 1e3 * max(t_ops, t_bytes)
+            (bq, tq, hq, dq), kvh = q.shape, k.shape[2]
+            flops, nbytes = forward_cost(bq, tq, tq, hq, kvh, dq, 0)
+            bound_ms, bound_by = bound(flops, nbytes, self.peaks)
             ms, library_ms = (k1 + k2) / 2, (l1 + l2) / 2
             log(f"kernel: {label} in turns: kernel_ms {k1:.4f} / {k2:.4f}, "
                 f"library_ms (SDPA) {l1:.4f} / {l2:.4f}; kernel/SDPA "
                 f"{ms / library_ms:.3f}; bound_ms {bound_ms:.4f} "
                 f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% "
                 f"of bound) | {self.smi}")
-            return ms, library_ms, bound_ms, t_ops >= t_bytes
+            return ms, library_ms, bound_ms, bound_by
 
         timed("entry B4 T512 H8/4 D64", *entry)
-        ms, library_ms, bound_ms, by_ops = timed("llama3_8b shape", q, k, v)
+        ms, library_ms, bound_ms, bound_by = timed("llama3_8b shape", q, k,
+                                                   v)
         plain_ms = cuda_ms(lambda: _flash_forward_plain(q, k, v, 0), iters=3,
                            warmup=1)
         log(f"kernel: llama3_8b shape plain_ms {plain_ms:.4f}")
@@ -917,9 +914,63 @@ class Smoke:
             "source": kern.source_rel, "replaces": kern.replaces,
             "launches": None, "max_abs_err": llama_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if by_ops else "bytes",
-            "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms}
         self.kernel_backward()
+
+    def kernel_perf(self):
+        """The kernel_perf sweep into a temporary --out (every row printed,
+        none faster than its bound), then tune_flash at the Llama-3-8B
+        attention shape, forward and --bwd, over the ring-depth variants
+        that fit (the device phase built them), each held against its
+        plain version."""
+        import tempfile
+
+        from sofa_tpu_torch.tools import kernel_perf, tune_flash
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kperf_") as tmp:
+            t0 = time.perf_counter()
+            out, rows_json = (os.path.join(tmp, n)
+                              for n in ("KERNEL_PERF.md", "rows.json"))
+            rc = kernel_perf.main(["--out", out, "--json", rows_json])
+            with open(rows_json) as f:
+                rows = json.load(f)["rows"]
+            log(f"kernel_perf: rc {rc}, {len(rows)} rows in "
+                f"{time.perf_counter() - t0:.1f} s | {self.smi}")
+            if rc != 0:
+                raise AssertionError(f"kernel_perf exited {rc}")
+            have = {(r["kernel"], r["T"], r["gqa"]) for r in rows}
+            want = {("flash fwd", t, gqa) for t in (2048, 8192, 16384)
+                    for gqa in (False, True)} | {
+                (label, t, False) for t in (2048, 8192, 16384)
+                for label in ("flash fwd+bwd", *kernel_perf.MODES[2:])} | {
+                ("ring hop (non-causal)", 4096, False)} | {
+                ("llama3_8b " + label, 2048, True)
+                for label in kernel_perf.MODES}
+            slow = [r for r in rows if r["bound_ms"] is None
+                    or r["ms"] < r["bound_ms"]]
+            if want - have or slow:
+                raise AssertionError(f"kernel_perf rows missing "
+                                     f"{sorted(want - have)}, without a "
+                                     f"bound or faster than it: {slow}")
+            for bwd in (False, True):
+                t1 = time.perf_counter()
+                res = os.path.join(tmp, f"tune_{int(bwd)}.json")
+                rc = tune_flash.main(
+                    ["--seq", "2048", "--heads", "32", "--kv_heads", "8",
+                     "--dim", "128", "--json", res] + ["--bwd"] * bwd,
+                    log=log)
+                with open(res) as f:
+                    doc = json.load(f)
+                held = [r for r in doc["results"] if "agrees" in r]
+                log(f"tune_flash{' --bwd' * bwd}: rc {rc}, {len(held)} "
+                    f"variants held against the plain version, "
+                    f"{len(doc['failures'])} failures in "
+                    f"{time.perf_counter() - t1:.1f} s | {self.smi}")
+                kerns = {k.name for k in tune_flash.mode_kernels(bwd)}
+                if rc != 0 or {r["kernel"] for r in held} != kerns:
+                    raise AssertionError(f"tune_flash{' --bwd' * bwd} "
+                                         f"failed: {doc['failures']}")
+        self.torch.cuda.empty_cache()
 
     def kernel_backward(self):
         torch = self.torch
@@ -954,28 +1005,37 @@ class Smoke:
             return (q, k, v, g, lse, delta, shift, seg32, seg32)
 
         def compare(label, args, f32=False):
-            gd = torch.float32 if f32 else None
-            got = (*bwd_kv(*args, gd), bwd_dq(*args, gd))
-            ref = (*_flash_bwd_kv_plain(*args, gd), _flash_bwd_dq_plain(*args, gd))
-            torch.cuda.synchronize()
-            errs, rels, ok = {}, {}, True
-            for name, a, r in zip(("dk", "dv", "dq"), got, ref):
-                a, r = a.float(), r.float()
-                err = (a - r).abs().max().item()
-                scale = r.abs().max().item()
-                rels[name] = err / scale if scale else (0.0 if err == 0
-                                                        else float("inf"))
-                errs[name] = err
-                ok = ok and bool(torch.isfinite(a).all()) \
-                    and rels[name] <= GRAD_REL and got[0].dtype == (
-                        torch.float32 if f32 else torch.bfloat16)
-            log(f"kernel: bwd {label:<34} max|err|/max|ref| " + " ".join(
-                f"{n} {rels[n]:.3e}" for n in rels) + " (max|err| " +
-                " ".join(f"{n} {errs[n]:.3e}" for n in errs) +
-                f") -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"backward kernels disagree with their "
-                                     f"plain versions at {label}")
+            """Each gradient against its plain version within grad_limit:
+            in the float32 output mode (GRAD_REL of max|ref|, the kernels'
+            arithmetic), then, unless f32, in the bfloat16 one the main path
+            runs (one ulp of max|ref| more, the store's rounding).  The last
+            mode's (errs, gradients)."""
+            for gd in (torch.float32,) + (() if f32 else (None,)):
+                got = (*bwd_kv(*args, gd), bwd_dq(*args, gd))
+                ref = (*_flash_bwd_kv_plain(*args, gd),
+                       _flash_bwd_dq_plain(*args, gd))
+                torch.cuda.synchronize()
+                errs, rels, ok = {}, {}, True
+                for name, a, r in zip(("dk", "dv", "dq"), got, ref):
+                    ok = ok and a.dtype == (gd or torch.bfloat16)
+                    a, r = a.float(), r.float()
+                    err = (a - r).abs().max().item()
+                    scale = r.abs().max().item()
+                    rels[name] = err / scale if scale else (
+                        0.0 if err == 0 else float("inf"))
+                    errs[name] = err
+                    ok = ok and bool(torch.isfinite(a).all()) \
+                        and err <= grad_limit(scale, gd is None)
+                mode = "f32" if gd else "bf16"
+                log(f"kernel: bwd {label:<34} {mode:<4} max|err|/max|ref| "
+                    + " ".join(f"{n} {rels[n]:.3e}" for n in rels)
+                    + " (max|err| " + " ".join(
+                        f"{n} {errs[n]:.3e}" for n in errs)
+                    + f") -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"backward kernels disagree with "
+                                         f"their plain versions at {label} "
+                                         f"({mode})")
             return errs, got
 
         def deterministic(label, args):
@@ -1056,24 +1116,18 @@ class Smoke:
         def library():
             return torch.autograd.grad(o, (qt, kt, vt), gt, retain_graph=True)
 
-        pairs = bq * hq * tq * (tq + 1) / 2          # visible pairs only
-        rows = 2.0 * bq * hq * tq * 4                 # lse and delta
-        operands = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        costs = backward_costs(bq, tq, tq, hq, k.shape[2], dq, 0)
         pair_ms, pair_bound, sdpa_ms = 0.0, 0.0, []
-        for kern, fn, plain, flops, written, errs in (
-                (kernels.FLASH_BWD_KV, bwd_kv,
-                 _flash_bwd_kv_plain, 8.0 * dq * pairs,
-                 2.0 * (k.numel() + v.numel()),
+        for kern, fn, plain, errs in (
+                (kernels.FLASH_BWD_KV, bwd_kv, _flash_bwd_kv_plain,
                  max(llama_errs["dk"], llama_errs["dv"])),
-                (kernels.FLASH_BWD_DQ, bwd_dq,
-                 _flash_bwd_dq_plain, 6.0 * dq * pairs, 2.0 * q.numel(),
+                (kernels.FLASH_BWD_DQ, bwd_dq, _flash_bwd_dq_plain,
                  llama_errs["dq"])):
             (k1, k2), (l1, l2) = in_turns(lambda: fn(*llama), library)
             ms, library_ms = (k1 + k2) / 2, (l1 + l2) / 2
             plain_ms = cuda_ms(lambda: plain(*llama), iters=3, warmup=1)
-            t_ops = flops / PEAK_BF16_FLOPS
-            t_bytes = (operands + rows + written) / PEAK_HBM_BYTES
-            bound_ms = 1e3 * max(t_ops, t_bytes)
+            flops, nbytes = costs[kern.name]
+            bound_ms, bound_by = bound(flops, nbytes, self.peaks)
             log(f"kernel: {kern.name} llama3_8b shape in turns: kernel_ms "
                 f"{k1:.4f} / {k2:.4f}, library_ms (SDPA backward, dq+dk+dv) "
                 f"{l1:.4f} / {l2:.4f}; plain_ms {plain_ms:.4f} bound_ms "
@@ -1084,8 +1138,7 @@ class Smoke:
                 "source": kern.source_rel, "replaces": kern.replaces,
                 "launches": None, "max_abs_err": errs, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": library_ms}
+                "bound_by": bound_by, "library_ms": library_ms}
             pair_ms += ms
             pair_bound += bound_ms
             sdpa_ms += [l1, l2]
@@ -1962,8 +2015,8 @@ class Smoke:
         # at least B - L from HBM: its bytes over the HBM rate are at most
         # B / (B - L) (B a launch, averaged over the row); a launch that
         # fits in the L2 is not held to the HBM rate at all.
-        flop_ratio = roof["flops"] / (PEAK_BF16_FLOPS * roof["time"])
-        byte_ratio = roof["bytes_accessed"] / (PEAK_HBM_BYTES * roof["time"])
+        flop_ratio = roof["flops"] / (self.peaks[0] * roof["time"])
+        byte_ratio = roof["bytes_accessed"] / (self.peaks[1] * roof["time"])
         per_launch = roof["bytes_accessed"] / roof["count"]
         big = per_launch > L2_BYTES
         byte_limit = 1.05 * per_launch / (per_launch - L2_BYTES)
@@ -4063,6 +4116,122 @@ class Smoke:
                          self.tooling_protocol, self.tooling_setup)])
         log(f"tooling: phase {time.perf_counter() - t_phase:.1f} s | "
             f"{self.smi}")
+
+    def examples(self):
+        """The five examples side by side, each in its own process on the
+        card, their output appended to one log; ``long_context`` under ``stat
+        --enable_aisi`` (every sofa_flash_* kernel in gputrace, its steps in
+        iterations.csv); ``edr`` watching the log meanwhile, which fires on
+        train_tiny's "final loss" a 2 s ``record`` whose ``report`` must
+        end with Complete!!.  A line an example, then the phase's seconds."""
+        from sofa_tpu_torch import kernels
+
+        t_phase = time.perf_counter()
+        base = os.path.join(REPO, "build", "chip_smoke_examples")
+        shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(base)
+        app_log = os.path.join(base, "examples.log")
+        open(app_log, "w").close()
+        host_only = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        edr = subprocess.Popen(
+            [sys.executable, "-m", "sofa_tpu_torch.tools.edr", "--log",
+             app_log, "--trigger", "final loss=train", "--record_seconds",
+             "2", "--logdir", os.path.join(base, "edr/"), "--poll_s", "0.2",
+             "--timeout_s", "600"], cwd=REPO, env=host_only,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lock = threading.Lock()
+
+        def example(name, want):
+            """One example in its own process, in the examples' directory
+            (io_churn writes there) with the package importable from the
+            checkout; its output goes into the log when it ends."""
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", f"sofa_tpu_torch.examples.{name}"],
+                cwd=base, env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                timeout=300)
+            with lock, open(app_log, "a") as f:
+                f.write(r.stdout)
+            last = (r.stdout.rstrip().splitlines() or [""])[-1]
+            log(f"examples[{name}]: rc {r.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s: {last!r} | {self.smi}")
+            if r.returncode != 0 or want not in last:
+                raise AssertionError(f"example {name} failed: {last!r}")
+
+        try:
+            # all five at once; long_context's output (a "final loss" line
+            # too) goes into the log after the others', so that edr fires
+            # on train_tiny's
+            with ThreadPoolExecutor(max_workers=5) as pool:
+                stat = pool.submit(
+                    self.run_stat, "examples_long_context",
+                    "python -m sofa_tpu_torch.examples.long_context",
+                    flags=("--enable_aisi",))
+                for run in [pool.submit(example, name, want) for name, want in
+                            (("matmul_burn", "burns in"),
+                             ("io_churn", "wrote+read 256 MiB"),
+                             ("train_tiny", "final loss"),
+                             ("serve_tiny", "served 4 requests"))]:
+                    run.result()
+                feats, logdir, out = stat.result()
+            with open(app_log, "a") as f:
+                f.write(out)
+            line = next((ln for ln in out.splitlines()
+                         if "final loss" in ln), "")
+            names = frame(logdir, "gputrace")["name"].astype(str)
+            launches = {k.name: int(names.str.contains(k.name).sum())
+                        for k in kernels.KERNELS}
+            with open(os.path.join(logdir, "iterations.csv")) as f:
+                iterations = len(f.read().strip().splitlines()) - 1
+            log(f"examples[long_context]: {line.strip()!r}; gputrace rows "
+                f"{launches}; iterations.csv {iterations} rows; "
+                f"gpu0_hbm_peak_gb {feats.get('gpu0_hbm_peak_gb')} | "
+                f"{self.smi}")
+            if "remat=on" not in line or min(launches.values()) == 0 \
+                    or iterations != 8:
+                raise AssertionError("long_context: the kernels or its 8 "
+                                     "steps are missing from its capture")
+            edr_out, _ = edr.communicate(timeout=300)
+        finally:
+            if edr.poll() is None:
+                edr.kill()
+                edr.communicate()
+        edr_dir = os.path.join(base, "edr-train")
+        t0 = time.perf_counter()
+        rep = subprocess.run([sys.executable, "-m", "sofa_tpu_torch",
+                              "report", "--logdir", edr_dir], cwd=REPO,
+                             env=host_only, capture_output=True, text=True,
+                             timeout=300)
+        last = (rep.stdout.strip().splitlines() or [""])[-1]
+        said = [ln for ln in edr_out.splitlines()
+                if ln.startswith("sofa-edr:")]
+        log(f"examples[edr]: rc {edr.returncode}, {said}; report of "
+            f"{os.path.relpath(edr_dir, REPO)} rc "
+            f"{rep.returncode} in {time.perf_counter() - t0:.1f} s, last "
+            f"line {last!r}")
+        if edr.returncode != 0 or "all phases captured" not in edr_out \
+                or rep.returncode != 0 or last != "Complete!!":
+            raise AssertionError("edr's capture of train_tiny failed")
+        log(f"examples: phase {time.perf_counter() - t_phase:.1f} s | "
+            f"{self.smi}")
+
+    def chaos_tier(self):
+        """``chaos_tier --smoke`` on the host: its last line "ok": true,
+        the five chaos events, no problem."""
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "sofa_tpu_torch.tools.chaos_tier",
+             "--smoke"], cwd=REPO, capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        doc = json.loads(r.stdout.strip().splitlines()[-1])
+        log(f"chaos_tier: rc {r.returncode} in {time.perf_counter() - t0:.1f}"
+            f" s, ok {doc['ok']}, {doc['pushes']} pushes, events "
+            f"{doc['events']}, metrics {doc['metrics']}, problems "
+            f"{doc['problems']} | {self.smi}")
+        if r.returncode != 0 or not doc["ok"] or len(doc["events"]) != 5:
+            raise AssertionError(f"chaos_tier --smoke failed: "
+                                 f"{r.stderr[-2000:]}")
 
     @staticmethod
     def tooling_together(calls):
@@ -6308,8 +6477,10 @@ def moe_rank() -> None:
 # batch 4 and the multi-rank ones (up to 43 GB of the card at a time), its
 # runs of at most 21 GB, and the host-only phases over the captures
 # (``Smoke.need`` waits for what a phase reads from another lane).
-PHASES = ("device", "kernel", "model", "train", "ring", "resnet")
-LANES = (("profile", "cluster", "mesh", "tp", "tp_serve", "tooling"),
+PHASES = ("device", "kernel", "kernel_perf", "model", "train", "ring",
+          "resnet")
+LANES = (("profile", "cluster", "mesh", "tp", "tp_serve", "tooling",
+          "examples", "chaos_tier"),
          ("live", "serve", "window", "faults", "ep_pp", "fleet_tier"),
          ("robust", "board", "cache", "verbs", "archive", "fleet_push",
           "live_drain"))

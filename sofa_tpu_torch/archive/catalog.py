@@ -114,7 +114,7 @@ def ingest_entries(entries: List[dict]) -> List[dict]:
 def bench_entries(entries: List[dict],
                   metric: Optional[str] = None) -> List[dict]:
     """The bench events, oldest first, of one metric or all.  ``archive
-    ls`` counts them; no writer of the port appends them yet."""
+    ls`` counts them; ``tools/bench_import.py`` appends them."""
     out = [e for e in entries if e.get("ev") == "bench"
            and (metric is None or e.get("metric") == metric)]
     return sorted(out, key=lambda e: e.get("t", 0))

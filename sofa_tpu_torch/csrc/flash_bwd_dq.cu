@@ -62,7 +62,13 @@ constexpr int BLOCK_N = 64;             // keys per K/V tile
 constexpr int WG_ROWS = 64;             // query rows per consumer warpgroup
 constexpr int CONSUMERS = BLOCK_M / WG_ROWS;
 constexpr int DQ_THREADS = (CONSUMERS + 1) * 128;   // + the producer
-constexpr int STAGES = 4;               // K/V ring depth
+// The ring depth is the one tile constant a build may set
+// (-DFLASH_STAGES=N, tools/tune_flash.py); BLOCK_M and BLOCK_N fix the
+// warpgroup and wgmma layouts.
+#ifndef FLASH_STAGES
+#define FLASH_STAGES 4
+#endif
+constexpr int STAGES = FLASH_STAGES;   // K/V ring depth
 constexpr int PANEL_COLS = 64;          // bf16 columns of a 128-byte panel
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;

@@ -74,7 +74,13 @@ constexpr int BLOCK_M = 64;             // queries per Q/dO tile
 constexpr int WG_KEYS = 64;             // keys per consumer warpgroup
 constexpr int CONSUMERS = BLOCK_N / WG_KEYS;
 constexpr int KV_THREADS = (CONSUMERS + 1) * 128;   // + the producer
-constexpr int STAGES = 3;               // Q/dO ring depth
+// The ring depth is the one tile constant a build may set
+// (-DFLASH_STAGES=N, tools/tune_flash.py); BLOCK_M and BLOCK_N fix the
+// warpgroup and wgmma layouts.
+#ifndef FLASH_STAGES
+#define FLASH_STAGES 3
+#endif
+constexpr int STAGES = FLASH_STAGES;   // Q/dO ring depth
 constexpr int PANEL_COLS = 64;          // bf16 columns of a 128-byte panel
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;

@@ -71,7 +71,15 @@ constexpr int BLOCK_N = 128;            // keys per K/V tile
 constexpr int WG_ROWS = 64;             // query rows per consumer warpgroup
 constexpr int CONSUMERS = BLOCK_M / WG_ROWS;
 constexpr int FWD_THREADS = CONSUMERS * 128;
-constexpr int STAGES = 3;               // K/V ring depth
+// The ring depth is the one tile constant a build may set
+// (-DFLASH_STAGES=N, tools/tune_flash.py); BLOCK_M and BLOCK_N fix the
+// warpgroup and wgmma layouts.
+#ifndef FLASH_STAGES
+#define FLASH_STAGES 3
+#endif
+constexpr int STAGES = FLASH_STAGES;   // K/V ring depth
+static_assert(STAGES >= 2,
+              "tile i + STAGES - 2 refills the stage of tile i - 2");
 constexpr int PANEL_COLS = 64;          // bf16 columns of a 128-byte panel
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float M2_FLOOR = M_FLOOR * LOG2E;   // the clamp in log2 units

@@ -6,14 +6,17 @@ it is compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own
 under ``<repo>/build/torch_kernels/`` and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes).  The library's file name
 carries a hash of its source and the headers, so an edited source is never
-served a stale build.  Loading a library binds the ``argtypes`` of every
-registered entry point it holds (and its ``<name>_smem_bytes``, the
-dynamic shared memory its launch asks for).  Nothing here runs at import
-time: this module must import on a host with no CUDA toolkit (the CPU tests
-import every module).
+served a stale build.  A variant built with ``-D`` defines (the ring depths
+``tools/tune_flash.py`` sweeps) is a library of its own, whose hash covers
+the defines too; the main path loads only the default libraries.  Loading a
+library binds the ``argtypes`` of every registered entry point it holds
+(and its ``<name>_smem_bytes``, the dynamic shared memory its launch asks
+for).  Nothing here runs at import time: this module must import on a host
+with no CUDA toolkit (the CPU tests import every module).
 
 Every kernel has a launch count.  Its wrapper adds one where it launches the
-kernel and nowhere else, so a run can show that its main path went through
+kernel from its default library and nowhere else (a ring-depth variant's
+launch is not counted), so a run can show that its main path went through
 the kernel (``reset_counts`` before, ``counts`` after).
 """
 
@@ -29,7 +32,7 @@ import subprocess
 import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(_PKG)
@@ -76,7 +79,10 @@ FLASH_BWD_DQ = Kernel(name="sofa_flash_bwd_dq", lib="flash_bwd_dq",
 
 KERNELS = [FLASH_FWD, FLASH_BWD_KV, FLASH_BWD_DQ]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+#: -D defines of a variant build, as (name, value) pairs
+Defines = Tuple[Tuple[str, int], ...]
+
+_loaded: Dict[Tuple[str, Defines], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -98,25 +104,33 @@ def find_nvcc() -> Optional[str]:
     return cand if os.access(cand, os.X_OK) else None
 
 
-def library_path(kernel: Kernel) -> str:
+def library_path(kernel: Kernel, defines: Defines = ()) -> str:
+    """The library of ``kernel`` built with ``defines`` ((name, value)
+    pairs, each passed as ``-Dname=value``): its hash covers the source,
+    the headers and the defines; with none it is the default library's."""
     h = hashlib.sha256()
     headers = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
     for path in [kernel.source] + headers:
         with open(path, "rb") as f:
             h.update(f.read())
+    for name, value in defines:
+        h.update(f"\0-D{name}={value}".encode())
     return os.path.join(BUILD_DIR, f"lib{kernel.lib}-{h.hexdigest()[:12]}.so")
 
 
-def nvcc_command(nvcc: str, kernel: Kernel, out: str) -> list:
+def nvcc_command(nvcc: str, kernel: Kernel, out: str,
+                 defines: Defines = ()) -> list:
     return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out, kernel.source]
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            *(f"-D{name}={value}" for name, value in defines),
+            "-o", out, kernel.source]
 
 
-def build(kernel: Kernel) -> str:
-    """Compile ``kernel`` unless its hashed library exists; returns the
-    compiler's report (empty when nothing was built).  Raises on any
-    failure: there is no fallback to an uncompiled path."""
-    path = library_path(kernel)
+def build(kernel: Kernel, defines: Defines = ()) -> str:
+    """Compile ``kernel`` (with ``defines``) unless its hashed library
+    exists; returns the compiler's report (empty when nothing was built).
+    Raises on any failure: there is no fallback to an uncompiled path."""
+    path = library_path(kernel, defines)
     if os.path.exists(path):
         return ""
     nvcc = find_nvcc()
@@ -131,7 +145,7 @@ def build(kernel: Kernel) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        res = subprocess.run(nvcc_command(nvcc, kernel, tmp),
+        res = subprocess.run(nvcc_command(nvcc, kernel, tmp, defines),
                              capture_output=True, text=True,
                              timeout=BUILD_TIMEOUT_S)
         if res.returncode != 0:
@@ -144,23 +158,28 @@ def build(kernel: Kernel) -> str:
     return res.stdout + res.stderr
 
 
-def build_all(kernels: List[Kernel]) -> Dict[str, str]:
-    """Build every kernel at once (one ``nvcc`` per source, all started
-    together); returns each kernel's compiler report by name."""
-    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
-        reports = list(pool.map(build, kernels))
-    return {k.name: r for k, r in zip(kernels, reports)}
+def build_all(kernels: List[Kernel],
+              variants: Sequence[Tuple[Kernel, Defines]] = ()
+              ) -> Dict[str, str]:
+    """Build every kernel, and every (kernel, defines) variant, at once
+    (one ``nvcc`` each, all started together); returns each default
+    library's compiler report by kernel name (a variant's is dropped)."""
+    jobs = [(k, ()) for k in kernels] + list(variants)
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        reports = list(pool.map(lambda job: build(*job), jobs))
+    return {k.name: r for (k, _), r in zip(jobs, reports[:len(kernels)])}
 
 
-def library(kernel: Kernel) -> ctypes.CDLL:
-    """The loaded library of ``kernel``, building it on first use."""
+def library(kernel: Kernel, defines: Defines = ()) -> ctypes.CDLL:
+    """The loaded library of ``kernel`` (built with ``defines``), building
+    it on first use."""
     with _lock:
-        lib = _loaded.get(kernel.lib)
+        lib = _loaded.get((kernel.lib, defines))
         if lib is None:
-            build(kernel)
-            lib = ctypes.CDLL(library_path(kernel))
+            build(kernel, defines)
+            lib = ctypes.CDLL(library_path(kernel, defines))
             _bind(kernel.lib, lib)
-            _loaded[kernel.lib] = lib
+            _loaded[(kernel.lib, defines)] = lib
         return lib
 
 
@@ -177,11 +196,12 @@ def _bind(lib_name: str, lib: ctypes.CDLL) -> None:
     lib.sofa_cuda_error_string.restype = ctypes.c_char_p
 
 
-def smem_bytes(kernel: Kernel, d: int) -> int:
-    """Dynamic shared memory one block of ``kernel`` asks for at head dim
-    ``d``, as its library's launch code computes it (``<name>_smem_bytes``;
-    ``ptxas -v`` reports only static shared memory).  Builds on first use."""
-    return getattr(library(kernel), f"{kernel.name}_smem_bytes")(d)
+def smem_bytes(kernel: Kernel, d: int, defines: Defines = ()) -> int:
+    """Dynamic shared memory one block of ``kernel`` (built with
+    ``defines``) asks for at head dim ``d``, as its library's launch code
+    computes it (``<name>_smem_bytes``; ``ptxas -v`` reports only static
+    shared memory).  Builds on first use."""
+    return getattr(library(kernel, defines), f"{kernel.name}_smem_bytes")(d)
 
 
 def check(kernel: Kernel, lib: ctypes.CDLL, err: int) -> None:

@@ -146,9 +146,11 @@ def _cost_range(kern, q, k, causal: bool):
 
 
 def _flash_forward_cuda(q, k, v, shift: int, seg_q=None, seg_kv=None, *,
-                        static_causal: bool
+                        static_causal: bool, defines: kernels.Defines = ()
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``sofa_flash_fwd`` on q's device and current stream."""
+    """Launch ``sofa_flash_fwd`` on q's device and current stream (from
+    the library built with ``defines``: a ring-depth variant of
+    ``tools/tune_flash.py``; the main path passes none)."""
     b, t, h, d = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     _check_card_inputs((q, k, v), (seg_q, seg_kv))
@@ -157,7 +159,7 @@ def _flash_forward_cuda(q, k, v, shift: int, seg_q=None, seg_kv=None, *,
     if t == 0 or b == 0:
         return out, lse
     kern = kernels.FLASH_FWD
-    lib = kernels.library(kern)
+    lib = kernels.library(kern, defines)
     with torch.cuda.device(q.device), _cost_range(kern, q, k, static_causal):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sofa_flash_fwd(
@@ -167,7 +169,8 @@ def _flash_forward_cuda(q, k, v, shift: int, seg_q=None, seg_kv=None, *,
             out.data_ptr(), lse.data_ptr(), b, t, tk, h, kvh, d, int(shift),
             d ** -0.5, stream)
     kernels.check(kern, lib, err)
-    kern.launches += 1
+    if not defines:             # the count is the default library's alone
+        kern.launches += 1
     return out, lse
 
 
@@ -285,14 +288,16 @@ def _card_grad_dtype(grad_dtype) -> bool:
 
 
 def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
-                out_f32: bool, static_causal: bool) -> None:
-    """Launch one backward kernel writing ``outs`` on q's current stream."""
+                out_f32: bool, static_causal: bool,
+                defines: kernels.Defines = ()) -> None:
+    """Launch one backward kernel writing ``outs`` on q's current stream
+    (from the library built with ``defines``)."""
     _check_card_inputs((q, k, v, g), (lse, delta, seg_q, seg_kv) + outs)
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("the CUDA backward kernels take float32 lse/delta")
     b, t, h, d = q.shape
     tk, kvh = k.shape[1], k.shape[2]
-    lib = kernels.library(kern)
+    lib = kernels.library(kern, defines)
     with torch.cuda.device(q.device), _cost_range(kern, q, k, static_causal):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, kern.name)(
@@ -303,11 +308,13 @@ def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
             *(x.data_ptr() for x in outs), int(out_f32), b, t, tk, h, kvh, d,
             int(shift), d ** -0.5, stream)
     kernels.check(kern, lib, err)
-    kern.launches += 1
+    if not defines:
+        kern.launches += 1
 
 
 def _flash_bwd_kv_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
-                       seg_kv=None, grad_dtype=None, *, static_causal: bool):
+                       seg_kv=None, grad_dtype=None, *, static_causal: bool,
+                       defines: kernels.Defines = ()):
     """Launch ``sofa_flash_bwd_kv``: (dk, dv) [B,Tk,KVH,D]."""
     out_f32 = _card_grad_dtype(grad_dtype)
     dt = torch.float32 if out_f32 else k.dtype
@@ -315,19 +322,20 @@ def _flash_bwd_kv_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
     dv = torch.empty(v.shape, dtype=dt, device=v.device)
     if q.numel() and k.numel():
         _bwd_launch(kernels.FLASH_BWD_KV, q, k, v, g, lse, delta, shift,
-                    seg_q, seg_kv, (dk, dv), out_f32, static_causal)
+                    seg_q, seg_kv, (dk, dv), out_f32, static_causal, defines)
     return dk, dv
 
 
 def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
-                       seg_kv=None, grad_dtype=None, *, static_causal: bool):
+                       seg_kv=None, grad_dtype=None, *, static_causal: bool,
+                       defines: kernels.Defines = ()):
     """Launch ``sofa_flash_bwd_dq``: dq [B,T,H,D]."""
     out_f32 = _card_grad_dtype(grad_dtype)
     dq = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype,
                      device=q.device)
     if q.numel() and k.numel():
         _bwd_launch(kernels.FLASH_BWD_DQ, q, k, v, g, lse, delta, shift,
-                    seg_q, seg_kv, (dq,), out_f32, static_causal)
+                    seg_q, seg_kv, (dq,), out_f32, static_causal, defines)
     return dq
 
 

@@ -365,3 +365,63 @@ def test_injection_never_initializes_cuda(cuda_device, tmp_path):
     with open(logdir / "gpu_topo.json") as f:
         topo = json.load(f)
     assert topo["cuda_available"] and topo["devices"] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [-1, 1])
+@pytest.mark.parametrize("name", [k.name for k in kernels.KERNELS])
+def test_stages_variant_matches_plain(cuda_device, name, step):
+    """The ring-depth variants beside each kernel's default FLASH_STAGES (as
+    ``tools/tune_flash.py`` builds them: a library of their own) against
+    the plain version at both head dims where they fit, over more K/V (or
+    Q/dO) tiles than stages, at ``tune_flash``'s tolerances: a backward
+    kernel in both output modes.  A variant's launch is not counted."""
+    from sofa_tpu_torch.tools import tune_flash as tf
+
+    kern = next(k for k in kernels.KERNELS if k.name == name)
+    stages = tf.default_stages(kern) + step
+    defines = tf.variant_defines(kern, stages)
+    assert defines and kernels.library_path(kern, defines) != \
+        kernels.library_path(kern)
+    optin = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    held = 0
+    for d in (64, 128):
+        smem = kernels.smem_bytes(kern, d, defines)
+        assert smem == tf.smem_model(kern, d, stages)
+        if not tf.fits(smem, optin):
+            continue
+        held += 1
+        q, k, v = _inputs(cuda_device, 60 + d, 2, 600, 8, 2, d)
+        g = _inputs(cuda_device, 61 + d, 2, 600, 8, 2, d)[0]
+        out, lse = tfc._flash_forward(q, k, v, 0, True)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, g, lse, delta, 0, None, None)
+        before = kernels.counts()
+        if kern is kernels.FLASH_FWD:
+            got = tfc._flash_forward_cuda(q, k, v, 0, static_causal=True,
+                                          defines=defines)
+            ref = tfc._flash_forward_plain(q, k, v, 0)
+            torch.testing.assert_close(got[0].float(), ref[0].float(),
+                                       atol=tf.OUT_ATOL, rtol=tf.OUT_RTOL)
+            torch.testing.assert_close(got[1], ref[1], atol=tf.LSE_ATOL,
+                                       rtol=0)
+            assert kernels.counts() == before
+            continue
+        for gd in (torch.float32, None):
+            if kern is kernels.FLASH_BWD_KV:
+                got = tfc._flash_bwd_kv_cuda(*args, gd, static_causal=True,
+                                             defines=defines)
+                ref = tfc._flash_bwd_kv_plain(*args, gd)
+            else:
+                got = (tfc._flash_bwd_dq_cuda(*args, gd, static_causal=True,
+                                              defines=defines),)
+                ref = (tfc._flash_bwd_dq_plain(*args, gd),)
+            for a, r in zip(got, ref):
+                assert a.dtype == (gd or torch.bfloat16)
+                err = (a.float() - r.float()).abs().max().item()
+                assert err <= tf.grad_limit(r.float().abs().max().item(),
+                                            gd is None), (d, gd, err)
+        assert kernels.counts() == before
+    assert held
