@@ -10,14 +10,17 @@ tp_serve: the card's Llama-width runs at batch 4 and the multi-rank ones,
 up to 43 GB of the card at a time, then tooling, host only, examples (under
 2 GB of the card) and chaos_tier, host only; (2) live, serve, window,
 faults, ep_pp: its runs of at most 21 GB, then fleet_tier, host only; (3)
-robust, board, cache, verbs, archive, fleet_push, live_drain: host only.
+train_f32 (under 2 GB, the only launches of this process while the lanes
+run), then robust, board, cache, verbs, archive, fleet_push, live_drain:
+host only.
 The host-only phases run over the captures the card made, each waiting for
 the phase of another lane whose capture it reads.  A failure anywhere
 raises and exits non-zero; a lane's failure stops every lane before its
 next phase.  The phases:
 
-  device   the card's name and power limit; builds the three CUDA kernels
-           from the sources in the checkout, and the ring-depth variants
+  device   the card's name and power limit; builds the six CUDA kernels
+           (the three Hopper kernels and the three general ones) from the
+           sources in the checkout, and the ring-depth variants
            kernel_perf's tune_flash sweeps (one nvcc each, all at once),
            and the native sysmon /proc sampler and Perfetto writer with the
            machine's C++ compiler, printing it and the build seconds
@@ -28,11 +31,24 @@ next phase.  The phases:
            bit-identical), holds the backward pair in both output modes
            (float32 at GRAD_REL, bfloat16 one ulp wider), and times kernel and one library call in turns
            (kernel, library, library, kernel), the plain version and the
-           bound; logs the backward pair's sum against SDPA's backward
+           bound; logs the backward pair's sum against SDPA's backward.
+           Then the general kernels (every other dtype and head dim up to
+           256), each launched by its record so that bfloat16 at D 128
+           runs it too: the grid bfloat16 / float16 / float32 x D 8, 16,
+           32, 80, 128, 256, and at D 16 and 256 in each dtype the edges
+           (T 1, Tk 1, a ragged T, shift -1, 37, T and -T, segments, GQA
+           group 4), the forward and the backward pair in both output
+           modes against the plain versions at the same limits, two
+           launches bit-identical; timed in turns with SDPA at float32 B 4
+           T 512 H 8 / 4 D 64 (the flagship's attention), bfloat16 B 1 T
+           8192 H 8 / 4 D 256 and bfloat16 B 8 T 2048 H 4 / 2 D 16, with
+           the plain versions' times and the bounds (bytes at the input's
+           element size, float32 against the card's float32 rate)
   kernel_perf  the port's kernel_perf tool into a temporary --out: the
            forward at T 2048, 8192 and 16384 (GQA off and 4x), forward plus
            backward end to end and each backward kernel alone at the same
-           T, the non-causal ring hop and the Llama-3-8B shape, each in
+           T, the non-causal ring hop and the Llama-3-8B shape, and the
+           general kernels at the kernel phase's three shapes, each in
            turns with SDPA and none faster than its bound; then tune_flash at the Llama-3-8B shape, forward and
            --bwd: every ring-depth variant that fits held against its plain
            version, timed, and ranked
@@ -216,9 +232,11 @@ next phase.  The phases:
   examples the five examples (sofa_tpu_torch/examples/) side by side,
            each in its own process on the card, their output appended to
            one log:
-           matmul_burn, io_churn, train_tiny, serve_tiny by their lines,
-           long_context under ``stat --enable_aisi`` (all three sofa_flash
-           kernels in gputrace, its 8 steps in iterations.csv); meanwhile
+           matmul_burn, io_churn, serve_tiny by their lines, train_tiny
+           under ``stat`` (head dim 16: the three general kernels in its
+           gputrace), long_context under ``stat --enable_aisi`` (the same
+           width: the three general kernels in gputrace, its 8 steps in
+           iterations.csv); meanwhile
            ``edr`` watches the log and fires on train_tiny's "final loss" a
            2 s ``record`` into <base>/edr-train/, whose ``report`` (no card
            visible) must end with Complete!!
@@ -233,7 +251,18 @@ next phase.  The phases:
            stages in lockstep on the card (gloo has no P2P for CUDA
            tensors), float32: loss and gradients against
            _reference_forward's, remat against no remat; (e)
-           dryrun_multigpu over the machine's cards
+           dryrun_multigpu over the machine's cards, a torchrun rank each:
+           its three lines, and each rank's launch counts: its transformer
+           step at head dim 16 on the three general kernels alone
+  train_f32 the float32 flagship at full width (entry.ENTRY_CONFIG: vocab
+           8192, d_model 512, 4 layers, 8 / 4 heads of 64, B 4 x T 512)
+           with flash=None, which the auto rule routes to the general
+           kernels: a forward, the gradients and 3 AdamW steps, launch
+           counts zeroed just before and read just after (each general
+           kernel once a layer and pass, no Hopper kernel), against the
+           same from the same seed with flash=False: logits, loss,
+           per-leaf gradients and the 3 losses within TRAIN_LOSS_REL /
+           TRAIN_GRAD_REL
   verbs    the single-run analysis verbs with no card visible, over the
            captures above, a line a cell: (a) ``analyze --enable_aisi``
            over the last ResNet-50 capture from its step spans (its 20
@@ -415,12 +444,25 @@ LOGITS_REL = 3e-2
 # limit holds every reading but sits within 7 % of the largest.
 TRAIN_GRAD_REL = 1e-2
 TRAIN_LOSS_REL = 6e-5
+# The float32 flagship's logits, fused (the general kernels) vs plain
+# attention, relative Frobenius error: float32 throughout, so only the
+# order of the sums differs (the bf16 LOGITS_REL is 3e-2).
+LOGITS_F32_REL = 1e-4
 # Remat vs no remat replays the same deterministic kernels and cuBLAS calls
 # on the same inputs: the loss and every gradient must be bit-identical (the
 # reading on an H100 was 0 for all of them).
 REMAT_REL = 0.0
 # The ring phase's ranks (the lockstep schedule's shards on the one card).
 RING_RANKS = 4
+# The general kernels' head-dim caps (csrc/flash_gen.cuh), and the dtype x
+# D grid and the timed shapes of the kernel phase's general part:
+# (label, dtype name, B, T, H, KVH, D); the first is the flagship's
+# attention in float32, whose row the kernels line reports.
+GEN_CAPS = (16, 32, 64, 128, 256)
+GEN_GRID_DIMS = (8, 16, 32, 80, 128, 256)
+GEN_SHAPES = (("f32 flagship B4 T512 H8/4 D64", "float32", 4, 512, 8, 4, 64),
+              ("bf16 D256 B1 T8192 H8/4", "bfloat16", 1, 8192, 8, 4, 256),
+              ("bf16 D16 B8 T2048 H4/2", "bfloat16", 8, 2048, 4, 2, 16))
 # The NCCL world of one against the train phase: the same program on the
 # same seed, so the losses are expected to be equal to the bit; the limit
 # leaves room only for a reduction that a one-rank collective reorders.
@@ -742,14 +784,16 @@ class Smoke:
         g.manual_seed(seed)
         return g
 
-    def flash_inputs(self, b, t, h, kvh, d, seed, tk=None):
+    def flash_inputs(self, b, t, h, kvh, d, seed, tk=None, dtype=None):
+        """q [B,T,H,D], k and v [B,Tk,KVH,D] from ``seed``, in ``dtype``
+        (bfloat16 by default)."""
         torch = self.torch
         g = self.gen(seed)
         tk = t if tk is None else tk
         q = torch.randn(b, t, h, d, generator=g, device=self.dev)
         k = torch.randn(b, tk, kvh, d, generator=g, device=self.dev)
         v = torch.randn(b, tk, kvh, d, generator=g, device=self.dev)
-        return [x.to(torch.bfloat16) for x in (q, k, v)]
+        return [x.to(dtype or torch.bfloat16) for x in (q, k, v)]
 
     # -- phases ---------------------------------------------------------------
     def device(self):
@@ -774,9 +818,11 @@ class Smoke:
                 if any(w in line for w in ("registers", "spill", "smem",
                                            "wgmma", "arning")):
                     log(f"  {kern.name}: {line.strip()}")
-            log(f"  {kern.name}: dynamic shared memory a block, D 64 / D 128 "
-                f"(from the library): {kernels.smem_bytes(kern, 64)} / "
-                f"{kernels.smem_bytes(kern, 128)} bytes")
+            dims = (64, 128) if kern.family == "hopper" else GEN_CAPS
+            log(f"  {kern.name}: dynamic shared memory a block, D "
+                + " / ".join(map(str, dims)) + " (from the library): "
+                + " / ".join(str(kernels.smem_bytes(kern, d)) for d in dims)
+                + " bytes")
         self.native_helpers()
 
     def native_helpers(self):
@@ -916,6 +962,7 @@ class Smoke:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
         self.kernel_backward()
+        self.kernel_general()
 
     def kernel_perf(self):
         """The kernel_perf sweep into a temporary --out (every row printed,
@@ -945,7 +992,10 @@ class Smoke:
                 for label in ("flash fwd+bwd", *kernel_perf.MODES[2:])} | {
                 ("ring hop (non-causal)", 4096, False)} | {
                 ("llama3_8b " + label, 2048, True)
-                for label in kernel_perf.MODES}
+                for label in kernel_perf.MODES} | {
+                (f"{label} {mode}", t, kvh != h)
+                for label, _, t, h, kvh, _, _ in kernel_perf.GENERAL_SHAPES
+                for mode in kernel_perf.MODES}
             slow = [r for r in rows if r["bound_ms"] is None
                     or r["ms"] < r["bound_ms"]]
             if want - have or slow:
@@ -1151,6 +1201,335 @@ class Smoke:
         del llama, qt, kt, vt, o
         torch.cuda.empty_cache()
 
+    def kernel_general(self):
+        """The general kernels against their plain versions over the dtype
+        x D grid and the edges, each launched by its record (bfloat16 at D
+        128 runs them too), the forward and the backward pair in both
+        output modes; two launches bit-identical; then each timed in turns
+        with SDPA at the GEN_SHAPES, with the plain version and the
+        bound."""
+        torch = self.torch
+        from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.workloads import flash_cuda as fc
+
+        dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                  "float32": torch.float32}
+        worst = {}          # (kernel, dtype) -> worst max|err| / max|ref|
+        t0 = time.perf_counter()
+
+        def inputs(dt, b, t, h, kvh, d, seed, shift=0, tk=None, seg=None,
+                   hop=False):
+            q, k, v = self.flash_inputs(b, t, h, kvh, d, seed, tk, dt)
+            g = self.flash_inputs(b, t, h, kvh, d, seed + 100, dtype=dt)[0]
+            seg32 = None if seg is None else seg.to(torch.int32).contiguous()
+            return q, k, v, g, shift, seg32, hop
+
+        def launch_all(q, k, v, g, shift, seg32, hop, gd_modes):
+            """The three general kernels on one case: (out, lse), and per
+            output mode (dk, dv, dq), with the backward's inputs."""
+            causal = shift <= 0
+            out, lse = fc._flash_forward_cuda(
+                q, k, v, shift, seg32, seg32, static_causal=causal,
+                kern=kernels.GEN_FWD)
+            other = self.flash_inputs(*q.shape[:3], k.shape[2], q.shape[3],
+                                      7, dtype=q.dtype)[0] if hop else out
+            delta = (g.float() * other.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            args = (q, k, v, g, lse, delta, shift, seg32, seg32)
+            grads = {gd: (*fc._flash_bwd_kv_cuda(*args, gd,
+                                                 static_causal=causal,
+                                                 kern=kernels.GEN_BWD_KV),
+                          fc._flash_bwd_dq_cuda(*args, gd,
+                                                static_causal=causal,
+                                                kern=kernels.GEN_BWD_DQ))
+                     for gd in gd_modes}
+            return (out, lse), grads, args
+
+        def check(label, case):
+            q, k, v, g, shift, seg32, hop = case
+            dt = q.dtype
+            (out, lse), grads, args = launch_all(*case,
+                                                 (torch.float32, None))
+            ref_out, ref_lse = fc._flash_forward_plain(q, k, v, shift, seg32,
+                                                       seg32)
+            torch.cuda.synchronize()
+            err = (out.float() - ref_out.float()).abs()
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok = out.dtype == dt and bool(torch.isfinite(out.float()).all()) \
+                and bool((err <= OUT_ATOL + OUT_RTOL
+                          * ref_out.float().abs()).all()) \
+                and lse_err <= LSE_ATOL
+            if shift <= -q.shape[1]:
+                ok = ok and out.abs().max().item() == 0 \
+                    and lse.max().item() <= -1e29
+            name = str(dt).split(".")[-1]
+            key = (kernels.GEN_FWD.name, name)
+            worst[key] = max(worst.get(key, 0.0), err.max().item())
+            rels, scales = [], []
+            for gd, got in grads.items():
+                ref = (*fc._flash_bwd_kv_plain(*args, gd),
+                       fc._flash_bwd_dq_plain(*args, gd))
+                for kern, a, r in zip((kernels.GEN_BWD_KV, kernels.GEN_BWD_KV,
+                                       kernels.GEN_BWD_DQ), got, ref):
+                    ok = ok and a.dtype == (gd or dt) \
+                        and bool(torch.isfinite(a.float()).all())
+                    scale = r.float().abs().max().item()
+                    e = (a.float() - r.float()).abs().max().item()
+                    ok = ok and e <= grad_limit(
+                        scale, gd is None and dt == torch.bfloat16)
+                    rel = e / scale if scale else (0.0 if e == 0
+                                                   else float("inf"))
+                    rels.append(rel)
+                    scales.append(scale)
+                    key = (kern.name, name)
+                    worst[key] = max(worst.get(key, 0.0), rel)
+            log(f"kernel: gen {label:<40} out max|err| "
+                f"{err.max().item():.3e} lse {lse_err:.3e}; dk dv dq "
+                f"max|err|/max|ref| f32 " + " ".join(
+                    f"{r:.2e}" for r in rels[:3]) + " / own " + " ".join(
+                    f"{r:.2e}" for r in rels[3:])
+                + " (max|ref| " + " ".join(f"{x:.2e}" for x in scales[:3])
+                + f") -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the general kernels disagree with "
+                                     f"their plain versions at {label}")
+
+        n_cases = 0
+        for name, dt in dtypes.items():
+            for i, d in enumerate(GEN_GRID_DIMS):
+                check(f"{name} D{d} B2 T200 H8/2",
+                      inputs(dt, 2, 200, 8, 2, d, seed=300 + 10 * i))
+                n_cases += 1
+            for d in (16, 256):
+                seg = torch.tensor([0] * 70 + [1] * 80 + [2] * 10 + [3] * 140,
+                                   device=self.dev).expand(2, 300)
+                edges = (
+                    ("T=1 ring-hop delta", dict(b=2, t=1, h=8, kvh=2,
+                                                hop=True)),
+                    ("Tk=1 T=64 ring-hop delta", dict(b=2, t=64, h=8, kvh=2,
+                                                      tk=1, hop=True)),
+                    ("ragged T=129", dict(b=2, t=129, h=8, kvh=2)),
+                    ("shift=-1 T=150", dict(b=1, t=150, h=4, kvh=2,
+                                            shift=-1)),
+                    ("shift=37 T=150", dict(b=1, t=150, h=4, kvh=2,
+                                            shift=37)),
+                    ("full shift=T T=150", dict(b=1, t=150, h=4, kvh=2,
+                                                shift=150)),
+                    ("masked shift=-T T=150", dict(b=1, t=150, h=4, kvh=2,
+                                                   shift=-150)),
+                    ("segments at 70/150/160 T=300", dict(b=2, t=300, h=4,
+                                                          kvh=2, seg=seg)),
+                    ("GQA group 4 H16/4 T=150", dict(b=1, t=150, h=16,
+                                                     kvh=4)),
+                )
+                for j, (label, kw) in enumerate(edges):
+                    check(f"{name} D{d} {label}",
+                          inputs(dt, d=d, seed=400 + 10 * j + d, **kw))
+                    n_cases += 1
+        # two launches on the same inputs: bit-identical (no atomics)
+        for dt, d, seg in ((torch.float32, 80, None),
+                           (torch.bfloat16, 16, True)):
+            s_ids = (torch.arange(300, device=self.dev) // 70).expand(2, 300) \
+                if seg else None
+            case = inputs(dt, 2, 300, 8, 2, d, seed=500 + d, seg=s_ids)
+            first = launch_all(*case, (torch.float32, None))
+            second = launch_all(*case, (torch.float32, None))
+            same = all(torch.equal(a, b) for a, b in zip(first[0],
+                                                         second[0])) and all(
+                torch.equal(a, b) for gd in first[1]
+                for a, b in zip(first[1][gd], second[1][gd]))
+            log(f"kernel: gen determinism {dt} D{d}"
+                f"{' segmented' if seg else ''}: a second launch of each "
+                f"general kernel gives bit-identical outputs: {same}")
+            if not same:
+                raise AssertionError("the general kernels are not "
+                                     "deterministic")
+        log(f"kernel: gen {n_cases} cases held in "
+            f"{time.perf_counter() - t0:.1f} s; worst max|err| (forward) and max|err|/max|ref| (backward, "
+            f"both modes) by kernel and dtype: " + "; ".join(
+                f"{k} {n} {v:.3e}" for (k, n), v in sorted(worst.items())))
+        self.kernel_general_times()
+
+    def kernel_general_times(self):
+        """Each general kernel at the GEN_SHAPES, in turns with SDPA at the
+        same shape (its forward; its whole backward for each backward
+        kernel), with the plain version's time and the bound (bytes at the
+        input's element size, operations at its type's peak rate).  The
+        first shape's row goes into the kernels line."""
+        torch = self.torch
+        from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.workloads import flash_cuda as fc
+
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for i, (label, dtype, b, t, h, kvh, d) in enumerate(GEN_SHAPES):
+            dt = getattr(torch, dtype)
+            peaks = card_peaks(torch.cuda.get_device_name(0), dtype)
+            q, k, v = self.flash_inputs(b, t, h, kvh, d, 600 + i, dtype=dt)
+            g = self.flash_inputs(b, t, h, kvh, d, 700 + i, dtype=dt)[0]
+            out, lse = fc._flash_forward(q, k, v, 0, True)
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            args = (q, k, v, g, lse, delta, 0)
+            if fc.route(dt, d) != tuple(kernels.GENERAL):
+                raise AssertionError(f"{label} does not route to the "
+                                     f"general kernels")
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            gt = g.transpose(1, 2).contiguous()
+            itemsize = q.element_size()
+            flops, nbytes = forward_cost(b, t, t, h, kvh, d, 0, itemsize)
+            costs = {kernels.GEN_FWD.name: (flops, nbytes)}
+            for kern, (f, n) in zip(
+                    (kernels.GEN_BWD_KV, kernels.GEN_BWD_DQ),
+                    backward_costs(b, t, t, h, kvh, d, 0, itemsize).values()):
+                costs[kern.name] = (f, n)
+            iters = 5 if t * d > 1 << 20 else 20
+            for kern, fn, lib_fn, plain in (
+                    (kernels.GEN_FWD,
+                     lambda: fc._flash_forward(q, k, v, 0, True),
+                     lambda: sdpa(qt, kt, vt, is_causal=True,
+                                  enable_gqa=True),
+                     lambda: fc._flash_forward_plain(q, k, v, 0)),
+                    (kernels.GEN_BWD_KV,
+                     lambda: fc._flash_bwd_kv_cuda(*args,
+                                                   static_causal=True),
+                     lambda: torch.autograd.grad(o, (qt, kt, vt), gt,
+                                                 retain_graph=True),
+                     lambda: fc._flash_bwd_kv_plain(*args)),
+                    (kernels.GEN_BWD_DQ,
+                     lambda: fc._flash_bwd_dq_cuda(*args,
+                                                   static_causal=True),
+                     lambda: torch.autograd.grad(o, (qt, kt, vt), gt,
+                                                 retain_graph=True),
+                     lambda: fc._flash_bwd_dq_plain(*args))):
+                (k1, k2), (l1, l2) = in_turns(fn, lib_fn, iters)
+                ms, library_ms = (k1 + k2) / 2, (l1 + l2) / 2
+                plain_ms = cuda_ms(plain, iters=3, warmup=1)
+                bound_ms, bound_by = bound(*costs[kern.name], peaks)
+                what = "forward" if kern is kernels.GEN_FWD \
+                    else "backward, dq+dk+dv"
+                log(f"kernel: {kern.name} {label} in turns: kernel_ms "
+                    f"{k1:.4f} / {k2:.4f}, library_ms (SDPA {what}) "
+                    f"{l1:.4f} / {l2:.4f}; kernel/SDPA {ms / library_ms:.3f}; "
+                    f"plain_ms {plain_ms:.4f}; bound_ms {bound_ms:.4f} "
+                    f"({bound_by}, {dtype} peak "
+                    f"{peaks[0] / 1e12:.0f} TFLOP/s; "
+                    f"{costs[kern.name][0] / ms / 1e9:.2f} TFLOP/s, "
+                    f"{100 * bound_ms / ms:.2f}% of bound) | {self.smi}")
+                if ms < bound_ms:
+                    raise AssertionError(f"{kern.name} at {label} runs "
+                                         f"faster than its bound")
+                reading = {"ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": library_ms}
+                if i == 0:
+                    if kern is kernels.GEN_FWD:
+                        ref = fc._flash_forward_plain(q, k, v, 0)[0]
+                        got = fn()[0]
+                    elif kern is kernels.GEN_BWD_KV:
+                        ref, got = plain(), fn()
+                    else:
+                        ref, got = (plain(),), (fn(),)
+                    err = max((a.float() - r.float()).abs().max().item()
+                              for a, r in zip(
+                                  got if isinstance(got, tuple) else (got,),
+                                  ref if isinstance(ref, tuple) else (ref,)))
+                    self.kernel_rows[kern.name] = {
+                        "name": kern.name, "route": "cuda",
+                        "source": kern.source_rel,
+                        "replaces": kern.replaces, "launches": None,
+                        "max_abs_err": err, **reading, "shape": label,
+                        "other_shapes": {}}
+                else:
+                    self.kernel_rows[kern.name]["other_shapes"][label] = \
+                        reading
+            del q, k, v, g, out, lse, delta, args, qt, kt, vt, o, gt
+            torch.cuda.empty_cache()
+
+    def train_f32(self):
+        """The float32 flagship at full width with flash=None: the auto
+        rule takes the general kernels.  A forward, the gradients and 3
+        AdamW steps (counts zeroed just before, read just after: each
+        general kernel once a layer and pass, no Hopper kernel), then the
+        same from the same seed with flash=False: logits, the loss, each
+        gradient and the 3 losses within LOGITS_F32_REL / TRAIN_LOSS_REL /
+        TRAIN_GRAD_REL.  The lanes beside it launch nothing in this
+        process, so the counts are its own."""
+        torch = self.torch
+        from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.entry import ENTRY_BATCH, ENTRY_CONFIG, ENTRY_SEQ
+        from sofa_tpu_torch.workloads.common import fence
+        from sofa_tpu_torch.workloads.transformer import (
+            build, forward, loss_fn, param_leaves, use_flash)
+
+        cfg = dataclasses.replace(ENTRY_CONFIG, dtype=torch.float32,
+                                  flash=None)
+        steps = 3
+        if not use_flash(cfg, ENTRY_SEQ, self.dev):
+            raise AssertionError("the auto rule keeps the float32 flagship "
+                                 "off the kernels")
+
+        def run(c):
+            params, opt, step, tokens = build(c, ENTRY_BATCH, ENTRY_SEQ,
+                                              seed=0, device=self.dev)
+            leaves = list(param_leaves(params))
+            fence(tokens)
+            t0 = time.perf_counter()
+            logits = forward(params, tokens, c)
+            loss = loss_fn(params, tokens, c)
+            grads = torch.autograd.grad(loss, leaves)
+            losses = []
+            for _ in range(steps):
+                params, opt, step_loss = step(params, opt, tokens)
+                losses.append(step_loss)
+            fence(step_loss)
+            return (logits, loss.item(), grads, [x.item() for x in losses],
+                    time.perf_counter() - t0)
+
+        # --- the main path: counts zeroed just before, read just after ---
+        kernels.reset_counts()
+        fused = run(cfg)
+        counts = kernels.counts()
+        # -------------------------------------------------------------------
+        plain = run(dataclasses.replace(cfg, flash=False))
+        for kern in kernels.GENERAL:
+            self.kernel_rows[kern.name]["launches"] = counts[kern.name]
+        passes = 2 + steps                  # forward, gradients, steps
+        want = {kernels.GEN_FWD.name: cfg.n_layers * passes,
+                kernels.GEN_BWD_KV.name: cfg.n_layers * (passes - 1),
+                kernels.GEN_BWD_DQ.name: cfg.n_layers * (passes - 1)}
+        logits_rel = ((fused[0] - plain[0]).norm() / plain[0].norm()).item()
+        loss_rel = abs(fused[1] - plain[1]) / abs(plain[1])
+        grad_rels = [((a - b).norm() / b.norm()).item()
+                     for a, b in zip(fused[2], plain[2])]
+        step_rels = [abs(a - b) / abs(b) for a, b in zip(fused[3], plain[3])]
+        log(f"train_f32: float32 flagship (vocab {cfg.vocab}, d_model "
+            f"{cfg.d_model}, {cfg.n_layers} layers, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads of {cfg.d_head}, B{ENTRY_BATCH} "
+            f"T{ENTRY_SEQ}), seed 0: launches {json.dumps(counts)} (want "
+            f"{json.dumps(want)}); fused {fused[4]:.2f} s, plain "
+            f"{plain[4]:.2f} s for the forward, the gradients and {steps} "
+            f"steps; logits rel {logits_rel:.3e} (limit {LOGITS_F32_REL}); "
+            f"loss {fused[1]:.6f} vs {plain[1]:.6f} (rel {loss_rel:.3e}); "
+            f"grad rel max {max(grad_rels):.3e} (limit {TRAIN_GRAD_REL}); "
+            f"step losses {fused[3]} vs {plain[3]} (rel max "
+            f"{max(step_rels):.3e}, limit {TRAIN_LOSS_REL}) | {self.smi}")
+        if any(counts[name] != n for name, n in want.items()) or any(
+                counts[k.name] for k in kernels.HOPPER):
+            raise AssertionError(f"the float32 flagship did not run the "
+                                 f"general kernels alone: {counts}")
+        if not all(map(math.isfinite, fused[3])) \
+                or not fused[3][-1] < fused[3][0]:
+            raise AssertionError(f"the float32 loss did not descend: "
+                                 f"{fused[3]}")
+        if logits_rel > LOGITS_F32_REL or loss_rel > TRAIN_LOSS_REL \
+                or max(grad_rels) > TRAIN_GRAD_REL \
+                or max(step_rels) > TRAIN_LOSS_REL:
+            raise AssertionError("the fused and plain float32 runs disagree")
+        del fused, plain
+        torch.cuda.empty_cache()
+
     def model(self):
         torch = self.torch
         from sofa_tpu_torch import kernels
@@ -1188,9 +1567,10 @@ class Smoke:
         self.kernel_rows["sofa_flash_fwd"]["launches"] = \
             counts["sofa_flash_fwd"]
         log(f"model: serving path launches {json.dumps(counts)}")
-        if counts["sofa_flash_fwd"] < cfg.n_layers:
+        if counts["sofa_flash_fwd"] < cfg.n_layers or any(
+                counts[k.name] for k in kernels.GENERAL):
             raise AssertionError("the forward did not go through "
-                                 "sofa_flash_fwd once per layer")
+                                 "sofa_flash_fwd once per layer, and only")
 
         t0 = time.perf_counter()
         plain = forward(params, tokens, dataclasses.replace(cfg, flash=False))
@@ -1321,9 +1701,11 @@ class Smoke:
             f"step's {warm_peak / 2**30:.2f} GiB), losses (warm-up first) "
             + " ".join(f"{x:.4f}" for x in losses) + f" | {self.smi}")
         want = cfg.n_layers * steps
-        if any(n != want for n in counts.values()):
-            raise AssertionError(f"each kernel must launch {want} times in "
-                                 f"{steps} steps; got {counts}")
+        if any(counts[k.name] != want for k in kernels.HOPPER) or any(
+                counts[k.name] for k in kernels.GENERAL):
+            raise AssertionError(f"each Hopper kernel must launch {want} "
+                                 f"times in {steps} steps, and no general "
+                                 f"one; got {counts}")
         if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"the loss did not descend: {losses}")
 
@@ -1585,7 +1967,7 @@ class Smoke:
         log(f"profile: collector probes {json.dumps(probes)}")
         if probes["procmon"] != "ok":
             raise AssertionError("no /proc: procmon cannot sample")
-        self.profile_llama(3, [k.name for k in kernels.KERNELS])
+        self.profile_llama(3, [k.name for k in kernels.HOPPER])
         self.done["llama"].set()
         self.profile_wrapped_ring()
         self.profile_killed()
@@ -1598,7 +1980,7 @@ class Smoke:
         from sofa_tpu_torch import kernels
 
         steps = 3
-        names = [k.name for k in kernels.KERNELS]
+        names = [k.name for k in kernels.HOPPER]
         serve = (f"{sys.executable} -m sofa_tpu_torch.entry --steps {steps} "
                  "--serve_requests 4 --serve_layers 2 --prompt 128 "
                  "--new_tokens 8")
@@ -2196,7 +2578,7 @@ class Smoke:
         pyramid and the hints; ``viz`` serving every page and what the
         pages fetch; then ``clean`` on a copy of the ResNet logdir, and
         ``report`` over the copy again."""
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
 
         logdirs = (
             ("llama", os.path.join(REPO, "build", "chip_smoke_profile_llama")),
@@ -2211,7 +2593,7 @@ class Smoke:
                 flash = next(s for s in doc["series"]
                              if s["name"] == "gpu_sofa_flash")
                 held = {k.name: [n for n in flash["data"]["names"]
-                                 if k.name in n] for k in KERNELS}
+                                 if k.name in n] for k in HOPPER}
                 log(f"board[llama]: gpu_sofa_flash holds {held}")
                 if not all(held.values()):
                     raise AssertionError("the sofa_flash series lacks a "
@@ -2625,7 +3007,7 @@ class Smoke:
         flags = ("--inject_faults", "procmon:die@5s,kineto:wedge@harvest",
                  "--collector_harvest_timeout_s", "5")
         _, logdir, out, kern = self.stat(
-            "faulted", cmd, steps, [k.name for k in kernels.KERNELS], flags,
+            "faulted", cmd, steps, [k.name for k in kernels.HOPPER], flags,
             healthy=False)
         doc, status_rc = self.check_manifest("faulted", logdir, False,
                                              cli=True)
@@ -2638,7 +3020,7 @@ class Smoke:
         after = int((mp["timestamp"] > start + 5 - zero + 0.5).sum())
         want_rc = telemetry.render_status(doc, logdir)[1]
         launches = {k.name: int(kern["name"].astype(str).str.contains(
-            k.name).sum()) for k in kernels.KERNELS}
+            k.name).sum()) for k in kernels.HOPPER}
         if pm.get("restarts") != 1 or not pm.get("died") or not after:
             raise AssertionError(f"procmon was not restarted once with rows "
                                  f"after its death: {pm}, {after} rows")
@@ -2902,7 +3284,7 @@ class Smoke:
 
         from sofa_tpu_torch import durability
         from sofa_tpu_torch.config import SofaConfig
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
         from sofa_tpu_torch.trace import WRITING_SENTINEL
 
         src = os.path.join(REPO, "build", "chip_smoke_profile_llama")
@@ -2961,7 +3343,7 @@ class Smoke:
                 same = f.read() == want_js
             gpu = frame(copy, "gputrace")
             held = {kk.name: int(gpu["name"].astype(str).str.contains(
-                kk.name).sum()) for kk in KERNELS}
+                kk.name).sum()) for kk in HOPPER}
             kills.append(f"{point}: rc {k.returncode}, sentinel left "
                          f"{left}, resume rc {res} in {res_s:.1f} s, "
                          f"report.js identical {same}, fsck rc {fsck}, "
@@ -3105,7 +3487,7 @@ class Smoke:
         difference of their time bases, and cluster_summary.csv."""
         import numpy as np
         import pandas as pd
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
         from sofa_tpu_torch.trace import read_report_js_doc
 
         hosts = ["localhost", "127.0.0.1"]
@@ -3170,7 +3552,7 @@ class Smoke:
             raise AssertionError(f"the cluster report failed, rc "
                                  f"{r.returncode}: {r.stderr[-3000:]}")
         # each host: all three kernels, as many as the profile phase's run
-        names = [k.name for k in KERNELS]
+        names = [k.name for k in HOPPER]
         peaks, bases, own = {}, {}, {}
         for h, d in host_dirs.items():
             # record's collectors and the report's sources, healthy
@@ -3391,7 +3773,7 @@ class Smoke:
         most --num_swarms swarms; auto_caption.csv written; the
         iterations and swarms series merged into report.js."""
         import pandas as pd
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
         from sofa_tpu_torch.trace import read_report_js_doc
 
         logdir = caps["llama"]
@@ -3413,7 +3795,7 @@ class Smoke:
         doc = read_report_js_doc(os.path.join(logdir, "report.js"))
         names = {s["name"] for s in doc["series"]}
         per_kernel = {k.name: int(flash["name"].astype(str).str.contains(
-            k.name).sum()) for k in KERNELS}
+            k.name).sum()) for k in HOPPER}
         if len(it) != len(steps) or not len(flash) or not inside.all():
             raise AssertionError(f"iterations.csv {len(it)} rows against "
                                  f"gpusteps {len(steps)}; flash kernels in "
@@ -3443,7 +3825,7 @@ class Smoke:
         cluster host's capture against a byte copy of itself: every delta
         0."""
         import pandas as pd
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
 
         out_dir = os.path.join(REPO, "build", "chip_smoke_diff")
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -3452,7 +3834,7 @@ class Smoke:
                                 caps["host"], "--logdir", out_dir)
         gd = pd.read_csv(os.path.join(out_dir, "gpu_diff.csv"))
         rows = {}
-        for k in KERNELS:
+        for k in HOPPER:
             sel = gd[gd["name"].astype(str).str.contains(k.name)]
             rows[k.name] = (float(sel["time_base"].sum()),
                             float(sel["time_match"].sum()))
@@ -3508,7 +3890,7 @@ class Smoke:
         import pandas as pd
         from sofa_tpu_torch import telemetry
         from sofa_tpu_torch.config import SofaConfig
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
         from sofa_tpu_torch.tools.manifest_check import (validate_manifest,
                                                          validate_whatif)
         from sofa_tpu_torch.whatif.calibrate import MIN_CI_SAMPLES
@@ -3550,7 +3932,7 @@ class Smoke:
         compute = set(model.loc[model["kind"] == "compute", "cls"])
         flash = sorted(c for c in compute if c.startswith("sofa_flash_"))
         if "step sample(s)" not in reason or \
-                flash != sorted(k.name for k in KERNELS):
+                flash != sorted(k.name for k in HOPPER):
             raise AssertionError(f"whatif over the Llama width: {reason!r}; "
                                  f"compute classes {sorted(compute)}")
         return (f"ResNet-50: {calib['verdict']}, {calib['n_steps']} steps, "
@@ -4119,11 +4501,13 @@ class Smoke:
 
     def examples(self):
         """The five examples side by side, each in its own process on the
-        card, their output appended to one log; ``long_context`` under ``stat
-        --enable_aisi`` (every sofa_flash_* kernel in gputrace, its steps in
-        iterations.csv); ``edr`` watching the log meanwhile, which fires on
-        train_tiny's "final loss" a 2 s ``record`` whose ``report`` must
-        end with Complete!!.  A line an example, then the phase's seconds."""
+        card, their output appended to one log; ``train_tiny`` under
+        ``stat`` and ``long_context`` under ``stat --enable_aisi`` (both at
+        head dim 16: the three general kernels in gputrace and no Hopper
+        kernel; long_context's steps in iterations.csv); ``edr`` watching
+        the log meanwhile, which fires on train_tiny's "final loss" a 2 s
+        ``record`` whose ``report`` must end with Complete!!.  A line an
+        example, then the phase's seconds."""
         from sofa_tpu_torch import kernels
 
         t_phase = time.perf_counter()
@@ -4159,6 +4543,37 @@ class Smoke:
             if r.returncode != 0 or want not in last:
                 raise AssertionError(f"example {name} failed: {last!r}")
 
+        def general_rows(label, logdir):
+            """Each kernel's gputrace rows; the general kernels must all
+            be there and no Hopper kernel (head dim 16)."""
+            names = frame(logdir, "gputrace")["name"].astype(str)
+            launches = {k.name: int(names.str.contains(k.name).sum())
+                        for k in kernels.KERNELS}
+            if any(launches[k.name] == 0 for k in kernels.GENERAL) or any(
+                    launches[k.name] for k in kernels.HOPPER):
+                raise AssertionError(f"{label}: the capture does not hold "
+                                     f"the three general kernels alone: "
+                                     f"{launches}")
+            return launches
+
+        def train_tiny():
+            """train_tiny under stat; its output goes into the log when it
+            ends (edr fires on its "final loss")."""
+            t0 = time.perf_counter()
+            feats, logdir, out = self.run_stat(
+                "examples_train_tiny",
+                "python -m sofa_tpu_torch.examples.train_tiny")
+            with lock, open(app_log, "a") as f:
+                f.write(out)
+            line = next((ln for ln in out.splitlines()
+                         if "final loss" in ln), "")
+            launches = general_rows("train_tiny", logdir)
+            log(f"examples[train_tiny]: under stat in "
+                f"{time.perf_counter() - t0:.1f} s: {line.strip()!r}; "
+                f"gputrace rows {launches} | {self.smi}")
+            if not line:
+                raise AssertionError("train_tiny printed no final loss")
+
         try:
             # all five at once; long_context's output (a "final loss" line
             # too) goes into the log after the others', so that edr fires
@@ -4168,30 +4583,28 @@ class Smoke:
                     self.run_stat, "examples_long_context",
                     "python -m sofa_tpu_torch.examples.long_context",
                     flags=("--enable_aisi",))
-                for run in [pool.submit(example, name, want) for name, want in
-                            (("matmul_burn", "burns in"),
-                             ("io_churn", "wrote+read 256 MiB"),
-                             ("train_tiny", "final loss"),
-                             ("serve_tiny", "served 4 requests"))]:
+                runs = [pool.submit(train_tiny)] + [
+                    pool.submit(example, name, want) for name, want in
+                    (("matmul_burn", "burns in"),
+                     ("io_churn", "wrote+read 256 MiB"),
+                     ("serve_tiny", "served 4 requests"))]
+                for run in runs:
                     run.result()
                 feats, logdir, out = stat.result()
             with open(app_log, "a") as f:
                 f.write(out)
             line = next((ln for ln in out.splitlines()
                          if "final loss" in ln), "")
-            names = frame(logdir, "gputrace")["name"].astype(str)
-            launches = {k.name: int(names.str.contains(k.name).sum())
-                        for k in kernels.KERNELS}
+            launches = general_rows("long_context", logdir)
             with open(os.path.join(logdir, "iterations.csv")) as f:
                 iterations = len(f.read().strip().splitlines()) - 1
             log(f"examples[long_context]: {line.strip()!r}; gputrace rows "
                 f"{launches}; iterations.csv {iterations} rows; "
                 f"gpu0_hbm_peak_gb {feats.get('gpu0_hbm_peak_gb')} | "
                 f"{self.smi}")
-            if "remat=on" not in line or min(launches.values()) == 0 \
-                    or iterations != 8:
-                raise AssertionError("long_context: the kernels or its 8 "
-                                     "steps are missing from its capture")
+            if "remat=on" not in line or iterations != 8:
+                raise AssertionError("long_context: its 8 steps are missing "
+                                     "from its capture")
             edr_out, _ = edr.communicate(timeout=300)
         finally:
             if edr.poll() is None:
@@ -5709,9 +6122,11 @@ class Smoke:
                 log(f"ring: {label} launches {json.dumps(counts)} ({want} "
                     f"each: {per} pair(s) x {n} hops x {n} ranks, masked "
                     f"hops included)")
-                if any(c != want for c in counts.values()):
+                if any(counts[k.name] != want for k in kernels.HOPPER) or any(
+                        counts[k.name] for k in kernels.GENERAL):
                     raise AssertionError(f"ring {label}: launches {counts}, "
-                                         f"expected {want} of each kernel")
+                                         f"expected {want} of each Hopper "
+                                         f"kernel")
                 if b == 4:
                     ring_counts["zigzag" if zigzag else "ring"] = counts
                 for ref_name, ref in refs.items():
@@ -5744,9 +6159,9 @@ class Smoke:
                 del o, lse, o_i
             del q, k, v, g, refs, got
             torch.cuda.empty_cache()
-        for name, row in self.kernel_rows.items():
-            row["ring_launches"] = {variant: c[name]
-                                    for variant, c in ring_counts.items()}
+        for kern in kernels.HOPPER:
+            self.kernel_rows[kern.name]["ring_launches"] = {
+                variant: c[kern.name] for variant, c in ring_counts.items()}
 
     def ring_shards(self, rf, qkvg, n, zigzag):
         """The ranks' shards of q, k, v, g (zig-zag chunks when
@@ -5992,7 +6407,7 @@ class Smoke:
         host all-reduce of these gradients takes 4-12 s a step)."""
         import pandas as pd
 
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
 
         cmd = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
                f"2 --master_port {free_port()} -m "
@@ -6013,7 +6428,7 @@ class Smoke:
         ranked = sorted(i["rank"] for _, i in traces if i)
         gpu = frame(logdir, "gputrace")
         steps_df = frame(logdir, "gpusteps")
-        names = [k.name for k in KERNELS]
+        names = [k.name for k in HOPPER]
         kern = gpu[gpu["copyKind"] == 0]
         per_rank = {int(dev): {n: int(rows["name"].astype(str).str.contains(
             n).sum()) for n in names} for dev, rows in kern.groupby(
@@ -6168,7 +6583,7 @@ class Smoke:
         data groups apart in gputrace (the copies gloo launches inside the
         collectives carry their groups); mesh_advice.txt and
         comm-report.html."""
-        from sofa_tpu_torch.kernels import KERNELS
+        from sofa_tpu_torch.kernels import HOPPER
 
         steps = 1
         cmd = (f"{sys.executable} -m torch.distributed.run --nproc_per_node "
@@ -6182,7 +6597,7 @@ class Smoke:
         losses = mesh_losses(out)
         gpu = frame(logdir, "gputrace")
         kern = gpu[gpu["copyKind"] == 0]
-        names = [k.name for k in KERNELS]
+        names = [k.name for k in HOPPER]
         per_rank = {int(dev): {n: int(rows["name"].astype(str).str.contains(
             n).sum()) for n in names} for dev, rows in kern.groupby(
             "deviceId")}
@@ -6229,8 +6644,9 @@ class Smoke:
         if any(per_rank.get(r) != want for r in range(4)):
             raise AssertionError(f"flash launches per rank {per_rank}, "
                                  f"expected {want}")
-        for name, row in self.kernel_rows.items():
-            row["tp_launches"] = {r: per_rank[r][name] for r in range(4)}
+        for name in names:          # the Hopper kernels' rows
+            self.kernel_rows[name]["tp_launches"] = {
+                r: per_rank[r][name] for r in range(4)}
         if sorted(r for r in ranked if r is not None) != [0, 1, 2, 3] or \
                 sorted(gpu["deviceId"].unique()) != [0, 1, 2, 3]:
             raise AssertionError("the TP capture is not four ranks' traces "
@@ -6423,17 +6839,49 @@ class Smoke:
             raise AssertionError("remat changes the pipeline's math")
 
     def dryrun(self):
-        """(e) ``dryrun_multigpu`` over every card of the machine."""
-        from sofa_tpu_torch.entry import dryrun_multigpu
+        """(e) ``dryrun_multigpu`` over every card of the machine, one
+        torchrun rank a card (``chip_smoke.py --dryrun``): its three lines,
+        and each rank's launch counts after it: its transformer step (head
+        dim 16, remat) runs the three general kernels and no Hopper
+        kernel; on one card 2 layers give 4 forward launches (remat
+        replays each) and 2 of each backward kernel, over more cards (a
+        ring over the seq axis) each general kernel at least once a
+        rank."""
+        from sofa_tpu_torch import kernels
 
         n = self.torch.cuda.device_count()
         t0 = time.perf_counter()
-        lines = dryrun_multigpu(n)
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", str(n), "--master_port", str(free_port()),
+             os.path.join(REPO, "chip_smoke.py"), "--dryrun", str(n)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("dryrun_multigpu: ")]
+        per_rank = {}
+        for ln in r.stdout.splitlines():
+            if ln.startswith("DRYRUN_COUNTS "):
+                row = json.loads(ln.split(" ", 1)[1])
+                per_rank[row.pop("rank")] = row
         log(f"parallel[e]: dryrun_multigpu({n}) in "
-            f"{time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
-        if len(lines) != 3 or not all(ln.endswith(" ok") or "skipped" in ln
-                                      for ln in lines):
-            raise AssertionError("dryrun_multigpu did not print its lines")
+            f"{time.perf_counter() - t0:.1f} s: " + " | ".join(lines)
+            + f"; launches per rank {per_rank}")
+        if r.returncode or len(lines) != 3 or not all(
+                ln.endswith(" ok") or "skipped" in ln for ln in lines):
+            raise AssertionError(f"dryrun_multigpu did not print its lines: "
+                                 f"{r.stderr[-2000:]}")
+        want = {kernels.GEN_FWD.name: 4, kernels.GEN_BWD_KV.name: 2,
+                kernels.GEN_BWD_DQ.name: 2}
+        if n == 1:
+            bad = any(c[name] != want.get(name, 0)
+                      for c in per_rank.values() for name in c)
+        else:
+            bad = any(not c[name] if name in want else c[name]
+                      for c in per_rank.values() for name in c)
+        if sorted(per_rank) != list(range(n)) or bad:
+            raise AssertionError(f"dryrun_multigpu's ranks did not run the "
+                                 f"general kernels at head dim 16 as "
+                                 f"{want}: {per_rank}")
 
 
 def moe_rank() -> None:
@@ -6472,6 +6920,19 @@ def moe_rank() -> None:
 
     dist.destroy_process_group()
 
+
+def dryrun_rank(n: int) -> None:
+    """One torchrun rank of the ``ep_pp`` phase's ``dryrun_multigpu(n)``:
+    its lines (rank 0's), then this rank's kernel launch counts as one
+    JSON line."""
+    from sofa_tpu_torch import kernels
+    from sofa_tpu_torch.entry import dryrun_multigpu
+
+    dryrun_multigpu(n)
+    print("DRYRUN_COUNTS " + json.dumps(
+        {"rank": int(os.environ["RANK"]), **kernels.counts()}), flush=True)
+
+
 # The timed phases run alone, in order; then three lanes side by side, each
 # a thread that runs its phases in order: the card's Llama-width runs at
 # batch 4 and the multi-rank ones (up to 43 GB of the card at a time), its
@@ -6482,8 +6943,8 @@ PHASES = ("device", "kernel", "kernel_perf", "model", "train", "ring",
 LANES = (("profile", "cluster", "mesh", "tp", "tp_serve", "tooling",
           "examples", "chaos_tier"),
          ("live", "serve", "window", "faults", "ep_pp", "fleet_tier"),
-         ("robust", "board", "cache", "verbs", "archive", "fleet_push",
-          "live_drain"))
+         ("train_f32", "robust", "board", "cache", "verbs", "archive",
+          "fleet_push", "live_drain"))
 RESNET_BATCH, RESNET_STEPS = 32, 20      # bench.py:1180-1183's settings
 # bare/profiled pairs, each in a fresh process: with two, the median is
 # their mean and the paired t-test has one degree of freedom (its p-value
@@ -6567,6 +7028,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--moe-rank"]:
         moe_rank()
         return 0
+    if sys.argv[1:2] == ["--dryrun"]:
+        dryrun_rank(int(sys.argv[2]))
+        return 0
     adopted = adopt_orphans()
     smoke = Smoke()
     t_all = time.perf_counter()
@@ -6613,7 +7077,15 @@ def main() -> int:
             f"all stopped"
             + "".join(f"\n  pid {p} {d}" for p, d in left.items()))
     log(f"chip_smoke: all phases in {time.perf_counter() - t_all:.1f} s")
-    log(json.dumps({"kernels": list(smoke.kernel_rows.values())}))
+    from sofa_tpu_torch import kernels
+
+    rows = smoke.kernel_rows
+    launches = {n: r["launches"] for n, r in rows.items()}
+    if sorted(rows) != sorted(k.name for k in kernels.KERNELS) or not all(
+            launches.values()):
+        raise AssertionError(f"the kernels line lacks a kernel or its main "
+                             f"path's launches: {launches}")
+    log(json.dumps({"kernels": list(rows.values())}))
     log(smoke.smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

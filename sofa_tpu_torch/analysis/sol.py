@@ -31,6 +31,13 @@ PEAKS = {
     "NVIDIA H100 80GB HBM3": (989.0, 3350.0),
 }
 PEAK_SOURCE = "NVIDIA H100 data sheet (SXM5, 700 W), dense bf16"
+# device name -> dense float32 TFLOP/s outside the tensor cores, the rate
+# that bounds a float32 kernel that takes no TF32 shortcut
+FP32_TFLOPS = {
+    "NVIDIA H100 80GB HBM3": 67.0,
+}
+FP32_SOURCE = ("NVIDIA H100 data sheet (SXM5, 700 W), float32 without "
+               "tensor cores")
 
 
 def device_peaks(cfg) -> Dict[str, Dict[str, float]]:

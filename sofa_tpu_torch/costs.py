@@ -32,6 +32,8 @@ import math
 import re
 from typing import List, Optional, Sequence, Tuple
 
+from sofa_tpu_torch.kernels import KERNELS
+
 # Bytes per element of the dtypes the profiler names in ``Input type``.
 ITEMSIZE = {
     "double": 8, "float": 4, "c10::Half": 2, "c10::BFloat16": 2,
@@ -53,18 +55,22 @@ _MATMULS = {"aten::mm": (0, 1), "aten::addmm": (1, 2), "aten::bmm": (0, 1),
             "aten::baddbmm": (1, 2)}
 _WRITE_ONLY = ("aten::copy_", "aten::fill_", "aten::zero_")
 
-FLASH_KERNELS = ("sofa_flash_fwd", "sofa_flash_bwd_kv", "sofa_flash_bwd_dq")
+#: Each flash kernel's name -> the Pallas call it ports (whose
+#: ``pl.CostEstimate`` it is credited with): the Hopper kernels and the
+#: general ones of the rest of the (dtype, head dim) domain.
+FLASH_KERNELS = {k.name: k.pallas_name for k in KERNELS}
 _COST_RANGE_RE = re.compile(
     r"^(%s)\[b=(\d+),t=(\d+),tk=(\d+),h=(\d+),kvh=(\d+),d=(\d+),"
-    r"causal=([01])\]$" % "|".join(FLASH_KERNELS))
+    r"causal=([01])(?:,es=(\d+))?\]$" % "|".join(FLASH_KERNELS))
 
 
 def cost_range_name(kernel: str, b: int, t: int, tk: int, h: int, kvh: int,
-                    d: int, causal: bool) -> str:
+                    d: int, causal: bool, itemsize: int = 2) -> str:
     """Name of the profiler range a flash kernel's wrapper opens around
-    its launch: the kernel and the shapes its cost depends on."""
+    its launch: the kernel, the shapes its cost depends on and the inputs'
+    element size in bytes."""
     return (f"{kernel}[b={b},t={t},tk={tk},h={h},kvh={kvh},d={d},"
-            f"causal={int(bool(causal))}]")
+            f"causal={int(bool(causal))},es={itemsize}]")
 
 
 def is_cost_range(name: str) -> bool:
@@ -72,36 +78,42 @@ def is_cost_range(name: str) -> bool:
 
 
 def flash_cost(kernel: str, b: int, t: int, tk: int, h: int, kvh: int,
-               d: int, causal: bool) -> Tuple[float, float]:
-    """(flops, bytes_accessed) of one bf16 flash launch, as the Pallas
-    kernel's ``pl.CostEstimate`` states them: the forward 4 matmul flops a
-    (query, key, dim), the dK/dV kernel 8, the dQ kernel 6; a static causal
-    mask halves them.  Bytes: the forward reads q, k, v and writes out
-    (q's size) and the float32 lse; dK/dV reads k, v, q, dO and the float32
-    lse and delta and writes dk, dv; dQ reads k, v, q, dO, lse and delta
-    and writes a float32 dq."""
+               d: int, causal: bool, itemsize: int = 2
+               ) -> Tuple[float, float]:
+    """(flops, bytes_accessed) of one flash launch, as the Pallas kernel's
+    ``pl.CostEstimate`` states them, with q, k, v, dO and the gradients of
+    the input dtype at ``itemsize`` bytes an element: the forward 4 matmul
+    flops a (query, key, dim), the dK/dV kernel 8, the dQ kernel 6; a
+    static causal mask halves them.  Bytes: the forward reads q, k, v and
+    writes out (q's size) and the float32 lse; dK/dV reads k, v, q, dO and
+    the float32 lse and delta and writes dk, dv; dQ reads k, v, q, dO, lse
+    and delta and writes a float32 dq.  A general kernel costs what the
+    Pallas call it ports costs."""
+    role = FLASH_KERNELS.get(kernel)
     frac = 0.5 if causal else 1.0
-    q_bytes = b * t * h * d * 2
-    kv_bytes = 2 * b * tk * kvh * d * 2
+    q_bytes = b * t * h * d * itemsize
+    kv_bytes = 2 * b * tk * kvh * d * itemsize
     rows = b * h * t * 4                     # one float32 per query row
-    if kernel == "sofa_flash_fwd":
+    if role == "sofa_flash_fwd":
         return 4 * b * h * t * tk * d * frac, 2 * q_bytes + kv_bytes + rows
-    if kernel == "sofa_flash_bwd_kv":
+    if role == "sofa_flash_bwd_kv":
         return (8 * b * h * t * tk * d * frac,
                 2 * kv_bytes + 2 * q_bytes + 2 * rows)
-    if kernel == "sofa_flash_bwd_dq":
+    if role == "sofa_flash_bwd_dq":
         return (6 * b * h * t * tk * d * frac,
                 kv_bytes + 2 * q_bytes + 2 * rows + b * h * t * d * 4)
     raise ValueError(f"not a flash kernel: {kernel}")
 
 
 def range_cost(name: str) -> Optional[Tuple[float, float]]:
-    """(flops, bytes) of a flash cost range, None for any other name."""
+    """(flops, bytes) of a flash cost range, None for any other name (a
+    name without an element size is a bfloat16 launch's)."""
     m = _COST_RANGE_RE.match(name)
     if m is None:
         return None
-    b, t, tk, h, kvh, d, causal = (int(x) for x in m.groups()[1:])
-    return flash_cost(m.group(1), b, t, tk, h, kvh, d, bool(causal))
+    b, t, tk, h, kvh, d, causal = (int(x) for x in m.groups()[1:8])
+    return flash_cost(m.group(1), b, t, tk, h, kvh, d, bool(causal),
+                      int(m.group(9) or 2))
 
 
 def _tensors(dims: Sequence, types: Sequence, strides: Sequence

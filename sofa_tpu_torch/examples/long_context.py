@@ -3,10 +3,11 @@
 The counterpart of ``examples/long_context.py``: the long-sequence stack in
 one runnable loop.
 
-- Every attention runs the three hand-written CUDA kernels
-  (``sofa_flash_fwd``, ``sofa_flash_bwd_kv``, ``sofa_flash_bwd_dq``), with
-  no [T, T] score matrix anywhere, and the KV heads stay compact (native
-  GQA, 2:1 here).
+- Every attention runs three hand-written CUDA kernels (tiny's head dim
+  16 takes the general ones: ``sofa_flash_gen_fwd``,
+  ``sofa_flash_gen_bwd_kv``, ``sofa_flash_gen_bwd_dq``), with no [T, T]
+  score matrix anywhere, and the KV heads stay compact (native GQA, 2:1
+  here).
 - Each layer rematerializes in the backward (``remat=True``), so live
   activations are one layer deep whatever the depth.
 - Under torchrun the ranks form a ("data", "seq", "model") mesh: the
@@ -15,12 +16,6 @@ one runnable loop.
   one card the mesh is one rank (seq 1), so zig-zag is off, as in the JAX
   example on one device.
 
-It keeps ``TransformerConfig.tiny``'s depth, vocab, d_ff and 2:1 GQA but
-takes head dim 64 (d_model 256 over 4 query and 2 KV heads): the CUDA
-kernels are built for head dims 64 and 128 only
-(``sofa_tpu_torch/workloads/flash_cuda.py``, ``HEAD_DIMS``), and the auto
-rule (``transformer.use_flash``) sends tiny's head dim 16 to the plain
-attention, with no error, so a literal port would launch no kernel.
 Profiled, the trace shows the ``sofa_flash_*`` kernel rows with their cost
 estimates and per-step fw/bw attribution:
 
@@ -39,13 +34,12 @@ from sofa_tpu_torch.workloads.transformer import TransformerConfig, build
 
 
 def config(seq: int, sp: int, on_card: bool) -> TransformerConfig:
-    """tiny's depth, vocab, d_ff and 2:1 GQA at head dim 64, remat on;
-    flash=None is the auto rule: the kernels on the card, the plain
-    attention elsewhere (forcing True would make an unsupported shape a
-    hard error)."""
+    """TransformerConfig.tiny with remat on; flash=None is the auto rule:
+    the kernels on the card, the plain attention elsewhere (forcing True
+    would make an unsupported shape a hard error)."""
     return dataclasses.replace(
-        TransformerConfig.tiny(seq=seq), d_model=256, n_heads=4,
-        n_kv_heads=2, flash=None, zigzag=sp > 1 and on_card, remat=True)
+        TransformerConfig.tiny(seq=seq), flash=None,
+        zigzag=sp > 1 and on_card, remat=True)
 
 
 def main(steps: int = 8, seq: int = 512, device=None):

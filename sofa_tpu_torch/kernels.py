@@ -51,6 +51,15 @@ class Kernel:
     replaces: str        # file:line of the Pallas call it ports
     argtypes: List       # ctypes signature of the C entry point
     launches: int = 0
+    # "hopper": bfloat16 at head dims 64 and 128 (TMA and wgmma);
+    # "general": every other dtype and head dim of the domain
+    family: str = "hopper"
+    # the Pallas call's name= (the Hopper kernel's own name)
+    ports: str = ""
+
+    @property
+    def pallas_name(self) -> str:
+        return self.ports or self.name
 
     @property
     def source(self) -> str:
@@ -77,7 +86,30 @@ FLASH_BWD_DQ = Kernel(name="sofa_flash_bwd_dq", lib="flash_bwd_dq",
                       replaces="sofa_tpu/workloads/flash_pallas.py:673",
                       argtypes=[_P] * 9 + [_I] + _SHAPE)
 
-KERNELS = [FLASH_FWD, FLASH_BWD_KV, FLASH_BWD_DQ]
+#: The Hopper kernels (bfloat16 at D 64 and 128), which tools/tune_flash.py
+#: sweeps.
+HOPPER = [FLASH_FWD, FLASH_BWD_KV, FLASH_BWD_DQ]
+
+# The general kernels take the element type as one more int before the
+# shapes (flash_cuda._DTYPE_CODES).
+GEN_FWD = Kernel(name="sofa_flash_gen_fwd", lib="flash_gen_fwd",
+                 replaces=FLASH_FWD.replaces,
+                 argtypes=[_P] * 7 + [_I] + _SHAPE, family="general",
+                 ports=FLASH_FWD.name)
+GEN_BWD_KV = Kernel(name="sofa_flash_gen_bwd_kv", lib="flash_gen_bwd_kv",
+                    replaces=FLASH_BWD_KV.replaces,
+                    argtypes=[_P] * 10 + [_I, _I] + _SHAPE, family="general",
+                    ports=FLASH_BWD_KV.name)
+GEN_BWD_DQ = Kernel(name="sofa_flash_gen_bwd_dq", lib="flash_gen_bwd_dq",
+                    replaces=FLASH_BWD_DQ.replaces,
+                    argtypes=[_P] * 9 + [_I, _I] + _SHAPE, family="general",
+                    ports=FLASH_BWD_DQ.name)
+#: The general kernels: every other (dtype, head dim) up to D 256, float32
+#: FMA on the CUDA cores.
+GENERAL = [GEN_FWD, GEN_BWD_KV, GEN_BWD_DQ]
+
+#: Every kernel of the port.
+KERNELS = HOPPER + GENERAL
 
 #: -D defines of a variant build, as (name, value) pairs
 Defines = Tuple[Tuple[str, int], ...]

@@ -1,4 +1,4 @@
-"""Kernel performance of the three CUDA flash kernels: regenerates
+"""Kernel performance of the CUDA flash kernels: regenerates
 ``sofa_tpu_torch/docs/KERNEL_PERF.md``.
 
 The counterpart of ``tools/kernel_perf.py`` (whose table,
@@ -16,7 +16,12 @@ It measures on the card, with CUDA events:
   - the ring hop: one non-causal visiting-block hop (shift >= Tk), T 4096,
     B 2;
   - the Llama-3-8B attention shape (B 4, T 2048, H 32, KVH 8, D 128),
-    forward, forward plus backward, and each backward kernel alone.
+    forward, forward plus backward, and each backward kernel alone;
+  - the general kernels (``sofa_flash_gen_*``, every (dtype, head dim) the
+    Hopper kernels leave out) at three shapes: float32 at the flagship's
+    attention (B 4, T 512, H 8 / 4, D 64), bfloat16 at D 256 (B 1, T 8192,
+    H 8 / 4) and bfloat16 at D 16 (B 8, T 2048, H 4 / 2), forward, forward
+    plus backward, and each backward kernel alone.
 
 Each row is timed in turns with SDPA on the same inputs (kernel, SDPA, SDPA,
 kernel), and gives the kernel's ms, TFLOP/s (``attention_flops``, the JAX
@@ -26,8 +31,11 @@ the visible pairs' operations over the peak and the bytes each kernel must
 move over the memory rate (an end-to-end row's bound is its kernels' sum) (``forward_cost``, ``backward_costs``; the
 ``kernel`` phase of ``chip_smoke.py`` computes its bounds the same way).
 A row faster than its bound fails the tool.  The peaks are
-``analysis/sol.py``'s ``PEAKS``, keyed on the card's name: a card the
-table does not name gets no % of peak and no bound, and the file says so.
+``analysis/sol.py``'s ``PEAKS``, keyed on the card's name, at the rate of
+the inputs' type (a float32 row against the card's float32 rate outside
+the tensor cores, ``FP32_TFLOPS``): a card the tables do not name gets no
+% of peak and no bound, and the file says so.  Bytes count each input and
+output at its element size.
 
     python -m sofa_tpu_torch.tools.kernel_perf [--out F.md] [--json F]
                                                [--reps 20]
@@ -46,7 +54,8 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
-from sofa_tpu_torch.analysis.sol import PEAK_SOURCE, PEAKS
+from sofa_tpu_torch.analysis.sol import (FP32_SOURCE, FP32_TFLOPS,
+                                         PEAK_SOURCE, PEAKS)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(_PKG, "docs", "KERNEL_PERF.md")
@@ -70,12 +79,15 @@ def attention_flops(b: int, t: int, h: int, d: int,
     return per_matmul * n
 
 
-def card_peaks(name: str) -> Optional[Peaks]:
-    """The card's (dense bf16 flop/s, HBM bytes/s) from ``sol.PEAKS``, or
-    None for a card the table does not name."""
-    if name not in PEAKS:
+def card_peaks(name: str, dtype: str = "bfloat16") -> Optional[Peaks]:
+    """The card's (dense flop/s at ``dtype``'s rate, HBM bytes/s) from
+    ``sol.PEAKS`` (bfloat16 and float16) or ``FP32_TFLOPS`` (float32), or
+    None for a card the tables do not name."""
+    if name not in PEAKS or (dtype == "float32" and name not in FP32_TFLOPS):
         return None
     tflops, gbps = PEAKS[name]
+    if dtype == "float32":
+        tflops = FP32_TFLOPS[name]
     return tflops * 1e12, gbps * 1e9
 
 
@@ -85,31 +97,37 @@ def visible_pairs(t: int, tk: int, shift: int) -> int:
     return sum(min(max(i + shift + 1, 0), tk) for i in range(t))
 
 
-def forward_cost(b, t, tk, h, kvh, d, shift) -> Tuple[float, float]:
-    """(operations, bytes) ``sofa_flash_fwd`` must do and move: two
-    products over the visible pairs; q, k and v read once (bf16), out
-    written (bf16), lse written (float32)."""
+def forward_cost(b, t, tk, h, kvh, d, shift, itemsize: int = 2
+                 ) -> Tuple[float, float]:
+    """(operations, bytes) the forward kernel must do and move: two
+    products over the visible pairs; q, k and v read once, out written (at
+    ``itemsize`` bytes an element, the inputs' type), lse written
+    (float32)."""
     flops = 4.0 * b * h * d * visible_pairs(t, tk, shift)
-    nbytes = 2.0 * (2 * b * t * h * d + 2 * b * tk * kvh * d) \
+    nbytes = itemsize * (2.0 * b * t * h * d + 2.0 * b * tk * kvh * d) \
         + 4.0 * b * h * t
     return flops, nbytes
 
 
-def backward_costs(b, t, tk, h, kvh, d, shift
+def backward_costs(b, t, tk, h, kvh, d, shift, itemsize: int = 2
                    ) -> Dict[str, Tuple[float, float]]:
-    """{kernel name: (operations, bytes)} of the backward pair: q, dO, k
-    and v read once (bf16), lse and delta read (float32), and each
-    kernel's gradients written (bf16); ``sofa_flash_bwd_kv`` recomputes S
-    and dP and forms dV and dK (four products over the visible pairs),
-    ``sofa_flash_bwd_dq`` recomputes S and dP and forms dQ (three)."""
+    """{Pallas call name: (operations, bytes)} of the backward pair: q, dO,
+    k and v read once, lse and delta read (float32), and each kernel's
+    gradients written (q, dO, k, v and gradients at ``itemsize`` bytes an
+    element); the dK/dV kernel (``sofa_flash_bwd_kv`` and its general
+    counterpart) recomputes S and dP and forms dV and dK (four products over
+    the visible pairs), the dQ kernel recomputes S and dP and forms dQ
+    (three)."""
     pairs = b * h * visible_pairs(t, tk, shift)
-    operands = 2.0 * (2 * b * t * h * d + 2 * b * tk * kvh * d)
+    operands = itemsize * (2.0 * b * t * h * d + 2.0 * b * tk * kvh * d)
     rows = 2.0 * b * h * t * 4
     return {
         "sofa_flash_bwd_kv": (8.0 * d * pairs,
-                              operands + rows + 2.0 * 2 * b * tk * kvh * d),
+                              operands + rows + itemsize * 2.0 * b * tk
+                              * kvh * d),
         "sofa_flash_bwd_dq": (6.0 * d * pairs,
-                              operands + rows + 2.0 * b * t * h * d),
+                              operands + rows + itemsize * 1.0 * b * t * h
+                              * d),
     }
 
 
@@ -159,23 +177,27 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks):
-    """One table row from its in-turns readings."""
+def _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks,
+         dtype: str = "bfloat16"):
+    """One table row from its in-turns readings (``peaks`` at ``dtype``'s
+    rate, bytes at its element size)."""
     (k1, k2), (l1, l2) = turns
     ms, sdpa_ms = (k1 + k2) / 2, (l1 + l2) / 2
     shift = 0 if causal else t
-    costs = backward_costs(b, t, t, h, kvh, d, shift)
+    itemsize = ITEMSIZE[dtype]
+    costs = backward_costs(b, t, t, h, kvh, d, shift, itemsize)
     if mode in costs:
         (flops, nbytes), model = costs[mode], \
             attention_flops(b, t, h, d, causal) / 2 * MATMULS[mode]
     else:
-        flops, nbytes = forward_cost(b, t, t, h, kvh, d, shift)
+        flops, nbytes = forward_cost(b, t, t, h, kvh, d, shift, itemsize)
         if mode == "fwd+bwd":
             for f, n in costs.values():
                 flops, nbytes = flops + f, nbytes + n
         model = attention_flops(b, t, h, d, causal, mode == "fwd+bwd")
     row = {"kernel": kernel, "mode": mode, "B": b, "T": t, "H": h,
-           "KVH": kvh, "D": d, "gqa": kvh != h, "causal": causal, "ms": ms,
+           "KVH": kvh, "D": d, "dtype": dtype, "gqa": kvh != h,
+           "causal": causal, "ms": ms,
            "ms_turns": [k1, k2], "sdpa_ms": sdpa_ms,
            "sdpa_turns": [l1, l2], "ratio": ms / sdpa_ms,
            "tflops": model / ms / 1e9,
@@ -188,15 +210,15 @@ def _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks):
     return row
 
 
-def _inputs(b, t, h, kvh, d, seed, grad=False):
-    """q [B,T,H,D] and k, v [B,T,KVH,D] bf16 on the card from ``seed``,
-    and SDPA's [B,H,T,D] copies of them."""
+def _inputs(b, t, h, kvh, d, seed, grad=False, dtype: str = "bfloat16"):
+    """q [B,T,H,D] and k, v [B,T,KVH,D] of ``dtype`` on the card from
+    ``seed``, and SDPA's [B,H,T,D] copies of them."""
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     qkv = [torch.randn(b, t, n, d, generator=g, device="cuda")
-           .to(torch.bfloat16) for n in (h, kvh, kvh)]
+           .to(getattr(torch, dtype)) for n in (h, kvh, kvh)]
     heads_first = [x.transpose(1, 2).contiguous() for x in qkv]
     if grad:
         for x in qkv + heads_first:
@@ -204,28 +226,42 @@ def _inputs(b, t, h, kvh, d, seed, grad=False):
     return qkv, heads_first
 
 
-def measure(kernel, b, t, h, kvh, d, causal, mode, reps, peaks, seed=0):
+def measure(kernel, b, t, h, kvh, d, causal, mode, reps, peaks, seed=0,
+            dtype: str = "bfloat16"):
     """Times one row of ``mode`` in turns with SDPA's counterpart: the
     forward, autograd through the forward and the backward pair, or one
-    backward kernel alone against SDPA's whole backward."""
+    backward kernel alone (the route's for ``dtype`` and D) against SDPA's
+    whole backward."""
     import torch
 
-    from sofa_tpu_torch import kernels
-    from sofa_tpu_torch.workloads.flash_cuda import flash_attention
+    from sofa_tpu_torch.workloads import flash_cuda as fc
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    bwd = mode != "fwd"
+    (q, k, v), (qt, kt, vt) = _inputs(b, t, h, kvh, d, seed, grad=bwd,
+                                      dtype=dtype)
     if mode not in ("fwd", "fwd+bwd"):
-        from sofa_tpu_torch.tools.tune_flash import Sweep
+        shift = 0 if causal else t
+        with torch.no_grad():
+            g = torch.randn_like(q)
+            out, lse = fc._flash_forward(q, k, v, shift, causal)
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+        launch = fc._flash_bwd_kv_cuda if mode == "sofa_flash_bwd_kv" \
+            else fc._flash_bwd_dq_cuda
+        args = (q.detach(), k.detach(), v.detach(), g, lse, delta, shift)
+        o = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        g_t = g.transpose(1, 2).contiguous()
 
-        sw = Sweep(b, t, h, kvh, d, bwd=True)
-        kern = next(k for k in kernels.KERNELS if k.name == mode)
-        turns = in_turns(lambda: sw.launch(kern, ()), sw.library, reps)
-        return _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks)
-    bwd = mode == "fwd+bwd"
-    (q, k, v), (qt, kt, vt) = _inputs(b, t, h, kvh, d, seed, grad=bwd)
-    if bwd:
         def fused():
-            out = flash_attention(q, k, v, causal=causal)
+            return launch(*args, static_causal=causal)
+
+        def library():
+            return torch.autograd.grad(o, (qt, kt, vt), g_t,
+                                       retain_graph=True)
+    elif bwd:
+        def fused():
+            out = fc.flash_attention(q, k, v, causal=causal)
             return torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
 
         def library():
@@ -234,16 +270,17 @@ def measure(kernel, b, t, h, kvh, d, causal, mode, reps, peaks, seed=0):
                                        (qt, kt, vt))
     else:
         def fused():
-            return flash_attention(q, k, v, causal=causal)
+            return fc.flash_attention(q, k, v, causal=causal)
 
         def library():
             return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
     with torch.set_grad_enabled(bwd):
         turns = in_turns(fused, library, reps)
-    return _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks)
+    return _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks, dtype)
 
 
-#: (kernel label, B, T, H, KVH, D, causal, mode)
+#: (kernel label, B, T, H, KVH, D, causal, mode), bfloat16: the Hopper
+#: kernels
 SWEEP = [
     *(("flash fwd", 16384 // t, t, 8, kvh, 128, True, "fwd")
       for t in (2048, 8192, 16384) for kvh in (8, 2)),
@@ -257,12 +294,30 @@ SWEEP = [
     *((f"llama3_8b {kern}", 4, 2048, 32, 8, 128, True, kern)
       for kern in MODES[2:]),
 ]
+#: (label prefix, B, T, H, KVH, D, dtype) of the general kernels' shapes:
+#: the float32 flagship's attention, bfloat16 at D 256 and at D 16
+GENERAL_SHAPES = [
+    ("f32 flagship", 4, 512, 8, 4, 64, "float32"),
+    ("bf16 D256", 1, 8192, 8, 4, 256, "bfloat16"),
+    ("bf16 D16", 8, 2048, 4, 2, 16, "bfloat16"),
+]
+#: (kernel label, B, T, H, KVH, D, causal, mode, dtype): the general
+#: kernels, each shape in every mode
+SWEEP_GENERAL = [
+    (f"{label} {mode}", b, t, h, kvh, d, True, mode, dtype)
+    for label, b, t, h, kvh, d, dtype in GENERAL_SHAPES for mode in MODES]
+#: bytes an element of each input type
+ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
 
 
-def run_sweep(reps: int, peaks: Optional[Peaks], log=print) -> List[dict]:
+def run_sweep(reps: int, card: str, log=print) -> List[dict]:
+    """Every row of ``SWEEP`` and ``SWEEP_GENERAL``, against ``card``'s
+    peaks at each row's input type."""
     rows = []
-    for spec in SWEEP:
-        rows.append(measure(*spec, reps=reps, peaks=peaks))
+    specs = [(*spec, "bfloat16") for spec in SWEEP] + SWEEP_GENERAL
+    for *spec, dtype in specs:
+        rows.append(measure(*spec, reps=reps, peaks=card_peaks(card, dtype),
+                            dtype=dtype))
         log(format_row(rows[-1]))
     return rows
 
@@ -301,6 +356,12 @@ def render_md(rows, peaks: Optional[Peaks], card: str, smi: str) -> str:
         (f"Peak: unknown ({card!r} is not in analysis/sol.py's PEAKS): no "
          "% of peak, no bound"),
         "",
+    ]
+    fp32 = card_peaks(card, "float32")
+    if fp32 and any(r.get("dtype") == "float32" for r in rows):
+        lines += [f"Float32 rows: **{fp32[0] / 1e12:.0f} TFLOP/s** "
+                  f"({FP32_SOURCE})", ""]
+    lines += [
         "| kernel | B | T | H / KVH | D | ms | TFLOP/s | % of peak | "
         "SDPA ms | kernel / SDPA | bound ms | bound by | % of bound |",
         "|---|---|---|---|---|---|---|---|---|---|---|---|---|",
@@ -330,6 +391,11 @@ def render_md(rows, peaks: Optional[Peaks], card: str, smi: str) -> str:
         "alone against",
         "its own bound; their SDPA column is SDPA's whole backward (dq, dk "
         "and dv).",
+        "The rows labelled `f32 flagship`, `bf16 D256` and `bf16 D16` run "
+        "the general",
+        "kernels (`sofa_flash_gen_fwd`, `sofa_flash_gen_bwd_kv`, "
+        "`sofa_flash_gen_bwd_dq`: float32",
+        "FMA on the CUDA cores), their bytes at the input's element size.",
         "",
     ]
     return "\n".join(lines)
@@ -358,7 +424,7 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     peaks = card_peaks(card)
     print(f"kernel_perf: {card} | nvidia-smi: {smi}", flush=True)
-    rows = run_sweep(args.reps, peaks,
+    rows = run_sweep(args.reps, card,
                      log=lambda line: print(line, flush=True))
     md = render_md(rows, peaks, card, smi)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

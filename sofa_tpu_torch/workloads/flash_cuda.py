@@ -1,20 +1,27 @@
-"""Fused flash attention, forward and backward: the host side of the
-``sofa_flash_fwd``, ``sofa_flash_bwd_kv`` and ``sofa_flash_bwd_dq`` CUDA
-kernels (``csrc/flash_*.cu``) and their plain PyTorch versions.
+"""Fused flash attention, forward and backward: the host side of the CUDA
+flash kernels (``csrc/flash_*.cu``) and their plain PyTorch versions.
 
-The counterpart of ``sofa_tpu/workloads/flash_pallas.py``.  A tensor on the
-card goes to the kernels or raises; the plain versions run only for tensors
-on the CPU, where the tests hold them against the JAX kernels run in Pallas
-interpret mode.  The kernels index [B, T, H, D] strides directly and read
-the compact K/V heads themselves, so no plane transposes or head repeats are
-materialized on the card.
+The counterpart of ``sofa_tpu/workloads/flash_pallas.py``, whose three
+Pallas kernels take any float dtype and any head dim.  Each has two CUDA
+counterparts, and ``route`` picks one by (dtype, head dim): bfloat16 at D
+64 and 128 goes to the Hopper kernels (``sofa_flash_fwd``,
+``sofa_flash_bwd_kv``, ``sofa_flash_bwd_dq``: TMA and wgmma), every other
+bfloat16, float16 or float32 call with 1 <= D <= 256 to the general ones
+(``sofa_flash_gen_fwd``, ``sofa_flash_gen_bwd_kv``, ``sofa_flash_gen_bwd_dq``:
+float32 FMA on the CUDA cores).  A tensor on the card goes to exactly one
+kernel or raises; the plain versions run only for tensors on the CPU, where
+the tests hold them against the JAX kernels run in Pallas interpret mode.
+The kernels index [B, T, H, D] strides directly and read the compact K/V
+heads themselves, so no plane transposes or head repeats are materialized on
+the card.
 
 The attention wrappers are differentiable through ``_FlashAttention``, a
 ``torch.autograd.Function`` whose backward is ``_flash_backward``: on the
-card the two backward kernels, on the CPU their plain versions.  Each
-launch on the card runs inside a profiler range that names the kernel and
-its shapes, from which ingest credits the kernel with the flops and bytes
-of the Pallas kernel's ``pl.CostEstimate`` (``sofa_tpu_torch/costs.py``).
+card the two backward kernels of the route, on the CPU their plain
+versions.  Each launch on the card runs inside a profiler range that names
+the kernel and its shapes, from which ingest credits the kernel with the
+flops and bytes of the Pallas kernel's ``pl.CostEstimate``
+(``sofa_tpu_torch/costs.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +35,13 @@ from sofa_tpu_torch import kernels
 from sofa_tpu_torch.costs import cost_range_name
 from sofa_tpu_torch.workloads.ring_attention import NEG_INF
 
-#: Head dims the CUDA kernel is compiled for.
-HEAD_DIMS = (64, 128)
+#: Head dims the Hopper kernels are compiled for (bfloat16 only).
+HOPPER_HEAD_DIMS = (64, 128)
+#: The largest head dim the general kernels take (their largest cap).
+MAX_HEAD_DIM = 256
+#: The element types the kernels take, with the general kernels' codes for
+#: them (``GenDtype`` in csrc/flash_gen.cuh).
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 #: The running max's floor: a row with no visible key keeps m here, so its
 #: masked scores underflow to exact zeros (flash_pallas.py:92-96).
 M_FLOOR = -1e29
@@ -65,31 +77,61 @@ def _check_static_shift(static_causal: bool, shift) -> None:
                          f"{int(shift)}; pass static_causal=False")
 
 
-def supports(t: int, head_dim: int) -> bool:
-    """True when a [.., T, .., head_dim] attention can run on the CUDA
-    kernel.  The kernel masks the ragged edge itself, so any T >= 1 works;
-    it is compiled for head dims 64 and 128."""
-    return t >= 1 and head_dim in HEAD_DIMS
+def route(dtype, d: int) -> Tuple[kernels.Kernel, kernels.Kernel,
+                                   kernels.Kernel]:
+    """The (forward, dK/dV, dQ) kernels that take q/k/v of ``dtype`` at
+    head dim ``d``: the Hopper kernels for bfloat16 at D 64 or 128, the
+    general kernels for every other bfloat16, float16 or float32 call with
+    1 <= D <= 256.  Raises TypeError for any other dtype and ValueError for
+    any other D: nothing falls back."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA flash kernels take bfloat16, float16 or "
+                        f"float32 q/k/v; got {dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA flash kernels take head dims 1 to "
+                         f"{MAX_HEAD_DIM}; got {d}")
+    if dtype == torch.bfloat16 and d in HOPPER_HEAD_DIMS:
+        fwd, kv, dq = kernels.HOPPER
+    else:
+        fwd, kv, dq = kernels.GENERAL
+    return fwd, kv, dq
 
 
-def _check_card_inputs(bf16, others=()) -> None:
-    """What every CUDA kernel takes: tensors on one device, bfloat16
-    ``bf16`` tensors with a supported head dim, all contiguous, and 16-byte
-    aligned bf16 tensors.  Raises on anything else (no fallback)."""
-    tensors = list(bf16) + [x for x in others if x is not None]
-    if any(x.device != bf16[0].device for x in tensors):
+def supports(t: int, head_dim: int, dtype) -> bool:
+    """True when a [.., T, .., head_dim] attention of ``dtype`` can run on
+    a CUDA kernel (``route``).  The kernels mask the ragged edge
+    themselves, so any T >= 1 works."""
+    return t >= 1 and dtype in _DTYPE_CODES and 1 <= head_dim <= MAX_HEAD_DIM
+
+
+def _check_card_inputs(kern, inputs, others=()) -> None:
+    """What ``kern`` takes: tensors on one device, ``inputs`` (q, k, v and
+    dO) of one dtype and head dim of the domain (``route``), all
+    contiguous; a Hopper kernel only what ``route`` sends it (bfloat16 at D
+    64 or 128, 16-byte aligned for its TMA descriptors), a general kernel
+    the whole domain.  Raises on anything else (no fallback)."""
+    tensors = list(inputs) + [x for x in others if x is not None]
+    if any(x.device != inputs[0].device for x in tensors):
         raise ValueError("flash attention inputs must share one CUDA device")
-    if any(x.dtype != torch.bfloat16 for x in bf16):
-        raise TypeError(f"the CUDA kernels take bfloat16 q/k/v (and dO); got "
-                        f"{[str(x.dtype) for x in bf16]}")
-    d = bf16[0].shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels are built for head dims "
-                         f"{HEAD_DIMS}; got {d}")
+    dtypes = {x.dtype for x in inputs}
+    if len(dtypes) != 1:
+        raise TypeError(f"the CUDA kernels take q/k/v (and dO) of one dtype; "
+                        f"got {[str(x.dtype) for x in inputs]}")
+    want = route(inputs[0].dtype, inputs[0].shape[-1])
+    if kern.family == "hopper" and kern not in want:
+        raise ValueError(f"{kern.name} does not take {inputs[0].dtype} at "
+                         f"head dim {inputs[0].shape[-1]}; "
+                         f"{[k.name for k in want]} do")
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("the CUDA kernels take contiguous tensors")
-    if any(x.data_ptr() % 16 for x in bf16):
-        raise ValueError("the CUDA kernels need 16-byte aligned q/k/v/dO")
+    if kern.family == "hopper" and any(x.data_ptr() % 16 for x in inputs):
+        raise ValueError("the Hopper kernels need 16-byte aligned "
+                         "q/k/v/dO")
+
+
+def _dtype_args(kern, q) -> tuple:
+    """The general kernels' element-type argument (none for Hopper's)."""
+    return (_DTYPE_CODES[q.dtype],) if kern.family == "general" else ()
 
 
 def _segment_masked(t, tk, shift, seg_q, seg_kv, device):
@@ -135,39 +177,41 @@ def _flash_forward_plain(q, k, v, shift: int, seg_q=None, seg_kv=None
 
 def _cost_range(kern, q, k, causal: bool):
     """The profiler range around one launch, named by the kernel and the
-    shapes its cost depends on (``costs.cost_range_name``): the kernel
-    launches through ctypes, so no aten op tells the trace what it does.
-    Opened only while a profiler runs."""
+    shapes and element size its cost depends on (``costs.cost_range_name``):
+    the kernel launches through ctypes, so no aten op tells the trace what
+    it does.  Opened only while a profiler runs."""
     if not torch._C._autograd._profiler_enabled():
         return contextlib.nullcontext()
     b, t, h, d = q.shape
     return torch.profiler.record_function(cost_range_name(
-        kern.name, b, t, k.shape[1], h, k.shape[2], d, causal))
+        kern.name, b, t, k.shape[1], h, k.shape[2], d, causal,
+        q.element_size()))
 
 
 def _flash_forward_cuda(q, k, v, shift: int, seg_q=None, seg_kv=None, *,
-                        static_causal: bool, defines: kernels.Defines = ()
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``sofa_flash_fwd`` on q's device and current stream (from
-    the library built with ``defines``: a ring-depth variant of
-    ``tools/tune_flash.py``; the main path passes none)."""
+                        static_causal: bool, defines: kernels.Defines = (),
+                        kern=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel of ``route(q.dtype, D)`` (or ``kern``, a
+    forward kernel that takes the inputs) on q's device and current stream,
+    from the library built with ``defines``: a ring-depth variant of
+    ``tools/tune_flash.py``; the main path passes none."""
     b, t, h, d = q.shape
     tk, kvh = k.shape[1], k.shape[2]
-    _check_card_inputs((q, k, v), (seg_q, seg_kv))
+    kern = kern or route(q.dtype, d)[0]
+    _check_card_inputs(kern, (q, k, v), (seg_q, seg_kv))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b == 0:
         return out, lse
-    kern = kernels.FLASH_FWD
     lib = kernels.library(kern, defines)
     with torch.cuda.device(q.device), _cost_range(kern, q, k, static_causal):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.sofa_flash_fwd(
+        err = getattr(lib, kern.name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             seg_q.data_ptr() if seg_q is not None else None,
             seg_kv.data_ptr() if seg_kv is not None else None,
-            out.data_ptr(), lse.data_ptr(), b, t, tk, h, kvh, d, int(shift),
-            d ** -0.5, stream)
+            out.data_ptr(), lse.data_ptr(), *_dtype_args(kern, q), b, t, tk,
+            h, kvh, d, int(shift), d ** -0.5, stream)
     kernels.check(kern, lib, err)
     if not defines:             # the count is the default library's alone
         kern.launches += 1
@@ -247,7 +291,7 @@ def _group_sum(x, kvh: int):
 
 def _flash_bwd_kv_plain(q, k, v, g, lse, delta, shift: int, seg_q=None,
                         seg_kv=None, grad_dtype=None):
-    """``sofa_flash_bwd_kv``'s function in plain PyTorch: (dk, dv)
+    """The dK/dV kernels' function in plain PyTorch: (dk, dv)
     [B,Tk,KVH,D].  p rounds to dO's dtype before the dV product and ds to
     q's before the dK product, as in the kernel; scale after the product."""
     p, ds = _bwd_ds(q, k, v, g, lse, delta, shift, seg_q, seg_kv)
@@ -260,7 +304,7 @@ def _flash_bwd_kv_plain(q, k, v, g, lse, delta, shift: int, seg_q=None,
 
 def _flash_bwd_dq_plain(q, k, v, g, lse, delta, shift: int, seg_q=None,
                         seg_kv=None, grad_dtype=None):
-    """``sofa_flash_bwd_dq``'s function in plain PyTorch: dq [B,T,H,D]."""
+    """The dQ kernels' function in plain PyTorch: dq [B,T,H,D]."""
     _, ds = _bwd_ds(q, k, v, g, lse, delta, shift, seg_q, seg_kv)
     h, d = q.shape[2], q.shape[3]
     dq = torch.einsum("bhqk,bkhd->bqhd", ds,
@@ -278,11 +322,11 @@ def _flash_backward_plain(q, k, v, g, lse, delta, shift: int, seg_q=None,
     return dq, dk, dv
 
 
-def _card_grad_dtype(grad_dtype) -> bool:
-    """``grad_dtype`` as the kernels' out_f32 flag: None (the input dtype,
-    bfloat16) or float32; anything else raises."""
-    if grad_dtype not in (None, torch.bfloat16, torch.float32):
-        raise TypeError(f"the CUDA backward kernels write bfloat16 or "
+def _card_grad_dtype(grad_dtype, dtype) -> bool:
+    """``grad_dtype`` as the kernels' out_f32 flag: None or ``dtype`` (the
+    inputs' dtype) or float32; anything else raises."""
+    if grad_dtype not in (None, dtype, torch.float32):
+        raise TypeError(f"the CUDA backward kernels write {dtype} or "
                         f"float32 gradients; got grad_dtype={grad_dtype}")
     return grad_dtype == torch.float32
 
@@ -292,7 +336,7 @@ def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
                 defines: kernels.Defines = ()) -> None:
     """Launch one backward kernel writing ``outs`` on q's current stream
     (from the library built with ``defines``)."""
-    _check_card_inputs((q, k, v, g), (lse, delta, seg_q, seg_kv) + outs)
+    _check_card_inputs(kern, (q, k, v, g), (lse, delta, seg_q, seg_kv) + outs)
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("the CUDA backward kernels take float32 lse/delta")
     b, t, h, d = q.shape
@@ -305,8 +349,9 @@ def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
             lse.data_ptr(), delta.data_ptr(),
             seg_q.data_ptr() if seg_q is not None else None,
             seg_kv.data_ptr() if seg_kv is not None else None,
-            *(x.data_ptr() for x in outs), int(out_f32), b, t, tk, h, kvh, d,
-            int(shift), d ** -0.5, stream)
+            *(x.data_ptr() for x in outs), int(out_f32),
+            *_dtype_args(kern, q), b, t, tk, h, kvh, d, int(shift),
+            d ** -0.5, stream)
     kernels.check(kern, lib, err)
     if not defines:
         kern.launches += 1
@@ -314,28 +359,32 @@ def _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv, outs,
 
 def _flash_bwd_kv_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
                        seg_kv=None, grad_dtype=None, *, static_causal: bool,
-                       defines: kernels.Defines = ()):
-    """Launch ``sofa_flash_bwd_kv``: (dk, dv) [B,Tk,KVH,D]."""
-    out_f32 = _card_grad_dtype(grad_dtype)
+                       defines: kernels.Defines = (), kern=None):
+    """Launch the dK/dV kernel of ``route(q.dtype, D)`` (or ``kern``):
+    (dk, dv) [B,Tk,KVH,D]."""
+    kern = kern or route(q.dtype, q.shape[-1])[1]
+    out_f32 = _card_grad_dtype(grad_dtype, q.dtype)
     dt = torch.float32 if out_f32 else k.dtype
     dk = torch.empty(k.shape, dtype=dt, device=k.device)
     dv = torch.empty(v.shape, dtype=dt, device=v.device)
     if q.numel() and k.numel():
-        _bwd_launch(kernels.FLASH_BWD_KV, q, k, v, g, lse, delta, shift,
-                    seg_q, seg_kv, (dk, dv), out_f32, static_causal, defines)
+        _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv,
+                    (dk, dv), out_f32, static_causal, defines)
     return dk, dv
 
 
 def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, shift: int, seg_q=None,
                        seg_kv=None, grad_dtype=None, *, static_causal: bool,
-                       defines: kernels.Defines = ()):
-    """Launch ``sofa_flash_bwd_dq``: dq [B,T,H,D]."""
-    out_f32 = _card_grad_dtype(grad_dtype)
+                       defines: kernels.Defines = (), kern=None):
+    """Launch the dQ kernel of ``route(q.dtype, D)`` (or ``kern``): dq
+    [B,T,H,D]."""
+    kern = kern or route(q.dtype, q.shape[-1])[2]
+    out_f32 = _card_grad_dtype(grad_dtype, q.dtype)
     dq = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype,
                      device=q.device)
     if q.numel() and k.numel():
-        _bwd_launch(kernels.FLASH_BWD_DQ, q, k, v, g, lse, delta, shift,
-                    seg_q, seg_kv, (dq,), out_f32, static_causal, defines)
+        _bwd_launch(kern, q, k, v, g, lse, delta, shift, seg_q, seg_kv,
+                    (dq,), out_f32, static_causal, defines)
     return dq
 
 
@@ -350,8 +399,8 @@ def _flash_backward(q, k, v, g, out, lse, shift=0, static_causal: bool = True,
     hops reuse one), otherwise it is derived from ``out``.  Gradients come
     back in ``grad_dtype`` (default: the input dtypes), dk/dv in the compact
     [B,Tk,KVH,D] layout with each group's query heads summed.  CUDA tensors
-    run ``sofa_flash_bwd_kv`` and ``sofa_flash_bwd_dq``; CPU tensors their
-    plain versions."""
+    run the two backward kernels of ``route``; CPU tensors their plain
+    versions."""
     _check_shapes(q, k, v)
     if g.shape != q.shape:
         raise ValueError(f"cotangent {tuple(g.shape)} does not match q "

@@ -10,8 +10,11 @@ card, float32 accumulation in cuBLAS); norms, rope and the silu gate run in
 float32 and cast back, as in the JAX package.
 
 Attention runs the fused CUDA kernels when the tensors are on the card and
-the kernels support the shape (``cfg.flash=None``): ``sofa_flash_fwd``
-forward, ``sofa_flash_bwd_kv`` and ``sofa_flash_bwd_dq`` under autograd.
+a kernel takes the dtype and head dim (``cfg.flash=None``;
+``flash_cuda.route``): a forward kernel, and the dK/dV and dQ kernels under
+autograd (the Hopper ``sofa_flash_*`` kernels for bfloat16 at D 64 and 128,
+the general ``sofa_flash_gen_*`` ones for every other bfloat16, float16 or
+float32 model up to D 256).
 ``cfg.flash=False`` runs the plain materialized-score attention.  Training
 is ``loss_fn`` under ``make_train_step`` (AdamW with optax's ``adamw``
 defaults), with per-layer remat through ``torch.utils.checkpoint``.
@@ -65,6 +68,7 @@ from torch.utils.checkpoint import (
 from sofa_tpu_torch.workloads.flash_cuda import (
     flash_causal_attention,
     flash_causal_segmented_attention,
+    route as flash_route,
     supports as flash_supports,
 )
 from sofa_tpu_torch.convert import shard_leaf
@@ -364,14 +368,18 @@ def _segment_positions(segment_ids):
 
 
 def use_flash(cfg: TransformerConfig, t: int, device: torch.device) -> bool:
-    """Whether forward() takes the fused attention path."""
+    """Whether forward() takes the fused attention path: on the card, auto
+    (``flash=None``) takes it wherever a CUDA kernel takes the model's
+    dtype and head dim (``flash_cuda.route``), and ``flash=True`` raises
+    the wrapper's error where none does."""
     on_card = device.type == "cuda"
     if cfg.flash is None:
-        return on_card and flash_supports(t, cfg.d_head)
-    if cfg.flash and on_card and not flash_supports(t, cfg.d_head):
+        return on_card and flash_supports(t, cfg.d_head, cfg.dtype)
+    if cfg.flash and on_card and not flash_supports(t, cfg.d_head,
+                                                    cfg.dtype):
+        flash_route(cfg.dtype, cfg.d_head)      # names the dtype or D
         raise ValueError(
-            f"flash=True but the CUDA kernel does not support seq len {t} "
-            f"with head dim {cfg.d_head}")
+            f"flash=True but the CUDA kernels do not support seq len {t}")
     return cfg.flash
 
 

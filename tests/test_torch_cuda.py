@@ -103,20 +103,28 @@ def test_kernel_is_deterministic(cuda_device):
 
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
+    """What no kernel takes raises: another dtype, a head dim above 256,
+    mixed dtypes, a strided tensor, a gradient dtype of neither kind."""
     q, k, v = _inputs(cuda_device, 1, 1, 64, 4, 2, 64)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tfc._flash_forward(q.float(), k.float(), v.float())
-    q96, k96, v96 = _inputs(cuda_device, 2, 1, 64, 4, 2, 96)
-    with pytest.raises(ValueError, match="head dims"):
-        tfc._flash_forward(q96, k96, v96)
+    with pytest.raises(TypeError, match="float64"):
+        tfc._flash_forward(q.double(), k.double(), v.double())
+    q320, k320, v320 = _inputs(cuda_device, 2, 1, 64, 4, 2, 320)
+    with pytest.raises(ValueError, match="320"):
+        tfc._flash_forward(q320, k320, v320)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfc._flash_forward(q, k.float(), v)
     with pytest.raises(ValueError, match="contiguous"):
         tfc._flash_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v)
     out, lse = tfc._flash_forward(q, k, v)
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="one dtype"):
         tfc._flash_backward(q, k, v, out.float(), out, lse)
     with pytest.raises(TypeError, match="grad_dtype"):
         tfc._flash_backward(q, k, v, out, out, lse, grad_dtype=torch.float16)
+    # a Hopper kernel refuses what the route sends elsewhere
+    with pytest.raises(ValueError, match="does not take"):
+        tfc._flash_forward_cuda(q.float(), k.float(), v.float(), 0,
+                                static_causal=True, kern=kernels.FLASH_FWD)
     # a CUDA call that needs a gradient launches both backward kernels
     q.requires_grad_(True)
     before = kernels.counts()
@@ -227,7 +235,7 @@ def test_fused_train_step_launches_every_kernel(cuda_device):
         params, opt, loss = step(params, opt, tokens)
         losses.append(loss.item())
     after = kernels.counts()
-    for kern in kernels.KERNELS:
+    for kern in kernels.HOPPER:
         assert after[kern.name] == before[kern.name] + 3 * cfg.n_layers
     assert losses[-1] < losses[0]
 
@@ -369,7 +377,7 @@ def test_injection_never_initializes_cuda(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("step", [-1, 1])
-@pytest.mark.parametrize("name", [k.name for k in kernels.KERNELS])
+@pytest.mark.parametrize("name", [k.name for k in kernels.HOPPER])
 def test_stages_variant_matches_plain(cuda_device, name, step):
     """The ring-depth variants beside each kernel's default FLASH_STAGES (as
     ``tools/tune_flash.py`` builds them: a library of their own) against
@@ -378,7 +386,7 @@ def test_stages_variant_matches_plain(cuda_device, name, step):
     kernel in both output modes.  A variant's launch is not counted."""
     from sofa_tpu_torch.tools import tune_flash as tf
 
-    kern = next(k for k in kernels.KERNELS if k.name == name)
+    kern = next(k for k in kernels.HOPPER if k.name == name)
     stages = tf.default_stages(kern) + step
     defines = tf.variant_defines(kern, stages)
     assert defines and kernels.library_path(kern, defines) != \
@@ -425,3 +433,107 @@ def test_stages_variant_matches_plain(cuda_device, name, step):
                                             gd is None), (d, gd, err)
         assert kernels.counts() == before
     assert held
+
+
+# --- the general kernels (every other dtype and head dim up to 256) ---------
+
+_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+def _typed(device, seed, dtype, b, t, h, kvh, d, tk=None):
+    return [x.to(dtype) for x in _inputs(device, seed, b, t, h, kvh, d, tk)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("b,t,h,kvh,d,tk,shift,seg_len", [
+    (2, 130, 4, 2, 16, None, 0, 0),       # ragged T over 64-row tiles
+    (1, 77, 8, 2, 8, 200, 150, 0),        # a cache end, D 8 under cap 16
+    (1, 64, 4, 4, 80, None, -64, 0),      # nothing visible, D 80 of 128
+    (2, 100, 8, 2, 256, None, 0, 30),     # segments, GQA 4, D 256
+    (1, 1, 4, 1, 32, 1, 0, 0),            # one query, one key
+    (1, 90, 4, 2, 128, None, 37, 0),      # shift cuts a tile; bf16 here
+])                                        # runs the general kernel too
+def test_general_kernels_match_plain(cuda_device, dtype, b, t, h, kvh, d, tk,
+                                     shift, seg_len):
+    """Each general kernel against its plain version (forward, and the
+    backward pair in both output modes), launched by record so that bf16
+    at D 128 runs it as well; each launch counted on its own record."""
+    from sofa_tpu_torch.tools import tune_flash as tf
+
+    dt = _DTYPES[dtype]
+    q, k, v = _typed(cuda_device, t + d, dt, b, t, h, kvh, d, tk)
+    g = _typed(cuda_device, t + d + 1, dt, b, t, h, kvh, d)[0]
+    seg32 = None
+    if seg_len:
+        seg32 = (torch.arange(t, device=cuda_device) // seg_len).expand(
+            b, t).to(torch.int32).contiguous()
+    before = kernels.counts()
+    out, lse = tfc._flash_forward_cuda(q, k, v, shift, seg32, seg32,
+                                       static_causal=shift <= 0,
+                                       kern=kernels.GEN_FWD)
+    ref_out, ref_lse = tfc._flash_forward_plain(q, k, v, shift, seg32, seg32)
+    assert out.dtype == dt
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=tf.OUT_ATOL, rtol=tf.OUT_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=tf.LSE_ATOL, rtol=0)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, lse, delta, shift, seg32, seg32)
+    for gd in (torch.float32, None):
+        got = (*tfc._flash_bwd_kv_cuda(*args, gd, static_causal=shift <= 0,
+                                       kern=kernels.GEN_BWD_KV),
+               tfc._flash_bwd_dq_cuda(*args, gd, static_causal=shift <= 0,
+                                      kern=kernels.GEN_BWD_DQ))
+        ref = (*tfc._flash_bwd_kv_plain(*args, gd),
+               tfc._flash_bwd_dq_plain(*args, gd))
+        for name, a, r in zip(("dk", "dv", "dq"), got, ref):
+            assert a.dtype == (gd or dt), name
+            assert bool(torch.isfinite(a.float()).all()), name
+            scale = r.float().abs().max().item()
+            err = (a.float() - r.float()).abs().max().item()
+            assert err <= tf.grad_limit(
+                scale, gd is None and dt == torch.bfloat16), (name, gd, err)
+    after = kernels.counts()
+    assert after[kernels.GEN_FWD.name] == before[kernels.GEN_FWD.name] + 1
+    for kern in (kernels.GEN_BWD_KV, kernels.GEN_BWD_DQ):
+        assert after[kern.name] == before[kern.name] + 2
+    for kern in kernels.HOPPER:
+        assert after[kern.name] == before[kern.name]
+
+
+@pytest.mark.cuda
+def test_general_kernels_are_deterministic(cuda_device):
+    """No atomics and no split of a sum across blocks: two launches agree
+    bit for bit (float32, GQA 4, D 80)."""
+    q, k, v = _typed(cuda_device, 5, torch.float32, 2, 200, 8, 2, 80)
+    g = _typed(cuda_device, 6, torch.float32, 2, 200, 8, 2, 80)[0]
+    first = tfc._flash_forward(q, k, v, 0)
+    second = tfc._flash_forward(q, k, v, 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    grads = [tfc._flash_backward(q, k, v, g, *first) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+def test_float32_and_d16_models_take_the_general_kernels(cuda_device):
+    """The auto rule sends a float32 model and tiny's head dim 16 to the
+    general kernels on the card (a float32 model crashed before): each
+    train step launches the three of them once a layer, and no Hopper
+    kernel; the loss descends."""
+    for cfg in (dataclasses.replace(ttr.TransformerConfig.tiny(seq=128),
+                                    d_model=256, dtype=torch.float32),
+                ttr.TransformerConfig.tiny(seq=128)):
+        assert ttr.use_flash(cfg, 128, cuda_device)
+        params, opt, step, tokens = ttr.build(cfg, 2, 128,
+                                              device=cuda_device)
+        before = kernels.counts()
+        losses = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, tokens)
+            losses.append(loss.item())
+        after = kernels.counts()
+        for kern in kernels.GENERAL:
+            assert after[kern.name] == before[kern.name] + 3 * cfg.n_layers
+        for kern in kernels.HOPPER:
+            assert after[kern.name] == before[kern.name]
+        assert losses[-1] < losses[0]

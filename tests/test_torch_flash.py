@@ -272,8 +272,18 @@ def test_cpu_path_launches_no_kernel_and_validates_inputs():
 
 
 def test_supports_names_the_kernel_head_dims():
-    assert tfc.supports(2048, 128) and tfc.supports(200, 64)
-    assert not tfc.supports(2048, 96) and not tfc.supports(0, 128)
+    """The kernels take bfloat16, float16 and float32 at head dims 1 to 256
+    (the Hopper kernels bfloat16 at 64 and 128, the general ones the rest)
+    and any T >= 1."""
+    bf16 = torch.bfloat16
+    assert tfc.supports(2048, 128, bf16) and tfc.supports(200, 64, bf16)
+    assert tfc.supports(2048, 96, bf16) and tfc.supports(1, 256,
+                                                         torch.float32)
+    assert tfc.supports(64, 16, torch.float16) and tfc.supports(8, 1, bf16)
+    assert not tfc.supports(0, 128, bf16)
+    assert not tfc.supports(2048, 257, bf16)
+    assert not tfc.supports(2048, 0, torch.float32)
+    assert not tfc.supports(2048, 64, torch.float64)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -295,16 +305,31 @@ def test_kernel_build_command_targets_sm90a(kern):
 
 def test_kernel_records_name_their_pallas_calls():
     """Each record's ``replaces`` line holds the pallas_call whose name= is
-    the kernel's name, and each library is one kernel's own."""
+    the kernel's Pallas name (the Hopper kernel's own name), each Pallas
+    call has exactly one record per route (the Hopper kernels and the
+    general ones), and each library is one kernel's own."""
     with open(os.path.join(kernels.REPO, "sofa_tpu/workloads/"
                            "flash_pallas.py")) as f:
         lines = f.read().splitlines()
+    calls = {}
     for kern in kernels.KERNELS:
         line = int(kern.replaces.rsplit(":", 1)[1])
         assert "pl.pallas_call(" in lines[line - 1], kern.name
         call = "\n".join(lines[line - 1:line + 40])
-        assert f'name="{kern.name}"' in call.split("interpret=")[0]
+        assert f'name="{kern.pallas_name}"' in call.split("interpret=")[0]
+        calls.setdefault(kern.pallas_name, []).append(kern.family)
+    named = {ln.split('name="')[1].split('"')[0] for ln in lines
+             if 'name="sofa_flash' in ln}
+    assert set(calls) == named
+    for families in calls.values():
+        assert sorted(families) == ["general", "hopper"]
+    assert kernels.KERNELS == kernels.HOPPER + kernels.GENERAL
+    assert {k.family for k in kernels.HOPPER} == {"hopper"}
+    assert {k.family for k in kernels.GENERAL} == {"general"}
     assert len({k.lib for k in kernels.KERNELS}) == len(kernels.KERNELS)
+    # ingest and the cost model match kernels by name: no name holds another
+    names = [k.name for k in kernels.KERNELS]
+    assert not any(a != b and a in b for a in names for b in names)
 
 
 def test_library_binds_every_entry_point_it_holds(monkeypatch):
@@ -346,5 +371,7 @@ def test_cost_range_opens_only_under_a_profiler():
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with tfc._cost_range(kernels.FLASH_FWD, q, k, False):
             pass
-    want = cost_range_name(kernels.FLASH_FWD.name, 2, 16, 8, 4, 2, 64, False)
+    # float32 inputs: the range names their 4-byte elements
+    want = cost_range_name(kernels.FLASH_FWD.name, 2, 16, 8, 4, 2, 64, False,
+                           4)
     assert want in {e.name for e in prof.events()}
