@@ -455,14 +455,13 @@ REMAT_REL = 0.0
 # The ring phase's ranks (the lockstep schedule's shards on the one card).
 RING_RANKS = 4
 # The general kernels' head-dim caps (csrc/flash_gen.cuh), and the dtype x
-# D grid and the timed shapes of the kernel phase's general part:
-# (label, dtype name, B, T, H, KVH, D); the first is the flagship's
-# attention in float32, whose row the kernels line reports.
+# D grid of the kernel phase's general part (the mask edges run at D 7, 16,
+# 100 and 256): D 7 and 100 (rows not a multiple of 16 bytes) take the
+# tensor-core kernels' thread-by-thread loads in bf16 and f16.  Its timed shapes are kernel_perf.GENERAL_SHAPES;
+# the first, the flagship's attention in float32, is the row the kernels
+# line reports.
 GEN_CAPS = (16, 32, 64, 128, 256)
-GEN_GRID_DIMS = (8, 16, 32, 80, 128, 256)
-GEN_SHAPES = (("f32 flagship B4 T512 H8/4 D64", "float32", 4, 512, 8, 4, 64),
-              ("bf16 D256 B1 T8192 H8/4", "bfloat16", 1, 8192, 8, 4, 256),
-              ("bf16 D16 B8 T2048 H4/2", "bfloat16", 8, 2048, 4, 2, 16))
+GEN_GRID_DIMS = (7, 8, 16, 32, 80, 100, 128, 256)
 # The NCCL world of one against the train phase: the same program on the
 # same seed, so the losses are expected to be equal to the bit; the limit
 # leaves room only for a reduction that a one-rank collective reorders.
@@ -500,9 +499,12 @@ LLAMA_WIDTH = ("--seq 2048 --vocab 128256 --d_model 4096 --n_layers 4 "
 # cut to 2 layers, batch 1, on an H100.  Its Kineto window opens
 # LIVE_KINETO[0] s after torch is imported and closes LIVE_KINETO[1] s
 # later, while it runs.  The start-up (import to the first step) is slower
-# beside the other lanes than alone: the window opens late enough for both,
-# and the steps outlast it.
-LIVE_LAYERS, LIVE_STEPS = 2, 260
+# beside the other lanes than alone: the window opens late enough for both.
+# The steps outlast the window's export by several live epochs, so that
+# an epoch after the one that marks the capture still sees gpumon grow:
+# on an H100 beside the lanes a step takes 65-100 ms, and 260 steps once
+# ended in the epoch that marked the capture, leaving none after it.
+LIVE_LAYERS, LIVE_STEPS = 2, 420
 LIVE_KINETO = (20.0, 2.0)
 LIVE_INTERVAL_S = 2.0
 # The pools of the epochs and of the drain cell's verbs: the lanes beside
@@ -1205,9 +1207,10 @@ class Smoke:
         """The general kernels against their plain versions over the dtype
         x D grid and the edges, each launched by its record (bfloat16 at D
         128 runs them too), the forward and the backward pair in both
-        output modes; two launches bit-identical; then each timed in turns
-        with SDPA at the GEN_SHAPES, with the plain version and the
-        bound."""
+        output modes, with one case of q, k, v and dO 2 bytes past a
+        16-byte boundary in each 16-bit type; two launches bit-identical;
+        then each timed in turns with SDPA at kernel_perf.GENERAL_SHAPES,
+        with the plain version and the bound."""
         torch = self.torch
         from sofa_tpu_torch import kernels
         from sofa_tpu_torch.workloads import flash_cuda as fc
@@ -1300,7 +1303,7 @@ class Smoke:
                 check(f"{name} D{d} B2 T200 H8/2",
                       inputs(dt, 2, 200, 8, 2, d, seed=300 + 10 * i))
                 n_cases += 1
-            for d in (16, 256):
+            for d in (7, 16, 100, 256):
                 seg = torch.tensor([0] * 70 + [1] * 80 + [2] * 10 + [3] * 140,
                                    device=self.dev).expand(2, 300)
                 edges = (
@@ -1326,9 +1329,26 @@ class Smoke:
                     check(f"{name} D{d} {label}",
                           inputs(dt, d=d, seed=400 + 10 * j + d, **kw))
                     n_cases += 1
+        # q, k, v and dO as contiguous views 2 bytes past a 16-byte
+        # boundary, which TMA cannot describe: the tensor-core kernels load
+        # them thread by thread
+        for name in ("bfloat16", "float16"):
+            views = []
+            for x in inputs(dtypes[name], 2, 150, 8, 2, 128, seed=450)[:4]:
+                flat = torch.empty(x.numel() + 8, dtype=x.dtype,
+                                   device=x.device)
+                at = ((2 - flat.data_ptr() % 16) // x.element_size()) % 8
+                views.append(flat[at:at + x.numel()].view(x.shape))
+                views[-1].copy_(x)
+            if any(x.data_ptr() % 16 != 2 for x in views):
+                raise AssertionError("the unaligned views are aligned")
+            check(f"{name} D128 views 2 bytes past 16", (*views, 0, None,
+                                                         False))
+            n_cases += 1
         # two launches on the same inputs: bit-identical (no atomics)
         for dt, d, seg in ((torch.float32, 80, None),
-                           (torch.bfloat16, 16, True)):
+                           (torch.bfloat16, 16, True),
+                           (torch.float16, 256, None)):
             s_ids = (torch.arange(300, device=self.dev) // 70).expand(2, 300) \
                 if seg else None
             case = inputs(dt, 2, 300, 8, 2, d, seed=500 + d, seg=s_ids)
@@ -1351,17 +1371,19 @@ class Smoke:
         self.kernel_general_times()
 
     def kernel_general_times(self):
-        """Each general kernel at the GEN_SHAPES, in turns with SDPA at the
-        same shape (its forward; its whole backward for each backward
-        kernel), with the plain version's time and the bound (bytes at the
-        input's element size, operations at its type's peak rate).  The
-        first shape's row goes into the kernels line."""
+        """Each general kernel at kernel_perf.GENERAL_SHAPES, in turns with
+        SDPA at the same shape (its forward; its whole backward for each
+        backward kernel), with the plain version's time and the bound
+        (bytes at the input's element size, operations at its type's peak
+        rate).  The first shape's row goes into the kernels line."""
         torch = self.torch
         from sofa_tpu_torch import kernels
+        from sofa_tpu_torch.tools.kernel_perf import GENERAL_SHAPES
         from sofa_tpu_torch.workloads import flash_cuda as fc
 
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        for i, (label, dtype, b, t, h, kvh, d) in enumerate(GEN_SHAPES):
+        for i, (name, b, t, h, kvh, d, dtype) in enumerate(GENERAL_SHAPES):
+            label = f"{name} B{b} T{t} H{h}/{kvh} D{d}"
             dt = getattr(torch, dtype)
             peaks = card_peaks(torch.cuda.get_device_name(0), dtype)
             q, k, v = self.flash_inputs(b, t, h, kvh, d, 600 + i, dtype=dt)

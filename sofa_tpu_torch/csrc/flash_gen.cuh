@@ -2,10 +2,12 @@
 // (sofa_flash_gen_fwd, sofa_flash_gen_bwd_kv, sofa_flash_gen_bwd_dq): the
 // part of the TPU kernels' domain the Hopper kernels leave out, which is
 // every (dtype, head dim) with dtype bfloat16, float16 or float32 and
-// 1 <= D <= 256 except bfloat16 at D 64 and 128.
+// 1 <= D <= 256 except bfloat16 at D 64 and 128.  Each entry point takes
+// the dtype code and dispatches to one of two designs:
 //
-// The design is one simple tile loop on the CUDA cores, in float32 FMA (no
-// tensor cores, so float32 inputs are multiplied in float32, not TF32):
+// The FMA tile loop (float32 in the forward and dK/dV kernels, every dtype
+// in dQ), on the CUDA cores in float32 FMA (no tensor cores, so float32
+// inputs are multiplied in float32, not TF32):
 //   - a block of 256 threads owns a tile of ROWS = 64 rows (queries, or
 //     keys in the dK/dV kernel) and walks the other side in tiles of COLS
 //     rows (64, or 32 at the head-dim cap 256), staged in shared memory as
@@ -17,15 +19,30 @@
 //   - thread (tx, ty) of a 16 x 16 grid holds rows ty + 16 i and columns
 //     tx + 16 j of every product, so neighbouring threads read neighbouring
 //     banks and each value read from shared memory feeds several FMAs.
-// Every element type is instantiated at every cap (15 kernels a library).
+//
+// The tensor-core path (bfloat16 and float16 in the forward and dK/dV
+// kernels; csrc/hopper.cuh's building blocks): tiles in their own 16-bit
+// type in 128B-swizzled panels of 64 columns (caps 16 and 32 pad to one
+// panel), wgmma products accumulating in float32 registers.  A call whose
+// rows TMA can describe (D % 8 == 0, 16-byte aligned bases) loads by TMA,
+// which zero-fills the columns past D and the rows past T / Tk; any other
+// loads the same panels thread by thread (load_panels), with the same
+// zeros, and the same wgmma loop reads them.
+//
+// The forward and dK/dV libraries instantiate the FMA loop at float32 (5
+// caps) and the tensor-core kernel at bfloat16 and float16 (10); the dQ
+// library the FMA loop at all three (15).
 
 #pragma once
 
 #include <cuda_fp16.h>
+#include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -160,19 +177,26 @@ struct Elem {
   using type = E;
 };
 
+// Calls f(std::integral_constant<int, DC>{}) for the smallest cap DC >= D;
+// cudaErrorInvalidValue for a D outside 1..256.
+template <typename F>
+cudaError_t dispatch_cap(int D, F&& f) {
+  if (D < 1) return cudaErrorInvalidValue;
+  if (D <= 16) return f(std::integral_constant<int, 16>{});
+  if (D <= 32) return f(std::integral_constant<int, 32>{});
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  if (D <= 128) return f(std::integral_constant<int, 128>{});
+  if (D <= 256) return f(std::integral_constant<int, 256>{});
+  return cudaErrorInvalidValue;
+}
+
 // Calls f(Elem<E>{}, std::integral_constant<int, DC>{}) for the element
 // type of `dtype` and the smallest cap DC >= D; cudaErrorInvalidValue for
 // any other dtype or a D outside 1..256.
 template <typename F>
 cudaError_t dispatch(int dtype, int D, F&& f) {
   auto by_cap = [&](auto elem) -> cudaError_t {
-    if (D < 1) return cudaErrorInvalidValue;
-    if (D <= 16) return f(elem, std::integral_constant<int, 16>{});
-    if (D <= 32) return f(elem, std::integral_constant<int, 32>{});
-    if (D <= 64) return f(elem, std::integral_constant<int, 64>{});
-    if (D <= 128) return f(elem, std::integral_constant<int, 128>{});
-    if (D <= 256) return f(elem, std::integral_constant<int, 256>{});
-    return cudaErrorInvalidValue;
+    return dispatch_cap(D, [&](auto cap) { return f(elem, cap); });
   };
   switch (dtype) {
     case GEN_F32:
@@ -183,6 +207,111 @@ cudaError_t dispatch(int dtype, int D, F&& f) {
       return by_cap(Elem<__nv_bfloat16>{});
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// Calls fma(Elem<float>{}, cap) for a float32 call and
+// tc(Elem<E>{}, cap) for a bfloat16 or float16 one (the forward and dK/dV
+// kernels' two designs).
+template <typename F, typename G>
+cudaError_t dispatch_paths(int dtype, int D, F&& fma, G&& tc) {
+  switch (dtype) {
+    case GEN_F32:
+      return dispatch_cap(D, [&](auto cap) { return fma(Elem<float>{}, cap); });
+    case GEN_F16:
+      return dispatch_cap(D, [&](auto cap) { return tc(Elem<__half>{}, cap); });
+    case GEN_BF16:
+      return dispatch_cap(
+          D, [&](auto cap) { return tc(Elem<__nv_bfloat16>{}, cap); });
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// --- the tensor-core path ----------------------------------------------------
+
+// The tensor map's element type of E.
+template <typename E>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<E, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// True when TMA can describe a [.., D] tensor at each of `bases`: rows a
+// multiple of 16 bytes and 16-byte aligned bases.
+inline bool tma_fits(int D, std::initializer_list<const void*> bases) {
+  if (D % 8 != 0) return false;
+  for (const void* p : bases) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  }
+  return true;
+}
+
+// Two floats rounded to E (round to nearest) and packed, lo in the low half.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_f32(lo, hi);
+  }
+}
+
+// The thread-by-thread load: rows [0, rows) of a [.., D] tensor of 2-byte
+// elements whose row r starts at src + r * stride, into `panels`
+// 128B-swizzled panels of `rows` rows at dst, panel_bytes apart, exactly as
+// TMA lands them: columns >= D and rows >= valid are zeros.  Thread `idx`
+// of `nthr` (a multiple of 64) writes column idx % 64 of each panel in rows
+// idx / 64, idx / 64 + nthr / 64, ...; neighbouring threads read
+// neighbouring elements.  The loops stay rolled: the dK/dV kernel runs this
+// between tiles in threads that hold dK and dV (252 registers at cap 128).
+template <typename E>
+__device__ __forceinline__ void load_panels(uint32_t dst, int panels,
+                                            int panel_bytes, const E* src,
+                                            long long stride, int rows,
+                                            int valid, int D, int idx,
+                                            int nthr) {
+  const int c0 = idx & 63, step = nthr >> 6;
+  const uint16_t* row = reinterpret_cast<const uint16_t*>(src) + c0 +
+                        (idx >> 6) * stride;
+#pragma unroll 1
+  for (int r = idx >> 6; r < rows; r += step, row += step * stride) {
+    const uint32_t at = dst + sw128(r, c0);
+#pragma unroll 1
+    for (int p = 0; p < panels; ++p) {
+      const uint16_t x = r < valid && p * 64 + c0 < D
+                             ? row[p * 64] : static_cast<uint16_t>(0);
+      st_shared_u16(at + p * panel_bytes, x);
+    }
+  }
+}
+
+// Stores one row of a float32 accumulator in the wgmma layout (half 0: the
+// thread's first row, 1: its second) times `mul`, as O, into the row at
+// dst_row: columns col0 + 8 j + 2 t + {0, 1}, those < D only.  An even D
+// stores pairs, an odd one element by element (a pair may straddle an
+// alignment boundary).
+template <typename O, int J>
+__device__ __forceinline__ void store_acc_row(O* dst_row,
+                                              const float (&c)[J][4],
+                                              int half, float mul, int t,
+                                              int col0, int D) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int col = col0 + j * 8 + 2 * t;
+    if (col >= D) continue;
+    const float lo = c[j][2 * half] * mul, hi = c[j][2 * half + 1] * mul;
+    if ((D & 1) == 0) {
+      if constexpr (std::is_same<O, float>::value) {
+        *reinterpret_cast<float2*>(dst_row + col) = make_float2(lo, hi);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst_row + col) = pack2<O>(lo, hi);
+      }
+    } else {
+      dst_row[col] = from_f<O>(lo);
+      if (col + 1 < D) dst_row[col + 1] = from_f<O>(hi);
+    }
   }
 }
 

@@ -7,8 +7,8 @@
 // this header builds in seconds with a plain C interface.
 //
 // Shared-memory layout the pieces agree on: a "panel" is R rows of 64 bf16
-// (128 bytes) stored with the 128-byte swizzle, i.e. the 16-byte chunk c of
-// row r sits at chunk c ^ (r % 8).  A TMA box of (64 columns x R rows) with
+// or f16 (128 bytes) stored with the 128-byte swizzle, i.e. the 16-byte
+// chunk c of row r sits at chunk c ^ (r % 8).  A TMA box of (64 columns x R rows) with
 // CU_TENSOR_MAP_SWIZZLE_128B writes exactly that, and a wgmma descriptor
 // with layout type 1 (128B swizzle) reads it, either
 //   - K-major (the product's k index runs along the 128-byte row): one
@@ -34,8 +34,12 @@
 #pragma once
 
 #include <cuda.h>               // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -184,152 +188,159 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[J][4]) {
   }
 }
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a,
-                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
-}
+// The operand list of an m64nN float32 accumulator d[N / 8][4], and the
+// register list that names it in a wgmma's PTX text.
+#define SOFA_ACC4(d, j) \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+#define SOFA_ACC_N32(d) \
+  SOFA_ACC4(d, 0), SOFA_ACC4(d, 1), SOFA_ACC4(d, 2), SOFA_ACC4(d, 3)
+#define SOFA_ACC_N64(d) \
+  SOFA_ACC_N32(d), SOFA_ACC4(d, 4), SOFA_ACC4(d, 5), SOFA_ACC4(d, 6), \
+      SOFA_ACC4(d, 7)
+#define SOFA_ACC_N128(d)                                                    \
+  SOFA_ACC_N64(d), SOFA_ACC4(d, 8), SOFA_ACC4(d, 9), SOFA_ACC4(d, 10),      \
+      SOFA_ACC4(d, 11), SOFA_ACC4(d, 12), SOFA_ACC4(d, 13), SOFA_ACC4(d, 14), \
+      SOFA_ACC4(d, 15)
+#define SOFA_REGS_N32                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "           \
+  "%8, %9, %10, %11, %12, %13, %14, %15}, "
+#define SOFA_REGS_N64                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "           \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "    \
+  "%24, %25, %26, %27, %28, %29, %30, %31}, "
+#define SOFA_REGS_N128                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "           \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "    \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "    \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "    \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "    \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "    \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, "
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A from registers (a[0..3] in the
-// mma.sync m16n8k16 A layout of each warp's 16 rows), B from shared memory.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
-}
+// D[64 x N] (+)= A[64 x 16] * B[16 x N] with A and B from shared memory
+// (NAME_SS), or A from registers (NAME_RS: a[0..3] in the mma.sync m16n8k16
+// A layout of each warp's 16 rows) and B from shared memory; TY is the
+// inputs' PTX type (bf16 or f16), the sum float32.  The N 32 product has
+// no register-A form here (nothing uses one).
+#define SOFA_WGMMA_SS(NAME, N, TY, REGS, ACC, P, DA, DB, TB)                \
+  template <int TRANS_B>                                                   \
+  __device__ __forceinline__ void NAME(float (&d)[N / 8][4],               \
+                                       uint64_t desc_a, uint64_t desc_b,   \
+                                       int accumulate) {                   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+                 " " REGS "%" DA ", %" DB ", p, 1, 1, 0, %" TB ";\n}\n"    \
+                 : ACC(d)                                                  \
+                 : "l"(desc_a), "l"(desc_b), "r"(accumulate),              \
+                   "n"(TRANS_B));                                          \
+  }
+#define SOFA_WGMMA_RS(NAME, N, TY, REGS, ACC, A0, A1, A2, A3, DB, P, TB)   \
+  template <int TRANS_B>                                                   \
+  __device__ __forceinline__ void NAME(float (&d)[N / 8][4],               \
+                                       const uint32_t (&a)[4],             \
+                                       uint64_t desc_b, int accumulate) {  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+                 " " REGS "{%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" DB      \
+                 ", p, 1, 1, %" TB ";\n}\n"                                \
+                 : ACC(d)                                                  \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),             \
+                   "l"(desc_b), "r"(accumulate), "n"(TRANS_B));            \
+  }
 
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t desc_a,
-                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
-}
+// bfloat16 (the Hopper kernels' and the general kernels' bf16 path) and
+// float16 (the general kernels' f16 path).
+SOFA_WGMMA_SS(wgmma_ss_n32, 32, "bf16", SOFA_REGS_N32, SOFA_ACC_N32, "18",
+              "16", "17", "19")
+SOFA_WGMMA_SS(wgmma_ss_n64, 64, "bf16", SOFA_REGS_N64, SOFA_ACC_N64, "34",
+              "32", "33", "35")
+SOFA_WGMMA_SS(wgmma_ss_n128, 128, "bf16", SOFA_REGS_N128, SOFA_ACC_N128, "66",
+              "64", "65", "67")
+SOFA_WGMMA_RS(wgmma_rs_n64, 64, "bf16", SOFA_REGS_N64, SOFA_ACC_N64, "32",
+              "33", "34", "35", "36", "37", "38")
+SOFA_WGMMA_RS(wgmma_rs_n128, 128, "bf16", SOFA_REGS_N128, SOFA_ACC_N128, "64",
+              "65", "66", "67", "68", "69", "70")
+SOFA_WGMMA_SS(wgmma_ss_n32_f16, 32, "f16", SOFA_REGS_N32, SOFA_ACC_N32, "18",
+              "16", "17", "19")
+SOFA_WGMMA_SS(wgmma_ss_n64_f16, 64, "f16", SOFA_REGS_N64, SOFA_ACC_N64, "34",
+              "32", "33", "35")
+SOFA_WGMMA_SS(wgmma_ss_n128_f16, 128, "f16", SOFA_REGS_N128, SOFA_ACC_N128,
+              "66", "64", "65", "67")
+SOFA_WGMMA_RS(wgmma_rs_n64_f16, 64, "f16", SOFA_REGS_N64, SOFA_ACC_N64, "32",
+              "33", "34", "35", "36", "37", "38")
+SOFA_WGMMA_RS(wgmma_rs_n128_f16, 128, "f16", SOFA_REGS_N128, SOFA_ACC_N128,
+              "64", "65", "66", "67", "68", "69", "70")
 
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A from registers (a[0..3] in the
-// mma.sync m16n8k16 A layout of each warp's 16 rows), B from shared memory.
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
-}
-
-// Dispatch on the product's width N (64 or 128).  TRANS_B = 0 reads B
-// K-major (stored [n][k], as K in Q.K^T), 1 MN-major (stored [k][n], as V
-// in P.V).
-template <int N, int TRANS_B>
+// Dispatch on the product's width N (32, 64 or 128; 32 from shared memory
+// only) and the inputs' element type E (__nv_bfloat16 by default, or
+// __half).  TRANS_B = 0 reads B K-major (stored [n][k], as K in Q.K^T), 1
+// MN-major (stored [k][n], as V in P.V).
+template <int N, int TRANS_B, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-  if constexpr (N == 64) {
-    wgmma_ss_n64<TRANS_B>(d, desc_a, desc_b, accumulate);
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
+  constexpr bool F16 = std::is_same<E, __half>::value;
+  static_assert(F16 || std::is_same<E, __nv_bfloat16>::value,
+                "wgmma_ss: bf16 or f16 inputs");
+  if constexpr (N == 32) {
+    if constexpr (F16) wgmma_ss_n32_f16<TRANS_B>(d, desc_a, desc_b, accumulate);
+    else wgmma_ss_n32<TRANS_B>(d, desc_a, desc_b, accumulate);
+  } else if constexpr (N == 64) {
+    if constexpr (F16) wgmma_ss_n64_f16<TRANS_B>(d, desc_a, desc_b, accumulate);
+    else wgmma_ss_n64<TRANS_B>(d, desc_a, desc_b, accumulate);
   } else {
-    wgmma_ss_n128<TRANS_B>(d, desc_a, desc_b, accumulate);
+    if constexpr (F16) {
+      wgmma_ss_n128_f16<TRANS_B>(d, desc_a, desc_b, accumulate);
+    } else {
+      wgmma_ss_n128<TRANS_B>(d, desc_a, desc_b, accumulate);
+    }
   }
 }
 
-template <int N, int TRANS_B>
+template <int N, int TRANS_B, typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  constexpr bool F16 = std::is_same<E, __half>::value;
+  static_assert(F16 || std::is_same<E, __nv_bfloat16>::value,
+                "wgmma_rs: bf16 or f16 inputs");
   if constexpr (N == 64) {
-    wgmma_rs_n64<TRANS_B>(d, a, desc_b, accumulate);
+    if constexpr (F16) wgmma_rs_n64_f16<TRANS_B>(d, a, desc_b, accumulate);
+    else wgmma_rs_n64<TRANS_B>(d, a, desc_b, accumulate);
   } else {
-    wgmma_rs_n128<TRANS_B>(d, a, desc_b, accumulate);
+    if constexpr (F16) wgmma_rs_n128_f16<TRANS_B>(d, a, desc_b, accumulate);
+    else wgmma_rs_n128<TRANS_B>(d, a, desc_b, accumulate);
   }
+}
+
+// --- shared memory written by threads, read by the async proxy -----------
+
+// Orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads (wgmma operands): write, fence, then arrive on
+// the barrier the readers wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` over `count` threads (a multiple of 32).
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Byte offset of 2-byte element (r, c), c < 64, in a 128B-swizzled panel.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
 }
 
 // --- host: tensor maps ---------------------------------------------------------
@@ -360,23 +371,26 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a contiguous bf16 [B, rows, heads, D] tensor (q, k, v,
-// dO), seen as the 4-D tensor (D, heads, rows, B), whose box is 64 columns
-// of one head over box_rows rows with the 128-byte swizzle: one box lands
-// as one panel of box_rows rows, and rows past `rows` arrive as zeros.
-// Returns cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses the map
-// (or cannot be found).
-cudaError_t encode_heads(CUtensorMap* map, const void* base, uint64_t D,
-                         uint64_t heads, uint64_t rows, uint64_t B,
-                         uint32_t box_rows) {
+// A tensor map over a contiguous [B, rows, heads, D] tensor (q, k, v, dO)
+// of 2-byte elements of `type` (bfloat16 by default, or float16), seen as
+// the 4-D tensor (D, heads, rows, B), whose box is 64 columns of one head
+// over box_rows rows with the 128-byte swizzle: one box lands as one panel
+// of box_rows rows, and columns past D and rows past `rows` arrive as
+// zeros.  TMA needs a 16-byte aligned base and D % 8 == 0 (every stride a
+// multiple of 16 bytes).  Returns cudaErrorInvalidValue when
+// cuTensorMapEncodeTiled refuses the map (or cannot be found).
+cudaError_t encode_heads(
+    CUtensorMap* map, const void* base, uint64_t D, uint64_t heads,
+    uint64_t rows, uint64_t B, uint32_t box_rows,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorInvalidValue;
-  const uint64_t e = 2;                 // bytes of a bf16
+  const uint64_t e = 2;                 // bytes of a bf16 or f16
   const cuuint64_t dims[4] = {D, heads, rows, B};
   const cuuint64_t strides[3] = {e * D, e * heads * D, e * rows * heads * D};
   const cuuint32_t box[4] = {64, 1, box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, type, 4,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -18,10 +18,11 @@ It measures on the card, with CUDA events:
   - the Llama-3-8B attention shape (B 4, T 2048, H 32, KVH 8, D 128),
     forward, forward plus backward, and each backward kernel alone;
   - the general kernels (``sofa_flash_gen_*``, every (dtype, head dim) the
-    Hopper kernels leave out) at three shapes: float32 at the flagship's
+    Hopper kernels leave out) at four shapes: float32 at the flagship's
     attention (B 4, T 512, H 8 / 4, D 64), bfloat16 at D 256 (B 1, T 8192,
-    H 8 / 4) and bfloat16 at D 16 (B 8, T 2048, H 4 / 2), forward, forward
-    plus backward, and each backward kernel alone.
+    H 8 / 4), bfloat16 at D 16 (B 8, T 2048, H 4 / 2) and float16 at the
+    Llama-3-8B attention shape (B 4, T 2048, H 32 / 8, D 128), forward,
+    forward plus backward, and each backward kernel alone.
 
 Each row is timed in turns with SDPA on the same inputs (kernel, SDPA, SDPA,
 kernel), and gives the kernel's ms, TFLOP/s (``attention_flops``, the JAX
@@ -295,11 +296,15 @@ SWEEP = [
       for kern in MODES[2:]),
 ]
 #: (label prefix, B, T, H, KVH, D, dtype) of the general kernels' shapes:
-#: the float32 flagship's attention, bfloat16 at D 256 and at D 16
+#: the float32 flagship's attention, bfloat16 at D 256 and at D 16, and
+#: float16 at the Llama-3-8B attention shape (which the Hopper kernels,
+#: bfloat16 only, leave to the general ones); ``chip_smoke.py`` times the
+#: same list
 GENERAL_SHAPES = [
     ("f32 flagship", 4, 512, 8, 4, 64, "float32"),
     ("bf16 D256", 1, 8192, 8, 4, 256, "bfloat16"),
     ("bf16 D16", 8, 2048, 4, 2, 16, "bfloat16"),
+    ("f16 llama3_8b", 4, 2048, 32, 8, 128, "float16"),
 ]
 #: (kernel label, B, T, H, KVH, D, causal, mode, dtype): the general
 #: kernels, each shape in every mode
@@ -391,11 +396,13 @@ def render_md(rows, peaks: Optional[Peaks], card: str, smi: str) -> str:
         "alone against",
         "its own bound; their SDPA column is SDPA's whole backward (dq, dk "
         "and dv).",
-        "The rows labelled `f32 flagship`, `bf16 D256` and `bf16 D16` run "
-        "the general",
-        "kernels (`sofa_flash_gen_fwd`, `sofa_flash_gen_bwd_kv`, "
+        "The rows labelled `f32 flagship`, `bf16 D256`, `bf16 D16` and "
+        "`f16 llama3_8b` run",
+        "the general kernels (`sofa_flash_gen_fwd` and "
+        "`sofa_flash_gen_bwd_kv`: wgmma on the",
+        "tensor cores in bf16 / f16, float32 FMA in float32; "
         "`sofa_flash_gen_bwd_dq`: float32",
-        "FMA on the CUDA cores), their bytes at the input's element size.",
+        "FMA), their bytes at the input's element size.",
         "",
     ]
     return "\n".join(lines)

@@ -7,8 +7,11 @@ counterparts, and ``route`` picks one by (dtype, head dim): bfloat16 at D
 64 and 128 goes to the Hopper kernels (``sofa_flash_fwd``,
 ``sofa_flash_bwd_kv``, ``sofa_flash_bwd_dq``: TMA and wgmma), every other
 bfloat16, float16 or float32 call with 1 <= D <= 256 to the general ones
-(``sofa_flash_gen_fwd``, ``sofa_flash_gen_bwd_kv``, ``sofa_flash_gen_bwd_dq``:
-float32 FMA on the CUDA cores).  A tensor on the card goes to exactly one
+(``sofa_flash_gen_fwd``, ``sofa_flash_gen_bwd_kv``, ``sofa_flash_gen_bwd_dq``;
+each picks its path by the dtype code: the forward and dK/dV kernels run
+bfloat16 and float16 on the tensor cores, TMA-fed where the rows and bases
+allow it, and float32 in FMA on the CUDA cores; dQ runs every dtype in
+FMA).  A tensor on the card goes to exactly one
 kernel or raises; the plain versions run only for tensors on the CPU, where
 the tests hold them against the JAX kernels run in Pallas interpret mode.
 The kernels index [B, T, H, D] strides directly and read the compact K/V
@@ -109,7 +112,8 @@ def _check_card_inputs(kern, inputs, others=()) -> None:
     dO) of one dtype and head dim of the domain (``route``), all
     contiguous; a Hopper kernel only what ``route`` sends it (bfloat16 at D
     64 or 128, 16-byte aligned for its TMA descriptors), a general kernel
-    the whole domain.  Raises on anything else (no fallback)."""
+    the whole domain (any alignment: where TMA cannot describe the rows it
+    loads them thread by thread).  Raises on anything else (no fallback)."""
     tensors = list(inputs) + [x for x in others if x is not None]
     if any(x.device != inputs[0].device for x in tensors):
         raise ValueError("flash attention inputs must share one CUDA device")

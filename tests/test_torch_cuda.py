@@ -453,14 +453,16 @@ def _typed(device, seed, dtype, b, t, h, kvh, d, tk=None):
     (2, 100, 8, 2, 256, None, 0, 30),     # segments, GQA 4, D 256
     (1, 1, 4, 1, 32, 1, 0, 0),            # one query, one key
     (1, 90, 4, 2, 128, None, 37, 0),      # shift cuts a tile; bf16 here
+    (2, 150, 4, 2, 7, None, 0, 0),        # D 7: rows TMA cannot describe
+    (1, 140, 8, 4, 100, None, 0, 45),     # D 100 of 128, segments, GQA 2
 ])                                        # runs the general kernel too
 def test_general_kernels_match_plain(cuda_device, dtype, b, t, h, kvh, d, tk,
                                      shift, seg_len):
     """Each general kernel against its plain version (forward, and the
     backward pair in both output modes), launched by record so that bf16
-    at D 128 runs it as well; each launch counted on its own record."""
-    from sofa_tpu_torch.tools import tune_flash as tf
-
+    at D 128 runs it as well; each launch counted on its own record.  D 7
+    and D 100 take the threads' own loads in bf16 and f16 (rows not a
+    multiple of 16 bytes)."""
     dt = _DTYPES[dtype]
     q, k, v = _typed(cuda_device, t + d, dt, b, t, h, kvh, d, tk)
     g = _typed(cuda_device, t + d + 1, dt, b, t, h, kvh, d)[0]
@@ -468,6 +470,43 @@ def test_general_kernels_match_plain(cuda_device, dtype, b, t, h, kvh, d, tk,
     if seg_len:
         seg32 = (torch.arange(t, device=cuda_device) // seg_len).expand(
             b, t).to(torch.int32).contiguous()
+    _hold_general(q, k, v, g, shift, seg32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("d", [128, 16])
+def test_general_kernels_take_unaligned_views(cuda_device, dtype, d):
+    """q, k, v and dO as contiguous views starting 2 bytes past a 16-byte
+    boundary, which TMA cannot describe: the tensor-core kernels load them
+    thread by thread and agree with the plain versions."""
+    dt = _DTYPES[dtype]
+    q, k, v = _typed(cuda_device, 11 + d, dt, 2, 150, 8, 2, d)
+    g = _typed(cuda_device, 12 + d, dt, 2, 150, 8, 2, d)[0]
+    views = [_unaligned(x) for x in (q, k, v, g)]
+    for x, y in zip(views, (q, k, v, g)):
+        assert x.is_contiguous() and x.data_ptr() % 16 == 2
+        assert torch.equal(x, y)
+    _hold_general(*views, 0, None)
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose first element sits 2 bytes past a
+    16-byte boundary (a 2-byte dtype)."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    start = ((2 - flat.data_ptr() % 16) // x.element_size()) % 8
+    view = flat[start:start + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _hold_general(q, k, v, g, shift, seg32):
+    """The three general kernels on one case against their plain versions
+    (the forward, and the backward pair in both output modes), launched by
+    record; each launch counted on its own record and no Hopper kernel's."""
+    from sofa_tpu_torch.tools import tune_flash as tf
+
+    dt = q.dtype
     before = kernels.counts()
     out, lse = tfc._flash_forward_cuda(q, k, v, shift, seg32, seg32,
                                        static_causal=shift <= 0,

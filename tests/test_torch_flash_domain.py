@@ -131,6 +131,10 @@ CASES = [
     ("bf16_d256_causal", "bf16", (1, 48, 2, 1, 256, None), 0, False),
     ("f16_d16_segmented", "f16", (2, 64, 4, 2, 16, None), 0, True),
     ("f16_d256_shift_cut", "f16", (1, 48, 2, 2, 256, None), -5, False),
+    # head dims whose rows are not a multiple of 16 bytes (the tensor-core
+    # kernels' thread-by-thread loads on the card)
+    ("bf16_d100_ring_hop_gqa2", "bf16", (1, 32, 4, 2, 100, 48), 32, False),
+    ("f16_d7_segmented", "f16", (2, 48, 4, 2, 7, None), 0, True),
 ]
 
 
@@ -283,7 +287,7 @@ def test_general_kernels_carry_their_pallas_calls_cost(itemsize):
 
 
 def test_kernel_perf_counts_the_inputs_type():
-    """The general kernels' rows: the three shapes in every mode, bytes at
+    """The general kernels' rows: the four shapes in every mode, bytes at
     the element size, a float32 row against the card's float32 rate."""
     from sofa_tpu_torch.tools import kernel_perf as kp
 
@@ -300,8 +304,8 @@ def test_kernel_perf_counts_the_inputs_type():
         assert kp.backward_costs(4, 512, 512, 8, 4, 64, 0)[name][0] == f
     assert {(r[1], r[2], r[5], r[8]) for r in kp.SWEEP_GENERAL} == {
         (4, 512, 64, "float32"), (1, 8192, 256, "bfloat16"),
-        (8, 2048, 16, "bfloat16")}
-    assert sorted(r[7] for r in kp.SWEEP_GENERAL) == sorted(kp.MODES * 3)
+        (8, 2048, 16, "bfloat16"), (4, 2048, 128, "float16")}
+    assert sorted(r[7] for r in kp.SWEEP_GENERAL) == sorted(kp.MODES * 4)
     for _, b, t, h, kvh, d, _, _, dtype in kp.SWEEP_GENERAL:
         assert tfc.route(getattr(torch, dtype), d) == tuple(kernels.GENERAL)
     row = kp._row("f32 flagship fwd", 4, 512, 8, 4, 64, True, "fwd",
