@@ -34,14 +34,17 @@ next phase.  The phases:
            bound; logs the backward pair's sum against SDPA's backward.
            Then the general kernels (every other dtype and head dim up to
            256), each launched by its record so that bfloat16 at D 128
-           runs it too: the grid bfloat16 / float16 / float32 x D 8, 16,
-           32, 80, 128, 256, and at D 16 and 256 in each dtype the edges
-           (T 1, Tk 1, a ragged T, shift -1, 37, T and -T, segments, GQA
-           group 4), the forward and the backward pair in both output
+           runs it too: the grid bfloat16 / float16 / float32 x D 7, 8,
+           16, 32, 80, 100, 128, 250, 256, at D 7, 16, 100 and 256 in each
+           dtype the edges (T 1, Tk 1, a ragged T, shift -1, 37, T and -T,
+           segments, GQA group 4), and q, k, v and dO as views 2 bytes
+           past a 16-byte boundary at D 128 and 256 in bfloat16 and
+           float16, the forward and the backward pair in both output
            modes against the plain versions at the same limits, two
            launches bit-identical; timed in turns with SDPA at float32 B 4
            T 512 H 8 / 4 D 64 (the flagship's attention), bfloat16 B 1 T
-           8192 H 8 / 4 D 256 and bfloat16 B 8 T 2048 H 4 / 2 D 16, with
+           8192 H 8 / 4 D 256, bfloat16 B 8 T 2048 H 4 / 2 D 16 and
+           float16 at the Llama-3-8B attention shape, with
            the plain versions' times and the bounds (bytes at the input's
            element size, float32 against the card's float32 rate)
   kernel_perf  the port's kernel_perf tool into a temporary --out: the
@@ -456,12 +459,13 @@ REMAT_REL = 0.0
 RING_RANKS = 4
 # The general kernels' head-dim caps (csrc/flash_gen.cuh), and the dtype x
 # D grid of the kernel phase's general part (the mask edges run at D 7, 16,
-# 100 and 256): D 7 and 100 (rows not a multiple of 16 bytes) take the
-# tensor-core kernels' thread-by-thread loads in bf16 and f16.  Its timed shapes are kernel_perf.GENERAL_SHAPES;
+# 100 and 256): D 7, 100 and 250 (rows not a multiple of 16 bytes, at caps
+# 16, 128 and 256) take the tensor-core kernels' thread-by-thread loads in
+# bf16 and f16.  Its timed shapes are kernel_perf.GENERAL_SHAPES;
 # the first, the flagship's attention in float32, is the row the kernels
 # line reports.
 GEN_CAPS = (16, 32, 64, 128, 256)
-GEN_GRID_DIMS = (7, 8, 16, 32, 80, 100, 128, 256)
+GEN_GRID_DIMS = (7, 8, 16, 32, 80, 100, 128, 250, 256)
 # The NCCL world of one against the train phase: the same program on the
 # same seed, so the losses are expected to be equal to the bit; the limit
 # leaves room only for a reduction that a one-rank collective reorders.
@@ -1331,10 +1335,12 @@ class Smoke:
                     n_cases += 1
         # q, k, v and dO as contiguous views 2 bytes past a 16-byte
         # boundary, which TMA cannot describe: the tensor-core kernels load
-        # them thread by thread
-        for name in ("bfloat16", "float16"):
+        # them thread by thread (at caps 128 and 256)
+        for name, d in [(n, d) for n in ("bfloat16", "float16")
+                        for d in (128, 256)]:
             views = []
-            for x in inputs(dtypes[name], 2, 150, 8, 2, 128, seed=450)[:4]:
+            for x in inputs(dtypes[name], 2, 150, 8, 2, d,
+                            seed=450 + d // 256)[:4]:
                 flat = torch.empty(x.numel() + 8, dtype=x.dtype,
                                    device=x.device)
                 at = ((2 - flat.data_ptr() % 16) // x.element_size()) % 8
@@ -1342,12 +1348,16 @@ class Smoke:
                 views[-1].copy_(x)
             if any(x.data_ptr() % 16 != 2 for x in views):
                 raise AssertionError("the unaligned views are aligned")
-            check(f"{name} D128 views 2 bytes past 16", (*views, 0, None,
-                                                         False))
+            check(f"{name} D{d} views 2 bytes past 16", (*views, 0, None,
+                                                            False))
             n_cases += 1
-        # two launches on the same inputs: bit-identical (no atomics)
+        # two launches on the same inputs: bit-identical (no atomics); at
+        # cap 128 both of dQ's refills, the producer's (D 128, by TMA) and
+        # the consumers' (D 100, thread by thread)
         for dt, d, seg in ((torch.float32, 80, None),
                            (torch.bfloat16, 16, True),
+                           (torch.float16, 128, None),
+                           (torch.bfloat16, 100, True),
                            (torch.float16, 256, None)):
             s_ids = (torch.arange(300, device=self.dev) // 70).expand(2, 300) \
                 if seg else None

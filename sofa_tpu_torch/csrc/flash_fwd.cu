@@ -48,8 +48,9 @@
 //     that cross a warpgroup's diagonal, the ragged end of Tk, or a
 //     segmented call; a tile every row of the warpgroup sees fully skips
 //     the per-element compare.
-// What bounds this design on the card (PERF.md): at the Llama shape it
-// runs at ~44 % of the tensor-core bound.  The loads are not the limit (a
+// Measured (PERF.md; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py's kernel
+// phase): 0.313-0.316 ms at the Llama shape, 44 % of its 0.139 ms
+// tensor-core bound.  What holds it there: the loads are not the limit (a
 // separate producer warp was no faster in development builds, and with
 // two stages the overlap above stalls on them); S = Q K^T still waits for
 // nothing but itself, and the two warpgroups are not scheduled against

@@ -3,11 +3,11 @@
 // part of the TPU kernels' domain the Hopper kernels leave out, which is
 // every (dtype, head dim) with dtype bfloat16, float16 or float32 and
 // 1 <= D <= 256 except bfloat16 at D 64 and 128.  Each entry point takes
-// the dtype code and dispatches to one of two designs:
+// the dtype code and dispatches (dispatch_paths) to one of two designs:
 //
-// The FMA tile loop (float32 in the forward and dK/dV kernels, every dtype
-// in dQ), on the CUDA cores in float32 FMA (no tensor cores, so float32
-// inputs are multiplied in float32, not TF32):
+// The FMA tile loop (float32, in all three kernels), on the CUDA cores in
+// float32 FMA (no tensor cores, so float32 inputs are multiplied in
+// float32, not TF32):
 //   - a block of 256 threads owns a tile of ROWS = 64 rows (queries, or
 //     keys in the dK/dV kernel) and walks the other side in tiles of COLS
 //     rows (64, or 32 at the head-dim cap 256), staged in shared memory as
@@ -20,18 +20,17 @@
 //     tx + 16 j of every product, so neighbouring threads read neighbouring
 //     banks and each value read from shared memory feeds several FMAs.
 //
-// The tensor-core path (bfloat16 and float16 in the forward and dK/dV
-// kernels; csrc/hopper.cuh's building blocks): tiles in their own 16-bit
-// type in 128B-swizzled panels of 64 columns (caps 16 and 32 pad to one
-// panel), wgmma products accumulating in float32 registers.  A call whose
-// rows TMA can describe (D % 8 == 0, 16-byte aligned bases) loads by TMA,
-// which zero-fills the columns past D and the rows past T / Tk; any other
-// loads the same panels thread by thread (load_panels), with the same
-// zeros, and the same wgmma loop reads them.
+// The tensor-core path (bfloat16 and float16, in all three kernels;
+// csrc/hopper.cuh's building blocks): tiles in their own 16-bit type in
+// 128B-swizzled panels of 64 columns (caps 16 and 32 pad to one panel),
+// wgmma products accumulating in float32 registers.  A call whose rows TMA
+// can describe (D % 8 == 0, 16-byte aligned bases) loads by TMA, which
+// zero-fills the columns past D and the rows past T / Tk; any other loads
+// the same panels thread by thread (load_panels), with the same zeros, and
+// the same wgmma loop reads them.
 //
-// The forward and dK/dV libraries instantiate the FMA loop at float32 (5
-// caps) and the tensor-core kernel at bfloat16 and float16 (10); the dQ
-// library the FMA loop at all three (15).
+// Each library instantiates the FMA loop at float32 (5 caps) and the
+// tensor-core kernel at bfloat16 and float16 (10).
 
 #pragma once
 
@@ -190,29 +189,10 @@ cudaError_t dispatch_cap(int D, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// Calls f(Elem<E>{}, std::integral_constant<int, DC>{}) for the element
-// type of `dtype` and the smallest cap DC >= D; cudaErrorInvalidValue for
-// any other dtype or a D outside 1..256.
-template <typename F>
-cudaError_t dispatch(int dtype, int D, F&& f) {
-  auto by_cap = [&](auto elem) -> cudaError_t {
-    return dispatch_cap(D, [&](auto cap) { return f(elem, cap); });
-  };
-  switch (dtype) {
-    case GEN_F32:
-      return by_cap(Elem<float>{});
-    case GEN_F16:
-      return by_cap(Elem<__half>{});
-    case GEN_BF16:
-      return by_cap(Elem<__nv_bfloat16>{});
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 // Calls fma(Elem<float>{}, cap) for a float32 call and
-// tc(Elem<E>{}, cap) for a bfloat16 or float16 one (the forward and dK/dV
-// kernels' two designs).
+// tc(Elem<E>{}, cap) for a bfloat16 or float16 one, cap the smallest
+// head-dim cap >= D; cudaErrorInvalidValue for any other dtype or a D
+// outside 1..256.
 template <typename F, typename G>
 cudaError_t dispatch_paths(int dtype, int D, F&& fma, G&& tc) {
   switch (dtype) {

@@ -104,9 +104,9 @@ GEN_BWD_DQ = Kernel(name="sofa_flash_gen_bwd_dq", lib="flash_gen_bwd_dq",
                     replaces=FLASH_BWD_DQ.replaces,
                     argtypes=[_P] * 9 + [_I, _I] + _SHAPE, family="general",
                     ports=FLASH_BWD_DQ.name)
-#: The general kernels: every other (dtype, head dim) up to D 256; the
-#: forward and dK/dV run bfloat16 and float16 on the tensor cores and float32
-#: in FMA on the CUDA cores, dQ every dtype in FMA.
+#: The general kernels: every other (dtype, head dim) up to D 256; each runs
+#: bfloat16 and float16 on the tensor cores and float32 in FMA on the CUDA
+#: cores.
 GENERAL = [GEN_FWD, GEN_BWD_KV, GEN_BWD_DQ]
 
 #: Every kernel of the port.

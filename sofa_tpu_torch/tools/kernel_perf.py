@@ -30,7 +30,9 @@ tool's count) and % of the card's peak, SDPA's ms and the kernel/SDPA
 ratio, and the bound: the least time the card could take, the larger of
 the visible pairs' operations over the peak and the bytes each kernel must
 move over the memory rate (an end-to-end row's bound is its kernels' sum) (``forward_cost``, ``backward_costs``; the
-``kernel`` phase of ``chip_smoke.py`` computes its bounds the same way).
+``kernel`` phase of ``chip_smoke.py`` computes its bounds the same way),
+and the host's time to issue one call of the row's kernel side
+(``issue_ms``): where it is near the row's ms, the host sets the pace.
 A row faster than its bound fails the tool.  The peaks are
 ``analysis/sol.py``'s ``PEAKS``, keyed on the card's name, at the rate of
 the inputs' type (a float32 row against the card's float32 rate outside
@@ -48,6 +50,8 @@ versions, not the kernels).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -140,6 +144,20 @@ def bound(flops: float, nbytes: float, peaks: Peaks) -> Tuple[float, str]:
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic collector off for a timed loop, so that a full
+    collection (with torch loaded, long enough to stall a row's launches
+    for about a tenth of a second) does not land inside it."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device milliseconds of fn() over ``iters`` back-to-back calls."""
     import torch
@@ -148,12 +166,29 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with gc_paused():
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def issue_ms(fn, iters: int) -> float:
+    """Host milliseconds to issue one fn() call: the wall time of ``iters``
+    back-to-back calls, before the card is waited on."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with gc_paused():
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return 1e3 * host / iters
 
 
 def in_turns(kernel_fn, library_fn, iters: int = 20):
@@ -179,9 +214,9 @@ def nvidia_smi() -> str:
 
 
 def _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks,
-         dtype: str = "bfloat16"):
+         dtype: str = "bfloat16", host_ms: Optional[float] = None):
     """One table row from its in-turns readings (``peaks`` at ``dtype``'s
-    rate, bytes at its element size)."""
+    rate, bytes at its element size) and the host's issue time."""
     (k1, k2), (l1, l2) = turns
     ms, sdpa_ms = (k1 + k2) / 2, (l1 + l2) / 2
     shift = 0 if causal else t
@@ -203,7 +238,7 @@ def _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks,
            "sdpa_turns": [l1, l2], "ratio": ms / sdpa_ms,
            "tflops": model / ms / 1e9,
            "pct_peak": None, "bound_ms": None, "bound_by": None,
-           "pct_bound": None}
+           "pct_bound": None, "host_ms": host_ms}
     if peaks is not None:
         row["pct_peak"] = 100 * row["tflops"] * 1e12 / peaks[0]
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peaks)
@@ -277,7 +312,9 @@ def measure(kernel, b, t, h, kvh, d, causal, mode, reps, peaks, seed=0,
             return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
     with torch.set_grad_enabled(bwd):
         turns = in_turns(fused, library, reps)
-    return _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks, dtype)
+        host_ms = issue_ms(fused, reps)
+    return _row(kernel, b, t, h, kvh, d, causal, mode, turns, peaks, dtype,
+                host_ms)
 
 
 #: (kernel label, B, T, H, KVH, D, causal, mode), bfloat16: the Hopper
@@ -339,7 +376,7 @@ def format_row(r: dict) -> str:
             f"peak; SDPA {r['sdpa_ms']:.4f} ms, kernel/SDPA "
             f"{r['ratio']:.3f}; bound {_fmt(r['bound_ms'], '.4f')} ms "
             f"({r['bound_by'] or 'no peak'}), {_fmt(r['pct_bound'], '.1f')}"
-            f"% of bound")
+            f"% of bound; host {_fmt(r['host_ms'], '.4f')} ms")
 
 
 def render_md(rows, peaks: Optional[Peaks], card: str, smi: str) -> str:
@@ -368,8 +405,9 @@ def render_md(rows, peaks: Optional[Peaks], card: str, smi: str) -> str:
                   f"({FP32_SOURCE})", ""]
     lines += [
         "| kernel | B | T | H / KVH | D | ms | TFLOP/s | % of peak | "
-        "SDPA ms | kernel / SDPA | bound ms | bound by | % of bound |",
-        "|---|---|---|---|---|---|---|---|---|---|---|---|---|",
+        "SDPA ms | kernel / SDPA | bound ms | bound by | % of bound | "
+        "host ms |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         lines.append(
@@ -377,7 +415,8 @@ def render_md(rows, peaks: Optional[Peaks], card: str, smi: str) -> str:
             f"{r['KVH']} | {r['D']} | {r['ms']:.4f} | {r['tflops']:.1f} | "
             f"{_fmt(r['pct_peak'], '.1f')} | {r['sdpa_ms']:.4f} | "
             f"{r['ratio']:.3f} | {_fmt(r['bound_ms'], '.4f')} | "
-            f"{r['bound_by'] or '—'} | {_fmt(r['pct_bound'], '.1f')} |")
+            f"{r['bound_by'] or '—'} | {_fmt(r['pct_bound'], '.1f')} | "
+            f"{_fmt(r['host_ms'], '.4f')} |")
     lines += [
         "",
         "TFLOP/s counts the JAX tool's model FLOPs (`attention_flops`: 2 "
@@ -396,13 +435,17 @@ def render_md(rows, peaks: Optional[Peaks], card: str, smi: str) -> str:
         "alone against",
         "its own bound; their SDPA column is SDPA's whole backward (dq, dk "
         "and dv).",
+        "`host ms` is the host's time to issue one call of the row's "
+        "kernel side, before",
+        "the card is waited on: where it is near `ms`, the host, not the "
+        "card, sets the pace.",
         "The rows labelled `f32 flagship`, `bf16 D256`, `bf16 D16` and "
         "`f16 llama3_8b` run",
-        "the general kernels (`sofa_flash_gen_fwd` and "
-        "`sofa_flash_gen_bwd_kv`: wgmma on the",
-        "tensor cores in bf16 / f16, float32 FMA in float32; "
-        "`sofa_flash_gen_bwd_dq`: float32",
-        "FMA), their bytes at the input's element size.",
+        "the general kernels (`sofa_flash_gen_fwd`, "
+        "`sofa_flash_gen_bwd_kv` and",
+        "`sofa_flash_gen_bwd_dq`: wgmma on the tensor cores in bf16 / f16, "
+        "float32 FMA in",
+        "float32), their bytes at the input's element size.",
         "",
     ]
     return "\n".join(lines)

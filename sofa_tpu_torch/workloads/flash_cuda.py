@@ -8,11 +8,10 @@ counterparts, and ``route`` picks one by (dtype, head dim): bfloat16 at D
 ``sofa_flash_bwd_kv``, ``sofa_flash_bwd_dq``: TMA and wgmma), every other
 bfloat16, float16 or float32 call with 1 <= D <= 256 to the general ones
 (``sofa_flash_gen_fwd``, ``sofa_flash_gen_bwd_kv``, ``sofa_flash_gen_bwd_dq``;
-each picks its path by the dtype code: the forward and dK/dV kernels run
-bfloat16 and float16 on the tensor cores, TMA-fed where the rows and bases
-allow it, and float32 in FMA on the CUDA cores; dQ runs every dtype in
-FMA).  A tensor on the card goes to exactly one
-kernel or raises; the plain versions run only for tensors on the CPU, where
+each picks its path by the dtype code: bfloat16 and float16 on the
+tensor cores, TMA-fed where the rows and bases allow it, and float32 in FMA
+on the CUDA cores).  A tensor on the card goes to exactly one kernel or
+raises; the plain versions run only for tensors on the CPU, where
 the tests hold them against the JAX kernels run in Pallas interpret mode.
 The kernels index [B, T, H, D] strides directly and read the compact K/V
 heads themselves, so no plane transposes or head repeats are materialized on

@@ -455,6 +455,10 @@ def _typed(device, seed, dtype, b, t, h, kvh, d, tk=None):
     (1, 90, 4, 2, 128, None, 37, 0),      # shift cuts a tile; bf16 here
     (2, 150, 4, 2, 7, None, 0, 0),        # D 7: rows TMA cannot describe
     (1, 140, 8, 4, 100, None, 0, 45),     # D 100 of 128, segments, GQA 2
+    (1, 64, 4, 2, 256, None, 0, 0),       # a 128-row block's second
+                                          # warpgroup wholly past T
+    (2, 129, 8, 2, 128, 300, 171, 0),     # Tk > T, a shift, and a second
+                                          # block of one row
 ])                                        # runs the general kernel too
 def test_general_kernels_match_plain(cuda_device, dtype, b, t, h, kvh, d, tk,
                                      shift, seg_len):
@@ -475,7 +479,7 @@ def test_general_kernels_match_plain(cuda_device, dtype, b, t, h, kvh, d, tk,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "f16"])
-@pytest.mark.parametrize("d", [128, 16])
+@pytest.mark.parametrize("d", [128, 16, 256])
 def test_general_kernels_take_unaligned_views(cuda_device, dtype, d):
     """q, k, v and dO as contiguous views starting 2 bytes past a 16-byte
     boundary, which TMA cannot describe: the tensor-core kernels load them

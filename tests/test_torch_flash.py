@@ -11,6 +11,7 @@ kernel's exact lse floor there depends on its block walk.
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -330,6 +331,20 @@ def test_kernel_records_name_their_pallas_calls():
     # ingest and the cost model match kernels by name: no name holds another
     names = [k.name for k in kernels.KERNELS]
     assert not any(a != b and a in b for a in names for b in names)
+
+
+@pytest.mark.parametrize("kern", kernels.KERNELS, ids=lambda k: k.name)
+def test_kernel_source_note_gives_its_card_numbers(kern):
+    """Each kernel source opens with its note (the comment before the first
+    #include): the Pallas call it replaces, what bounds it, its ptxas -v
+    figures, and its measured time beside the card and its power limit."""
+    with open(kern.source) as f:
+        note = f.read().split("#include", 1)[0]
+    call = kern.replaces.rsplit("/", 1)[1]           # flash_pallas.py:NNN
+    assert call in note
+    assert "What bounds it" in note and "ptxas -v" in note
+    assert "NVIDIA H100" in note
+    assert re.search(r"\b\d+(\.\d+)? W\b", note), "no power limit in watts"
 
 
 def test_library_binds_every_entry_point_it_holds(monkeypatch):

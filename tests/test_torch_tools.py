@@ -202,6 +202,41 @@ def test_kernel_perf_render_md_known_and_unknown_card():
     assert kernel_perf.faster_than_bound(unknown) == []
 
 
+@pytest.mark.parametrize("host_ms,shown", [(None, "—"), (0.61, "0.6100")])
+def test_kernel_perf_row_gives_the_hosts_issue_time(host_ms, shown):
+    """A row carries the host's time to issue one call; the table and the
+    log line show it last, a dash where it was not read."""
+    card = "NVIDIA H100 80GB HBM3"
+    peaks = kernel_perf.card_peaks(card)
+    r = kernel_perf._row("bf16 D16 fwd+bwd", 8, 2048, 4, 2, 16, True,
+                         "fwd+bwd", ((0.7, 0.8), (0.5, 0.5)), peaks,
+                         host_ms=host_ms)
+    assert r["host_ms"] == host_ms
+    md = kernel_perf.render_md([r], peaks, card, "x")
+    assert "| % of bound | host ms |" in md
+    line = next(x for x in md.splitlines() if x.startswith("| bf16 D16"))
+    assert line.endswith(f"| {r['pct_bound']:.1f} | {shown} |")
+    assert line.count("|") == 15
+    assert kernel_perf.format_row(r).endswith(f"; host {shown} ms")
+    assert "`host ms` is the host's time to issue one call" in md
+
+
+def test_kernel_perf_pauses_the_collector_only_inside_a_timed_loop():
+    import gc
+
+    assert gc.isenabled()
+    with kernel_perf.gc_paused():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with kernel_perf.gc_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def test_kernel_perf_sweep_rows():
     """The JAX tool's rows, the Llama-3-8B shape, and each backward kernel
     alone wherever the sweep times the fwd+bwd path end to end."""
@@ -273,6 +308,17 @@ def test_tune_flash_sweeps_the_defaults_neighbours():
         ("sofa_flash_fwd", 2), ("sofa_flash_fwd", 4),
         ("sofa_flash_bwd_kv", 2), ("sofa_flash_bwd_kv", 4),
         ("sofa_flash_bwd_dq", 3), ("sofa_flash_bwd_dq", 5))]
+
+
+@pytest.mark.parametrize("kernel", kernels.KERNELS,
+                         ids=lambda k: k.name)
+def test_build_options_are_the_swept_ring_depth_alone(kernel):
+    """A kernel source's only build option is the ring depth that
+    ``tune_flash`` sweeps, and only the Hopper kernels have one: a general
+    kernel's geometry is fixed by its head-dim cap."""
+    with open(kernel.source) as f:
+        options = re.findall(r"#ifndef (\w+)", f.read())
+    assert options == (["FLASH_STAGES"] if kernel in kernels.HOPPER else [])
 
 
 def test_tune_flash_grad_limit_in_ulps():
